@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``diffusion_rs_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--steps N]
+
+Phases, each fatal on failure (non-zero exit, no final line):
+
+1. print the card (``nvidia-smi`` name and power limit), torch and CUDA
+   versions; build every CUDA kernel from ``diffusion_rs_tpu_torch/csrc``;
+2. hold each kernel against its plain PyTorch version on the card at two
+   main-path shapes (error, kernel ms, plain ms, bound ms, library ms);
+3. a tiny-config image on the card against the same image through the plain
+   versions on the CPU (same weights, same noise);
+4. the full-width FLUX.1-dev q8t path (19+38 blocks, hidden 3072) with
+   T5-XXL nf4, CLIP-L bf16 and the VAE: one 1024x1024 image, batch 1,
+   ``--steps`` denoise steps (default 4; the shapes are the 28-step run's),
+   through ``FluxPipeline.forward_arrays`` on synthetic weights from a seed;
+   the kernels' launch counters must match the path exactly;
+5. one more 1-step image under torch.profiler: device time by kernel and
+   the device's busy share.
+
+The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
+
+K1_TOL, K2_TOL, K3_TOL = 1e-5, 2e-3, 5e-4   # summed-relative error bands
+
+
+def summed_rel(a, b) -> float:
+    a = a.float()
+    b = b.float()
+    return float((a - b).abs().sum() / ((b.abs().sum()) + 1e-9))
+
+
+def cuda_ms(fn, n_sets: int, iters: int = 24, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn(i)``, cycling over ``n_sets`` input sets so
+    the weights come from device memory and not from L2."""
+    import torch
+
+    for i in range(warmup):
+        fn(i % n_sets)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i % n_sets)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(ops: float, peak_ops: float, nbytes: float):
+    t_ops = ops / peak_ops * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float):
+    """One quantized-matmul kernel against its plain version at [m, k] x [k, n]."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import qmatmul
+    from diffusion_rs_tpu_torch.quant import dequantize
+    from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
+
+    # enough weight sets that one pass over them overflows the 50 MB L2
+    n_sets = max(2, math.ceil(100e6 / (k * n * (1 if kind == "q8t" else 0.5))))
+    qts = [random_qtensor(gen, k, n, kind=kind, device="cuda") for _ in range(n_sets)]
+    if kind == "q8t":
+        for qt in qts:  # per-(tile, column) scales that differ
+            qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
+        kern, plain = qmatmul.qmm_s8, lambda x, qt: qmatmul.qmm_s8_plain(
+            x, qt.packed, qt.scale, torch.bfloat16)
+        ops, peak = 2.0 * m * k * n, PEAK_INT8_OPS
+        nbytes = m * k * 2 + k * n + qts[0].scale.numel() * 4 + m * n * 2
+    else:
+        for qt in qts:
+            qt.scale.uniform_(0.01, 0.03, generator=gen)
+        kern, plain = qmatmul.qmm_nf4, lambda x, qt: qmatmul.qmm_dequant_plain(
+            x, qt, torch.bfloat16)
+        ops, peak = 2.0 * m * k * n, PEAK_BF16_FLOPS
+        nbytes = m * k * 2 + k * n // 2 + qts[0].scale.numel() * 4 + 64 + m * n * 2
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    y = kern(x, qts[0], torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = plain(x, qts[0])
+    err = summed_rel(y, ref)
+    max_abs = float((y.float() - ref.float()).abs().max())
+    if not (err <= tol) or not torch.isfinite(y).all():
+        raise SystemExit(f"{kind} kernel disagrees with its plain version at "
+                         f"M={m} K={k} N={n}: summed-rel {err:.3e} > {tol:g}")
+    w_deq = [dequantize(qt, torch.bfloat16) for qt in qts]
+    ms = cuda_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets)
+    plain_ms = cuda_ms(lambda i: plain(x, qts[i]), n_sets, iters=4, warmup=1)
+    lib_ms = cuda_ms(lambda i: torch.matmul(x, w_deq[i]), n_sets)
+    b_ms, b_by = bound(ops, peak, nbytes)
+    return dict(shape=f"M{m} K{k} N{n}", summed_rel=err, max_abs_err=max_abs,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def check_flash(s_q: int, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_rs_tpu_torch.ops import flash
+
+    b, h, d = 1, 24, 128
+    q, k, v = (torch.randn((b, h, s_q, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    y = flash.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref = flash.flash_attention_plain(q, k, v, scale).transpose(1, 2).reshape(b, s_q, h * d)
+    err = summed_rel(y, ref)
+    max_abs = float((y.float() - ref.float()).abs().max())
+    if not (err <= K3_TOL) or not torch.isfinite(y).all():
+        raise SystemExit(f"flash kernel disagrees with its plain version at "
+                         f"S={s_q}: summed-rel {err:.3e} > {K3_TOL:g}")
+    ms = cuda_ms(lambda i: flash.flash_fwd(q, k, v, scale), 1)
+    plain_ms = cuda_ms(lambda i: flash.flash_attention_plain(q, k, v, scale), 1,
+                       iters=3, warmup=1)
+    lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v), 1)
+    ops = 4.0 * b * h * s_q * s_q * d
+    nbytes = 4 * b * h * s_q * d * 2
+    b_ms, b_by = bound(ops, PEAK_BF16_FLOPS, nbytes)
+    return dict(shape=f"B{b} H{h} S{s_q} D{d}", summed_rel=err, max_abs_err=max_abs,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def tiny_configs():
+    from diffusion_rs_tpu_torch.models.clip import ClipTextConfig
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.models.t5 import T5Config
+    from diffusion_rs_tpu_torch.models.vae import VAEConfig
+
+    return dict(
+        flux_cfg=FluxConfig(in_channels=64, pooled_projection_dim=64,
+                            joint_attention_dim=256, num_attention_heads=2,
+                            num_layers=1, num_single_layers=2, hidden_size=256,
+                            axes_dim=(16, 56, 56)),
+        t5_cfg=T5Config(vocab_size=512, d_model=256, d_kv=64, d_ff=512,
+                        num_layers=2, num_heads=4),
+        clip_cfg=ClipTextConfig(vocab_size=512, projection_dim=64,
+                                intermediate_size=128, num_hidden_layers=2,
+                                num_attention_heads=4),
+        vae_cfg=VAEConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8),
+    )
+
+
+def make_params(cfgs, seed: int, device: str) -> dict:
+    from diffusion_rs_tpu_torch.util import synthetic as syn
+
+    return dict(
+        flux_params=syn.init_flux_params_quantized(seed, cfgs["flux_cfg"], kind="q8t",
+                                                   device=device),
+        t5_params=syn.init_t5_params_quantized(seed + 1, cfgs["t5_cfg"], kind="nf4",
+                                               device=device),
+        clip_params=syn.init_clip_params(seed + 2, cfgs["clip_cfg"], device=device),
+        vae_params=syn.init_vae_decoder_params(seed + 3, cfgs["vae_cfg"], device=device),
+    )
+
+
+def make_pipeline(cfgs, params: dict, device: str):
+    import torch
+
+    from diffusion_rs_tpu_torch import FluxPipeline
+    from diffusion_rs_tpu_torch.pipelines.scheduler import SchedulerConfig
+    from diffusion_rs_tpu_torch.util.synthetic import WordTokenizer
+
+    return FluxPipeline(
+        scheduler=SchedulerConfig(use_dynamic_shifting=True),
+        t5_tokenizer=WordTokenizer(cfgs["t5_cfg"].vocab_size),
+        clip_tokenizer=WordTokenizer(cfgs["clip_cfg"].vocab_size),
+        dtype=torch.bfloat16, device=device, **cfgs, **params,
+    )
+
+
+def tiny_reference_check():
+    """The port on the card (kernels) against the port on the CPU (plain
+    versions), same weights and noise, tiny config at 64x64, 2 steps."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch.io.tokenizer import tokenize_and_pad
+    from diffusion_rs_tpu_torch.util.tree import tree_map
+
+    cfgs = tiny_configs()
+    params = make_params(cfgs, seed=11, device="cpu")
+    cpu = make_pipeline(cfgs, params, device="cpu")
+    gpu = make_pipeline(cfgs, tree_map(lambda t: t.cuda(), params), device="cuda")
+    prompts = ["a photo of a small cat"]
+    t5_ids = torch.from_numpy(tokenize_and_pad(prompts, cpu.t5_tokenizer, pad_to=512))
+    clip_ids = torch.from_numpy(tokenize_and_pad(prompts, cpu.clip_tokenizer))
+    noise = torch.randn((1, 16, 8, 8), generator=torch.Generator().manual_seed(5))
+    sig = cpu.scheduler.timesteps(2, mu=0.6)
+    outs = {}
+    for name, pipe, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
+        txt, y = pipe._encode(t5_ids.to(dev), clip_ids.to(dev))
+        g = torch.full((1,), 3.5, device=dev)
+        lat = pipe._denoise(txt, y, sig, g, noise.to(dev))
+        img = pipe._decode(lat, 64, 64)
+        outs[name] = (lat.float().cpu(), img.cpu().numpy())
+    lat_err = summed_rel(outs["gpu"][0], outs["cpu"][0])
+    a = outs["gpu"][1].astype(np.float64)
+    b = outs["cpu"][1].astype(np.float64)
+    mse = float(np.mean((a - b) ** 2))
+    psnr = float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+    print(f"tiny reference: latent summed-rel {lat_err:.3e}, image PSNR {psnr:.1f} dB "
+          f"(card kernels vs CPU plain versions, bf16)")
+    if not (lat_err <= 2e-2 and psnr >= 30.0):
+        raise SystemExit("tiny reference check failed: the card's image does not "
+                         "agree with the plain versions on the CPU")
+    return lat_err, psnr
+
+
+def profile_image(pipe, prompts) -> None:
+    """Trace one 1-step image with torch.profiler: device time by kernel
+    name (top 20) and the device's busy share of the traced wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+
+    params = DiffusionGenerationParams(height=1024, width=1024, num_steps=1,
+                                       guidance_scale=3.5, seed=7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.forward_arrays(prompts, params)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): operator rows would count
+    # their kernels' time a second time
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in rows)
+    print(f"profile (1-step image): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), timings {pipe.timings}")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:20]:
+        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  x{n:<5d} {key[:90]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=4, help="denoise steps of the timed image")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; this script needs a GPU",
+              file=sys.stderr)
+        return 1
+    from diffusion_rs_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    times = _cuda.build_all()
+    print(f"built kernels in {time.perf_counter() - t0:.1f} s: " +
+          ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    for name in _cuda.SOURCES:
+        _cuda.library(name)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks = {
+        "qmm_s8": [check_qmm("q8t", 1, 3072, 3072, gen, K1_TOL),
+                   check_qmm("q8t", 4096, 3072, 3072, gen, K1_TOL)],
+        "qmm_nf4": [check_qmm("nf4", 512, 4096, 4096, gen, K2_TOL),
+                    check_qmm("nf4", 512, 10240, 4096, gen, K2_TOL)],
+        "flash_fwd": [check_flash(4608, gen), check_flash(4112, gen)],
+    }
+    for name, rows in checks.items():
+        for r in rows:
+            print(f"kernel {name} {r['shape']}: summed-rel {r['summed_rel']:.3e} "
+                  f"max-abs {r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), library {r['library_ms']:.4f} ms")
+    tiny_reference_check()
+
+    # -- the full-width main path ---------------------------------------------
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.models.clip import ClipTextConfig
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.models.t5 import T5Config
+    from diffusion_rs_tpu_torch.models.vae import VAEConfig
+
+    cfgs = dict(flux_cfg=FluxConfig(), t5_cfg=T5Config(), clip_cfg=ClipTextConfig(),
+                vae_cfg=VAEConfig())
+    t0 = time.perf_counter()
+    pipe = make_pipeline(cfgs, make_params(cfgs, seed=0, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    print(f"synthetic full-size weights on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    captured = {}
+    denoise_stage = pipe._denoise
+
+    def capture_denoise(*a):
+        captured["latent"] = denoise_stage(*a)
+        return captured["latent"]
+
+    pipe._denoise = capture_denoise
+    prompts = ["a photo of a cat sitting on a wooden table"]
+    t0 = time.perf_counter()
+    pipe.forward_arrays(prompts, DiffusionGenerationParams(
+        height=1024, width=1024, num_steps=1, guidance_scale=3.5, seed=7))
+    print(f"warm-up image (1 step) in {time.perf_counter() - t0:.1f} s")
+
+    params = DiffusionGenerationParams(height=1024, width=1024, num_steps=args.steps,
+                                       guidance_scale=3.5, seed=7)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = pipe.forward_arrays(prompts, params)
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tm = pipe.timings
+    want = {"qmm_s8": 503 * args.steps, "qmm_nf4": 168, "flash_fwd": 57 * args.steps}
+    print(f"image {wall:.3f} s: encode {tm['encode_s'] * 1e3:.1f} ms, steps ms "
+          f"{[round(s * 1e3, 1) for s in tm['steps_s']]}, decode "
+          f"{tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB")
+    print(f"launches {counts} (expected {want})")
+    lat = captured["latent"]
+    if counts != want:
+        raise SystemExit(f"launch counts {counts} differ from the main path's {want}")
+    if img.shape != (1, 1024, 1024, 3) or img.dtype.name != "uint8":
+        raise SystemExit(f"bad image: {img.dtype} {img.shape}")
+    if tuple(lat.shape) != (1, 4096, 64) or not torch.isfinite(lat).all():
+        raise SystemExit(f"bad latent: {tuple(lat.shape)}, finite "
+                         f"{bool(torch.isfinite(lat).all())}")
+
+    profile_image(pipe, prompts)
+
+    src = "diffusion_rs_tpu_torch/csrc/"
+    replaces = {
+        "qmm_s8": "diffusion_rs_tpu/ops/qmatmul_pallas.py:378",
+        "qmm_nf4": "diffusion_rs_tpu/ops/qmatmul_pallas.py:378",
+        "flash_fwd": "diffusion_rs_tpu/ops/flash_pallas.py:396",
+    }
+    kernels = []
+    for name, rows in checks.items():
+        r = rows[-1] if name != "flash_fwd" else rows[0]  # the heaviest main-path shape
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": replaces[name], "launches": counts[name],
+            "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

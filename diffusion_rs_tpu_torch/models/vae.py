@@ -1,0 +1,83 @@
+"""AutoencoderKL decoder (port of the decode half of ``models/vae.py``):
+conv_in -> mid (resnet, spatial attention, resnet) -> up tower of resnets
+with nearest-2x upsampling -> GroupNorm/SiLU/conv_out, all channels-last
+(NHWC). Scale/shift factors are applied by the caller. VAE encode and the
+tiled decode are not ported yet."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import group_norm, sdpa
+from ..ops.conv import conv2d, upsample_nearest_2x
+from ..ops.linear import linear
+
+Params = Dict[str, Any]
+
+_PAD1 = ((1, 1), (1, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    in_channels: int = 3
+    out_channels: int = 3
+    block_out_channels: tuple = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    latent_channels: int = 16
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.3611
+    shift_factor: float = 0.1159
+    mid_block_add_attention: bool = True
+    use_quant_conv: bool = False
+    use_post_quant_conv: bool = False
+
+
+def _resnet(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
+    """norm1-silu-conv1-norm2-silu-conv2 + (1x1 shortcut)."""
+    h = group_norm(x, groups, p["norm1"]["w"], p["norm1"]["b"])
+    h = conv2d(F.silu(h), p["conv1"], padding=_PAD1)
+    h = group_norm(h, groups, p["norm2"]["w"], p["norm2"]["b"])
+    h = conv2d(F.silu(h), p["conv2"], padding=_PAD1)
+    if p.get("shortcut") is not None:
+        x = conv2d(x, p["shortcut"])
+    return x + h
+
+
+def _attn_block(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Single-head self-attention over the HW tokens."""
+    b, h, w, c = x.shape
+    y = group_norm(x, groups, p["norm"]["w"], p["norm"]["b"])
+    tokens = y.reshape(b, h * w, c)
+    q = linear(tokens, p["q"])[:, None]
+    k = linear(tokens, p["k"])[:, None]
+    v = linear(tokens, p["v"])[:, None]
+    attn = sdpa(q, k, v, impl="xla")[:, 0]
+    return x + linear(attn, p["out"]).reshape(b, h, w, c)
+
+
+def _mid(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
+    x = _resnet(p["res1"], x, groups)
+    if p.get("attn") is not None:
+        x = _attn_block(p["attn"], x, groups)
+    return _resnet(p["res2"], x, groups)
+
+
+def vae_decode(params: Params, cfg: VAEConfig, z_nhwc: torch.Tensor) -> torch.Tensor:
+    """Latent NHWC [B, h, w, latent_channels] -> NHWC image in ~[-1, 1]."""
+    p = params["decoder"]
+    if params.get("post_quant_conv") is not None:
+        z_nhwc = conv2d(z_nhwc, params["post_quant_conv"])
+    g = cfg.norm_num_groups
+    h = conv2d(z_nhwc, p["conv_in"], padding=_PAD1)
+    h = _mid(p["mid"], h, g)
+    for up in p["up"]:
+        for res in up["resnets"]:
+            h = _resnet(res, h, g)
+        if up.get("upsample") is not None:
+            h = conv2d(upsample_nearest_2x(h), up["upsample"], padding=_PAD1)
+    h = group_norm(h, g, p["norm_out"]["w"], p["norm_out"]["b"])
+    return conv2d(F.silu(h), p["conv_out"], padding=_PAD1)

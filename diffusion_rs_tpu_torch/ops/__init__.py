@@ -1,0 +1,30 @@
+from ._cuda import launch_counts, reset_launch_counts
+from .attention import sdpa, sdpa_merged, sdpa_xla
+from .conv import Conv, conv2d, upsample_nearest_2x
+from .flash import flash_attention, flash_attention_plain
+from .linear import Linear, linear
+from .norms import group_norm, layer_norm, rms_norm
+from .qmatmul import quantized_matmul, supports
+from .rope import apply_rope, rope_tables
+
+__all__ = [
+    "Conv",
+    "Linear",
+    "apply_rope",
+    "conv2d",
+    "flash_attention",
+    "flash_attention_plain",
+    "group_norm",
+    "launch_counts",
+    "layer_norm",
+    "linear",
+    "quantized_matmul",
+    "reset_launch_counts",
+    "rms_norm",
+    "rope_tables",
+    "sdpa",
+    "sdpa_merged",
+    "sdpa_xla",
+    "supports",
+    "upsample_nearest_2x",
+]

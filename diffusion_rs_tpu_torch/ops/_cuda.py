@@ -1,0 +1,139 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with :mod:`ctypes`. Nothing is
+built at import time: the first kernel launch builds every source in parallel
+(one ``nvcc`` process each) into ``build/torch_kernels/`` beside the package.
+A library's file name carries a hash of its sources and flags, so an edited
+source is rebuilt and an unchanged one is reused.
+
+No ``--use_fast_math``: the s8 matmul divides and rounds half-to-even exactly
+as ``jnp.round(x / sx)`` does, and fast math would change both.
+
+Every kernel wrapper adds one to its entry in :data:`LAUNCHES` when it
+launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(
+    os.environ.get(
+        "DIFFUSION_RS_TORCH_BUILD",
+        Path(__file__).resolve().parents[2] / "build" / "torch_kernels",
+    )
+)
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-lineinfo", "-Xptxas", "-v",
+]
+SOURCES = ("qmm_s8", "qmm_nf4", "flash_fwd")
+
+# C signatures: pointers and the stream as c_void_p, sizes as c_int.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "qmm_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qmm_nf4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    cands = [
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "build at first launch on a machine with the toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every missing library in parallel; returns seconds per source
+    (0.0 for a library that was already built). Raises on any failure, with
+    the compiler's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                       tmp, out, log)
+    times = {name: 0.0 for name in SOURCES}
+    failed = []
+    for name, (proc, tmp, out, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        times[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(f"{name} (rc {rc}):\n{out.with_suffix('.log').read_text()}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return times
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if not _lib_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call ``<name>(...)`` on the current stream; raise on a CUDA error."""
+    import torch
+
+    fn = getattr(library(name), name)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    LAUNCHES[name] += 1

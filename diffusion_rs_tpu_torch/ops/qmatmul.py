@@ -1,0 +1,200 @@
+"""Fused dequantize-matmul: ``y = x @ deq(W)`` with W kept quantized.
+
+Port of ``diffusion_rs_tpu/ops/qmatmul_pallas.py``. The dispatch mirrors
+``quantized_matmul`` there exactly:
+
+* :func:`supports` (qmatmul_pallas.py:300) decides whether a tensor fits the
+  kernels at all; one that does not (FLUX ``final.proj``, N=64) takes the
+  dequantize + matmul fallback, as JAX does at :421-431;
+* a q8t tensor (:446-450) always takes the s8 x s8 kernel, since the JAX
+  crossover default is 2^30 rows (:297);
+* a 4-bit codebook tensor (nf4/fp4) takes the nf4 kernel.
+
+Two hand-written Hopper kernels (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``)
+serve the CUDA path. Beside each is its plain PyTorch version, which follows
+the Pallas math tile for tile. A wrapper given a CPU tensor runs the plain
+version; given a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..quant.qtensor import QuantizedTensor, dequantize
+from . import _cuda
+
+
+def supports(qt: QuantizedTensor) -> bool:
+    """Static check that the canonical tensor fits the kernels' tiling
+    (same rule as the JAX ``supports``)."""
+    k, n = qt.shape
+    if qt.bits == 4 and qt.split % 2 != 0:
+        return False
+    bk = qt.split if qt.bits == 4 else min(256, k)
+    if k % bk != 0 or bk % 8 != 0:
+        return False
+    if qt.group <= bk:
+        if bk % qt.group != 0:
+            return False
+    elif qt.group % bk != 0:
+        return False
+    return n % 128 == 0
+
+
+def q8t_ok(qt: QuantizedTensor) -> bool:
+    """Whether the tensor runs the s8 x s8 path: one weight scale per
+    (K-tile, column), K-tile = min(256, K)."""
+    return (
+        qt.kind == "q8t" and qt.bits == 8 and qt.bias is None
+        and qt.codebook is None and qt.group == min(256, qt.k)
+    )
+
+
+def _codebook_ok(qt: QuantizedTensor) -> bool:
+    return qt.bits == 4 and qt.codebook is not None and qt.bias is None
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``jnp.matmul(x, w, preferred_element_type=f32).astype(x.dtype)``."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K1: s8 x s8 -> s32 (q8t)
+# ---------------------------------------------------------------------------
+
+
+def qmm_s8_plain(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the q8t kernel, K-tile by K-tile as the Pallas s8
+    branch (qmatmul_pallas.py:144-151): per row, ``sx = max|x| / 127``
+    (1 where the row is 0), ``xq = round_half_even(x / sx)``, an integer dot
+    with the int8 plane, then ``acc += i32 * (sx * scale[kt])`` in f32.
+    The integer dot runs in float64, where every partial sum is exact."""
+    m, k = x2.shape
+    n = packed.shape[-1]
+    bk = k // scale.shape[0]
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x2.device)
+    for kt in range(k // bk):
+        x = x2[:, kt * bk:(kt + 1) * bk].float()
+        ax = x.abs().amax(dim=1, keepdim=True)
+        # Divide by a tensor: PyTorch's CUDA division by a Python scalar
+        # multiplies by its reciprocal, which is not the IEEE quotient.
+        sx = torch.where(ax == 0.0, torch.ones_like(ax),
+                         ax / torch.full_like(ax, 127.0))
+        xq = torch.round(x / sx)
+        prod = (xq.double() @ packed[kt * bk:(kt + 1) * bk].double()).float()
+        acc = acc + prod * (sx * scale[kt][None, :])
+    return acc.to(out_dtype)
+
+
+def qmm_s8(x2: torch.Tensor, qt: QuantizedTensor,
+           out_dtype: torch.dtype) -> torch.Tensor:
+    """``x2 [M, K] @ deq(q8t W) [K, N]`` through ``csrc/qmm_s8.cu``."""
+    if x2.device.type == "cpu":
+        return qmm_s8_plain(x2, qt.packed, qt.scale, out_dtype)
+    m, k = x2.shape
+    n = qt.n
+    bk = qt.group
+    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
+             "qmm_s8 takes bf16 activations and produces bf16")
+    _require(k % 64 == 0 and bk % 64 == 0 and k % bk == 0 and n % 128 == 0,
+             f"qmm_s8 needs K, K-tile % 64 == 0 and N % 128 == 0 (K={k}, "
+             f"tile={bk}, N={n})")
+    _check_cuda(x2, (m, k), torch.bfloat16, "x")
+    _check_cuda(qt.packed, (k, n), torch.int8, "packed", x2.device)
+    _check_cuda(qt.scale, (k // bk, n), torch.float32, "scale", x2.device)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m, k // bk), dtype=torch.float32, device=x2.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    _cuda.launch("qmm_s8", x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                 qt.packed.data_ptr(), qt.scale.data_ptr(), out.data_ptr(),
+                 m, k, n, bk)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: 4-bit codebook (nf4/fp4) decode + bf16 MMA
+# ---------------------------------------------------------------------------
+
+
+def qmm_dequant_plain(x2: torch.Tensor, qt: QuantizedTensor,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the dequantizing branch (qmatmul_pallas.py:57-120,
+    :153-169): decode in f32 (codebook, per-group scale and bias), round the
+    weight to the activation dtype, dot with f32 accumulation."""
+    w = dequantize(qt, torch.float32).to(x2.dtype)
+    return (x2.float() @ w.float()).to(out_dtype)
+
+
+def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """``x2 [M, K] @ deq(nf4 W) [K, N]`` through ``csrc/qmm_nf4.cu``."""
+    if x2.device.type == "cpu":
+        return qmm_dequant_plain(x2, qt, out_dtype)
+    m, k = x2.shape
+    n = qt.n
+    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
+             "qmm_nf4 takes bf16 activations and produces bf16")
+    _require(qt.split % 64 == 0 and k % qt.split == 0 and qt.group % 32 == 0
+             and k % qt.group == 0 and n % 128 == 0,
+             f"qmm_nf4 needs split % 64 == 0, group % 32 == 0 and N % 128 == 0 "
+             f"(split={qt.split}, group={qt.group}, N={n})")
+    _check_cuda(x2, (m, k), torch.bfloat16, "x")
+    _check_cuda(qt.packed, (k // 2, n), torch.uint8, "packed", x2.device)
+    _check_cuda(qt.scale, (k // qt.group, n), torch.float32, "scale", x2.device)
+    _check_cuda(qt.codebook, (16,), torch.float32, "codebook", x2.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    _cuda.launch("qmm_nf4", x2.data_ptr(), qt.packed.data_ptr(),
+                 qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
+                 m, k, n, qt.split, qt.group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x [..., K] @ deq(qt) [K, N] -> [..., N]`` with the weight staying
+    packed. Shapes the kernels do not tile take dequantize + matmul."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    k, n = qt.shape
+    x2 = x.reshape(-1, k).contiguous()
+    if not supports(qt):
+        w = dequantize(qt, x.dtype)
+        y = torch.matmul(x2.float(), w.float()).to(out_dtype)
+    elif q8t_ok(qt):
+        y = qmm_s8(x2, qt, out_dtype)
+    elif _codebook_ok(qt):
+        y = qmm_nf4(x2, qt, out_dtype)
+    elif x2.device.type == "cpu":
+        y = qmm_dequant_plain(x2, qt, out_dtype)
+    else:
+        raise NotImplementedError(
+            f"quantized_matmul: no CUDA kernel for {qt.kind} (affine 4/8-bit "
+            "formats are not ported yet)"
+        )
+    return y.reshape(*lead, n)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda(t: torch.Tensor, shape, dtype, name: str, device=None) -> None:
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name} must be on {device or 'a CUDA device'}, "
+                         f"got {t.device}")
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,180 @@
+"""FLUX text-to-image pipeline (port of ``pipelines/flux_pipeline.py``,
+txt2img only): tokenize + pad both encoders, T5 + CLIP encode, seeded
+latent noise, patchify + position ids, resolution shift mu, Euler denoise,
+unpack, VAE scale/shift + one-shot decode, (clamp + 1) * 127.5 -> u8.
+
+The JAX stage seams stay methods (``_encode``, ``_denoise``, ``_decode``), so
+tests can inject the same noise into both packages. img2img, inpainting,
+tiled decode, offload and meshes are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..io.tokenizer import tokenize_and_pad
+from ..models.clip import ClipTextConfig, clip_encode
+from ..models.flux import FluxConfig, compute_pe, flux_forward
+from ..models.t5 import T5Config, t5_encode
+from ..models.vae import VAEConfig, vae_decode
+from ..util.device import resolve_device
+from .sampling import (
+    denoise,
+    get_noise,
+    make_img_ids,
+    make_txt_ids,
+    pack_latents,
+    unpack_latents,
+)
+from .scheduler import SchedulerConfig, calculate_shift
+
+T5_LEN_SCHNELL = 256
+T5_LEN_DEV = 512
+CLIP_MAX_LEN = 77
+
+
+@dataclasses.dataclass
+class DiffusionGenerationParams:
+    height: int = 720
+    width: int = 1280
+    num_steps: int = 50
+    guidance_scale: float = 3.5
+    seed: Optional[int] = None  # None draws a time-based seed
+    max_sequence_length: Optional[int] = None  # T5 pad length override
+
+
+class FluxPipeline:
+    """Holds the four components' params on one device. ``device`` defaults
+    to CUDA and raises when CUDA is absent."""
+
+    def __init__(self, *, flux_params, flux_cfg: FluxConfig, t5_params,
+                 t5_cfg: T5Config, clip_params, clip_cfg: ClipTextConfig,
+                 vae_params, vae_cfg: VAEConfig, scheduler: SchedulerConfig,
+                 t5_tokenizer, clip_tokenizer, dtype=torch.bfloat16,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.flux_params = flux_params
+        self.flux_cfg = flux_cfg
+        self.t5_params = t5_params
+        self.t5_cfg = t5_cfg
+        self.clip_params = clip_params
+        self.clip_cfg = clip_cfg
+        self.vae_params = vae_params
+        self.vae_cfg = vae_cfg
+        self.scheduler = scheduler
+        self.t5_tokenizer = t5_tokenizer
+        self.clip_tokenizer = clip_tokenizer
+        self.dtype = dtype
+        # Stage wall times of the last forward_arrays call, in seconds
+        # (encode, per denoise step, decode), each ending in a device sync.
+        self.timings: dict = {}
+
+    def _sync(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    # -- stages ---------------------------------------------------------------
+
+    @torch.no_grad()
+    def _encode(self, t5_ids: torch.Tensor, clip_ids: torch.Tensor):
+        txt = t5_encode(self.t5_params, self.t5_cfg, t5_ids).to(self.dtype)
+        _, y = clip_encode(self.clip_params, self.clip_cfg, clip_ids)
+        return txt, y.to(self.dtype)
+
+    @torch.no_grad()
+    def _denoise(self, txt, y, sigmas: np.ndarray, guidance, noise):
+        dt = self.dtype
+        bs = txt.shape[0]
+        img = pack_latents(noise.to(dt))
+        h2, w2 = noise.shape[2] // 2, noise.shape[3] // 2
+        pe = compute_pe(self.flux_cfg, make_txt_ids(bs, txt.shape[1], txt.device),
+                        make_img_ids(bs, h2, w2, txt.device))
+
+        def step(x, t):
+            t_vec = torch.full((bs,), t, dtype=torch.float32, device=x.device)
+            return flux_forward(self.flux_params, self.flux_cfg, x.to(dt), txt,
+                                t_vec, y, guidance, pe=pe)
+
+        steps = []
+        last = [self._sync()]
+
+        def on_step(i):
+            now = self._sync()
+            steps.append(now - last[0])
+            last[0] = now
+
+        out = denoise(step, img, sigmas, on_step=on_step)
+        self.timings["steps_s"] = steps
+        return out
+
+    def _pre_decode(self, latent, height: int, width: int):
+        latent = unpack_latents(latent, height, width)
+        z = latent / self.vae_cfg.scaling_factor + self.vae_cfg.shift_factor
+        return z.permute(0, 2, 3, 1).to(self.dtype)  # NHWC
+
+    @staticmethod
+    def _to_u8(img_out):
+        x = (torch.clamp(img_out.float(), -1.0, 1.0) + 1.0) * 127.5
+        return torch.clamp(x, 0, 255).to(torch.uint8)
+
+    @torch.no_grad()
+    def _decode(self, latent, height: int, width: int):
+        z = self._pre_decode(latent, height, width)
+        return self._to_u8(vae_decode(self.vae_params, self.vae_cfg, z))
+
+    # -- front end --------------------------------------------------------------
+
+    def forward_arrays(self, prompts: List[str], params,
+                       output_type: str = "np") -> np.ndarray:
+        """u8 NHWC images [B, H, W, 3]; ``output_type="latent"`` returns the
+        packed post-denoise f32 latent [B, S, 64] instead."""
+        if output_type not in ("np", "latent"):
+            raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
+        dev = self.device
+        t5_len = params.max_sequence_length or (
+            T5_LEN_DEV if self.flux_cfg.guidance_embeds else T5_LEN_SCHNELL)
+        t5_ids = tokenize_and_pad(prompts, self.t5_tokenizer, pad_to=t5_len)
+        clip_ids = tokenize_and_pad(prompts, self.clip_tokenizer)
+        if clip_ids.shape[1] > CLIP_MAX_LEN:
+            warnings.warn(
+                f"CLIP prompt is {clip_ids.shape[1]} tokens; truncating to "
+                f"{CLIP_MAX_LEN} — pooled conditioning uses argmax(token id) "
+                "over the truncated window", stacklevel=2)
+            clip_ids = clip_ids[:, :CLIP_MAX_LEN]
+
+        self.timings = {}
+        t0 = self._sync()
+        txt, y = self._encode(torch.from_numpy(t5_ids).to(dev),
+                              torch.from_numpy(clip_ids).to(dev))
+        t1 = self._sync()
+        self.timings["encode_s"] = t1 - t0
+
+        seq_len = ((params.height + 15) // 16) * ((params.width + 15) // 16)
+        mu = calculate_shift(seq_len, self.scheduler.base_image_seq_len,
+                             self.scheduler.max_image_seq_len,
+                             self.scheduler.base_shift, self.scheduler.max_shift)
+        sigmas = self.scheduler.timesteps(
+            params.num_steps, mu=mu if self.scheduler.use_dynamic_shifting else None)
+        seed = params.seed if params.seed is not None else time.time_ns() % (1 << 31)
+        noise = get_noise(seed, len(prompts), params.height, params.width, dev)
+        guidance = (
+            torch.full((len(prompts),), params.guidance_scale, dtype=torch.float32,
+                       device=dev)
+            if self.flux_cfg.guidance_embeds else None
+        )
+        latent = self._denoise(txt, y, sigmas, guidance, noise)
+        t2 = self._sync()
+        self.timings["denoise_s"] = t2 - t1
+        if output_type == "latent":
+            return latent.float().cpu().numpy()
+        img = self._decode(latent, params.height, params.width)
+        out = img.cpu().numpy()
+        self.timings["decode_s"] = self._sync() - t2
+        return out

@@ -1,0 +1,143 @@
+"""Guards on the PyTorch port's boundaries: it imports neither jax nor the
+JAX package, its default-device entry points refuse to run without CUDA
+instead of moving to the CPU, and its kernel wrappers import (and run their
+plain versions on CPU tensors) without nvcc."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "diffusion_rs_tpu_torch"
+
+
+def _port_modules():
+    return sorted(p for p in PORT.rglob("*.py"))
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name == "diffusion_rs_tpu"
+            or name.startswith("diffusion_rs_tpu."))
+
+
+@pytest.mark.parametrize("path", _port_modules(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_import_leaves_jax_unloaded():
+    """Every module of the package, imported in a fresh interpreter, loads
+    neither jax nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import diffusion_rs_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'diffusion_rs_tpu' or m.startswith('diffusion_rs_tpu.')]\n"
+        "print(len([m for m in sys.modules if m.startswith('diffusion_rs_tpu_torch')]))\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[-1]) >= 20  # the walk reached every subpackage
+
+
+def test_default_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the guard is for CUDA-less hosts")
+    from diffusion_rs_tpu_torch import FluxPipeline
+    from diffusion_rs_tpu_torch.bridge import from_numpy_tree
+    from diffusion_rs_tpu_torch.models.clip import ClipTextConfig
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.models.t5 import T5Config
+    from diffusion_rs_tpu_torch.models.vae import VAEConfig
+    from diffusion_rs_tpu_torch.util import synthetic as syn
+
+    gen = torch.Generator()
+    calls = [
+        lambda: syn.random_qtensor(gen, 256, 128),
+        lambda: syn.init_flux_params_quantized(0, FluxConfig()),
+        lambda: syn.init_t5_params_quantized(0, T5Config()),
+        lambda: syn.init_clip_params(0, ClipTextConfig()),
+        lambda: syn.init_vae_decoder_params(0, VAEConfig()),
+        lambda: from_numpy_tree({"w": np.zeros((2, 2), np.float32)}),
+        lambda: FluxPipeline(flux_params=None, flux_cfg=FluxConfig(), t5_params=None,
+                             t5_cfg=T5Config(), clip_params=None,
+                             clip_cfg=ClipTextConfig(), vae_params=None,
+                             vae_cfg=VAEConfig(), scheduler=None, t5_tokenizer=None,
+                             clip_tokenizer=None),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_kernel_wrappers_work_without_nvcc(tmp_path):
+    """No nvcc on PATH or under CUDA_HOME: the wrappers import, run their
+    plain versions on CPU tensors, and build nothing; only an attempt to
+    build says that nvcc is missing."""
+    code = (
+        "import torch\n"
+        "from diffusion_rs_tpu_torch.ops import _cuda, flash, qmatmul\n"
+        "from diffusion_rs_tpu_torch.util.synthetic import random_qtensor\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "x = torch.randn(3, 256, generator=g)\n"
+        "for kind in ('q8t', 'nf4'):\n"
+        "    qmatmul.quantized_matmul(x, random_qtensor(g, 256, 128, kind=kind, device='cpu'))\n"
+        "q = torch.randn(1, 1, 5, 128, generator=g)\n"
+        "flash.flash_attention(q, q, q, out_seqmajor=True)\n"
+        "assert not _cuda.BUILD_DIR.exists(), _cuda.BUILD_DIR\n"
+        "assert _cuda.launch_counts() == {'qmm_s8': 0, 'qmm_nf4': 0, 'flash_fwd': 0}\n"
+        "try:\n"
+        "    _cuda.build_all()\n"
+        "except RuntimeError as e:\n"
+        "    assert 'nvcc not found' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('build_all ran without nvcc')\n"
+    )
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path / "none"),
+               DIFFUSION_RS_TORCH_BUILD=str(tmp_path / "build"))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_cuda_path_has_no_fallback():
+    """A wrapper given a tensor that is not on the CPU launches or raises:
+    the dispatch never sends a CUDA tensor to a plain version. Checked on
+    the 'meta' device, which is not the CPU."""
+    from diffusion_rs_tpu_torch.ops import flash, qmatmul
+    from diffusion_rs_tpu_torch.quant.qtensor import QuantizedTensor
+
+    qt = QuantizedTensor(packed=torch.zeros((256, 128), dtype=torch.int8),
+                         scale=torch.ones((1, 128)), bias=None, codebook=None,
+                         kind="q8t", bits=8, group=256, split=256, shape=(256, 128),
+                         out_dtype="bfloat16")
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        qmatmul.qmm_s8(x, qt, torch.bfloat16)
+    q = torch.zeros((1, 1, 8, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention(q, q, q, out_seqmajor=True)
+    q4 = dataclasses.replace(qt, packed=torch.zeros((128, 128), dtype=torch.uint8),
+                             bias=torch.zeros((1, 128)), kind="q4_0", bits=4)
+    with pytest.raises(NotImplementedError, match="q4_0"):
+        qmatmul.quantized_matmul(x, q4)
