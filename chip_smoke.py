@@ -7,8 +7,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; build every CUDA kernel from ``diffusion_rs_tpu_torch/csrc``;
-2. hold each kernel against its plain PyTorch version on the card at two
-   main-path shapes (error, kernel ms, plain ms, bound ms, library ms);
+2. hold each kernel against its plain PyTorch version on the card at its
+   main-path shapes (error, kernel ms, plain ms, bound ms, library ms); the
+   affine kernel (K4) also, untimed, for Q6_K, Q4_K and bnb int8;
 3. a tiny-config image on the card against the same image through the plain
    versions on the CPU (same weights, same noise);
 4. the full-width FLUX.1-dev q8t path (19+38 blocks, hidden 3072) with
@@ -17,7 +18,16 @@ Phases, each fatal on failure (non-zero exit, no final line):
    through ``FluxPipeline.forward_arrays`` on synthetic weights from a seed;
    the kernels' launch counters must match the path exactly;
 5. one more 1-step image under torch.profiler: device time by kernel and
-   the device's busy share.
+   the device's busy share;
+6. a GGUF round trip at full width: the port's writer makes a BFL-named
+   Q4_0 FLUX file with 1 double + 1 single block (random codes, f16
+   scales), ``load_flux_transformer`` loads it onto the card (config and
+   planes checked against the host decode of the same bytes), and one
+   1024x1024 step runs through it with exact K4 launches;
+7. the full-depth FLUX.1-dev GGUF paths, Q8_0 then Q4_0 in the BFL layout
+   (fused qkv / linear1), encoders shared with phase 4: a 1-step warm-up,
+   then one timed ``--steps``-step 1024x1024 image each, with exact launch
+   counters, and a profiled 1-step image each as in phase 5.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 at once.
@@ -26,6 +36,7 @@ The last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -36,7 +47,10 @@ PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 
-K1_TOL, K2_TOL, K3_TOL = 1e-5, 2e-3, 5e-4   # summed-relative error bands
+# summed-relative error bands; K4 decodes the same bf16 weight as its plain
+# version bit for bit, so only the f32 summation order differs
+K1_TOL, K2_TOL, K3_TOL, K4_TOL = 1e-5, 2e-3, 5e-4, 1e-5
+GGUF_KINDS = ("q8_0", "q4_0")
 
 
 def summed_rel(a, b) -> float:
@@ -77,10 +91,18 @@ def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float):
     from diffusion_rs_tpu_torch.quant import dequantize
     from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
 
+    # bytes of one weight set: codes plus f32 scale (and bias) planes
+    set_bytes = {"q8t": k * n, "nf4": k * n / 2,
+                 "q8_0": k * n * (1 + 4 / 32), "q4_0": k * n * (0.5 + 8 / 32)}[kind]
     # enough weight sets that one pass over them overflows the 50 MB L2
-    n_sets = max(2, math.ceil(100e6 / (k * n * (1 if kind == "q8t" else 0.5))))
+    n_sets = max(2, math.ceil(100e6 / set_bytes))
     qts = [random_qtensor(gen, k, n, kind=kind, device="cuda") for _ in range(n_sets)]
-    if kind == "q8t":
+    if kind in GGUF_KINDS:  # f16-rounded per-group scales from the factory
+        kern, plain = qmatmul.qmm_affine, lambda x, qt: qmatmul.qmm_dequant_plain(
+            x, qt, torch.bfloat16)
+        ops, peak = 2.0 * m * k * n, PEAK_BF16_FLOPS
+        nbytes = m * k * 2 + set_bytes + m * n * 2
+    elif kind == "q8t":
         for qt in qts:  # per-(tile, column) scales that differ
             qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
         kern, plain = qmatmul.qmm_s8, lambda x, qt: qmatmul.qmm_s8_plain(
@@ -108,9 +130,43 @@ def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float):
     plain_ms = cuda_ms(lambda i: plain(x, qts[i]), n_sets, iters=4, warmup=1)
     lib_ms = cuda_ms(lambda i: torch.matmul(x, w_deq[i]), n_sets)
     b_ms, b_by = bound(ops, peak, nbytes)
-    return dict(shape=f"M{m} K{k} N{n}", summed_rel=err, max_abs_err=max_abs,
+    return dict(shape=f"M{m} K{k} N{n}" + (f" {kind}" if kind in GGUF_KINDS else ""),
+                summed_rel=err, max_abs_err=max_abs,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
+
+
+def check_affine_format(fmt: str, m: int, k: int, n: int, gen):
+    """K4 against its plain version (untimed) for a format the synthetic
+    factory does not make: GGUF blocks from the port's encoders, or bnb
+    int8 codes and row scales, canonicalized on the host."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import qmatmul
+    from diffusion_rs_tpu_torch.quant.bnb import bnb_int8_to_canonical
+    from diffusion_rs_tpu_torch.quant.gguf_quants import ENCODERS, gguf_to_canonical
+
+    rng = np.random.default_rng(k + n)
+    if fmt == "int8":
+        qt = bnb_int8_to_canonical(rng.integers(-127, 128, size=(n, k), dtype=np.int8),
+                                   rng.uniform(0.5, 2.0, size=n).astype(np.float32))
+    else:
+        w = (rng.standard_normal((n, k)) * k ** -0.5).astype(np.float32)
+        qt = gguf_to_canonical(fmt, ENCODERS[fmt](w), (n, k))
+    qt = qt.map(lambda t: t.cuda())
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    y = qmatmul.quantized_matmul(x, qt)
+    torch.cuda.synchronize()
+    ref = qmatmul.qmm_dequant_plain(x, qt, torch.bfloat16)
+    err = summed_rel(y, ref)
+    max_abs = float((y.float() - ref.float()).abs().max())
+    if not (err <= K4_TOL) or not torch.isfinite(y).all():
+        raise SystemExit(f"qmm_affine disagrees with its plain version for {fmt} at "
+                         f"M={m} K={k} N={n}: summed-rel {err:.3e} > {K4_TOL:g}")
+    return dict(shape=f"M{m} K{k} N{n} {fmt} (group {qt.group}, bias "
+                      f"{'yes' if qt.bias is not None else 'no'})",
+                summed_rel=err, max_abs_err=max_abs)
 
 
 def check_flash(s_q: int, gen):
@@ -256,6 +312,177 @@ def profile_image(pipe, prompts) -> None:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  x{n:<5d} {key[:90]}")
 
 
+def write_bfl_q4_0_file(path, cfg, seed: int) -> dict:
+    """A BFL-named FLUX GGUF written by the port's own writer: every linear
+    Q4_0 (random codes, per-block f16 scales around 0.25/sqrt(K)), biases
+    small random f32, QK-norm scales ones. Returns name -> (fmt, shape, raw)."""
+    import numpy as np
+
+    from diffusion_rs_tpu_torch.io.gguf import write_gguf
+
+    rng = np.random.default_rng(seed)
+    h, m, hd = cfg.hidden_size, cfg.mlp_size, cfg.head_dim
+    linears = {"img_in": (h, cfg.in_channels), "txt_in": (h, cfg.joint_attention_dim),
+               "time_in.in_layer": (h, 256), "time_in.out_layer": (h, h),
+               "vector_in.in_layer": (h, cfg.pooled_projection_dim),
+               "vector_in.out_layer": (h, h), "guidance_in.in_layer": (h, 256),
+               "guidance_in.out_layer": (h, h),
+               "final_layer.adaLN_modulation.1": (2 * h, h),
+               "final_layer.linear": (cfg.in_channels, h)}
+    norms = []
+    for i in range(cfg.num_layers):
+        p = f"double_blocks.{i}"
+        for s in ("img", "txt"):
+            linears.update({f"{p}.{s}_mod.lin": (6 * h, h), f"{p}.{s}_attn.qkv": (3 * h, h),
+                            f"{p}.{s}_attn.proj": (h, h), f"{p}.{s}_mlp.0": (m, h),
+                            f"{p}.{s}_mlp.2": (h, m)})
+            norms += [f"{p}.{s}_attn.norm.query_norm.scale", f"{p}.{s}_attn.norm.key_norm.scale"]
+    for i in range(cfg.num_single_layers):
+        p = f"single_blocks.{i}"
+        linears.update({f"{p}.linear1": (3 * h + m, h), f"{p}.linear2": (h, h + m),
+                        f"{p}.modulation.lin": (3 * h, h)})
+        norms += [f"{p}.norm.query_norm.scale", f"{p}.norm.key_norm.scale"]
+    tensors = {}
+    for name, (n_out, k_in) in linears.items():
+        blocks = rng.integers(0, 256, size=(n_out * k_in // 32, 18), dtype=np.uint8)
+        d = rng.uniform(0.5, 1.5, size=len(blocks)) * (0.25 * k_in ** -0.5)
+        blocks[:, 0:2] = d.astype(np.float16)[:, None].view(np.uint8)
+        tensors[f"{name}.weight"] = ("q4_0", (n_out, k_in), blocks)
+        b = (rng.standard_normal(n_out) * 0.02).astype(np.float32)
+        tensors[f"{name}.bias"] = ("f32", (n_out,), b)
+    for name in norms:
+        tensors[name] = ("f32", (hd,), np.ones(hd, np.float32))
+    write_gguf(str(path), tensors, metadata={"general.name": "flux-bfl-q4_0-synthetic"})
+    return tensors
+
+
+def gguf_round_trip(encoders, prompts):
+    """Phase 6: a full-width BFL Q4_0 file with 1 double + 1 single block
+    through the writer, ``load_flux_transformer`` and one 1024x1024 step."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.pipelines.loader import load_flux_transformer
+    from diffusion_rs_tpu_torch.quant.gguf_quants import gguf_to_canonical
+    from diffusion_rs_tpu_torch.quant.qtensor import concat_n, slice_n
+
+    want_cfg = dataclasses.replace(FluxConfig(), num_layers=1, num_single_layers=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/flux1-dev-q4_0-1+1.gguf"
+        t0 = time.perf_counter()
+        tensors = write_bfl_q4_0_file(path, want_cfg, seed=3)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, cfg = load_flux_transformer(path, FluxConfig(), torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        import os
+        size_mb = os.path.getsize(path) / 1e6
+    if cfg != want_cfg:
+        raise SystemExit(f"flux_config_from_bfl derived {cfg}, expected {want_cfg}")
+    h = cfg.hidden_size
+
+    def host(name):
+        fmt, shape, raw = tensors[f"{name}.weight"]
+        return gguf_to_canonical(fmt, raw.tobytes(), shape)
+
+    mod = host("final_layer.adaLN_modulation.1")
+    checks = {
+        "img_in": (params["img_in"].w, host("img_in")),
+        "double_blocks.0.img_attn.qkv": (params["double"]["img_attn"]["qkv"].w.map(
+            lambda t: t[0]), host("double_blocks.0.img_attn.qkv")),
+        "single_blocks.0.linear1": (params["single"]["qkv_mlp"].w.map(lambda t: t[0]),
+                                    host("single_blocks.0.linear1")),
+        "single_blocks.0.linear2": (params["single"]["linear2"].w.map(lambda t: t[0]),
+                                    host("single_blocks.0.linear2")),
+        "final_layer.adaLN_modulation.1 (halves swapped)": (
+            params["final"]["mod"].w, concat_n([slice_n(mod, h, 2 * h), slice_n(mod, 0, h)])),
+    }
+    for name, (dev_qt, host_qt) in checks.items():
+        for field in ("packed", "scale", "bias"):
+            a, b = getattr(dev_qt, field), getattr(host_qt, field)
+            if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                raise SystemExit(f"loaded {name}.{field} differs from the host decode")
+        if (dev_qt.kind, dev_qt.group, dev_qt.split, dev_qt.shape) != (
+                host_qt.kind, host_qt.group, host_qt.split, host_qt.shape):
+            raise SystemExit(f"loaded {name} meta differs from the host decode")
+    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
+                         {**encoders["params"], "flux_params": params}, device="cuda")
+    _cuda.reset_launch_counts()
+    img = pipe.forward_arrays(prompts, DiffusionGenerationParams(
+        height=1024, width=1024, num_steps=1, guidance_scale=3.5, seed=7))
+    counts = _cuda.launch_counts()
+    want = {"qmm_s8": 0, "qmm_nf4": 168, "qmm_affine": 22, "flash_fwd": 2}
+    print(f"gguf round trip: {size_mb:.1f} MB BFL Q4_0 file (1+1 blocks, hidden {h}) "
+          f"written in {t_write:.1f} s, loaded in {t_load:.1f} s; config {cfg}; "
+          f"{len(checks)} tensors equal to the host decode; 1-step image "
+          f"{pipe.timings['steps_s'][0] * 1e3:.1f} ms step; launches {counts} "
+          f"(expected {want})")
+    if counts != want:
+        raise SystemExit(f"gguf round trip launch counts {counts} differ from {want}")
+    if img.shape != (1, 1024, 1024, 3) or img.dtype.name != "uint8":
+        raise SystemExit(f"bad image: {img.dtype} {img.shape}")
+
+
+def gguf_image(kind: str, encoders, prompts, steps: int) -> dict:
+    """Phase 7: full-depth FLUX.1-dev in ``kind`` (BFL layout) at 1024x1024."""
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.util.synthetic import init_flux_params_quantized
+
+    cfg = FluxConfig()
+    gc.collect()  # the previous image's pipeline sits in a reference cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_flux_params_quantized(1, cfg, kind=kind, layout="bfl", device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
+                         {**encoders["params"], "flux_params": params}, device="cuda")
+    captured = {}
+    denoise_stage = pipe._denoise
+
+    def capture_denoise(*a):
+        captured["latent"] = denoise_stage(*a)
+        return captured["latent"]
+
+    pipe._denoise = capture_denoise
+    pipe.forward_arrays(prompts, DiffusionGenerationParams(
+        height=1024, width=1024, num_steps=1, guidance_scale=3.5, seed=7))
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = pipe.forward_arrays(prompts, DiffusionGenerationParams(
+        height=1024, width=1024, num_steps=steps, guidance_scale=3.5, seed=7))
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tm = pipe.timings
+    want = {"qmm_s8": 0, "qmm_nf4": 168, "qmm_affine": 313 * steps, "flash_fwd": 57 * steps}
+    print(f"{kind} image {wall:.3f} s (weights made on the card in {t_init:.1f} s): encode "
+          f"{tm['encode_s'] * 1e3:.1f} ms, steps ms {[round(x * 1e3, 1) for x in tm['steps_s']]}, "
+          f"decode {tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB")
+    print(f"{kind} launches {counts} (expected {want})")
+    lat = captured["latent"]
+    if counts != want:
+        raise SystemExit(f"{kind} launch counts {counts} differ from the main path's {want}")
+    if img.shape != (1, 1024, 1024, 3) or img.dtype.name != "uint8":
+        raise SystemExit(f"bad {kind} image: {img.dtype} {img.shape}")
+    if tuple(lat.shape) != (1, 4096, 64) or not torch.isfinite(lat).all():
+        raise SystemExit(f"bad {kind} latent: {tuple(lat.shape)}, finite "
+                         f"{bool(torch.isfinite(lat).all())}")
+    profile_image(pipe, prompts)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps of the timed image")
@@ -291,6 +518,8 @@ def main() -> int:
                    check_qmm("q8t", 4096, 3072, 3072, gen, K1_TOL)],
         "qmm_nf4": [check_qmm("nf4", 512, 4096, 4096, gen, K2_TOL),
                     check_qmm("nf4", 512, 10240, 4096, gen, K2_TOL)],
+        "qmm_affine": [check_qmm(kind, m, 3072, n, gen, K4_TOL)
+                       for kind in GGUF_KINDS for m, n in ((1, 18432), (4608, 21504))],
         "flash_fwd": [check_flash(4608, gen), check_flash(4112, gen)],
     }
     for name, rows in checks.items():
@@ -299,6 +528,11 @@ def main() -> int:
                   f"max-abs {r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}), library {r['library_ms']:.4f} ms")
+    k4_formats = [check_affine_format(fmt, 33, 3072, 3072, gen)
+                  for fmt in ("q6_k", "q4_k", "int8")]
+    for r in k4_formats:
+        print(f"kernel qmm_affine {r['shape']}: summed-rel {r['summed_rel']:.3e} "
+              f"max-abs {r['max_abs_err']:.3e} (untimed)")
     tiny_reference_check()
 
     # -- the full-width main path ---------------------------------------------
@@ -339,7 +573,8 @@ def main() -> int:
     counts = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     tm = pipe.timings
-    want = {"qmm_s8": 503 * args.steps, "qmm_nf4": 168, "flash_fwd": 57 * args.steps}
+    want = {"qmm_s8": 503 * args.steps, "qmm_nf4": 168, "qmm_affine": 0,
+            "flash_fwd": 57 * args.steps}
     print(f"image {wall:.3f} s: encode {tm['encode_s'] * 1e3:.1f} ms, steps ms "
           f"{[round(s * 1e3, 1) for s in tm['steps_s']]}, decode "
           f"{tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB")
@@ -355,19 +590,31 @@ def main() -> int:
 
     profile_image(pipe, prompts)
 
+    # -- the GGUF paths: encoders shared with the q8t pipeline ----------------
+    encoders = {"cfgs": {k: v for k, v in cfgs.items() if k != "flux_cfg"},
+                "params": {"t5_params": pipe.t5_params, "clip_params": pipe.clip_params,
+                           "vae_params": pipe.vae_params}}
+    gguf_round_trip(encoders, prompts)
+    pipe.flux_params = None  # free the q8t transformer before the full-depth ones
+    gguf_counts = {kind: gguf_image(kind, encoders, prompts, args.steps)
+                   for kind in GGUF_KINDS}
+    counts["qmm_affine"] = gguf_counts["q4_0"]["qmm_affine"]
+
     src = "diffusion_rs_tpu_torch/csrc/"
     replaces = {
         "qmm_s8": "diffusion_rs_tpu/ops/qmatmul_pallas.py:378",
         "qmm_nf4": "diffusion_rs_tpu/ops/qmatmul_pallas.py:378",
+        "qmm_affine": "diffusion_rs_tpu/ops/qmatmul_pallas.py:378",
         "flash_fwd": "diffusion_rs_tpu/ops/flash_pallas.py:396",
     }
     kernels = []
     for name, rows in checks.items():
         r = rows[-1] if name != "flash_fwd" else rows[0]  # the heaviest main-path shape
+        errs = rows + (k4_formats if name == "qmm_affine" else [])
         kernels.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": replaces[name], "launches": counts[name],
-            "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "max_abs_err": max(x["max_abs_err"] for x in errs),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],

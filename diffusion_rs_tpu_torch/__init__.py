@@ -8,6 +8,8 @@ a plain PyTorch version that CPU tensors take. Entry points default to
 ``device="cuda"`` and raise when CUDA is absent.
 """
 
+from .pipelines.api import ModelDType, ModelSource, Offloading, Pipeline
 from .pipelines.flux_pipeline import DiffusionGenerationParams, FluxPipeline
 
-__all__ = ["DiffusionGenerationParams", "FluxPipeline"]
+__all__ = ["DiffusionGenerationParams", "FluxPipeline", "ModelDType", "ModelSource",
+           "Offloading", "Pipeline"]

@@ -1,0 +1,271 @@
+// Affine quantized matmul: y[M, N] = x[M, K] @ deq(W)[K, N] with
+// deq(W)[k, n] = q[k, n] * scale[k / group, n] + bias[k / group, n].
+//
+// Replaces diffusion_rs_tpu/ops/qmatmul_pallas.py:_qmm_kernel, affine
+// branches: _dequant_tile with codebook=None and the f32 decode (:72-79,
+// :100-120), the scale planes of _tile_scale_plane (:180-187), reached
+// through _qmm_call -> pl.pallas_call (:378). Every GGUF format and bnb int8
+// land here: 4-bit carriers (Q4_0/Q4_1/Q2_K/Q3_K/Q4_K, unsigned codes
+// 0..15 in split-block nibbles, any offset folded into the bias) and int8
+// carriers (Q5_x/Q6_K/Q8_0/Q8_K, bnb int8 with group = K).
+//
+// Math, bit for bit the plain version's decoded weight: w = q * s in f32
+// (__fmul_rn), then w + b (__fadd_rn; the two stay separate roundings, as in
+// _dequant_tile's `w * scale; w + bias`, and nvcc may not contract them into
+// an FMA), rounded to bf16 (RNE); bf16 x bf16 products with f32 accumulation
+// and one cast to bf16 at the end. Only the f32 summation order differs from
+// the plain version.
+//
+// Bound on the H100: operations at M >= 512 (2*M*K*N bf16 tensor-core work
+// against ~K*N/2 or K*N weight bytes), bytes at M = 1 (the codes plus the
+// f32 scale and bias planes: for Q4_0 at K3072 N18432, 28.3 MB of codes and
+// 2 x 7.1 MB of planes). Design, kept simple (a later PR brings wgmma/TMA
+// and a small-M path): 128x128 output tiles, eight warps of 64x32, a K-stage
+// of 64 k-rows. cp.async double-buffers the packed bytes (32 rows of byte
+// pairs for 4-bit, 64 int8 rows) and the matching 64 columns of x; the block
+// decodes the stage once into a bf16 shared tile, reading each k-row's scale
+// and bias row k / group straight from the planes (so groups of 16 or 32
+// inside a stage and group = K all work), and the warps run mma.sync
+// m16n8k16 on it through ldmatrix (.trans for the K-major weight). Ragged M
+// is zero-filled on load and masked on store.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int KS = 64;              // k-rows per stage
+constexpr int THREADS = 256;
+constexpr int A_STRIDE = KS + 8;    // bf16: 144-byte rows, conflict-free ldmatrix
+constexpr int W_STRIDE = BN + 8;    // bf16: 272-byte rows, conflict-free ldmatrix
+constexpr int A_ELEMS = BM * A_STRIDE;
+constexpr int W_ELEMS = KS * W_STRIDE;
+
+template <int BITS>
+struct Layout {
+  static constexpr int P_ROWS = BITS == 4 ? KS / 2 : KS;  // packed rows per stage
+  static constexpr int P_BYTES = P_ROWS * BN;
+  static constexpr size_t SMEM_BYTES =
+      2 * A_ELEMS * sizeof(__nv_bfloat16) + 2 * P_BYTES + W_ELEMS * sizeof(__nv_bfloat16);
+};
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// Decode four weights of one k-row: codes q[0..3], the row's scale and bias.
+template <bool HAS_BIAS>
+__device__ __forceinline__ uint2 decode4(const float* q, const float4 s, const float4 b) {
+  float w[4] = {__fmul_rn(q[0], s.x), __fmul_rn(q[1], s.y), __fmul_rn(q[2], s.z),
+                __fmul_rn(q[3], s.w)};
+  if (HAS_BIAS) {
+    w[0] = __fadd_rn(w[0], b.x);
+    w[1] = __fadd_rn(w[1], b.y);
+    w[2] = __fadd_rn(w[2], b.z);
+    w[3] = __fadd_rn(w[3], b.w);
+  }
+  return make_uint2(pack_bf16x2(w[0], w[1]), pack_bf16x2(w[2], w[3]));
+}
+
+template <int BITS, bool HAS_BIAS>
+__global__ void __launch_bounds__(THREADS)
+qmm_affine_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+                  const float* __restrict__ scale, const float* __restrict__ bias,
+                  __nv_bfloat16* __restrict__ out, int M, int K, int N, int split,
+                  int group) {
+  using L = Layout<BITS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);               // [2][BM][A_STRIDE]
+  uint8_t* Ps = smem + 2 * A_ELEMS * sizeof(__nv_bfloat16);                   // [2][P_ROWS][BN]
+  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(Ps + 2 * L::P_BYTES);  // [KS][W_STRIDE]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  // 4-bit: a stage is 32 packed rows = k-rows k_lo..k_lo+31 (low nibbles)
+  // and k_lo+half..k_lo+half+31 (high nibbles) of one split-block run.
+  const int half = split / 2;
+  const int stages_per_run = BITS == 4 ? half / (KS / 2) : 1;
+  const int nstages = K / KS;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // First k-row of stage s (the low-nibble rows for 4-bit).
+  auto k_lo_of = [&](int s) {
+    return BITS == 4 ? (s / stages_per_run) * split + (s % stages_per_run) * (KS / 2)
+                     : s * KS;
+  };
+  // k of column c (0..63) of the stage's x tile and row c of its weight tile.
+  auto k_of = [&](int k_lo, int c) {
+    return BITS == 4 ? (c < KS / 2 ? k_lo + c : k_lo + half + c - KS / 2) : k_lo + c;
+  };
+
+  auto load_stage = [&](int s, int buf) {
+    const int k_lo = k_lo_of(s);
+    __nv_bfloat16* a = As + buf * A_ELEMS;
+    // x: BM rows x 64 bf16 = 8 chunks of 16 bytes per row
+#pragma unroll
+    for (int c = tid; c < BM * 8; c += THREADS) {
+      const int r = c >> 3;
+      const int ch = c & 7;
+      const int gr = m0 + r;
+      cp_async16(a + r * A_STRIDE + ch * 8,
+                 x + (size_t)(gr < M ? gr : 0) * K + k_of(k_lo, ch * 8), gr < M ? 16 : 0);
+    }
+    const int prow = BITS == 4 ? (s / stages_per_run) * half + (s % stages_per_run) * (KS / 2)
+                               : k_lo;
+    uint8_t* p = Ps + buf * L::P_BYTES;
+#pragma unroll
+    for (int c = tid; c < L::P_ROWS * BN / 16; c += THREADS) {
+      const int r = c >> 3;
+      const int ch = c & 7;
+      cp_async16(p + r * BN + ch * 16, packed + (size_t)(prow + r) * N + n0 + ch * 16, 16);
+    }
+    cp_async_commit();
+  };
+
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  load_stage(0, 0);
+  for (int s = 0; s < nstages; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < nstages) {
+      load_stage(s + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // Decode the stage into Ws [64 k-rows][128 columns] (f32 math, then bf16).
+    {
+      const int k_lo = k_lo_of(s);
+      const uint8_t* p = Ps + buf * L::P_BYTES;
+#pragma unroll
+      for (int q4 = 0; q4 < (L::P_ROWS * BN / 4) / THREADS; ++q4) {
+        const int wi = tid + q4 * THREADS;
+        const int r = wi / (BN / 4);
+        const int c4 = (wi % (BN / 4)) * 4;
+        const uint32_t word = *reinterpret_cast<const uint32_t*>(p + r * BN + c4);
+        if (BITS == 4) {
+          const size_t o_lo = (size_t)((k_lo + r) / group) * N + n0 + c4;
+          const size_t o_hi = (size_t)((k_lo + half + r) / group) * N + n0 + c4;
+          float lo[4], hi[4];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const uint32_t byte = (word >> (8 * b)) & 0xFFu;
+            lo[b] = static_cast<float>(byte & 0xFu);
+            hi[b] = static_cast<float>(byte >> 4);
+          }
+          *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) = decode4<HAS_BIAS>(
+              lo, ldg4(scale + o_lo), HAS_BIAS ? ldg4(bias + o_lo) : zero4);
+          *reinterpret_cast<uint2*>(Ws + (KS / 2 + r) * W_STRIDE + c4) = decode4<HAS_BIAS>(
+              hi, ldg4(scale + o_hi), HAS_BIAS ? ldg4(bias + o_hi) : zero4);
+        } else {
+          const size_t o = (size_t)((k_lo + r) / group) * N + n0 + c4;
+          float q[4];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            q[b] = static_cast<float>(static_cast<int8_t>((word >> (8 * b)) & 0xFFu));
+          }
+          *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) = decode4<HAS_BIAS>(
+              q, ldg4(scale + o), HAS_BIAS ? ldg4(bias + o) : zero4);
+        }
+      }
+    }
+    __syncthreads();
+
+    const __nv_bfloat16* a_s = As + buf * A_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ldmatrix_x4(a[i], a_s + (wm * 64 + i * 16 + (lane & 15)) * A_STRIDE + kk + (lane >> 4) * 8);
+      }
+      uint32_t b[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r4[4];
+        ldmatrix_x4_trans(r4, Ws + (kk + (lane & 15)) * W_STRIDE + wn * 32 + jj * 16 + (lane >> 4) * 8);
+        b[2 * jj][0] = r4[0];
+        b[2 * jj][1] = r4[1];
+        b[2 * jj + 1][0] = r4[2];
+        b[2 * jj + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + wm * 64 + i * 16 + g + hr * 8;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + wn * 32 + j * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
+            pack_bf16x2(acc[i][j][hr * 2], acc[i][j][hr * 2 + 1]);
+      }
+    }
+  }
+}
+
+template <int BITS, bool HAS_BIAS>
+int launch(const void* x, const void* packed, const void* scale, const void* bias, void* out,
+           int M, int K, int N, int split, int group, cudaStream_t stream) {
+  constexpr size_t smem = Layout<BITS>::SMEM_BYTES;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(qmm_affine_kernel<BITS, HAS_BIAS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  dim3 grid(N / BN, (M + BM - 1) / BM);
+  qmm_affine_kernel<BITS, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), M, K, N, split, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x bf16 [M, K]; packed u8 [K/2, N] (bits 4, split-block nibbles) or int8
+// [K, N] (bits 8); scale f32 [K/group, N]; bias f32 [K/group, N] or null;
+// out bf16 [M, N]. Needs K % 64 == 0, N % 128 == 0, K % group == 0 and, for
+// bits 4, split % 64 == 0 and K % split == 0. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a bits value other than 4 or 8.
+extern "C" int qmm_affine(const void* x, const void* packed, const void* scale,
+                          const void* bias, void* out, int M, int K, int N, int bits,
+                          int split, int group, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 4) {
+    return bias ? launch<4, true>(x, packed, scale, bias, out, M, K, N, split, group, st)
+                : launch<4, false>(x, packed, scale, bias, out, M, K, N, split, group, st);
+  }
+  if (bits == 8) {
+    return bias ? launch<8, true>(x, packed, scale, bias, out, M, K, N, split, group, st)
+                : launch<8, false>(x, packed, scale, bias, out, M, K, N, split, group, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,10 +1,39 @@
-"""Batch tokenization (the port's own copy of ``tokenize_and_pad``)."""
+"""Tokenizer loading and batch tokenization (the port's own copy of
+``diffusion_rs_tpu/io/tokenizer.py``).
+
+CLIP is a bare BPE built from vocab.json + merges.txt, T5 comes from
+tokenizer.json. Both load through the ``tokenizers`` package, imported only
+when a tokenizer is loaded: synthetic-weight runs use
+``util.synthetic.WordTokenizer`` and need no ``tokenizers``.
+"""
 
 from __future__ import annotations
 
+import json
 from typing import List, Optional
 
 import numpy as np
+
+
+def load_t5_tokenizer_from_bytes(data: bytes):
+    from tokenizers import Tokenizer
+
+    return Tokenizer.from_str(data.decode("utf-8"))
+
+
+def load_clip_bpe_tokenizer(vocab_json: bytes, merges_txt: bytes):
+    """Bare BPE over vocab + merges; the first merges line (the "#version"
+    header) is skipped."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import BPE
+
+    vocab = json.loads(vocab_json)
+    merges = []
+    for line in merges_txt.decode("utf-8").split("\n")[1:]:
+        parts = line.split(" ")
+        if len(parts) == 2:
+            merges.append((parts[0], parts[1]))
+    return Tokenizer(BPE(vocab, merges))
 
 
 def tokenize_and_pad(prompts: List[str], tokenizer,

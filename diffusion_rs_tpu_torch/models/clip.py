@@ -24,6 +24,18 @@ class ClipTextConfig:
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
 
+    @staticmethod
+    def from_json(d: dict) -> "ClipTextConfig":
+        """text_encoder/config.json (transformers CLIPTextModel)."""
+        return ClipTextConfig(
+            vocab_size=d["vocab_size"],
+            projection_dim=d.get("hidden_size", d.get("projection_dim", 768)),
+            intermediate_size=d["intermediate_size"],
+            max_position_embeddings=d["max_position_embeddings"],
+            num_hidden_layers=d["num_hidden_layers"],
+            num_attention_heads=d["num_attention_heads"],
+        )
+
     @property
     def head_dim(self) -> int:
         return self.projection_dim // self.num_attention_heads

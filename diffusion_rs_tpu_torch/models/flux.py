@@ -6,9 +6,11 @@ attention + MLP, 3-way AdaLN), timestep/guidance/pooled-vector embedders,
 3-axis RoPE and the AdaLN final layer. Blocks loop in Python over the stacked
 ``[L, ...]`` block params, taking per-layer views.
 
-Only the default layouts are ported: separate q/k/v projections, interleaved
-RoPE outside attention, attention output written head-merged by the flash
-kernel. Fused projections, half-split RoPE and grouped calls come later.
+Ported layouts: separate q/k/v projections (diffusers checkpoints) and the
+fused ``qkv`` / ``qkv_mlp`` projections that BFL checkpoints load into
+(io/builders.py); interleaved RoPE outside attention; attention output
+written head-merged by the flash kernel. Half-split RoPE and grouped calls
+come later.
 """
 
 from __future__ import annotations
@@ -48,6 +50,24 @@ class FluxConfig:
     def mlp_size(self) -> int:
         return int(self.hidden_size * self.mlp_ratio)
 
+    @staticmethod
+    def from_json(d: dict) -> "FluxConfig":
+        """diffusers transformer/config.json; ``attention_head_dim``,
+        ``axes_dims_rope`` and ``mlp_ratio`` are honoured when present."""
+        heads = d["num_attention_heads"]
+        return FluxConfig(
+            in_channels=d["in_channels"],
+            pooled_projection_dim=d["pooled_projection_dim"],
+            joint_attention_dim=d["joint_attention_dim"],
+            num_attention_heads=heads,
+            num_layers=d["num_layers"],
+            num_single_layers=d["num_single_layers"],
+            guidance_embeds=d["guidance_embeds"],
+            hidden_size=heads * d.get("attention_head_dim", 128),
+            mlp_ratio=float(d.get("mlp_ratio", 4.0)),
+            axes_dim=tuple(d.get("axes_dims_rope", (16, 56, 56))),
+        )
+
 
 def timestep_embedding(t: torch.Tensor, dim: int, dtype) -> torch.Tensor:
     """Sinusoidal embedding of 1000*t, f32 math, layout [cos | sin]."""
@@ -79,17 +99,21 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, _ = t.shape
+    return t.reshape(b, s, n_heads, -1).transpose(1, 2)
+
+
 def _qkv(p: Params, x: torch.Tensor, n_heads: int):
-    """Project, split heads to [B, H, S, D], QK-RMSNorm."""
-    b, s, _ = x.shape
-
-    def split(t):
-        return t.reshape(b, s, n_heads, -1).transpose(1, 2)
-
-    q = rms_norm(split(linear(x, p["q"])), p["q_norm"])
-    k = rms_norm(split(linear(x, p["k"])), p["k_norm"])
-    v = split(linear(x, p["v"]))
-    return q, k, v
+    """Project (one fused ``qkv`` linear, or q/k/v), split heads to
+    [B, H, S, D], QK-RMSNorm."""
+    if "qkv" in p:
+        qc, kc, vc = torch.chunk(linear(x, p["qkv"]), 3, dim=-1)
+    else:
+        qc, kc, vc = linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
+    q = rms_norm(_split_heads(qc, n_heads), p["q_norm"])
+    k = rms_norm(_split_heads(kc, n_heads), p["k_norm"])
+    return q, k, _split_heads(vc, n_heads)
 
 
 def _joint_attention(q, k, v, cos, sin):
@@ -136,8 +160,18 @@ def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
     parallel MLP; their outputs concatenate into one projection."""
     shift, scale, gate = _modulation(p["mod"], vec, 3)
     x_mod = _scale_shift(layer_norm(x), shift, scale)
-    q, k, v = _qkv(p, x_mod, cfg.num_attention_heads)
-    mlp = _gelu(linear(x_mod, p["proj_mlp"]))
+    heads = cfg.num_attention_heads
+    if "qkv_mlp" in p:
+        # fused q|k|v|mlp projection (BFL linear1)
+        h = cfg.hidden_size
+        fused = linear(x_mod, p["qkv_mlp"])
+        q = rms_norm(_split_heads(fused[..., 0:h], heads), p["q_norm"])
+        k = rms_norm(_split_heads(fused[..., h:2 * h], heads), p["k_norm"])
+        v = _split_heads(fused[..., 2 * h:3 * h], heads)
+        mlp = _gelu(fused[..., 3 * h:])
+    else:
+        q, k, v = _qkv(p, x_mod, heads)
+        mlp = _gelu(linear(x_mod, p["proj_mlp"]))
     attn = _joint_attention(q, k, v, cos, sin)
     out = linear(torch.cat([attn, mlp], dim=-1), p["linear2"])
     return x + gate * out

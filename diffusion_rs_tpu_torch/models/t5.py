@@ -31,6 +31,27 @@ class T5Config:
     gated_act: bool = True
     act: str = "gelu_new"  # "gelu_new" | "relu" | "silu"
 
+    @staticmethod
+    def from_json(d: dict) -> "T5Config":
+        """text_encoder_2/config.json (transformers T5EncoderModel)."""
+        ff = d.get("feed_forward_proj", "relu")
+        act = ff.removeprefix("gated-")
+        act = {"gelu": "gelu_new", "gelu_new": "gelu_new", "relu": "relu",
+               "silu": "silu", "gelu_pytorch_tanh": "gelu_new"}.get(act, act)
+        return T5Config(
+            vocab_size=d["vocab_size"],
+            d_model=d["d_model"],
+            d_kv=d["d_kv"],
+            d_ff=d["d_ff"],
+            num_layers=d["num_layers"],
+            num_heads=d["num_heads"],
+            relative_attention_num_buckets=d["relative_attention_num_buckets"],
+            relative_attention_max_distance=d.get("relative_attention_max_distance", 128),
+            layer_norm_epsilon=d.get("layer_norm_epsilon", 1e-6),
+            gated_act=ff.startswith("gated-") or d.get("is_gated_act", False),
+            act=act,
+        )
+
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "gelu_new":

@@ -35,6 +35,23 @@ class VAEConfig:
     use_quant_conv: bool = False
     use_post_quant_conv: bool = False
 
+    @staticmethod
+    def from_json(d: dict) -> "VAEConfig":
+        """vae/config.json (diffusers AutoencoderKL)."""
+        return VAEConfig(
+            in_channels=d["in_channels"],
+            out_channels=d["out_channels"],
+            block_out_channels=tuple(d["block_out_channels"]),
+            layers_per_block=d["layers_per_block"],
+            latent_channels=d["latent_channels"],
+            norm_num_groups=d["norm_num_groups"],
+            scaling_factor=d.get("scaling_factor", 0.18215),
+            shift_factor=d.get("shift_factor", 0.0) or 0.0,
+            mid_block_add_attention=d.get("mid_block_add_attention", True),
+            use_quant_conv=d.get("use_quant_conv", True),
+            use_post_quant_conv=d.get("use_post_quant_conv", True),
+        )
+
 
 def _resnet(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
     """norm1-silu-conv1-norm2-silu-conv2 + (1x1 shortcut)."""

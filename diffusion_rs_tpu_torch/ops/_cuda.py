@@ -37,13 +37,14 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-lineinfo", "-Xptxas", "-v",
 ]
-SOURCES = ("qmm_s8", "qmm_nf4", "flash_fwd")
+SOURCES = ("qmm_s8", "qmm_nf4", "qmm_affine", "flash_fwd")
 
 # C signatures: pointers and the stream as c_void_p, sizes as c_int.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "qmm_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "qmm_nf4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "qmm_affine": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 

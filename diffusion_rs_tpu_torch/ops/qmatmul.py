@@ -8,10 +8,12 @@ Port of ``diffusion_rs_tpu/ops/qmatmul_pallas.py``. The dispatch mirrors
   dequantize + matmul fallback, as JAX does at :421-431;
 * a q8t tensor (:446-450) always takes the s8 x s8 kernel, since the JAX
   crossover default is 2^30 rows (:297);
-* a 4-bit codebook tensor (nf4/fp4) takes the nf4 kernel.
+* a 4-bit codebook tensor (nf4/fp4) takes the nf4 kernel;
+* every other tensor without a codebook (the affine formats: GGUF
+  Q4_0..Q8_K, bnb int8, ``w = q * scale + bias``) takes the affine kernel.
 
-Two hand-written Hopper kernels (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``)
-serve the CUDA path. Beside each is its plain PyTorch version, which follows
+Three hand-written Hopper kernels (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``,
+``csrc/qmm_affine.cu``) serve the CUDA path. Beside each is its plain PyTorch version, which follows
 the Pallas math tile for tile. A wrapper given a CPU tensor runs the plain
 version; given a CUDA tensor it launches the kernel or raises.
 """
@@ -123,9 +125,12 @@ def qmm_s8(x2: torch.Tensor, qt: QuantizedTensor,
 
 def qmm_dequant_plain(x2: torch.Tensor, qt: QuantizedTensor,
                       out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of the dequantizing branch (qmatmul_pallas.py:57-120,
-    :153-169): decode in f32 (codebook, per-group scale and bias), round the
-    weight to the activation dtype, dot with f32 accumulation."""
+    """Plain version of the dequantizing branches, K2 and K4
+    (qmatmul_pallas.py:57-120, :153-169): decode in f32 (codebook or code,
+    times the scale of row ``k // group``, plus its bias: the ``w * scale;
+    w + bias`` order of ``_dequant_tile``, for groups inside a K-tile and
+    for group = K alike), round the weight to the activation dtype, dot with
+    f32 accumulation."""
     w = dequantize(qt, torch.float32).to(x2.dtype)
     return (x2.float() @ w.float()).to(out_dtype)
 
@@ -155,6 +160,45 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
 
 
 # ---------------------------------------------------------------------------
+# K4: affine 4/8-bit decode (GGUF, bnb int8) + bf16 MMA
+# ---------------------------------------------------------------------------
+
+
+def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """``x2 [M, K] @ deq(affine W) [K, N]`` through ``csrc/qmm_affine.cu``."""
+    if x2.device.type == "cpu":
+        return qmm_dequant_plain(x2, qt, out_dtype)
+    m, k = x2.shape
+    n = qt.n
+    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
+             "qmm_affine takes bf16 activations and produces bf16")
+    _require(qt.codebook is None and qt.bits in (4, 8),
+             f"qmm_affine takes 4- or 8-bit codes without a codebook ({qt.kind})")
+    _require(k % 64 == 0 and n % 128 == 0 and k % qt.group == 0
+             and (qt.bits == 8 or (qt.split % 64 == 0 and k % qt.split == 0)),
+             f"qmm_affine needs K % 64 == 0, N % 128 == 0, K % group == 0 and a "
+             f"4-bit split % 64 == 0 (K={k}, N={n}, group={qt.group}, "
+             f"split={qt.split})")
+    _check_cuda(x2, (m, k), torch.bfloat16, "x")
+    if qt.bits == 4:
+        _check_cuda(qt.packed, (k // 2, n), torch.uint8, "packed", x2.device)
+    else:
+        _check_cuda(qt.packed, (k, n), torch.int8, "packed", x2.device)
+    _check_cuda(qt.scale, (k // qt.group, n), torch.float32, "scale", x2.device)
+    if qt.bias is not None:
+        _check_cuda(qt.bias, (k // qt.group, n), torch.float32, "bias", x2.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    if m == 0:
+        return out
+    _cuda.launch("qmm_affine", x2.data_ptr(), qt.packed.data_ptr(),
+                 qt.scale.data_ptr(),
+                 None if qt.bias is None else qt.bias.data_ptr(),
+                 out.data_ptr(), m, k, n, qt.bits, qt.split, qt.group)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 
@@ -174,13 +218,14 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
         y = qmm_s8(x2, qt, out_dtype)
     elif _codebook_ok(qt):
         y = qmm_nf4(x2, qt, out_dtype)
+    elif qt.codebook is None:
+        y = qmm_affine(x2, qt, out_dtype)
     elif x2.device.type == "cpu":
         y = qmm_dequant_plain(x2, qt, out_dtype)
     else:
         raise NotImplementedError(
-            f"quantized_matmul: no CUDA kernel for {qt.kind} (affine 4/8-bit "
-            "formats are not ported yet)"
-        )
+            f"quantized_matmul: no CUDA kernel for a {qt.bits}-bit codebook "
+            f"tensor with a bias ({qt.kind})")
     return y.reshape(*lead, n)
 
 

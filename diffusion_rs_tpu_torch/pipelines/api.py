@@ -1,0 +1,133 @@
+"""Public API surface (port of ``diffusion_rs_tpu/pipelines/api.py``):
+``Pipeline(ModelSource...)`` and ``forward(prompts, params) -> list[bytes]``
+of PNG-encoded images, with ``ModelSource`` naming a hub id or local
+directory (optionally with a separate transformer: another repo, or a
+single-file GGUF), or a DDUF zip.
+
+The port's own differences: ``device`` (CUDA by default; raises without
+it), PNG encoding with the standard library (no Pillow), and
+``forward_images`` returning u8 ``[H, W, 3]`` arrays instead of PIL images.
+img2img and inpaint are not ported yet (ROADMAP Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import enum
+import struct
+import zlib
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+
+from .flux_pipeline import DiffusionGenerationParams
+
+
+class Offloading(enum.Enum):
+    """Memory-capacity modes: ``Full`` swaps whole components between host
+    and device around their use, ``Stream`` streams transformer blocks. Not
+    ported yet (ROADMAP Queue 1 item 11): passing either raises."""
+
+    Full = "full"
+    Stream = "stream"
+
+
+class ModelDType(enum.Enum):
+    """``Auto`` resolves to bf16 (every card the port targets runs it)."""
+
+    Auto = "auto"
+    BF16 = "bf16"
+    F16 = "f16"
+    F32 = "f32"
+
+
+@dataclass(frozen=True)
+class ModelSource:
+    """Where model files come from."""
+
+    model_id: Optional[str] = None  # hub id or local directory
+    transformer_model_id: Optional[str] = None  # transformer override (repo or .gguf)
+    dduf_file: Optional[str] = None  # path to a .dduf zip
+
+    @staticmethod
+    def from_model_id(model_id: str,
+                      transformer_model_id: Optional[str] = None) -> "ModelSource":
+        return ModelSource(model_id=model_id, transformer_model_id=transformer_model_id)
+
+    @staticmethod
+    def dduf(path: str) -> "ModelSource":
+        return ModelSource(dduf_file=path)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """u8 RGB ``[H, W, 3]`` -> PNG bytes (8-bit truecolour, no filtering),
+    with zlib and struct only."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected u8 [H, W, 3], got {img.dtype} {img.shape}")
+    h, w, _ = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(img).reshape(h, w * 3)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+class Pipeline:
+    """Load a FLUX pipeline and generate images. ``forward`` returns one PNG
+    (``bytes``) per prompt.
+
+    ``isq``, ``isq_t5``, ``imatrix``, ``lora``, ``fuse``, ``offloading``,
+    ``mesh``, ``compile_cache`` and the ``t5_mask_pads`` / ``step_progress``
+    toggles keep the JAX package's names; none is ported yet, and setting
+    one raises ``NotImplementedError`` naming its ROADMAP item."""
+
+    def __init__(
+        self,
+        source: ModelSource,
+        silent: bool = False,
+        token: Optional[str] = None,
+        revision: Optional[str] = None,
+        offloading: Optional[Offloading] = None,
+        dtype: ModelDType = ModelDType.Auto,
+        isq: Optional[str] = None,
+        isq_t5: Optional[str] = None,
+        imatrix: Optional[str] = None,
+        lora: Union[str, Sequence[str], None] = None,
+        lora_scale: Union[float, Sequence[float]] = 1.0,
+        mesh=None,
+        t5_mask_pads: Optional[bool] = None,
+        step_progress: Optional[bool] = None,
+        compile_cache: Optional[str] = None,
+        fuse: Union[bool, str, Sequence[str], None] = None,
+        device="cuda",
+    ):
+        from .loader import load_pipeline
+
+        self._inner = load_pipeline(
+            source, silent=silent, token=token, revision=revision,
+            offloading=offloading, dtype=dtype, isq=isq, isq_t5=isq_t5,
+            imatrix=imatrix, lora=lora, lora_scale=lora_scale, mesh=mesh,
+            t5_mask_pads=t5_mask_pads, step_progress=step_progress,
+            compile_cache=compile_cache, fuse=fuse, device=device,
+        )
+
+    def forward(self, prompts: Sequence[str],
+                params: DiffusionGenerationParams) -> List[bytes]:
+        return [encode_png(img) for img in self.forward_images(prompts, params)]
+
+    def forward_images(self, prompts: Sequence[str],
+                       params: DiffusionGenerationParams) -> List[np.ndarray]:
+        """One u8 ``[H, W, 3]`` array per prompt."""
+        arr = self._inner.forward_arrays(list(prompts), params)
+        return [arr[i] for i in range(arr.shape[0])]
+
+    def forward_latents(self, prompts: Sequence[str],
+                        params: DiffusionGenerationParams) -> np.ndarray:
+        """Post-denoise packed latents ``[B, S, 64]`` as f32 (no VAE decode)."""
+        return self._inner.forward_arrays(list(prompts), params, output_type="latent")

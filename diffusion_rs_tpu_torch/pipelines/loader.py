@@ -1,0 +1,210 @@
+"""Pipeline loading (port of ``diffusion_rs_tpu/pipelines/loader.py``):
+model_index.json dispatch -> component assembly.
+
+A :class:`~.source.FileLoader` over the source (directory, hub snapshot or
+DDUF), the ``_class_name`` check ("FluxPipeline"), the scheduler, both
+tokenizers, CLIP, T5 and the VAE from their component directories, and the
+transformer: from ``transformer/`` of the source, from another repo, or
+from a single-file GGUF (:func:`load_flux_transformer`, the city96-style
+files with BFL tensor names, whose config comes from the tensors).
+
+Options of the JAX loader that this slice does not port raise
+``NotImplementedError`` naming their ROADMAP item; none is silently
+ignored.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from pathlib import Path
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from ..io.builders import (
+    build_clip_params,
+    build_flux_params,
+    build_t5_params,
+    build_vae_params,
+    flux_config_from_bfl,
+    is_bfl_naming,
+)
+from ..io.gguf import GgufFile
+from ..io.source import FileLoader
+from ..io.tokenizer import load_clip_bpe_tokenizer, load_t5_tokenizer_from_bytes
+from ..io.varstore import VarStore
+from ..models.clip import ClipTextConfig
+from ..models.flux import FluxConfig
+from ..models.t5 import T5Config
+from ..models.vae import VAEConfig
+from ..util.device import resolve_device
+from .api import ModelDType, ModelSource, Offloading
+from .flux_pipeline import FluxPipeline
+from .scheduler import SchedulerConfig
+
+log = logging.getLogger("diffusion_rs_tpu_torch")
+
+_DTYPES = {ModelDType.Auto: torch.bfloat16, ModelDType.BF16: torch.bfloat16,
+           ModelDType.F16: torch.float16, ModelDType.F32: torch.float32}
+
+
+def _not_ported(option: str, item: str):
+    raise NotImplementedError(
+        f"{option} is not ported to diffusion_rs_tpu_torch yet (ROADMAP {item})")
+
+
+def _check_unported(offloading, isq, isq_t5, imatrix, lora, mesh, t5_mask_pads,
+                    step_progress, compile_cache, fuse) -> None:
+    """The JAX loader's options that this slice does not carry, resolved the
+    way the JAX package resolves them (argument, else its environment
+    variable)."""
+    if isq or isq_t5 or imatrix:
+        _not_ported("isq / isq_t5 / imatrix (in-situ quantization)",
+                    "Queue 1 item 9")
+    if lora:
+        _not_ported("lora", "Queue 1 item 10")
+    if fuse is None:
+        fuse = os.environ.get("DIFFUSION_RS_TPU_FUSE", "")
+    if fuse not in (False, "0", "", (), []):
+        _not_ported(f"fuse={fuse!r} (projection fusion)", "Queue 1 item 10")
+    if os.environ.get("DIFFUSION_RS_TPU_FUSED_ROPE", "0") == "1":
+        _not_ported("DIFFUSION_RS_TPU_FUSED_ROPE=1 (RoPE half-split re-layout)",
+                    "Queue 1 item 10")
+    if offloading is not None:
+        _not_ported(f"offloading={offloading}", "Queue 1 item 11")
+    if compile_cache or os.environ.get("DIFFUSION_RS_TPU_COMPILE_CACHE"):
+        _not_ported("compile_cache", "Queue 1 item 12")
+    if mesh is not None:
+        _not_ported("mesh", "Queue 1 item 13")
+    mask = (t5_mask_pads if t5_mask_pads is not None
+            else os.environ.get("DIFFUSION_RS_TPU_T5_MASK_PADS") == "1")
+    if mask:
+        _not_ported("t5_mask_pads", "Queue 1, left out of slice 2")
+    progress = (step_progress if step_progress is not None
+                else os.environ.get("DIFFUSION_RS_TPU_PROGRESS"))
+    if progress:
+        _not_ported("step_progress", "Queue 1, left out of slice 2")
+
+
+def _component_store(loader: FileLoader, prefix: str, dtype, device) -> VarStore:
+    """A component's weights: its safetensors and/or GGUF files."""
+    store = VarStore(default_dtype=dtype, device=device)
+    files = [n for n in loader.list_files()
+             if n.startswith(prefix + "/") and n.endswith((".safetensors", ".gguf"))]
+    if not files:
+        raise FileNotFoundError(f"no safetensors/gguf under {prefix}/")
+    for name in files:
+        if name.endswith(".safetensors"):
+            store.add_safetensors(loader.safetensors(name))
+        else:
+            if loader.root is None:
+                raise ValueError("GGUF components require a directory source")
+            store.add_gguf(GgufFile(str(loader.root / name)))
+    return store
+
+
+def load_flux_transformer(path: Union[str, Path], base_cfg: Optional[FluxConfig] = None,
+                          dtype=torch.bfloat16, device="cuda"
+                          ) -> Tuple[dict, FluxConfig]:
+    """FLUX params and config from a single-file GGUF transformer.
+
+    BFL tensor names (city96-style files): the config comes from the tensor
+    keys and shapes, on top of ``base_cfg`` (axes_dim, ...; the defaults
+    when None). Quantized linears stay quantized (canonical planes on
+    ``device``); dense tensors are cast to ``dtype``. A diffusers-named GGUF
+    takes its config from ``base_cfg``, which it then requires."""
+    device = resolve_device(device)
+    store = VarStore(default_dtype=dtype, device=device)
+    store.add_gguf(GgufFile(str(path)))
+    if is_bfl_naming(store):
+        cfg = flux_config_from_bfl(store, base=base_cfg)
+    elif base_cfg is not None:
+        cfg = base_cfg
+    else:
+        raise ValueError(f"{path}: diffusers-named GGUF transformer needs base_cfg "
+                         "(the base repo's transformer/config.json)")
+    return build_flux_params(store, cfg, dtype), cfg
+
+
+def load_pipeline(
+    source: ModelSource,
+    silent: bool = False,
+    token: Optional[str] = None,
+    revision: Optional[str] = None,
+    offloading: Optional[Offloading] = None,
+    dtype: ModelDType = ModelDType.Auto,
+    isq: Optional[str] = None,
+    isq_t5: Optional[str] = None,
+    fuse=None,
+    imatrix: Optional[str] = None,
+    lora: Union[str, Sequence[str], None] = None,
+    lora_scale: Union[float, Sequence[float]] = 1.0,
+    mesh=None,
+    t5_mask_pads: Optional[bool] = None,
+    step_progress: Optional[bool] = None,
+    compile_cache: Optional[str] = None,
+    device="cuda",
+) -> FluxPipeline:
+    device = resolve_device(device)
+    _check_unported(offloading, isq, isq_t5, imatrix, lora, mesh, t5_mask_pads,
+                    step_progress, compile_cache, fuse)
+    loader = FileLoader(model_id=source.model_id, dduf_file=source.dduf_file,
+                        token=token, revision=revision, silent=silent)
+    index = json.loads(loader.read_bytes("model_index.json"))
+    class_name = index.get("_class_name")
+    if class_name != "FluxPipeline":
+        raise ValueError(f"unsupported pipeline class {class_name!r}")
+    dt = _DTYPES[dtype]
+    if not silent:
+        log.info("loading FluxPipeline (dtype=%s, device=%s)", dt, device)
+
+    def config(name: str) -> dict:
+        return json.loads(loader.read_bytes(name))
+
+    scheduler = SchedulerConfig.from_json(config("scheduler/scheduler_config.json"))
+    clip_tokenizer = load_clip_bpe_tokenizer(loader.read_bytes("tokenizer/vocab.json"),
+                                             loader.read_bytes("tokenizer/merges.txt"))
+    t5_tokenizer = load_t5_tokenizer_from_bytes(
+        loader.read_bytes("tokenizer_2/tokenizer.json"))
+
+    clip_cfg = ClipTextConfig.from_json(config("text_encoder/config.json"))
+    clip_params = build_clip_params(_component_store(loader, "text_encoder", dt, device),
+                                    clip_cfg, dt)
+    t5_cfg = T5Config.from_json(config("text_encoder_2/config.json"))
+    t5_params = build_t5_params(_component_store(loader, "text_encoder_2", dt, device),
+                                t5_cfg, dt)
+    vae_cfg = VAEConfig.from_json(config("vae/config.json"))
+    vae_params = build_vae_params(_component_store(loader, "vae", dt, device), vae_cfg, dt)
+    if not silent:
+        log.info("loaded CLIP (%d layers), T5 (%d layers), VAE %s",
+                 clip_cfg.num_hidden_layers, t5_cfg.num_layers,
+                 list(vae_cfg.block_out_channels))
+
+    override = source.transformer_model_id
+    if override and override.endswith(".gguf") and os.path.isfile(override):
+        base_cfg = (FluxConfig.from_json(config("transformer/config.json"))
+                    if loader.exists("transformer/config.json") else None)
+        flux_params, flux_cfg = load_flux_transformer(override, base_cfg, dt, device)
+        if not silent:
+            log.info("transformer from single-file GGUF %s", override)
+    else:
+        flux_loader = loader
+        if override:
+            flux_loader = FileLoader(model_id=override, token=token, revision=revision,
+                                     silent=silent)
+        flux_cfg = FluxConfig.from_json(
+            json.loads(flux_loader.read_bytes("transformer/config.json")))
+        flux_params = build_flux_params(
+            _component_store(flux_loader, "transformer", dt, device), flux_cfg, dt)
+    if not silent:
+        log.info("loaded FLUX transformer (%d double + %d single blocks, guidance=%s)",
+                 flux_cfg.num_layers, flux_cfg.num_single_layers, flux_cfg.guidance_embeds)
+
+    return FluxPipeline(
+        flux_params=flux_params, flux_cfg=flux_cfg, t5_params=t5_params, t5_cfg=t5_cfg,
+        clip_params=clip_params, clip_cfg=clip_cfg, vae_params=vae_params,
+        vae_cfg=vae_cfg, scheduler=scheduler, t5_tokenizer=t5_tokenizer,
+        clip_tokenizer=clip_tokenizer, dtype=dt, device=device,
+    )

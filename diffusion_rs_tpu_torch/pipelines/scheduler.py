@@ -20,6 +20,19 @@ class SchedulerConfig:
     shift: float = 1.0
     use_dynamic_shifting: bool = False
 
+    @staticmethod
+    def from_json(d: dict) -> "SchedulerConfig":
+        """scheduler/scheduler_config.json."""
+        return SchedulerConfig(
+            scheduler_type=d.get("_class_name", "FlowMatchEulerDiscreteScheduler"),
+            base_image_seq_len=d.get("base_image_seq_len", 256),
+            base_shift=d.get("base_shift", 0.5),
+            max_image_seq_len=d.get("max_image_seq_len", 4096),
+            max_shift=d.get("max_shift", 1.15),
+            shift=d.get("shift", 1.0),
+            use_dynamic_shifting=d.get("use_dynamic_shifting", False),
+        )
+
     def timesteps(self, num_steps: int, mu: Optional[float] = None) -> np.ndarray:
         """Sigma grid 1 -> 0 with time shift; num_steps+1 f32 values.
 

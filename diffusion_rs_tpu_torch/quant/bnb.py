@@ -1,13 +1,26 @@
-"""bitsandbytes 4-bit codebooks (the port's own copy of the NF4 table).
+"""bitsandbytes nf4 / fp4 / int8 checkpoints -> the canonical layout (the
+port's own copy of ``diffusion_rs_tpu/quant/bnb.py``; load-time numpy).
 
-Values are the bitsandbytes NF4 normal-map entries, indexed by the 4-bit
-code; the nf4 kernel (ops/qmatmul.py) decodes through this table.
+* 4-bit: byte ``i`` holds element ``2i`` in the HIGH nibble and ``2i+1`` in
+  the LOW nibble; element ``e`` uses ``absmax[e // blocksize]``; the absmax
+  may itself be "nested" (double) quantized: u8 codes into a 256-entry
+  codebook with its own blockwise absmax, plus a global offset. The codes
+  index a 16-entry codebook (NF4 or FP4) and run through the nf4 kernel.
+* int8: ``w[row, col] = q[row, col] * SCB[row] / 127``, a whole-column
+  (group = K) scale in the K-major layout, through the affine kernel.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import Optional
 
+import numpy as np
+import torch
+
+from .qtensor import QuantizedTensor, choose_split, pack4
+
+# 16-entry codebooks, indexed by the 4-bit code (bitsandbytes' NF4 normal
+# map, and FP4 e2m1 with bit 3 the sign).
 NF4_CODEBOOK = np.array(
     [
         -1.0,
@@ -29,3 +42,89 @@ NF4_CODEBOOK = np.array(
     ],
     dtype=np.float32,
 )
+
+_FP4_MAG = np.array(
+    [0.0, 0.0052083333, 0.6666667, 1.0, 0.33333334, 0.5, 0.16666667, 0.25],
+    dtype=np.float32,
+)
+FP4_CODEBOOK = np.concatenate([_FP4_MAG, -_FP4_MAG]).astype(np.float32)
+
+CODEBOOKS = {"nf4": NF4_CODEBOOK, "fp4": FP4_CODEBOOK}
+
+
+def unpack_bnb_nibbles(data: np.ndarray, n: int) -> np.ndarray:
+    """u8 bytes -> flat u4 codes, element 2i = high nibble."""
+    data = data.reshape(-1)
+    out = np.empty(data.size * 2, dtype=np.uint8)
+    out[0::2] = data >> 4
+    out[1::2] = data & 0xF
+    return out[:n]
+
+
+def dequantize_blockwise_8bit(codes: np.ndarray, code: np.ndarray,
+                              absmax: np.ndarray, blocksize: int) -> np.ndarray:
+    """General 8-bit blockwise dequant: ``code[q[i]] * absmax[i // blocksize]``
+    (the nested absmax of a double-quantized 4-bit tensor)."""
+    codes = codes.reshape(-1)
+    vals = code.astype(np.float32)[codes]
+    idx = np.arange(codes.size) // blocksize
+    return vals * absmax.astype(np.float32)[idx]
+
+
+def resolve_absmax(absmax: np.ndarray, nested_absmax: Optional[np.ndarray] = None,
+                   nested_code: Optional[np.ndarray] = None,
+                   nested_blocksize: Optional[int] = None,
+                   offset: Optional[float] = None) -> np.ndarray:
+    """A possibly double-quantized absmax as plain f32:
+    ``dequant_8bit(absmax) + offset``."""
+    if nested_absmax is None:
+        return absmax.astype(np.float32)
+    out = dequantize_blockwise_8bit(absmax.astype(np.uint8), nested_code,
+                                    nested_absmax, nested_blocksize)
+    return out + np.float32(offset)
+
+
+def bnb4bit_to_canonical(weight_bytes: np.ndarray, absmax: np.ndarray, shape: tuple,
+                         blocksize: int, kind: str,
+                         out_dtype: str = "bfloat16") -> QuantizedTensor:
+    """Repack a bnb 4-bit tensor (torch layout ``[out, in]``, row-major) into
+    the canonical K-major split-block layout. ``absmax`` must already be
+    resolved (:func:`resolve_absmax`)."""
+    n_out, k_in = shape
+    if k_in % blocksize != 0:
+        raise ValueError(f"in_features {k_in} not divisible by blocksize {blocksize}")
+    q = unpack_bnb_nibbles(weight_bytes, n_out * k_in).reshape(n_out, k_in)
+    scale = absmax.astype(np.float32).reshape(n_out, k_in // blocksize)
+    split = choose_split(k_in)
+    return QuantizedTensor(
+        packed=torch.from_numpy(pack4(np.ascontiguousarray(q.T), split)),
+        scale=torch.from_numpy(np.ascontiguousarray(scale.T)),
+        bias=None,
+        codebook=torch.from_numpy(CODEBOOKS[kind].copy()),
+        kind=kind,
+        bits=4,
+        group=blocksize,
+        split=split,
+        shape=(k_in, n_out),
+        out_dtype=out_dtype,
+    )
+
+
+def bnb_int8_to_canonical(weight_i8: np.ndarray, scb: np.ndarray,
+                          out_dtype: str = "bfloat16") -> QuantizedTensor:
+    """bnb int8: ``w = q * SCB[row] / 127``. The per-output-row scale becomes a
+    whole-column (group == K) scale in the K-major layout."""
+    n_out, k_in = weight_i8.shape
+    scale = (scb.astype(np.float32) / 127.0).reshape(1, n_out)
+    return QuantizedTensor(
+        packed=torch.from_numpy(np.ascontiguousarray(weight_i8.T)),
+        scale=torch.from_numpy(np.ascontiguousarray(scale)),
+        bias=None,
+        codebook=None,
+        kind="int8",
+        bits=8,
+        group=k_in,
+        split=choose_split(k_in),
+        shape=(k_in, n_out),
+        out_dtype=out_dtype,
+    )

@@ -153,3 +153,89 @@ def quantize_q8_tile(w: np.ndarray, tile: int = SPLIT_MAX) -> QuantizedTensor:
         shape=(k, n),
         out_dtype="bfloat16",
     )
+
+
+def quantize_q4_0(w: np.ndarray) -> QuantizedTensor:
+    """GGUF Q4_0-equivalent: 32-wide groups, symmetric 4-bit, unsigned codes
+    ``floor(w / d + 8.5)`` with ``d = signed absmax / -8``; the ``-8 d``
+    offset is the bias plane."""
+    k, n = w.shape
+    g = 32
+    wf = w.astype(np.float32).reshape(k // g, g, n)
+    absmax_idx = np.abs(wf).argmax(axis=1, keepdims=True)
+    maxval = np.take_along_axis(wf, absmax_idx, axis=1)  # signed value at absmax
+    d = maxval / -8.0
+    inv_d = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 0.0)
+    q = np.clip(np.floor(wf * inv_d + 8.5), 0, 15).astype(np.uint8).reshape(k, n)
+    split = choose_split(k)
+    return QuantizedTensor(
+        packed=torch.from_numpy(pack4(q, split)),
+        scale=torch.from_numpy(d.reshape(k // g, n).astype(np.float32)),
+        bias=torch.from_numpy((d.reshape(k // g, n) * -8.0).astype(np.float32)),
+        codebook=None,
+        kind="q4_0",
+        bits=4,
+        group=g,
+        split=split,
+        shape=(k, n),
+        out_dtype="bfloat16",
+    )
+
+
+def quantize_q8_0(w: np.ndarray) -> QuantizedTensor:
+    """GGUF Q8_0-equivalent: 32-wide groups, symmetric int8."""
+    k, n = w.shape
+    g = 32
+    wf = w.astype(np.float32).reshape(k // g, g, n)
+    amax = np.abs(wf).max(axis=1, keepdims=True)
+    d = amax / 127.0
+    inv_d = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 0.0)
+    q = np.clip(np.round(wf * inv_d), -128, 127).astype(np.int8)
+    return QuantizedTensor(
+        packed=torch.from_numpy(q.reshape(k, n)),
+        scale=torch.from_numpy(d.reshape(k // g, n).astype(np.float32)),
+        bias=None,
+        codebook=None,
+        kind="q8_0",
+        bits=8,
+        group=g,
+        split=choose_split(k),
+        shape=(k, n),
+        out_dtype="bfloat16",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Column (N) slicing and concatenation: exact, every plane is per column
+# ---------------------------------------------------------------------------
+
+
+def slice_n(qt: QuantizedTensor, start: int, end: int) -> QuantizedTensor:
+    """Columns ``start:end`` of the OUT-feature axis (inverse of
+    :func:`concat_n`); used to swap the BFL final-AdaLN halves."""
+    return dataclasses.replace(
+        qt,
+        packed=qt.packed[..., start:end],
+        scale=qt.scale[..., start:end],
+        bias=None if qt.bias is None else qt.bias[..., start:end],
+        shape=tuple(qt.shape[:-1]) + (end - start,),
+    )
+
+
+def concat_n(tensors) -> QuantizedTensor:
+    """Concatenate canonical tensors along the OUT-feature (N) axis; all
+    quantization meta must agree."""
+    first = tensors[0]
+    for t in tensors[1:]:
+        if (t.kind, t.bits, t.group, t.split, t.k, t.out_dtype) != (
+                first.kind, first.bits, first.group, first.split, first.k,
+                first.out_dtype):
+            raise ValueError("concat_n requires identical quantization meta")
+    return dataclasses.replace(
+        first,
+        packed=torch.cat([t.packed for t in tensors], dim=-1),
+        scale=torch.cat([t.scale for t in tensors], dim=-1),
+        bias=(torch.cat([t.bias for t in tensors], dim=-1)
+              if first.bias is not None else None),
+        shape=(first.k, sum(t.n for t in tensors)),
+    )

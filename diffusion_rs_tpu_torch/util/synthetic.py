@@ -30,15 +30,41 @@ def _gen(seed: int, device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def _gguf_scales(gen, shape, base: float, device) -> torch.Tensor:
+    """Per-group scales around ``base``, rounded through f16 as GGUF stores
+    its block scales."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return (base * (0.5 + u)).half().float()
+
+
 def random_qtensor(gen: torch.Generator, k: int, n: int, kind: str = "nf4",
                    group: int = 64, stack: Optional[int] = None,
                    device="cuda") -> QuantizedTensor:
     """Random quantized ``[K, N]`` weight (optionally stacked ``[L, K, N]``)
     whose dequantized values have ~1/sqrt(K) scale. ``kind`` is "q8t"
-    (int8, one scale per K-tile) or a 4-bit codebook kind ("nf4")."""
+    (int8, one scale per K-tile), "q8_0" / "q4_0" (GGUF's 32-wide groups:
+    int8 codes, or unsigned 4-bit codes with bias = -8 * scale; f16-rounded
+    scales that differ per group) or a 4-bit codebook kind ("nf4")."""
     device = resolve_device(device)
     split = choose_split(k)
     lead = () if stack is None else (stack,)
+    if kind in ("q8_0", "q4_0"):
+        if k % 32:
+            raise ValueError(f"{kind} needs K % 32 == 0, got K={k}")
+        shape = lead + (k // 32, n)
+        if kind == "q8_0":
+            packed = torch.randint(-128, 128, lead + (k, n), generator=gen,
+                                   dtype=torch.int8, device=device)
+            scale = _gguf_scales(gen, shape, 2.0 * k ** -0.5 / 127.0, device)
+            bias, bits = None, 8
+        else:
+            packed = torch.randint(0, 256, lead + (k // 2, n), generator=gen,
+                                   dtype=torch.uint8, device=device)
+            scale = _gguf_scales(gen, shape, 2.0 * k ** -0.5 / 8.0, device)
+            bias, bits = scale * -8.0, 4
+        return QuantizedTensor(packed=packed, scale=scale, bias=bias, codebook=None,
+                               kind=kind, bits=bits, group=32, split=split,
+                               shape=(k, n), out_dtype="bfloat16")
     if kind == "q8t":
         g = min(256, k)
         while k % g:
@@ -68,8 +94,16 @@ def _normal(gen, shape, std, dtype, device):
 
 
 def init_flux_params_quantized(seed: int, cfg: FluxConfig, dtype=torch.bfloat16,
-                               kind: str = "q8t", device="cuda"):
-    """FLUX params with every linear quantized; norm scales ones, biases zeros."""
+                               kind: str = "q8t", device="cuda",
+                               layout: str = "diffusers"):
+    """FLUX params with every linear quantized; norm scales ones, biases zeros.
+
+    ``layout="diffusers"`` gives separate q/k/v (and proj_mlp) projections;
+    ``layout="bfl"`` gives the fused tree a BFL checkpoint loads into
+    (io/builders.py): ``qkv`` [H, 3H] in both attention streams and the
+    single blocks' ``qkv_mlp`` [H, 3H + mlp]."""
+    if layout not in ("diffusers", "bfl"):
+        raise ValueError(f"layout must be 'diffusers' or 'bfl', got {layout!r}")
     device = resolve_device(device)
     gen = _gen(seed, device)
     h, m, hd = cfg.hidden_size, cfg.mlp_size, cfg.head_dim
@@ -84,11 +118,19 @@ def init_flux_params_quantized(seed: int, cfg: FluxConfig, dtype=torch.bfloat16,
         return torch.ones(shape, dtype=dtype, device=device)
 
     def attn(stack):
-        return {"q": qlin(h, h, stack), "k": qlin(h, h, stack),
-                "v": qlin(h, h, stack), "proj": qlin(h, h, stack),
+        proj = ({"qkv": qlin(h, 3 * h, stack)} if layout == "bfl" else
+                {"q": qlin(h, h, stack), "k": qlin(h, h, stack), "v": qlin(h, h, stack)})
+        return {**proj, "proj": qlin(h, h, stack),
                 "q_norm": ones(stack, hd), "k_norm": ones(stack, hd)}
 
     L, S = cfg.num_layers, cfg.num_single_layers
+
+    def single_proj():
+        if layout == "bfl":
+            return {"qkv_mlp": qlin(h, 3 * h + m, S)}
+        return {"q": qlin(h, h, S), "k": qlin(h, h, S), "v": qlin(h, h, S),
+                "proj_mlp": qlin(h, m, S)}
+
     params = {
         "img_in": qlin(cfg.in_channels, h),
         "txt_in": qlin(cfg.joint_attention_dim, h),
@@ -103,9 +145,8 @@ def init_flux_params_quantized(seed: int, cfg: FluxConfig, dtype=torch.bfloat16,
             "txt_mlp": {"in": qlin(h, m, L), "out": qlin(m, h, L)},
         },
         "single": {
-            "q": qlin(h, h, S), "k": qlin(h, h, S), "v": qlin(h, h, S),
+            **single_proj(),
             "q_norm": ones(S, hd), "k_norm": ones(S, hd),
-            "proj_mlp": qlin(h, m, S),
             "linear2": qlin(h + m, h, S),
             "mod": qlin(h, 3 * h, S),
         },

@@ -7,13 +7,19 @@ the repo's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Shapes cover what chip_smoke.py does not: ragged M, K-tiles of 64, split
-128, ragged and unequal q/kv lengths, batch 2.
+128, ragged and unequal q/kv lengths, batch 2, every affine (GGUF, bnb int8)
+format through K4.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from diffusion_rs_tpu_torch.ops import _cuda, flash, qmatmul
+from diffusion_rs_tpu_torch.quant.bnb import bnb_int8_to_canonical
+from diffusion_rs_tpu_torch.quant.gguf_quants import (
+    ENCODERS, GGML_FORMATS, gguf_to_canonical)
+from diffusion_rs_tpu_torch.quant.qtensor import dequantize
 from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
 
 pytestmark = pytest.mark.cuda
@@ -30,6 +36,17 @@ def dev():
 def _summed_rel(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).abs().sum() / (b.abs().sum() + 1e-9))
+
+
+def _within_summation_order(y, ref, x, qt) -> bool:
+    """Every element within what two f32 summation orders of the same
+    products can give after the bf16 cast: one bf16 ulp (at most
+    max(|y|, |ref|) * 2^-7) plus 2 * K * 2^-24 * sum_k |x_k * w_k|. The
+    second term matters where the sum cancels to a small |y|."""
+    y, ref = y.float(), ref.float()
+    mag = x.float().abs() @ dequantize(qt, torch.float32).abs()
+    tol = torch.maximum(y.abs(), ref.abs()) * 2.0 ** -7 + mag * (2 * qt.k * 2.0 ** -24)
+    return bool(((y - ref).abs() <= tol).all())
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 768, 384), (200, 768, 384), (513, 64, 256),
@@ -60,6 +77,66 @@ def test_k2_matches_plain(dev, m, k, n):
     assert _summed_rel(y, ref) <= 2e-3
 
 
+def _affine_qtensor(fmt: str, k: int, n: int, seed: int):
+    """A canonical affine tensor on the host: GGUF blocks from the port's
+    encoders (Q8_K, which has none, from random blocks with a valid f32
+    scale), or bnb int8 from random codes and row scales."""
+    rng = np.random.default_rng(seed)
+    if fmt == "int8":
+        q = rng.integers(-127, 128, size=(n, k), dtype=np.int8)
+        scb = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+        return bnb_int8_to_canonical(q, scb)
+    if fmt == "q8_k":
+        f = GGML_FORMATS[fmt]
+        blocks = rng.integers(0, 256, size=(n * k // f.block_elems, f.block_bytes),
+                              dtype=np.uint8)
+        d = rng.uniform(1e-3, 2e-3, size=len(blocks)).astype(np.float32)
+        blocks[:, 0:4] = d[:, None].view(np.uint8)
+        return gguf_to_canonical(fmt, blocks.tobytes(), (n, k))
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+    return gguf_to_canonical(fmt, ENCODERS[fmt](w), (n, k))
+
+
+K4_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q2_k", "q3_k", "q4_k",
+              "q5_k", "q6_k", "q8_k", "int8"]
+
+
+@pytest.mark.parametrize("fmt", K4_FORMATS)
+@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (33, 512, 256), (130, 768, 384)])
+def test_k4_matches_plain(dev, fmt, m, k, n):
+    """Same decoded bf16 weight as the plain version, bit for bit; only the
+    f32 summation order differs: every element within that order's bound,
+    summed-rel band 1e-5."""
+    qt = _affine_qtensor(fmt, k, n, seed=m).map(lambda t: t.to(dev))
+    assert qt.codebook is None and qmatmul.supports(qt) and not qmatmul.q8t_ok(qt)
+    gen = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    before = _cuda.launch_counts()["qmm_affine"]
+    y = qmatmul.quantized_matmul(x, qt)
+    assert _cuda.launch_counts()["qmm_affine"] == before + 1
+    ref = qmatmul.qmm_dequant_plain(x, qt, torch.bfloat16)
+    assert torch.isfinite(y).all() and _within_summation_order(y, ref, x, qt)
+    assert _summed_rel(y, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("kind,m,k,n", [("q4_0", 513, 64, 256), ("q8_0", 513, 64, 256),
+                                        ("q4_0", 4, 3072, 128), ("q8_0", 1, 15360, 128)])
+def test_k4_synthetic_kinds_match_plain(dev, kind, m, k, n):
+    """The synthetic GGUF kinds of the main path, at its K extremes (img_in
+    K=64 with a single split-block run, linear2 K=15360). Every element
+    within the summation-order bound; summed-rel 1e-4, since at K=15360 the f32
+    summation order flips one output in ~100 by an ulp and N=128 outputs
+    leave no average (measured 1.6e-5 at M1 K15360 N128, NVIDIA H100 80GB
+    HBM3, 700 W)."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    qt = random_qtensor(gen, k, n, kind=kind, device=dev)
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    y = qmatmul.qmm_affine(x, qt, torch.bfloat16)
+    ref = qmatmul.qmm_dequant_plain(x, qt, torch.bfloat16)
+    assert _within_summation_order(y, ref, x, qt)
+    assert _summed_rel(y, ref) <= 1e-4
+
+
 @pytest.mark.parametrize("b,h,sq,skv", [(1, 3, 64, 64), (2, 2, 300, 300), (1, 2, 1, 130),
                                         (1, 1, 200, 65)])
 def test_k3_matches_plain(dev, b, h, sq, skv):
@@ -73,13 +150,16 @@ def test_k3_matches_plain(dev, b, h, sq, skv):
 
 
 def test_quantized_matmul_dispatch_on_card(dev):
-    """q8t and nf4 reach their kernels through ``quantized_matmul``; N=64
-    takes the dequantize + matmul fallback without a launch."""
+    """q8t, nf4 and the affine kinds reach their kernels through
+    ``quantized_matmul``; N=64 takes the dequantize + matmul fallback
+    without a launch."""
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((2, 5, 256), generator=gen, device=dev).bfloat16()
     _cuda.reset_launch_counts()
-    for kind in ("q8t", "nf4"):
+    for kind in ("q8t", "nf4", "q4_0", "q8_0"):
         y = qmatmul.quantized_matmul(x, random_qtensor(gen, 256, 128, kind=kind, device=dev))
         assert tuple(y.shape) == (2, 5, 128) and y.dtype == torch.bfloat16
-    qmatmul.quantized_matmul(x, random_qtensor(gen, 256, 64, kind="q8t", device=dev))
-    assert _cuda.launch_counts() == {"qmm_s8": 1, "qmm_nf4": 1, "flash_fwd": 0}
+    for kind in ("q8t", "q4_0"):
+        qmatmul.quantized_matmul(x, random_qtensor(gen, 256, 64, kind=kind, device=dev))
+    assert _cuda.launch_counts() == {"qmm_s8": 1, "qmm_nf4": 1, "qmm_affine": 2,
+                                     "flash_fwd": 0}

@@ -57,7 +57,26 @@ def test_port_import_leaves_jax_unloaded():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 20  # the walk reached every subpackage
+    # the walk reached every module, the loaders and the GGUF code included
+    assert int(r.stdout.split()[-1]) == len(_port_modules())
+
+
+def test_loader_import_loads_no_jax_or_ml_dtypes():
+    """The load path (loader, builders, GGUF/safetensors readers) imported
+    in a fresh interpreter loads neither jax, the JAX package, nor
+    ml_dtypes (bf16 is read through torch)."""
+    code = (
+        "import sys\n"
+        "import diffusion_rs_tpu_torch.pipelines.loader\n"
+        "import diffusion_rs_tpu_torch.pipelines.api\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'diffusion_rs_tpu', 'ml_dtypes')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_default_device_entry_points_raise_without_cuda():
@@ -69,11 +88,16 @@ def test_default_device_entry_points_raise_without_cuda():
     from diffusion_rs_tpu_torch.models.flux import FluxConfig
     from diffusion_rs_tpu_torch.models.t5 import T5Config
     from diffusion_rs_tpu_torch.models.vae import VAEConfig
+    from diffusion_rs_tpu_torch.io.varstore import VarStore
+    from diffusion_rs_tpu_torch.pipelines.api import ModelSource, Pipeline
+    from diffusion_rs_tpu_torch.pipelines.loader import load_flux_transformer, load_pipeline
     from diffusion_rs_tpu_torch.util import synthetic as syn
 
     gen = torch.Generator()
     calls = [
         lambda: syn.random_qtensor(gen, 256, 128),
+        lambda: syn.random_qtensor(gen, 256, 128, kind="q4_0"),
+        lambda: syn.init_flux_params_quantized(0, FluxConfig(), kind="q8_0", layout="bfl"),
         lambda: syn.init_flux_params_quantized(0, FluxConfig()),
         lambda: syn.init_t5_params_quantized(0, T5Config()),
         lambda: syn.init_clip_params(0, ClipTextConfig()),
@@ -84,6 +108,10 @@ def test_default_device_entry_points_raise_without_cuda():
                              clip_cfg=ClipTextConfig(), vae_params=None,
                              vae_cfg=VAEConfig(), scheduler=None, t5_tokenizer=None,
                              clip_tokenizer=None),
+        lambda: VarStore(),
+        lambda: load_pipeline(ModelSource.from_model_id(str(ROOT / "no-such-model"))),
+        lambda: Pipeline(ModelSource.from_model_id(str(ROOT / "no-such-model"))),
+        lambda: load_flux_transformer(ROOT / "no-such-file.gguf"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -100,12 +128,13 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "from diffusion_rs_tpu_torch.util.synthetic import random_qtensor\n"
         "g = torch.Generator().manual_seed(0)\n"
         "x = torch.randn(3, 256, generator=g)\n"
-        "for kind in ('q8t', 'nf4'):\n"
+        "for kind in ('q8t', 'nf4', 'q4_0', 'q8_0'):\n"
         "    qmatmul.quantized_matmul(x, random_qtensor(g, 256, 128, kind=kind, device='cpu'))\n"
         "q = torch.randn(1, 1, 5, 128, generator=g)\n"
         "flash.flash_attention(q, q, q, out_seqmajor=True)\n"
         "assert not _cuda.BUILD_DIR.exists(), _cuda.BUILD_DIR\n"
-        "assert _cuda.launch_counts() == {'qmm_s8': 0, 'qmm_nf4': 0, 'flash_fwd': 0}\n"
+        "assert _cuda.launch_counts() == {'qmm_s8': 0, 'qmm_nf4': 0, 'qmm_affine': 0,\n"
+        "                                 'flash_fwd': 0}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"
@@ -137,7 +166,8 @@ def test_cuda_path_has_no_fallback():
     q = torch.zeros((1, 1, 8, 128), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention(q, q, q, out_seqmajor=True)
+    # an affine format (GGUF q4_0) takes K4, whose wrapper raises off the card
     q4 = dataclasses.replace(qt, packed=torch.zeros((128, 128), dtype=torch.uint8),
                              bias=torch.zeros((1, 128)), kind="q4_0", bits=4)
-    with pytest.raises(NotImplementedError, match="q4_0"):
+    with pytest.raises(ValueError, match="CUDA"):
         qmatmul.quantized_matmul(x, q4)

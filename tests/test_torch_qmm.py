@@ -156,9 +156,10 @@ def test_linear_dense_and_lora_match_jax(rng):
 
 
 def test_affine_format_plain_version_matches_jax(rng):
-    """Affine formats (q4_0) have no CUDA kernel yet; on the CPU they run
-    the plain dequantizing version (tests/test_torch_guard.py checks that a
-    non-CPU tensor raises instead)."""
+    """Affine formats (q4_0) take K4 (csrc/qmm_affine.cu); on the CPU they
+    run its plain dequantizing version (tests/test_torch_gguf.py holds every
+    format; tests/test_torch_guard.py checks that a non-CPU tensor never
+    takes the plain version)."""
     w = (rng.standard_normal((512, 256)) * 0.05).astype(np.float32)
     jqt = jq.quantize_q4_0(w)
     x = rng.standard_normal((4, 512)).astype(np.float32)
