@@ -9,9 +9,16 @@ Phases, each fatal on failure (non-zero exit, no final line):
    versions; build every CUDA kernel from ``diffusion_rs_tpu_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card at its
    main-path shapes (error, kernel ms, plain ms, bound ms, library ms); the
-   affine kernel (K4) also, untimed, for Q6_K, Q4_K and bnb int8;
+   affine kernel (K4) also, untimed, for Q6_K, Q4_K and bnb int8; the
+   seq-major flash kernels (K6, K7) at B1 H24 S4608 and the ragged S4112,
+   K7 also against K6 on plain-rotated q/k (max-abs 0); the grouped kernel
+   (K8: s8, Q8_0 and Q4_0) at the grouped double-block shapes (M 4096 +
+   512), each group also against its own K1/K4 launch (max-abs 0);
 3. a tiny-config image on the card against the same image through the plain
-   versions on the CPU (same weights, same noise);
+   versions on the CPU (same weights, same noise): the default layout, and
+   every stream fused and grouped (``fuse="img,txt,single,t5,grouped"``)
+   with DIFFUSION_RS_TPU_FUSED_ROPE=1, under each of the ``inkernel`` and
+   ``seqmajor`` attention layouts;
 4. the full-width FLUX.1-dev q8t path (19+38 blocks, hidden 3072) with
    T5-XXL nf4, CLIP-L bf16 and the VAE: one 1024x1024 image, batch 1,
    ``--steps`` denoise steps (default 4; the shapes are the 28-step run's),
@@ -27,7 +34,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
 7. the full-depth FLUX.1-dev GGUF paths, Q8_0 then Q4_0 in the BFL layout
    (fused qkv / linear1), encoders shared with phase 4: a 1-step warm-up,
    then one timed ``--steps``-step 1024x1024 image each, with exact launch
-   counters, and a profiled 1-step image each as in phase 5.
+   counters, and a profiled 1-step image each as in phase 5;
+8. config A: phase 4's q8t weights (same seed) through the loader's layout
+   transform with every stream fused and grouped and
+   DIFFUSION_RS_TPU_FUSED_ROPE=1, attention layout ``inkernel`` (K1, K8-s8, K7, and K2 on the fused T5),
+   run as phase 7 runs its images; its latent is held against phase 4's;
+9. config B: phase 7's Q4_0 weights (BFL layout, same seed) with
+   ``fuse="grouped"`` and DIFFUSION_RS_TPU_FUSED_ROPE=1, attention layout
+   ``seqmajor`` (K4, K8-affine, K6; config A's fused T5), run likewise; its
+   latent is held against phase 7's Q4_0 latent.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 at once.
@@ -36,9 +51,11 @@ The last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -46,17 +63,60 @@ import time
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12    # H100 SXM float32 rate outside the tensor cores
 
 # summed-relative error bands; K4 decodes the same bf16 weight as its plain
-# version bit for bit, so only the f32 summation order differs
+# version bit for bit, so only the f32 summation order differs. That order
+# moves more outputs by a bf16 ulp as K grows: at K > 3072 (K8's mlp-out
+# shape, K=12288) K4 and K8 are held to 1e-4 and to every element's
+# summation-order bound, as tests/test_torch_cuda.py holds K4 at K=15360.
 K1_TOL, K2_TOL, K3_TOL, K4_TOL = 1e-5, 2e-3, 5e-4, 1e-5
+K4_TOL_LONG_K = 1e-4
 GGUF_KINDS = ("q8_0", "q4_0")
+# The double blocks' grouped (K, N): qkv, proj, mlp in, mlp out; img M 4096
+# and txt M 512 at 1024x1024. The mlp-in shape is the one timed.
+GROUPED_SHAPES = ((3072, 9216), (3072, 3072), (3072, 12288), (12288, 3072))
+GROUPED_MS = (4096, 512)
+GROUPED_TIMED = (3072, 12288)
+# Every stream fused, plus grouped. Not "all,grouped": the loader resolves
+# fuse= as the JAX package does, where "all" stands for every stream only on
+# its own, so "all,grouped" fuses just the img and txt streams.
+FUSE_ALL_GROUPED = "img,txt,single,t5,grouped"
+
+
+@contextlib.contextmanager
+def env(**kv):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def summed_rel(a, b) -> float:
     a = a.float()
     b = b.float()
     return float((a - b).abs().sum() / ((b.abs().sum()) + 1e-9))
+
+
+def within_summation_order(y, ref, x, qt) -> bool:
+    """Every element within what two f32 summation orders of the same
+    products can give after the bf16 cast: one bf16 ulp plus
+    2 K 2^-24 sum_k |x_k w_k| (tests/test_torch_cuda.py)."""
+    import torch
+
+    from diffusion_rs_tpu_torch.quant import dequantize
+
+    y, ref = y.float(), ref.float()
+    mag = x.float().abs() @ dequantize(qt, torch.float32).abs()
+    tol = torch.maximum(y.abs(), ref.abs()) * 2.0 ** -7 + mag * (2 * qt.k * 2.0 ** -24)
+    return bool(((y - ref).abs() <= tol).all())
 
 
 def cuda_ms(fn, n_sets: int, iters: int = 24, warmup: int = 3) -> float:
@@ -77,8 +137,10 @@ def cuda_ms(fn, n_sets: int, iters: int = 24, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(ops: float, peak_ops: float, nbytes: float):
-    t_ops = ops / peak_ops * 1e3
+def bound(ops: float, peak_ops: float, nbytes: float, extra_ops_ms: float = 0.0):
+    """Least time (ms) for ``ops`` at ``peak_ops`` (plus ``extra_ops_ms`` of
+    work at another rate) or ``nbytes`` at the memory rate, and which bounds."""
+    t_ops = ops / peak_ops * 1e3 + extra_ops_ms
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -199,6 +261,156 @@ def check_flash(s_q: int, gen):
                 library_ms=lib_ms)
 
 
+def flux_tables(s: int):
+    """Expanded RoPE tables [1, s, 128] of FLUX positions on the card: s -
+    4096 text rows at 0, then the 64x64 latent grid of a 1024x1024 image."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops.rope import expand_rope_tables, rope_tables
+
+    r = torch.arange(4096, device="cuda")
+    img = torch.stack([torch.zeros_like(r), r // 64, r % 64], -1).float()
+    ids = torch.cat([torch.zeros((s - 4096, 3), device="cuda"), img])[None]
+    return expand_rope_tables(*rope_tables(ids, (16, 56, 56)))
+
+
+def check_flash_seqmajor(s_q: int, gen, rope: bool):
+    """K6 (``rope=False``) or K7 against its plain version on seq-major
+    [1, S, 24*128] operands; K7 also against K6 on plain-rotated q/k, which
+    must agree bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_rs_tpu_torch.ops import flash
+
+    b, h, d = 1, 24, 128
+    q, k, v = (torch.randn((b, s_q, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    ce, se = flux_tables(s_q)
+    qr = flash.rope_halfsplit_seqmajor(q, ce, se, d)
+    kr = flash.rope_halfsplit_seqmajor(k, ce, se, d)
+
+    def heads(t):
+        return t.view(b, s_q, h, d).transpose(1, 2)
+
+    if rope:
+        def kern():
+            return flash.flash_rope(q, k, v, ce, se, ce, se, scale)
+
+        def plain():
+            return flash.flash_rope_plain(q, k, v, ce, se, ce, se, d, scale)
+
+        lib_args = (heads(qr), heads(kr), heads(v))  # rotation excluded
+    else:
+        def kern():
+            return flash.flash_sm(q, k, v, scale)
+
+        def plain():
+            return flash.flash_sm_plain(q, k, v, d, scale)
+
+        lib_args = (heads(q), heads(k), heads(v))
+    y = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = summed_rel(y, ref)
+    max_abs = float((y.float() - ref.float()).abs().max())
+    name = "flash_rope" if rope else "flash_sm"
+    if not (err <= K3_TOL) or not torch.isfinite(y).all():
+        raise SystemExit(f"{name} disagrees with its plain version at S={s_q}: "
+                         f"summed-rel {err:.3e} > {K3_TOL:g}")
+    row = dict(shape=f"B{b} H{h} S{s_q} D{d}", summed_rel=err, max_abs_err=max_abs)
+    if rope:
+        k6 = flash.flash_sm(qr, kr, v, scale)
+        row["vs_k6_max_abs"] = float((y.float() - k6.float()).abs().max())
+        if row["vs_k6_max_abs"] != 0.0:
+            raise SystemExit(f"flash_rope differs from flash_sm on plain-rotated q/k at "
+                             f"S={s_q}: max-abs {row['vs_k6_max_abs']:.3e}")
+    row["ms"] = cuda_ms(lambda i: kern(), 1)
+    row["plain_ms"] = cuda_ms(lambda i: plain(), 1, iters=3, warmup=1)
+    row["library_ms"] = cuda_ms(lambda i: F.scaled_dot_product_attention(*lib_args), 1)
+    ops = 4.0 * b * h * s_q * s_q * d
+    nbytes = 4 * b * s_q * h * d * 2
+    rot_ms = 0.0
+    if rope:  # the tables, and 3 f32 operations per rotated q and k element
+        nbytes += 2 * b * s_q * d * 4
+        rot_ms = 2 * 3.0 * b * s_q * h * d / PEAK_F32_FLOPS * 1e3
+    row["bound_ms"], row["bound_by"] = bound(ops, PEAK_BF16_FLOPS, nbytes, rot_ms)
+    return row
+
+
+def check_grouped(kind: str, gen):
+    """K8 at the grouped double-block shapes (img M 4096 + txt M 512): each
+    group equal to its own K1 (q8t) or K4 (q8_0, q4_0) launch bit for bit,
+    and within the K1/K4 band of the plain version; timed at the mlp-in
+    shape, with weights rotated through >100 MB of copies."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import qmatmul
+    from diffusion_rs_tpu_torch.quant import dequantize
+    from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
+
+    s8 = kind == "q8t"
+    grouped = qmatmul.qmm_grouped_s8 if s8 else qmatmul.qmm_grouped_affine
+    single = qmatmul.qmm_s8 if s8 else qmatmul.qmm_affine
+    bf16 = torch.bfloat16
+
+    def weights(k, n):
+        qts = [random_qtensor(gen, k, n, kind=kind, device="cuda") for _ in GROUPED_MS]
+        if s8:  # per-(tile, column) scales that differ
+            for qt in qts:
+                qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
+        return qts
+
+    rows = []
+    for k, n in GROUPED_SHAPES:
+        qts = weights(k, n)
+        xs = [torch.randn((m, k), generator=gen, device="cuda").to(bf16) for m in GROUPED_MS]
+        if qmatmul.grouped_plan(qts) != ("s8" if s8 else "affine"):
+            raise SystemExit(f"{kind} grouped plan {qmatmul.grouped_plan(qts)}")
+        ys = grouped(xs, qts, bf16)
+        torch.cuda.synchronize()
+        vs_single = max(float((y.float() - single(x, qt, bf16).float()).abs().max())
+                        for x, qt, y in zip(xs, qts, ys))
+        refs = qmatmul.qmm_grouped_plain(xs, qts, bf16)
+        err = summed_rel(torch.cat(ys), torch.cat(refs))
+        max_abs = max(float((y.float() - r.float()).abs().max()) for y, r in zip(ys, refs))
+        row = dict(shape=f"M{'+'.join(map(str, GROUPED_MS))} K{k} N{n} {kind}",
+                   summed_rel=err, max_abs_err=max_abs, vs_single_max_abs=vs_single)
+        if vs_single != 0.0:
+            raise SystemExit(f"grouped {kind} at K={k} N={n} differs from its per-group "
+                             f"launches: max-abs {vs_single:.3e}")
+        tol = K1_TOL if s8 else (K4_TOL if k <= 3072 else K4_TOL_LONG_K)
+        ok = err <= tol and all(torch.isfinite(y).all() for y in ys)
+        if not s8:
+            ok = ok and all(within_summation_order(y, r, x, qt)
+                            for x, qt, y, r in zip(xs, qts, ys, refs))
+        if not ok:
+            raise SystemExit(f"grouped {kind} disagrees with its plain version at K={k} "
+                             f"N={n}: summed-rel {err:.3e} (band {tol:g}), max-abs "
+                             f"{max_abs:.3e}")
+        if (k, n) == GROUPED_TIMED:
+            set_bytes = {"q8t": k * n * (1 + 4 / 256), "q8_0": k * n * (1 + 4 / 32),
+                         "q4_0": k * n * (0.5 + 8 / 32)}[kind]
+            n_sets = max(2, math.ceil(100e6 / (2 * set_bytes)))
+            sets = [qts] + [weights(k, n) for _ in range(n_sets - 1)]
+            deq = [[dequantize(qt, bf16) for qt in ws] for ws in sets]
+            row["ms"] = cuda_ms(lambda i: grouped(xs, sets[i], bf16), n_sets)
+            row["per_group_ms"] = cuda_ms(
+                lambda i: [single(x, qt, bf16) for x, qt in zip(xs, sets[i])], n_sets)
+            row["plain_ms"] = cuda_ms(lambda i: qmatmul.qmm_grouped_plain(xs, sets[i], bf16),
+                                      n_sets, iters=2, warmup=1)
+            row["library_ms"] = cuda_ms(  # two calls: one torch.matmul per group
+                lambda i: [torch.matmul(x, w) for x, w in zip(xs, deq[i])], n_sets)
+            m_tot = sum(GROUPED_MS)
+            nbytes = m_tot * k * 2 + 2 * set_bytes + m_tot * n * 2
+            row["bound_ms"], row["bound_by"] = bound(
+                2.0 * m_tot * k * n, PEAK_INT8_OPS if s8 else PEAK_BF16_FLOPS, nbytes)
+            del sets, deq
+        rows.append(row)
+    return rows
+
+
 def tiny_configs():
     from diffusion_rs_tpu_torch.models.clip import ClipTextConfig
     from diffusion_rs_tpu_torch.models.flux import FluxConfig
@@ -247,17 +459,29 @@ def make_pipeline(cfgs, params: dict, device: str):
     )
 
 
-def tiny_reference_check():
+def tiny_reference_check(attn_layout=None):
     """The port on the card (kernels) against the port on the CPU (plain
-    versions), same weights and noise, tiny config at 64x64, 2 steps."""
+    versions), same weights and noise, tiny config at 64x64, 2 steps. With
+    ``attn_layout``, both take the loader's layout transform with every
+    stream fused and grouped and DIFFUSION_RS_TPU_FUSED_ROPE=1, and attention
+    runs in that layout; the card run must launch the layout's kernels."""
     import numpy as np
     import torch
 
     from diffusion_rs_tpu_torch.io.tokenizer import tokenize_and_pad
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.pipelines.loader import apply_layout_options
     from diffusion_rs_tpu_torch.util.tree import tree_map
 
     cfgs = tiny_configs()
     params = make_params(cfgs, seed=11, device="cpu")
+    if attn_layout is not None:
+        with env(DIFFUSION_RS_TPU_FUSED_ROPE="1"):
+            flux, flux_cfg, t5 = apply_layout_options(
+                params["flux_params"], cfgs["flux_cfg"], params["t5_params"],
+                fuse=FUSE_ALL_GROUPED)
+        params = {**params, "flux_params": flux, "t5_params": t5}
+        cfgs = {**cfgs, "flux_cfg": flux_cfg}
     cpu = make_pipeline(cfgs, params, device="cpu")
     gpu = make_pipeline(cfgs, tree_map(lambda t: t.cuda(), params), device="cuda")
     prompts = ["a photo of a small cat"]
@@ -266,22 +490,34 @@ def tiny_reference_check():
     noise = torch.randn((1, 16, 8, 8), generator=torch.Generator().manual_seed(5))
     sig = cpu.scheduler.timesteps(2, mu=0.6)
     outs = {}
-    for name, pipe, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
-        txt, y = pipe._encode(t5_ids.to(dev), clip_ids.to(dev))
-        g = torch.full((1,), 3.5, device=dev)
-        lat = pipe._denoise(txt, y, sig, g, noise.to(dev))
-        img = pipe._decode(lat, 64, 64)
-        outs[name] = (lat.float().cpu(), img.cpu().numpy())
+    layout_env = {} if attn_layout is None else {"DIFFUSION_RS_TPU_ATTN_LAYOUT": attn_layout}
+    with env(**layout_env):
+        for name, pipe, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
+            _cuda.reset_launch_counts()
+            txt, y = pipe._encode(t5_ids.to(dev), clip_ids.to(dev))
+            g = torch.full((1,), 3.5, device=dev)
+            lat = pipe._denoise(txt, y, sig, g, noise.to(dev))
+            img = pipe._decode(lat, 64, 64)
+            outs[name] = (lat.float().cpu(), img.cpu().numpy())
+    counts = _cuda.launch_counts()
     lat_err = summed_rel(outs["gpu"][0], outs["cpu"][0])
     a = outs["gpu"][1].astype(np.float64)
     b = outs["cpu"][1].astype(np.float64)
     mse = float(np.mean((a - b) ** 2))
     psnr = float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
-    print(f"tiny reference: latent summed-rel {lat_err:.3e}, image PSNR {psnr:.1f} dB "
-          f"(card kernels vs CPU plain versions, bf16)")
+    label = ("default layout" if attn_layout is None else
+             f'fuse="{FUSE_ALL_GROUPED}", FUSED_ROPE=1, ATTN_LAYOUT={attn_layout}')
+    print(f"tiny reference ({label}): latent summed-rel {lat_err:.3e}, image PSNR "
+          f"{psnr:.1f} dB (card kernels vs CPU plain versions, bf16); card launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
     if not (lat_err <= 2e-2 and psnr >= 30.0):
         raise SystemExit("tiny reference check failed: the card's image does not "
                          "agree with the plain versions on the CPU")
+    if attn_layout is not None:
+        flash_kernel = {"inkernel": "flash_rope", "seqmajor": "flash_sm"}[attn_layout]
+        if not (counts[flash_kernel] > 0 and counts["qmm_grouped_s8"] > 0
+                and counts["flash_fwd"] == 0):
+            raise SystemExit(f"tiny {attn_layout} image did not run its kernels: {counts}")
     return lat_err, psnr
 
 
@@ -417,7 +653,8 @@ def gguf_round_trip(encoders, prompts):
     img = pipe.forward_arrays(prompts, DiffusionGenerationParams(
         height=1024, width=1024, num_steps=1, guidance_scale=3.5, seed=7))
     counts = _cuda.launch_counts()
-    want = {"qmm_s8": 0, "qmm_nf4": 168, "qmm_affine": 22, "flash_fwd": 2}
+    want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_nf4": 168, "qmm_affine": 22,
+            "flash_fwd": 2}
     print(f"gguf round trip: {size_mb:.1f} MB BFL Q4_0 file (1+1 blocks, hidden {h}) "
           f"written in {t_write:.1f} s, loaded in {t_load:.1f} s; config {cfg}; "
           f"{len(checks)} tensors equal to the host decode; 1-step image "
@@ -429,25 +666,15 @@ def gguf_round_trip(encoders, prompts):
         raise SystemExit(f"bad image: {img.dtype} {img.shape}")
 
 
-def gguf_image(kind: str, encoders, prompts, steps: int) -> dict:
-    """Phase 7: full-depth FLUX.1-dev in ``kind`` (BFL layout) at 1024x1024."""
+def timed_image(name: str, pipe, prompts, steps: int, want: dict, t_init: float):
+    """A 1-step warm-up, one timed ``steps``-step 1024x1024 image with exact
+    launch counts (reset just before it, read just after), then a profiled
+    1-step image. Returns the counts and the final latent."""
     import torch
 
     from diffusion_rs_tpu_torch import DiffusionGenerationParams
-    from diffusion_rs_tpu_torch.models.flux import FluxConfig
     from diffusion_rs_tpu_torch.ops import _cuda
-    from diffusion_rs_tpu_torch.util.synthetic import init_flux_params_quantized
 
-    cfg = FluxConfig()
-    gc.collect()  # the previous image's pipeline sits in a reference cycle
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_flux_params_quantized(1, cfg, kind=kind, layout="bfl", device="cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
-                         {**encoders["params"], "flux_params": params}, device="cuda")
     captured = {}
     denoise_stage = pipe._denoise
 
@@ -466,21 +693,96 @@ def gguf_image(kind: str, encoders, prompts, steps: int) -> dict:
     counts = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     tm = pipe.timings
-    want = {"qmm_s8": 0, "qmm_nf4": 168, "qmm_affine": 313 * steps, "flash_fwd": 57 * steps}
-    print(f"{kind} image {wall:.3f} s (weights made on the card in {t_init:.1f} s): encode "
+    want = {**dict.fromkeys(_cuda.KERNELS, 0), **want}
+    print(f"{name} image {wall:.3f} s (weights made on the card in {t_init:.1f} s): encode "
           f"{tm['encode_s'] * 1e3:.1f} ms, steps ms {[round(x * 1e3, 1) for x in tm['steps_s']]}, "
           f"decode {tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB")
-    print(f"{kind} launches {counts} (expected {want})")
+    print(f"{name} launches { {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
     lat = captured["latent"]
     if counts != want:
-        raise SystemExit(f"{kind} launch counts {counts} differ from the main path's {want}")
+        raise SystemExit(f"{name} launch counts {counts} differ from its path's {want}")
     if img.shape != (1, 1024, 1024, 3) or img.dtype.name != "uint8":
-        raise SystemExit(f"bad {kind} image: {img.dtype} {img.shape}")
+        raise SystemExit(f"bad {name} image: {img.dtype} {img.shape}")
     if tuple(lat.shape) != (1, 4096, 64) or not torch.isfinite(lat).all():
-        raise SystemExit(f"bad {kind} latent: {tuple(lat.shape)}, finite "
+        raise SystemExit(f"bad {name} latent: {tuple(lat.shape)}, finite "
                          f"{bool(torch.isfinite(lat).all())}")
     profile_image(pipe, prompts)
-    return counts
+    return counts, lat
+
+
+def gguf_image(kind: str, encoders, prompts, steps: int):
+    """Phase 7: full-depth FLUX.1-dev in ``kind`` (BFL layout) at 1024x1024."""
+    import torch
+
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.util.synthetic import init_flux_params_quantized
+
+    cfg = FluxConfig()
+    gc.collect()  # the previous image's pipeline sits in a reference cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_flux_params_quantized(1, cfg, kind=kind, layout="bfl", device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
+                         {**encoders["params"], "flux_params": params}, device="cuda")
+    want = {"qmm_nf4": 168, "qmm_affine": 313 * steps, "flash_fwd": 57 * steps}
+    return timed_image(kind, pipe, prompts, steps, want, t_init)
+
+
+# Phases 8-9: (name, weight kind, layout and seed as phase 4 / phase 7 made
+# them, fuse, attention layout, launches per step, launches per image).
+LAYOUT_CONFIGS = (
+    ("config A (q8t)", "q8t", "diffusers", 0, FUSE_ALL_GROUPED, "inkernel",
+     {"qmm_s8": 161, "qmm_grouped_s8": 76, "flash_rope": 57}, {"qmm_nf4": 96}),
+    ("config B (Q4_0)", "q4_0", "bfl", 1, "grouped", "seqmajor",
+     {"qmm_affine": 161, "qmm_grouped_affine": 76, "flash_sm": 57}, {"qmm_nf4": 96}),
+)
+# bf16 latents of the same weights and noise through another column order
+# (the half-split re-layout changes f32 summation orders); a wrong kernel
+# moves them by far more
+LAYOUT_LATENT_TOL = 0.1
+
+
+def layout_image(config, encoders, prompts, steps: int, ref_latent):
+    """Phases 8-9: full-depth FLUX.1-dev through the loader's layout
+    transform, at 1024x1024. Returns the counts, the fused T5 params and the
+    latent's summed-rel distance from ``ref_latent``."""
+    import torch
+
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.pipelines.loader import apply_layout_options
+    from diffusion_rs_tpu_torch.util.synthetic import init_flux_params_quantized
+
+    name, kind, layout, seed, fuse, attn, per_step, per_image = config
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_flux_params_quantized(seed, FluxConfig(), kind=kind, layout=layout,
+                                        device="cuda")
+    with env(DIFFUSION_RS_TPU_FUSED_ROPE="1"):
+        params, cfg, t5_params = apply_layout_options(
+            params, FluxConfig(), encoders["params"]["t5_params"], fuse=fuse)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    if not (cfg.rope_fused and cfg.grouped_qmm and "qkv" in t5_params["blocks"]["attn"]):
+        raise SystemExit(f"{name}: the layout transform did not apply ({cfg})")
+    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
+                         {**encoders["params"], "t5_params": t5_params,
+                          "flux_params": params}, device="cuda")
+    want = {**{k: v * steps for k, v in per_step.items()}, **per_image}
+    print(f"{name}: fuse={fuse!r}, DIFFUSION_RS_TPU_FUSED_ROPE=1, "
+          f"DIFFUSION_RS_TPU_ATTN_LAYOUT={attn}, fused T5")
+    with env(DIFFUSION_RS_TPU_ATTN_LAYOUT=attn):
+        counts, lat = timed_image(name, pipe, prompts, steps, want, t_init)
+    dist = summed_rel(lat, ref_latent)
+    print(f"{name} latent vs the same weights in the default layout: summed-rel {dist:.3e}")
+    if not dist <= LAYOUT_LATENT_TOL:
+        raise SystemExit(f"{name} latent is {dist:.3e} from the default layout's")
+    return counts, t5_params, dist
 
 
 def main() -> int:
@@ -521,19 +823,32 @@ def main() -> int:
         "qmm_affine": [check_qmm(kind, m, 3072, n, gen, K4_TOL)
                        for kind in GGUF_KINDS for m, n in ((1, 18432), (4608, 21504))],
         "flash_fwd": [check_flash(4608, gen), check_flash(4112, gen)],
+        "flash_sm": [check_flash_seqmajor(s_, gen, rope=False) for s_ in (4608, 4112)],
+        "flash_rope": [check_flash_seqmajor(s_, gen, rope=True) for s_ in (4608, 4112)],
+        "qmm_grouped_s8": check_grouped("q8t", gen),
+        "qmm_grouped_affine": check_grouped("q8_0", gen) + check_grouped("q4_0", gen),
     }
     for name, rows in checks.items():
         for r in rows:
-            print(f"kernel {name} {r['shape']}: summed-rel {r['summed_rel']:.3e} "
-                  f"max-abs {r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}), library {r['library_ms']:.4f} ms")
+            extra = "".join(f", {key} {r[key]:.3e}" for key in ("vs_k6_max_abs",
+                                                                "vs_single_max_abs")
+                            if key in r)
+            line = (f"kernel {name} {r['shape']}: summed-rel {r['summed_rel']:.3e} "
+                    f"max-abs {r['max_abs_err']:.3e}{extra}")
+            if "ms" in r:
+                line += (f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+                         f"{r['library_ms']:.4f} ms")
+            if "per_group_ms" in r:
+                line += f" (two calls), per-group K1/K4 launches {r['per_group_ms']:.4f} ms"
+            print(line)
     k4_formats = [check_affine_format(fmt, 33, 3072, 3072, gen)
                   for fmt in ("q6_k", "q4_k", "int8")]
     for r in k4_formats:
         print(f"kernel qmm_affine {r['shape']}: summed-rel {r['summed_rel']:.3e} "
               f"max-abs {r['max_abs_err']:.3e} (untimed)")
-    tiny_reference_check()
+    for attn_layout in (None, "inkernel", "seqmajor"):
+        tiny_reference_check(attn_layout)
 
     # -- the full-width main path ---------------------------------------------
     from diffusion_rs_tpu_torch import DiffusionGenerationParams
@@ -573,12 +888,13 @@ def main() -> int:
     counts = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     tm = pipe.timings
-    want = {"qmm_s8": 503 * args.steps, "qmm_nf4": 168, "qmm_affine": 0,
-            "flash_fwd": 57 * args.steps}
+    want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503 * args.steps,
+            "qmm_nf4": 168, "flash_fwd": 57 * args.steps}
     print(f"image {wall:.3f} s: encode {tm['encode_s'] * 1e3:.1f} ms, steps ms "
           f"{[round(s * 1e3, 1) for s in tm['steps_s']]}, decode "
           f"{tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB")
-    print(f"launches {counts} (expected {want})")
+    print(f"launches { {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
     lat = captured["latent"]
     if counts != want:
         raise SystemExit(f"launch counts {counts} differ from the main path's {want}")
@@ -596,24 +912,44 @@ def main() -> int:
                            "vae_params": pipe.vae_params}}
     gguf_round_trip(encoders, prompts)
     pipe.flux_params = None  # free the q8t transformer before the full-depth ones
-    gguf_counts = {kind: gguf_image(kind, encoders, prompts, args.steps)
-                   for kind in GGUF_KINDS}
-    counts["qmm_affine"] = gguf_counts["q4_0"]["qmm_affine"]
+    gguf = {kind: gguf_image(kind, encoders, prompts, args.steps) for kind in GGUF_KINDS}
+    counts["qmm_affine"] = gguf["q4_0"][0]["qmm_affine"]
+
+    # -- configs A and B: the load-time layout options at full depth ----------
+    refs = {"q8t": lat, "q4_0": gguf["q4_0"][1]}
+    del gguf
+    for config in LAYOUT_CONFIGS:
+        layout_counts, t5_fused, _ = layout_image(config, encoders, prompts, args.steps,
+                                                  refs[config[1]])
+        for name in config[6]:
+            if name not in ("qmm_s8", "qmm_affine"):
+                counts[name] = layout_counts[name]
+        # config B shares config A's fused T5
+        encoders = {**encoders, "params": {**encoders["params"], "t5_params": t5_fused}}
 
     src = "diffusion_rs_tpu_torch/csrc/"
-    replaces = {
-        "qmm_s8": "diffusion_rs_tpu/ops/qmatmul_pallas.py:378",
-        "qmm_nf4": "diffusion_rs_tpu/ops/qmatmul_pallas.py:378",
-        "qmm_affine": "diffusion_rs_tpu/ops/qmatmul_pallas.py:378",
-        "flash_fwd": "diffusion_rs_tpu/ops/flash_pallas.py:396",
+    qmm_pallas = "diffusion_rs_tpu/ops/qmatmul_pallas.py"
+    flash_pallas = "diffusion_rs_tpu/ops/flash_pallas.py"
+    # kernel -> (source, pallas_call it replaces, the timed row reported: the
+    # heaviest main-path shape; the last for K8-affine is config B's Q4_0)
+    sources = {
+        "qmm_s8": ("qmm_s8.cu", f"{qmm_pallas}:378", -1),
+        "qmm_nf4": ("qmm_nf4.cu", f"{qmm_pallas}:378", -1),
+        "qmm_affine": ("qmm_affine.cu", f"{qmm_pallas}:378", -1),
+        "flash_fwd": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
+        "flash_sm": ("flash_fwd.cu", f"{flash_pallas}:636", 0),
+        "flash_rope": ("flash_fwd.cu", f"{flash_pallas}:523", 0),
+        "qmm_grouped_s8": ("qmm_s8.cu", f"{qmm_pallas}:630", -1),
+        "qmm_grouped_affine": ("qmm_affine.cu", f"{qmm_pallas}:630", -1),
     }
     kernels = []
     for name, rows in checks.items():
-        r = rows[-1] if name != "flash_fwd" else rows[0]  # the heaviest main-path shape
+        source, replaces, which = sources[name]
+        r = [x for x in rows if "ms" in x][which]
         errs = rows + (k4_formats if name == "qmm_affine" else [])
         kernels.append({
-            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
-            "replaces": replaces[name], "launches": counts[name],
+            "name": name, "route": "cuda", "source": f"{src}{source}",
+            "replaces": replaces, "launches": counts[name],
             "max_abs_err": max(x["max_abs_err"] for x in errs),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

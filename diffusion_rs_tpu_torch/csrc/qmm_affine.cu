@@ -1,13 +1,22 @@
 // Affine quantized matmul: y[M, N] = x[M, K] @ deq(W)[K, N] with
 // deq(W)[k, n] = q[k, n] * scale[k / group, n] + bias[k / group, n].
 //
-// Replaces diffusion_rs_tpu/ops/qmatmul_pallas.py:_qmm_kernel, affine
-// branches: _dequant_tile with codebook=None and the f32 decode (:72-79,
-// :100-120), the scale planes of _tile_scale_plane (:180-187), reached
-// through _qmm_call -> pl.pallas_call (:378). Every GGUF format and bnb int8
-// land here: 4-bit carriers (Q4_0/Q4_1/Q2_K/Q3_K/Q4_K, unsigned codes
-// 0..15 in split-block nibbles, any offset folded into the bias) and int8
-// carriers (Q5_x/Q6_K/Q8_0/Q8_K, bnb int8 with group = K).
+// K4 qmm_affine: replaces diffusion_rs_tpu/ops/qmatmul_pallas.py:_qmm_kernel,
+// affine branches: _dequant_tile with codebook=None and the f32 decode
+// (:72-79, :100-120), the scale planes of _tile_scale_plane (:180-187),
+// reached through _qmm_call -> pl.pallas_call (:378). Every GGUF format and
+// bnb int8 land here: 4-bit carriers (Q4_0/Q4_1/Q2_K/Q3_K/Q4_K, unsigned
+// codes 0..15 in split-block nibbles, any offset folded into the bias) and
+// int8 carriers (Q5_x/Q6_K/Q8_0/Q8_K, bnb int8 with group = K).
+// K8 qmm_grouped_affine: replaces the dequantizing branch of
+// _qmm_grouped_kernel (:515) for these formats, reached through
+// _qmm_grouped_call -> pl.pallas_call (:630): up to eight products of one
+// [K, N] format in one launch. The kernel takes a group table by value
+// {x, packed, scale, bias, out, m, tile0}; the grid runs over the sum of the
+// groups' m-tiles, a block finds its group from the tile prefix sums, and
+// each group's m-tiles start at its own row 0, so a group's output is K4's
+// output for that group bit for bit. K4 is the table of one group. Nothing
+// is stacked or copied per call.
 //
 // Math, bit for bit the plain version's decoded weight: w = q * s in f32
 // (__fmul_rn), then w + b (__fadd_rn; the two stay separate roundings, as in
@@ -67,13 +76,40 @@ __device__ __forceinline__ uint2 decode4(const float* q, const float4 s, const f
   return make_uint2(pack_bf16x2(w[0], w[1]), pack_bf16x2(w[2], w[3]));
 }
 
+constexpr int MAX_GROUPS = 8;
+
+// One product of a call: x [m, K], the planes of its [K, N] weight, output
+// [m, N]; tile0 is where its m-tiles start in the call's grid.
+struct Group {
+  const __nv_bfloat16* x;
+  const uint8_t* packed;
+  const float* scale;
+  const float* bias;
+  __nv_bfloat16* out;
+  int m, tile0;
+};
+
+struct Table {
+  Group g[MAX_GROUPS];
+  int count;
+};
+
 template <int BITS, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS)
-qmm_affine_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                  const float* __restrict__ scale, const float* __restrict__ bias,
-                  __nv_bfloat16* __restrict__ out, int M, int K, int N, int split,
-                  int group) {
+qmm_affine_kernel(const Table tab, int K, int N, int split, int group) {
   using L = Layout<BITS>;
+  // This block's group: the last one whose m-tiles start at or before it.
+  const int tile = blockIdx.y;
+  Group G = tab.g[0];
+#pragma unroll
+  for (int i = 1; i < MAX_GROUPS; ++i)
+    if (i < tab.count && tile >= tab.g[i].tile0) G = tab.g[i];
+  const __nv_bfloat16* __restrict__ x = G.x;
+  const uint8_t* __restrict__ packed = G.packed;
+  const float* __restrict__ scale = G.scale;
+  const float* __restrict__ bias = G.bias;
+  __nv_bfloat16* __restrict__ out = G.out;
+  const int M = G.m;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);               // [2][BM][A_STRIDE]
   uint8_t* Ps = smem + 2 * A_ELEMS * sizeof(__nv_bfloat16);                   // [2][P_ROWS][BN]
@@ -86,7 +122,7 @@ qmm_affine_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
   const int wn = warp & 3;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = (tile - G.tile0) * BM;
   const int n0 = blockIdx.x * BN;
   // 4-bit: a stage is 32 packed rows = k-rows k_lo..k_lo+31 (low nibbles)
   // and k_lo+half..k_lo+half+31 (high nibbles) of one split-block run.
@@ -229,8 +265,8 @@ qmm_affine_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
 }
 
 template <int BITS, bool HAS_BIAS>
-int launch(const void* x, const void* packed, const void* scale, const void* bias, void* out,
-           int M, int K, int N, int split, int group, cudaStream_t stream) {
+int launch(const Table& tab, int tiles, int K, int N, int split, int group,
+           cudaStream_t stream) {
   constexpr size_t smem = Layout<BITS>::SMEM_BYTES;
   static bool attr_set = false;
   if (!attr_set) {
@@ -240,32 +276,68 @@ int launch(const void* x, const void* packed, const void* scale, const void* bia
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  qmm_affine_kernel<BITS, HAS_BIAS><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), M, K, N, split, group);
+  dim3 grid(N / BN, tiles);
+  qmm_affine_kernel<BITS, HAS_BIAS><<<grid, THREADS, smem, stream>>>(tab, K, N, split, group);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Fills the tile offsets and launches the instantiation for (bits, bias).
+int run(Table& tab, int K, int N, int bits, int split, int group, bool has_bias,
+        cudaStream_t st) {
+  int tiles = 0;
+  for (int i = 0; i < tab.count; ++i) {
+    tab.g[i].tile0 = tiles;
+    tiles += (tab.g[i].m + BM - 1) / BM;
+  }
+  if (tiles == 0) return 0;
+  if (bits == 4) {
+    return has_bias ? launch<4, true>(tab, tiles, K, N, split, group, st)
+                    : launch<4, false>(tab, tiles, K, N, split, group, st);
+  }
+  if (bits == 8) {
+    return has_bias ? launch<8, true>(tab, tiles, K, N, split, group, st)
+                    : launch<8, false>(tab, tiles, K, N, split, group, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// x bf16 [M, K]; packed u8 [K/2, N] (bits 4, split-block nibbles) or int8
-// [K, N] (bits 8); scale f32 [K/group, N]; bias f32 [K/group, N] or null;
-// out bf16 [M, N]. Needs K % 64 == 0, N % 128 == 0, K % group == 0 and, for
-// bits 4, split % 64 == 0 and K % split == 0. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a bits value other than 4 or 8.
+// K4. x bf16 [M, K]; packed u8 [K/2, N] (bits 4, split-block nibbles) or
+// int8 [K, N] (bits 8); scale f32 [K/group, N]; bias f32 [K/group, N] or
+// null; out bf16 [M, N]. Needs K % 64 == 0, N % 128 == 0, K % group == 0
+// and, for bits 4, split % 64 == 0 and K % split == 0. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a bits value other than
+// 4 or 8.
 extern "C" int qmm_affine(const void* x, const void* packed, const void* scale,
                           const void* bias, void* out, int M, int K, int N, int bits,
                           int split, int group, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 4) {
-    return bias ? launch<4, true>(x, packed, scale, bias, out, M, K, N, split, group, st)
-                : launch<4, false>(x, packed, scale, bias, out, M, K, N, split, group, st);
+  Table tab{};
+  tab.count = 1;
+  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+              static_cast<const float*>(scale), static_cast<const float*>(bias),
+              static_cast<__nv_bfloat16*>(out), M, 0};
+  return run(tab, K, N, bits, split, group, bias != nullptr,
+             static_cast<cudaStream_t>(stream));
+}
+
+// K8, affine branch. table: G rows of 6 int64 {x, packed, scale, bias, out,
+// m}, each group as K4's arguments, all of one K, N, bits, split and group,
+// with a bias plane in every group (has_bias 1) or in none (0; bias 0).
+// 1 <= G <= 8. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// bad G or bits value.
+extern "C" int qmm_grouped_affine(const long long* table, int G, int K, int N, int bits,
+                                  int split, int group, int has_bias, void* stream) {
+  if (G < 1 || G > MAX_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
+  Table tab{};
+  tab.count = G;
+  for (int i = 0; i < G; ++i) {
+    const long long* r = table + 6 * i;
+    tab.g[i] = {reinterpret_cast<const __nv_bfloat16*>(r[0]),
+                reinterpret_cast<const uint8_t*>(r[1]), reinterpret_cast<const float*>(r[2]),
+                reinterpret_cast<const float*>(r[3]), reinterpret_cast<__nv_bfloat16*>(r[4]),
+                static_cast<int>(r[5]), 0};
   }
-  if (bits == 8) {
-    return bias ? launch<8, true>(x, packed, scale, bias, out, M, K, N, split, group, st)
-                : launch<8, false>(x, packed, scale, bias, out, M, K, N, split, group, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(tab, K, N, bits, split, group, has_bias != 0,
+             static_cast<cudaStream_t>(stream));
 }

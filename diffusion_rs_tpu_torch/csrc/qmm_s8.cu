@@ -1,7 +1,17 @@
 // q8t quantized matmul: y[M, N] = x[M, K] @ deq(W)[K, N], bf16 in and out.
 //
-// Replaces diffusion_rs_tpu/ops/qmatmul_pallas.py:_qmm_kernel, s8 branch
-// (:134-151), reached through _qmm_call -> pl.pallas_call (:378).
+// K1 qmm_s8: replaces diffusion_rs_tpu/ops/qmatmul_pallas.py:_qmm_kernel,
+// s8 branch (:134-151), reached through _qmm_call -> pl.pallas_call (:378).
+// K8 qmm_grouped_s8: replaces the s8 branch of _qmm_grouped_kernel (:515),
+// reached through _qmm_grouped_call -> pl.pallas_call (:630): up to eight
+// products of one [K, N] q8t format (each group its own x, weight planes
+// and output) in one launch of each pass. Both passes take a group table by
+// value; a block (or a quantize warp) finds its group from the table's
+// prefix sums of rows and m-tiles, and each group's m-tiles start at its own
+// row 0, so a group's output is K1's output for that group bit for bit. K1
+// is the table of one group. Nothing is stacked or copied per call (the
+// Pallas call's jnp.stack of the weights and concatenation of padded
+// activations are TPU artefacts).
 //
 // Math (the Pallas kernel's, bit for bit): per row and per K-tile of
 // bk = min(256, K) columns, sx = max|x| / 127 (1 where the row is all zero),
@@ -36,19 +46,44 @@ constexpr int THREADS = 256;         // 8 warps: 2 (M) x 4 (N), 64x32 each
 constexpr int A_STRIDE = BK + 16;    // 80-byte rows: conflict-free ldmatrix
 constexpr int B_STRIDE = BN + 16;    // 144-byte rows, 16-byte aligned
 
-// One warp per (row, K-tile): sx and the int8 row segment.
-__global__ void quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                                     int8_t* __restrict__ xq,
-                                     float* __restrict__ sx,
-                                     int M, int K, int bk) {
+constexpr int MAX_GROUPS = 8;
+
+// One product of a call: activations x [m, K], their int8 copy xq and
+// scales sx (scratch), weight planes w [K, N] and scale [K/bk, N], output
+// [m, N]; row0 and tile0 are where its rows and m-tiles start in the call.
+struct Group {
+  const __nv_bfloat16* x;
+  int8_t* xq;
+  float* sx;
+  const int8_t* w;
+  const float* scale;
+  __nv_bfloat16* out;
+  int m, row0, tile0;
+};
+
+struct Table {
+  Group g[MAX_GROUPS];
+  int count;
+};
+
+// One warp per (row, K-tile) over all groups' rows: sx and the int8 row
+// segment.
+__global__ void quantize_rows_kernel(const Table tab, int rows, int K, int bk) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const int kts = K / bk;
-  if (warp >= M * kts) return;
-  const int row = warp / kts;
+  if (warp >= rows * kts) return;
+  const int grow = warp / kts;
+  Group G = tab.g[0];
+#pragma unroll
+  for (int i = 1; i < MAX_GROUPS; ++i)
+    if (i < tab.count && grow >= tab.g[i].row0) G = tab.g[i];
+  const int row = grow - G.row0;
   const int kt = warp % kts;
   const size_t off = (size_t)row * K + (size_t)kt * bk;
-  const __nv_bfloat16* xr = x + off;
+  const __nv_bfloat16* xr = G.x + off;
+  int8_t* xq = G.xq;
+  float* sx = G.sx;
   float ax = 0.f;
   for (int i = lane; i < bk; i += 32) ax = fmaxf(ax, fabsf(__bfloat162float(xr[i])));
 #pragma unroll
@@ -74,11 +109,22 @@ __device__ __forceinline__ void transpose4x4(const uint32_t* w, uint32_t* out) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-qmm_s8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-              const int8_t* __restrict__ w, const float* __restrict__ scale,
-              __nv_bfloat16* __restrict__ out, int M, int K, int N, int bk) {
+qmm_s8_kernel(const Table tab, int K, int N, int bk) {
   __shared__ __align__(16) int8_t As[2][BM * A_STRIDE];
   __shared__ __align__(16) int8_t Bs[2][BK * B_STRIDE];
+
+  // This block's group: the last one whose m-tiles start at or before it.
+  const int tile = blockIdx.y;
+  Group G = tab.g[0];
+#pragma unroll
+  for (int i = 1; i < MAX_GROUPS; ++i)
+    if (i < tab.count && tile >= tab.g[i].tile0) G = tab.g[i];
+  const int8_t* __restrict__ xq = G.xq;
+  const float* __restrict__ sx = G.sx;
+  const int8_t* __restrict__ w = G.w;
+  const float* __restrict__ scale = G.scale;
+  __nv_bfloat16* __restrict__ out = G.out;
+  const int M = G.m;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -87,7 +133,7 @@ qmm_s8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   const int wn = warp & 3;   // 32-column slab
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = (tile - G.tile0) * BM;
   const int n0 = blockIdx.x * BN;
   const int kts = K / bk;
   const int stages_per_tile = bk / BK;
@@ -214,25 +260,55 @@ qmm_s8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   }
 }
 
+// Both passes over a table whose row0/tile0 are filled in.
+int run(Table& tab, int K, int N, int bk, cudaStream_t st) {
+  int rows = 0, tiles = 0;
+  for (int i = 0; i < tab.count; ++i) {
+    tab.g[i].row0 = rows;
+    tab.g[i].tile0 = tiles;
+    rows += tab.g[i].m;
+    tiles += (tab.g[i].m + BM - 1) / BM;
+  }
+  if (rows == 0) return 0;
+  const int warps = rows * (K / bk);
+  quantize_rows_kernel<<<(warps + 7) / 8, 256, 0, st>>>(tab, rows, K, bk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(N / BN, tiles);
+  qmm_s8_kernel<<<grid, THREADS, 0, st>>>(tab, K, N, bk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x bf16 [M, K]; xq int8 [M, K] and sx f32 [M, K/bk] are scratch; w int8
-// [K, N]; scale f32 [K/bk, N]; out bf16 [M, N]. Needs K, bk % 64 == 0,
+// K1. x bf16 [M, K]; xq int8 [M, K] and sx f32 [M, K/bk] are scratch; w
+// int8 [K, N]; scale f32 [K/bk, N]; out bf16 [M, N]. Needs K, bk % 64 == 0,
 // K % bk == 0, N % 128 == 0. Returns cudaGetLastError().
 extern "C" int qmm_s8(const void* x, void* xq, void* sx, const void* w,
                       const void* scale, void* out, int M, int K, int N, int bk,
                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int groups = M * (K / bk);
-  quantize_rows_kernel<<<(groups + 7) / 8, 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
-      static_cast<float*>(sx), M, K, bk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  qmm_s8_kernel<<<grid, THREADS, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
-      static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out), M, K, N, bk);
-  return static_cast<int>(cudaGetLastError());
+  Table tab{};
+  tab.count = 1;
+  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
+              static_cast<float*>(sx), static_cast<const int8_t*>(w),
+              static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, 0, 0};
+  return run(tab, K, N, bk, static_cast<cudaStream_t>(stream));
+}
+
+// K8, s8 branch. table: G rows of 7 int64 {x, xq, sx, w, scale, out, m},
+// each group as K1's arguments, all of one K, N and bk. 1 <= G <= 8.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a bad G.
+extern "C" int qmm_grouped_s8(const long long* table, int G, int K, int N, int bk,
+                              void* stream) {
+  if (G < 1 || G > MAX_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
+  Table tab{};
+  tab.count = G;
+  for (int i = 0; i < G; ++i) {
+    const long long* r = table + 7 * i;
+    tab.g[i] = {reinterpret_cast<const __nv_bfloat16*>(r[0]), reinterpret_cast<int8_t*>(r[1]),
+                reinterpret_cast<float*>(r[2]), reinterpret_cast<const int8_t*>(r[3]),
+                reinterpret_cast<const float*>(r[4]), reinterpret_cast<__nv_bfloat16*>(r[5]),
+                static_cast<int>(r[6]), 0, 0};
+  }
+  return run(tab, K, N, bk, static_cast<cudaStream_t>(stream));
 }

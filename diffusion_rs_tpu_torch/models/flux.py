@@ -6,22 +6,29 @@ attention + MLP, 3-way AdaLN), timestep/guidance/pooled-vector embedders,
 3-axis RoPE and the AdaLN final layer. Blocks loop in Python over the stacked
 ``[L, ...]`` block params, taking per-layer views.
 
-Ported layouts: separate q/k/v projections (diffusers checkpoints) and the
-fused ``qkv`` / ``qkv_mlp`` projections that BFL checkpoints load into
-(io/builders.py); interleaved RoPE outside attention; attention output
-written head-merged by the flash kernel. Half-split RoPE and grouped calls
-come later.
+Layouts: separate q/k/v projections (diffusers checkpoints) or the fused
+``qkv`` / ``qkv_mlp`` projections that BFL checkpoints load into
+(io/builders.py) and models/optimize.fuse_flux_qkv makes; interleaved RoPE
+outside attention with the output written head-merged by the flash kernel;
+and the load-time options of the JAX package: ``rope_fused`` (half-split
+RoPE on q/k columns re-laid by models/optimize.rope_halfsplit_permute,
+attention on seq-major [B, S, H*D] operands, DIFFUSION_RS_TPU_ATTN_LAYOUT
+choosing the kernel per call) and ``grouped_qmm`` (each img/txt projection
+pair of a double block as one grouped launch).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops import apply_rope, layer_norm, linear, rms_norm, rope_tables, sdpa_merged
+from ..ops import (apply_rope, apply_rope_halfsplit, expand_rope_tables, layer_norm,
+                   linear, linear_grouped, rms_norm, rope_tables, sdpa_merged)
+from ..ops.flash import flash_attention_fused
 from ..ops.linear import Linear
 from ..util.tree import take_layer
 
@@ -41,6 +48,13 @@ class FluxConfig:
     mlp_ratio: float = 4.0
     axes_dim: Tuple[int, ...] = (16, 56, 56)
     theta: int = 10000
+    # Set by the loader, never read from config.json. rope_fused: the q/k
+    # projection columns were re-laid by models/optimize.
+    # rope_halfsplit_permute, so blocks run half-split RoPE and seq-major
+    # attention. grouped_qmm: double blocks run each img/txt projection
+    # pair as one grouped call (needs fused qkv in both streams).
+    rope_fused: bool = False
+    grouped_qmm: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -104,11 +118,14 @@ def _split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
     return t.reshape(b, s, n_heads, -1).transpose(1, 2)
 
 
-def _qkv(p: Params, x: torch.Tensor, n_heads: int):
+def _qkv(p: Params, x: torch.Tensor, n_heads: int, proj=None):
     """Project (one fused ``qkv`` linear, or q/k/v), split heads to
-    [B, H, S, D], QK-RMSNorm."""
-    if "qkv" in p:
-        qc, kc, vc = torch.chunk(linear(x, p["qkv"]), 3, dim=-1)
+    [B, H, S, D], QK-RMSNorm. ``proj`` is a fused q|k|v projection computed
+    already (the grouped path)."""
+    if proj is None and "qkv" in p:
+        proj = linear(x, p["qkv"])
+    if proj is not None:
+        qc, kc, vc = torch.chunk(proj, 3, dim=-1)
     else:
         qc, kc, vc = linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
     q = rms_norm(_split_heads(qc, n_heads), p["q_norm"])
@@ -124,8 +141,56 @@ def _joint_attention(q, k, v, cos, sin):
     return sdpa_merged(q.contiguous(), k.contiguous(), v.contiguous())
 
 
+def _norm_sm(t: torch.Tensor, scale: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Per-head RMSNorm of seq-major [B, S, H*D], without a head transpose."""
+    b, s, _ = t.shape
+    return rms_norm(t.reshape(b, s, n_heads, -1), scale).reshape(b, s, -1)
+
+
+def _qkv_sm(p: Params, x: torch.Tensor, n_heads: int, proj=None):
+    """Seq-major :func:`_qkv`: q/k/v stay [B, S, H*D] (the layout the
+    seq-major flash kernels read), q/k per-head RMS-normed."""
+    if proj is None and "qkv" in p:
+        proj = linear(x, p["qkv"])
+    if proj is not None:
+        qc, kc, vc = torch.chunk(proj, 3, dim=-1)
+    else:
+        qc, kc, vc = linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
+    return _norm_sm(qc, p["q_norm"], n_heads), _norm_sm(kc, p["k_norm"], n_heads), vc
+
+
+def _joint_attention_sm(q, k, v, ce, se, head_dim: int):
+    """Attention in the half-split RoPE convention on seq-major q/k/v
+    [B, S, H*D] with the expanded tables ce/se (ops/rope.expand_rope_tables);
+    needs params re-laid by models/optimize.rope_halfsplit_permute.
+
+    DIFFUSION_RS_TPU_ATTN_LAYOUT, read per call: ``seqmajor`` rotates q/k
+    outside and runs the seq-major kernel (K6); ``inkernel`` rotates inside
+    it (K7); ``bhsd`` (the default), or a head dim the fused kernels do not
+    take, rotates outside, splits heads and runs the [B, H, S, D] kernel
+    (K3)."""
+    layout = os.environ.get("DIFFUSION_RS_TPU_ATTN_LAYOUT", "bhsd")
+    if head_dim % 128 == 0 and layout in ("seqmajor", "inkernel"):
+        try:
+            return flash_attention_fused(q, k, v, ce, se, head_dim=head_dim)
+        except NotImplementedError:
+            pass
+    b, s, n = q.shape
+    h = n // head_dim
+    cos = ce[..., : head_dim // 2]
+    sin = se[..., head_dim // 2:]
+
+    def split(t):
+        return t.reshape(b, s, h, head_dim).transpose(1, 2)
+
+    qr = apply_rope_halfsplit(split(q), cos, sin)
+    kr = apply_rope_halfsplit(split(k), cos, sin)
+    return sdpa_merged(qr.contiguous(), kr.contiguous(), split(v).contiguous())
+
+
 def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
-    """Double-stream block; txt tokens lead in the joint sequence."""
+    """Double-stream block; txt tokens lead in the joint sequence. With
+    ``cfg.rope_fused``, (cos, sin) carry the expanded (ce, se) tables."""
     i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = _modulation(
         p["img_mod"], vec, 6)
     t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = _modulation(
@@ -134,14 +199,43 @@ def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
     img_mod = _scale_shift(layer_norm(img), i_shift1, i_scale1)
     txt_mod = _scale_shift(layer_norm(txt), t_shift1, t_scale1)
     heads = cfg.num_attention_heads
-    iq, ik, iv = _qkv(p["img_attn"], img_mod, heads)
-    tq, tk, tv = _qkv(p["txt_attn"], txt_mod, heads)
-    q = torch.cat([tq, iq], dim=2)
-    k = torch.cat([tk, ik], dim=2)
-    v = torch.cat([tv, iv], dim=2)
-    attn = _joint_attention(q, k, v, cos, sin)
+    # grouped path: each img/txt projection pair as one grouped call, the
+    # txt rows riding on the img call's grid; needs fused qkv in both streams
+    grouped = cfg.grouped_qmm and "qkv" in p["img_attn"] and "qkv" in p["txt_attn"]
+    if grouped:
+        i_proj, t_proj = linear_grouped(
+            [img_mod, txt_mod], [p["img_attn"]["qkv"], p["txt_attn"]["qkv"]])
+    else:
+        i_proj = t_proj = None
+    if cfg.rope_fused:
+        iq, ik, iv = _qkv_sm(p["img_attn"], img_mod, heads, proj=i_proj)
+        tq, tk, tv = _qkv_sm(p["txt_attn"], txt_mod, heads, proj=t_proj)
+        q = torch.cat([tq, iq], dim=1)
+        k = torch.cat([tk, ik], dim=1)
+        v = torch.cat([tv, iv], dim=1)
+        attn = _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim)
+    else:
+        iq, ik, iv = _qkv(p["img_attn"], img_mod, heads, proj=i_proj)
+        tq, tk, tv = _qkv(p["txt_attn"], txt_mod, heads, proj=t_proj)
+        q = torch.cat([tq, iq], dim=2)
+        k = torch.cat([tk, ik], dim=2)
+        v = torch.cat([tv, iv], dim=2)
+        attn = _joint_attention(q, k, v, cos, sin)
     txt_len = txt.shape[1]
     txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
+
+    if grouped:
+        i_p, t_p = linear_grouped([img_attn, txt_attn],
+                                  [p["img_attn"]["proj"], p["txt_attn"]["proj"]])
+        img = img + i_gate1 * i_p
+        txt = txt + t_gate1 * t_p
+        img_mlp_in = _scale_shift(layer_norm(img), i_shift2, i_scale2)
+        txt_mlp_in = _scale_shift(layer_norm(txt), t_shift2, t_scale2)
+        i_h, t_h = linear_grouped([img_mlp_in, txt_mlp_in],
+                                  [p["img_mlp"]["in"], p["txt_mlp"]["in"]])
+        img_mlp, txt_mlp = linear_grouped([_gelu(i_h), _gelu(t_h)],
+                                          [p["img_mlp"]["out"], p["txt_mlp"]["out"]])
+        return img + i_gate2 * img_mlp, txt + t_gate2 * txt_mlp
 
     img = img + i_gate1 * linear(img_attn, p["img_attn"]["proj"])
     img_mlp_in = _scale_shift(layer_norm(img), i_shift2, i_scale2)
@@ -157,22 +251,35 @@ def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
 
 def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
     """Single-stream block: a shared pre-norm feeds attention and the
-    parallel MLP; their outputs concatenate into one projection."""
+    parallel MLP; their outputs concatenate into one projection. With
+    ``cfg.rope_fused``, (cos, sin) carry the expanded (ce, se) tables."""
     shift, scale, gate = _modulation(p["mod"], vec, 3)
     x_mod = _scale_shift(layer_norm(x), shift, scale)
+    h = cfg.hidden_size
     heads = cfg.num_attention_heads
-    if "qkv_mlp" in p:
-        # fused q|k|v|mlp projection (BFL linear1)
-        h = cfg.hidden_size
-        fused = linear(x_mod, p["qkv_mlp"])
-        q = rms_norm(_split_heads(fused[..., 0:h], heads), p["q_norm"])
-        k = rms_norm(_split_heads(fused[..., h:2 * h], heads), p["k_norm"])
-        v = _split_heads(fused[..., 2 * h:3 * h], heads)
-        mlp = _gelu(fused[..., 3 * h:])
+    if cfg.rope_fused:
+        if "qkv_mlp" in p:
+            fused = linear(x_mod, p["qkv_mlp"])
+            q = _norm_sm(fused[..., 0:h], p["q_norm"], heads)
+            k = _norm_sm(fused[..., h:2 * h], p["k_norm"], heads)
+            v = fused[..., 2 * h:3 * h]
+            mlp = _gelu(fused[..., 3 * h:])
+        else:
+            q, k, v = _qkv_sm(p, x_mod, heads)
+            mlp = _gelu(linear(x_mod, p["proj_mlp"]))
+        attn = _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim)
     else:
-        q, k, v = _qkv(p, x_mod, heads)
-        mlp = _gelu(linear(x_mod, p["proj_mlp"]))
-    attn = _joint_attention(q, k, v, cos, sin)
+        if "qkv_mlp" in p:
+            # fused q|k|v|mlp projection (BFL linear1)
+            fused = linear(x_mod, p["qkv_mlp"])
+            q = rms_norm(_split_heads(fused[..., 0:h], heads), p["q_norm"])
+            k = rms_norm(_split_heads(fused[..., h:2 * h], heads), p["k_norm"])
+            v = _split_heads(fused[..., 2 * h:3 * h], heads)
+            mlp = _gelu(fused[..., 3 * h:])
+        else:
+            q, k, v = _qkv(p, x_mod, heads)
+            mlp = _gelu(linear(x_mod, p["proj_mlp"]))
+        attn = _joint_attention(q, k, v, cos, sin)
     out = linear(torch.cat([attn, mlp], dim=-1), p["linear2"])
     return x + gate * out
 
@@ -214,6 +321,9 @@ def flux_forward(params: Params, cfg: FluxConfig, img: torch.Tensor,
     if pe is None:
         pe = compute_pe(cfg, txt_ids, img_ids)
     cos, sin = pe
+    if cfg.rope_fused:
+        # expanded once; the blocks take (ce, se) through the (cos, sin) slots
+        cos, sin = expand_rope_tables(cos, sin)
     txt_h = linear(txt, params["txt_in"])
     img_h = linear(img, params["img_in"])
     vec = conditioning_vector(params, cfg, t, y, guidance, dtype)

@@ -1,7 +1,8 @@
 """T5 encoder (port of ``models/t5.py``): RMS-style layer norms with f32
 variance, gated gelu_new feed-forward, relative-position-bucket bias built
 once from the block-0 embedding, unscaled attention scores in f32, and the
-f16 overflow clamp."""
+f16 overflow clamp. Blocks take separate q/k/v and wi_0/wi_1 projections or
+the fused ``qkv`` / ``wi01`` ones of models/optimize.fuse_t5."""
 
 from __future__ import annotations
 
@@ -109,9 +110,12 @@ def t5_block(bp: Params, x: torch.Tensor, bias: torch.Tensor, cfg: T5Config):
         return t.reshape(b, s, h, dk).transpose(1, 2)
 
     normed = rms_norm(x, bp["attn_norm"], cfg.layer_norm_epsilon)
-    q = split(linear(normed, bp["attn"]["q"]))
-    k = split(linear(normed, bp["attn"]["k"]))
-    v = split(linear(normed, bp["attn"]["v"]))
+    if "qkv" in bp["attn"]:  # fused q|k|v (models/optimize.fuse_t5)
+        q, k, v = (split(t) for t in torch.chunk(linear(normed, bp["attn"]["qkv"]), 3, dim=-1))
+    else:
+        q = split(linear(normed, bp["attn"]["q"]))
+        k = split(linear(normed, bp["attn"]["k"]))
+        v = split(linear(normed, bp["attn"]["v"]))
     # T5 attention scores are unscaled (the 1/sqrt(d) is folded into weights).
     attn = sdpa(q, k, v, scale=1.0, bias=bias, impl="xla")
     attn = attn.transpose(1, 2).reshape(b, s, h * dk)
@@ -119,8 +123,12 @@ def t5_block(bp: Params, x: torch.Tensor, bias: torch.Tensor, cfg: T5Config):
 
     normed = rms_norm(x, bp["ff_norm"], cfg.layer_norm_epsilon)
     if cfg.gated_act:
-        gate = _act(cfg.act, linear(normed, bp["ff"]["wi_0"]))
-        up = linear(normed, bp["ff"]["wi_1"])
+        if "wi01" in bp["ff"]:  # fused wi_0|wi_1
+            gate, up = torch.chunk(linear(normed, bp["ff"]["wi01"]), 2, dim=-1)
+            gate = _act(cfg.act, gate)
+        else:
+            gate = _act(cfg.act, linear(normed, bp["ff"]["wi_0"]))
+            up = linear(normed, bp["ff"]["wi_1"])
         ff = linear(gate * up, bp["ff"]["wo"])
     else:
         ff = linear(_act(cfg.act, linear(normed, bp["ff"]["wi"])), bp["ff"]["wo"])

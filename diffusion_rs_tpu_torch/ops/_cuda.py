@@ -10,8 +10,10 @@ source is rebuilt and an unchanged one is reused.
 No ``--use_fast_math``: the s8 matmul divides and rounds half-to-even exactly
 as ``jnp.round(x / sx)`` does, and fast math would change both.
 
-Every kernel wrapper adds one to its entry in :data:`LAUNCHES` when it
-launches its kernel, and nowhere else.
+A source may export several entry points (:data:`KERNELS`: the q8t and
+affine sources also export their grouped forms, the flash source its
+seq-major and fused-RoPE forms). Every kernel wrapper adds one to its entry
+point's count in :data:`LAUNCHES` when it launches it, and nowhere else.
 """
 
 from __future__ import annotations
@@ -39,17 +41,23 @@ NVCC_FLAGS = [
 ]
 SOURCES = ("qmm_s8", "qmm_nf4", "qmm_affine", "flash_fwd")
 
-# C signatures: pointers and the stream as c_void_p, sizes as c_int.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "qmm_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "qmm_nf4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "qmm_affine": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+# Entry point -> (source, C signature): pointers, host tables and the stream
+# as c_void_p, sizes as c_int, strides as c_int64.
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+KERNELS = {
+    "qmm_s8": ("qmm_s8", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "qmm_grouped_s8": ("qmm_s8", [_P, _I, _I, _I, _I, _P]),
+    "qmm_nf4": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "qmm_affine": ("qmm_affine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "qmm_grouped_affine": ("qmm_affine", [_P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_fwd": ("flash_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "flash_sm": ("flash_fwd", [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P]),
+    "flash_rope": ("flash_fwd", [_P] * 8 + [_I] * 4 + [_L] * 6 + [_F, _P]),
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}
 
 
 def reset_launch_counts() -> None:
@@ -121,20 +129,28 @@ def library(name: str) -> ctypes.CDLL:
         if not _lib_path(name).exists():
             build_all()
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
 
+def _entry(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        source, sig = KERNELS[name]
+        fn = getattr(library(source), name)
+        fn.argtypes = sig
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
 def launch(name: str, *args) -> None:
-    """Call ``<name>(...)`` on the current stream; raise on a CUDA error."""
+    """Call entry point ``<name>(...)`` on the current stream; raise on a
+    CUDA error."""
     import torch
 
-    fn = getattr(library(name), name)
     stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    err = _entry(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     LAUNCHES[name] += 1

@@ -16,11 +16,19 @@ Three hand-written Hopper kernels (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``,
 ``csrc/qmm_affine.cu``) serve the CUDA path. Beside each is its plain PyTorch version, which follows
 the Pallas math tile for tile. A wrapper given a CPU tensor runs the plain
 version; given a CUDA tensor it launches the kernel or raises.
+
+:func:`quantized_matmul_grouped` (``quantized_matmul_grouped`` at
+qmatmul_pallas.py:664) runs several same-format ``[K, N]`` products in one
+launch: K8, the grouped entry points of the q8t and affine kernels. Groups
+that differ in format, or a format the kernels do not tile, take per-group
+:func:`quantized_matmul`, as JAX does; the 4-bit codebook formats have no
+grouped kernel yet and raise on CUDA.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -93,22 +101,30 @@ def qmm_s8_plain(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     return acc.to(out_dtype)
 
 
+def _check_s8(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
+              device=None) -> None:
+    """What K1 takes (K8-s8 checks each group with it): bf16 x [M, K] on
+    ``device`` (any CUDA device when None), the q8t planes beside it."""
+    m, k = x2.shape
+    n, bk = qt.n, qt.group
+    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
+             f"{name} takes bf16 activations and produces bf16")
+    _require(k % 64 == 0 and bk % 64 == 0 and k % bk == 0 and n % 128 == 0,
+             f"{name} needs K, K-tile % 64 == 0 and N % 128 == 0 (K={k}, "
+             f"tile={bk}, N={n})")
+    _check_cuda(x2, (m, k), torch.bfloat16, "x", device)
+    _check_cuda(qt.packed, (k, n), torch.int8, "packed", x2.device)
+    _check_cuda(qt.scale, (k // bk, n), torch.float32, "scale", x2.device)
+
+
 def qmm_s8(x2: torch.Tensor, qt: QuantizedTensor,
            out_dtype: torch.dtype) -> torch.Tensor:
     """``x2 [M, K] @ deq(q8t W) [K, N]`` through ``csrc/qmm_s8.cu``."""
     if x2.device.type == "cpu":
         return qmm_s8_plain(x2, qt.packed, qt.scale, out_dtype)
+    _check_s8("qmm_s8", x2, qt, out_dtype)
     m, k = x2.shape
-    n = qt.n
-    bk = qt.group
-    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
-             "qmm_s8 takes bf16 activations and produces bf16")
-    _require(k % 64 == 0 and bk % 64 == 0 and k % bk == 0 and n % 128 == 0,
-             f"qmm_s8 needs K, K-tile % 64 == 0 and N % 128 == 0 (K={k}, "
-             f"tile={bk}, N={n})")
-    _check_cuda(x2, (m, k), torch.bfloat16, "x")
-    _check_cuda(qt.packed, (k, n), torch.int8, "packed", x2.device)
-    _check_cuda(qt.scale, (k // bk, n), torch.float32, "scale", x2.device)
+    n, bk = qt.n, qt.group
     xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
     sx = torch.empty((m, k // bk), dtype=torch.float32, device=x2.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
@@ -164,23 +180,22 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
 # ---------------------------------------------------------------------------
 
 
-def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
-               out_dtype: torch.dtype) -> torch.Tensor:
-    """``x2 [M, K] @ deq(affine W) [K, N]`` through ``csrc/qmm_affine.cu``."""
-    if x2.device.type == "cpu":
-        return qmm_dequant_plain(x2, qt, out_dtype)
+def _check_affine(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
+                  device=None) -> None:
+    """What K4 takes (K8-affine checks each group with it): bf16 x [M, K] on
+    ``device`` (any CUDA device when None), the affine planes beside it."""
     m, k = x2.shape
     n = qt.n
     _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
-             "qmm_affine takes bf16 activations and produces bf16")
+             f"{name} takes bf16 activations and produces bf16")
     _require(qt.codebook is None and qt.bits in (4, 8),
-             f"qmm_affine takes 4- or 8-bit codes without a codebook ({qt.kind})")
+             f"{name} takes 4- or 8-bit codes without a codebook ({qt.kind})")
     _require(k % 64 == 0 and n % 128 == 0 and k % qt.group == 0
              and (qt.bits == 8 or (qt.split % 64 == 0 and k % qt.split == 0)),
-             f"qmm_affine needs K % 64 == 0, N % 128 == 0, K % group == 0 and a "
+             f"{name} needs K % 64 == 0, N % 128 == 0, K % group == 0 and a "
              f"4-bit split % 64 == 0 (K={k}, N={n}, group={qt.group}, "
              f"split={qt.split})")
-    _check_cuda(x2, (m, k), torch.bfloat16, "x")
+    _check_cuda(x2, (m, k), torch.bfloat16, "x", device)
     if qt.bits == 4:
         _check_cuda(qt.packed, (k // 2, n), torch.uint8, "packed", x2.device)
     else:
@@ -188,6 +203,16 @@ def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
     _check_cuda(qt.scale, (k // qt.group, n), torch.float32, "scale", x2.device)
     if qt.bias is not None:
         _check_cuda(qt.bias, (k // qt.group, n), torch.float32, "bias", x2.device)
+
+
+def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """``x2 [M, K] @ deq(affine W) [K, N]`` through ``csrc/qmm_affine.cu``."""
+    if x2.device.type == "cpu":
+        return qmm_dequant_plain(x2, qt, out_dtype)
+    _check_affine("qmm_affine", x2, qt, out_dtype)
+    m, k = x2.shape
+    n = qt.n
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     if m == 0:
         return out
@@ -229,6 +254,127 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
     return y.reshape(*lead, n)
 
 
+# ---------------------------------------------------------------------------
+# K8: grouped products (s8 and affine branches)
+# ---------------------------------------------------------------------------
+
+MAX_GROUPS = 8  # group-table capacity of one launch (csrc/qmm_s8.cu, qmm_affine.cu)
+
+
+def grouped_plan(qts: Sequence[QuantizedTensor]) -> Optional[str]:
+    """Which grouped branch serves these weights ("s8", "affine" or
+    "codebook"), or None when the call must run per group: the groups differ
+    in shape, format kind/bits/group/split or bias/codebook presence (the
+    JAX ``same`` test, qmatmul_pallas.py:677-684), or the kernels do not
+    tile the format (``supports``; the TPU VMEM planner is not ported)."""
+    q0 = qts[0]
+    same = all(
+        tuple(qt.shape) == tuple(q0.shape) and qt.kind == q0.kind and qt.bits == q0.bits
+        and qt.group == q0.group and qt.split == q0.split
+        and (qt.bias is None) == (q0.bias is None)
+        and (qt.codebook is None) == (q0.codebook is None)
+        for qt in qts
+    )
+    if not same or not supports(q0):
+        return None
+    if q8t_ok(q0):
+        return "s8"
+    return "affine" if q0.codebook is None else "codebook"
+
+
+def qmm_grouped_plain(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
+                      out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """Plain version of K8: the per-group plain K1 / K4 (or K2 for the
+    codebook formats, which take the same dequantizing plain version)."""
+    if q8t_ok(qts[0]):
+        return [qmm_s8_plain(x, qt.packed, qt.scale, out_dtype) for x, qt in zip(x2s, qts)]
+    return [qmm_dequant_plain(x, qt, out_dtype) for x, qt in zip(x2s, qts)]
+
+
+def _table(rows) -> ctypes.Array:
+    flat = [int(v) for row in rows for v in row]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
+def qmm_grouped_s8(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
+                   out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """``[x_g [M_g, K] @ deq(q8t W_g) [K, N]]`` in one launch of each pass of
+    ``qmm_grouped_s8`` (``csrc/qmm_s8.cu``), at most 8 groups."""
+    if x2s[0].device.type == "cpu":
+        return qmm_grouped_plain(x2s, qts, out_dtype)
+    _require(1 <= len(x2s) <= MAX_GROUPS, f"qmm_grouped_s8 takes 1..{MAX_GROUPS} groups")
+    _require(grouped_plan(qts) == "s8", "qmm_grouped_s8 takes groups of one q8t format")
+    k, n = qts[0].shape
+    bk = qts[0].group
+    rows, outs, keep = [], [], []
+    for x2, qt in zip(x2s, qts):
+        _check_s8("qmm_grouped_s8", x2, qt, out_dtype, x2s[0].device)
+        m = x2.shape[0]
+        xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+        sx = torch.empty((m, k // bk), dtype=torch.float32, device=x2.device)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+        keep += [xq, sx]  # alive until the launch: the table holds bare pointers
+        outs.append(out)
+        rows.append((x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(),
+                     qt.scale.data_ptr(), out.data_ptr(), m))
+    table = _table(rows)
+    _cuda.launch("qmm_grouped_s8", ctypes.addressof(table), len(rows), k, n, bk)
+    return outs
+
+
+def qmm_grouped_affine(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
+                       out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """``[x_g [M_g, K] @ deq(affine W_g) [K, N]]`` in one launch of
+    ``qmm_grouped_affine`` (``csrc/qmm_affine.cu``), at most 8 groups."""
+    if x2s[0].device.type == "cpu":
+        return qmm_grouped_plain(x2s, qts, out_dtype)
+    _require(1 <= len(x2s) <= MAX_GROUPS, f"qmm_grouped_affine takes 1..{MAX_GROUPS} groups")
+    _require(grouped_plan(qts) == "affine",
+             "qmm_grouped_affine takes groups of one affine format")
+    q0 = qts[0]
+    k, n = q0.shape
+    rows, outs = [], []
+    for x2, qt in zip(x2s, qts):
+        _check_affine("qmm_grouped_affine", x2, qt, out_dtype, x2s[0].device)
+        m = x2.shape[0]
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+        outs.append(out)
+        rows.append((x2.data_ptr(), qt.packed.data_ptr(), qt.scale.data_ptr(),
+                     0 if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(), m))
+    table = _table(rows)
+    _cuda.launch("qmm_grouped_affine", ctypes.addressof(table), len(rows), k, n, q0.bits,
+                 q0.split, q0.group, int(q0.bias is not None))
+    return outs
+
+
+def quantized_matmul_grouped(xs: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
+                             out_dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+    """Grouped ``[x_g @ deq(qt_g) for g]``: one K8 launch per 8 groups when
+    :func:`grouped_plan` finds a grouped branch, else per-group
+    :func:`quantized_matmul`. x_g [..., K] -> [..., N]."""
+    assert len(xs) == len(qts) and len(xs) >= 2
+    k, n = qts[0].shape
+    out_dtype = out_dtype or xs[0].dtype
+    plan = grouped_plan(qts)
+    if plan is None:
+        return [quantized_matmul(x, qt, out_dtype) for x, qt in zip(xs, qts)]
+    x2s = [x.reshape(-1, k).contiguous() for x in xs]
+    ys: List[torch.Tensor] = []
+    for i in range(0, len(x2s), MAX_GROUPS):
+        xg, qg = x2s[i:i + MAX_GROUPS], qts[i:i + MAX_GROUPS]
+        if plan == "s8":
+            ys += qmm_grouped_s8(xg, qg, out_dtype)
+        elif plan == "affine":
+            ys += qmm_grouped_affine(xg, qg, out_dtype)
+        elif xg[0].device.type == "cpu":
+            ys += qmm_grouped_plain(xg, qg, out_dtype)
+        else:
+            raise NotImplementedError(
+                "quantized_matmul_grouped: the grouped 4-bit codebook (nf4/fp4) "
+                "kernel is not ported yet (ROADMAP Queue 2 item 8c)")
+    return [y.reshape(*x.shape[:-1], n) for x, y in zip(xs, ys)]
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -236,8 +382,8 @@ def _require(cond: bool, msg: str) -> None:
 
 def _check_cuda(t: torch.Tensor, shape, dtype, name: str, device=None) -> None:
     if t.device.type != "cuda" or (device is not None and t.device != device):
-        raise ValueError(f"{name} must be on {device or 'a CUDA device'}, "
-                         f"got {t.device}")
+        where = "a CUDA device" if device is None else f"the CUDA device {device}"
+        raise ValueError(f"{name} must be on {where}, got {t.device}")
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
                          f"{t.dtype} {tuple(t.shape)}")

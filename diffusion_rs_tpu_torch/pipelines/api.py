@@ -82,10 +82,14 @@ class Pipeline:
     """Load a FLUX pipeline and generate images. ``forward`` returns one PNG
     (``bytes``) per prompt.
 
-    ``isq``, ``isq_t5``, ``imatrix``, ``lora``, ``fuse``, ``offloading``,
-    ``mesh``, ``compile_cache`` and the ``t5_mask_pads`` / ``step_progress``
-    toggles keep the JAX package's names; none is ported yet, and setting
-    one raises ``NotImplementedError`` naming its ROADMAP item."""
+    ``fuse`` (None: DIFFUSION_RS_TPU_FUSE, else none; True / "all": img,
+    txt, single and t5; or a comma list of those and "grouped") and the
+    environment's DIFFUSION_RS_TPU_FUSED_ROPE=1 / DIFFUSION_RS_TPU_ATTN_LAYOUT
+    work as in the JAX package (loader.apply_layout_options). ``isq``,
+    ``isq_t5``, ``imatrix``, ``lora``, ``offloading``, ``mesh``,
+    ``compile_cache`` and the ``t5_mask_pads`` / ``step_progress`` toggles
+    keep the JAX package's names but are not ported yet: setting one raises
+    ``NotImplementedError`` naming its ROADMAP item."""
 
     def __init__(
         self,

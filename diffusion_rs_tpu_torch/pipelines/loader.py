@@ -8,13 +8,16 @@ transformer: from ``transformer/`` of the source, from another repo, or
 from a single-file GGUF (:func:`load_flux_transformer`, the city96-style
 files with BFL tensor names, whose config comes from the tensors).
 
-Options of the JAX loader that this slice does not port raise
-``NotImplementedError`` naming their ROADMAP item; none is silently
-ignored.
+The load-time layout options (``fuse=`` / ``DIFFUSION_RS_TPU_FUSE``, with
+``grouped``, and ``DIFFUSION_RS_TPU_FUSED_ROPE=1``) run in
+:func:`apply_layout_options`, with the JAX package's names, defaults and
+order. Options of the JAX loader that the port does not carry yet raise
+``NotImplementedError`` naming their ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -46,6 +49,12 @@ from .scheduler import SchedulerConfig
 
 log = logging.getLogger("diffusion_rs_tpu_torch")
 
+# The JAX package's per-stream fusion default: empty, by its measurement on
+# a TPU (every fusion and grouping variant lost end to end there). The
+# port keeps the default so that both packages load the same layout.
+_FUSE_MEASURED_DEFAULT: tuple = ()
+_FUSE_ALL = ("img", "txt", "single", "t5")
+
 _DTYPES = {ModelDType.Auto: torch.bfloat16, ModelDType.BF16: torch.bfloat16,
            ModelDType.F16: torch.float16, ModelDType.F32: torch.float32}
 
@@ -55,23 +64,73 @@ def _not_ported(option: str, item: str):
         f"{option} is not ported to diffusion_rs_tpu_torch yet (ROADMAP {item})")
 
 
+def _resolve_fuse(fuse) -> tuple:
+    """The fuse selection: None -> DIFFUSION_RS_TPU_FUSE -> the measured
+    default; True / "1" / "all" -> every stream; a string -> its comma list
+    (tokens "img", "txt", "single", "t5", "grouped")."""
+    if fuse is None:
+        env = os.environ.get("DIFFUSION_RS_TPU_FUSE", "")
+        if env == "":
+            return _FUSE_MEASURED_DEFAULT
+        fuse = env
+    if fuse in (False, "0", ""):
+        return ()
+    if fuse in (True, "1", "all"):
+        return _FUSE_ALL
+    if isinstance(fuse, str):
+        return tuple(s.strip() for s in fuse.split(",") if s.strip())
+    return tuple(fuse)
+
+
+def apply_layout_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dict,
+                         fuse=None, silent: bool = True
+                         ) -> Tuple[dict, FluxConfig, dict]:
+    """The JAX loader's load-time layout transforms, in its order: projection
+    fusion (``fuse``; ``grouped`` adds the img and txt streams and sets
+    ``grouped_qmm``), then, with DIFFUSION_RS_TPU_FUSED_ROPE=1, the RoPE
+    half-split re-layout of the final q/k columns (sets ``rope_fused``). A
+    transform that does not apply (mixed dense/quantized weights, LoRA
+    terms) is skipped with a log line, as in JAX. Returns the new FLUX
+    params and config and the T5 params."""
+    from ..models.optimize import fuse_flux_qkv, fuse_t5, rope_halfsplit_permute
+
+    streams = _resolve_fuse(fuse)
+    if "grouped" in streams:
+        streams = tuple(dict.fromkeys(streams + ("img", "txt")))
+    if streams:
+        try:
+            flux_params = fuse_flux_qkv(flux_params, streams)
+        except ValueError as e:
+            if not silent:
+                log.info("qkv fusion skipped: %s", e)
+        if "t5" in streams:
+            try:
+                t5_params = fuse_t5(t5_params)
+            except ValueError as e:
+                if not silent:
+                    log.info("t5 fusion skipped: %s", e)
+        if "grouped" in streams:
+            flux_cfg = dataclasses.replace(flux_cfg, grouped_qmm=True)
+    if os.environ.get("DIFFUSION_RS_TPU_FUSED_ROPE", "0") == "1":
+        try:
+            flux_params = rope_halfsplit_permute(flux_params, flux_cfg)
+            flux_cfg = dataclasses.replace(flux_cfg, rope_fused=True)
+        except (ValueError, KeyError, TypeError) as e:
+            if not silent:
+                log.info("rope half-split re-layout skipped: %s", e)
+    return flux_params, flux_cfg, t5_params
+
+
 def _check_unported(offloading, isq, isq_t5, imatrix, lora, mesh, t5_mask_pads,
-                    step_progress, compile_cache, fuse) -> None:
-    """The JAX loader's options that this slice does not carry, resolved the
-    way the JAX package resolves them (argument, else its environment
+                    step_progress, compile_cache) -> None:
+    """The JAX loader's options that the port does not carry yet, resolved
+    the way the JAX package resolves them (argument, else its environment
     variable)."""
     if isq or isq_t5 or imatrix:
         _not_ported("isq / isq_t5 / imatrix (in-situ quantization)",
                     "Queue 1 item 9")
     if lora:
         _not_ported("lora", "Queue 1 item 10")
-    if fuse is None:
-        fuse = os.environ.get("DIFFUSION_RS_TPU_FUSE", "")
-    if fuse not in (False, "0", "", (), []):
-        _not_ported(f"fuse={fuse!r} (projection fusion)", "Queue 1 item 10")
-    if os.environ.get("DIFFUSION_RS_TPU_FUSED_ROPE", "0") == "1":
-        _not_ported("DIFFUSION_RS_TPU_FUSED_ROPE=1 (RoPE half-split re-layout)",
-                    "Queue 1 item 10")
     if offloading is not None:
         _not_ported(f"offloading={offloading}", "Queue 1 item 11")
     if compile_cache or os.environ.get("DIFFUSION_RS_TPU_COMPILE_CACHE"):
@@ -149,7 +208,7 @@ def load_pipeline(
 ) -> FluxPipeline:
     device = resolve_device(device)
     _check_unported(offloading, isq, isq_t5, imatrix, lora, mesh, t5_mask_pads,
-                    step_progress, compile_cache, fuse)
+                    step_progress, compile_cache)
     loader = FileLoader(model_id=source.model_id, dduf_file=source.dduf_file,
                         token=token, revision=revision, silent=silent)
     index = json.loads(loader.read_bytes("model_index.json"))
@@ -198,6 +257,8 @@ def load_pipeline(
             json.loads(flux_loader.read_bytes("transformer/config.json")))
         flux_params = build_flux_params(
             _component_store(flux_loader, "transformer", dt, device), flux_cfg, dt)
+    flux_params, flux_cfg, t5_params = apply_layout_options(
+        flux_params, flux_cfg, t5_params, fuse=fuse, silent=silent)
     if not silent:
         log.info("loaded FLUX transformer (%d double + %d single blocks, guidance=%s)",
                  flux_cfg.num_layers, flux_cfg.num_single_layers, flux_cfg.guidance_embeds)

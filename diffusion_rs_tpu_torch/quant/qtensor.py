@@ -222,6 +222,20 @@ def slice_n(qt: QuantizedTensor, start: int, end: int) -> QuantizedTensor:
     )
 
 
+def permute_n(qt: QuantizedTensor, idx) -> QuantizedTensor:
+    """Reorder the OUT-feature (N) columns by ``idx`` (``out[..., j] =
+    old[..., idx[j]]``); exact like :func:`slice_n`. Stacked ``[L, K, N]``
+    planes are permuted layer by layer alike. Used by the RoPE half-split
+    re-layout (models/optimize.py)."""
+    idx = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=qt.packed.device)
+    return dataclasses.replace(
+        qt,
+        packed=qt.packed[..., idx],
+        scale=qt.scale[..., idx],
+        bias=None if qt.bias is None else qt.bias[..., idx],
+    )
+
+
 def concat_n(tensors) -> QuantizedTensor:
     """Concatenate canonical tensors along the OUT-feature (N) axis; all
     quantization meta must agree."""

@@ -8,7 +8,9 @@ the repo's conftest:
 
 Shapes cover what chip_smoke.py does not: ragged M, K-tiles of 64, split
 128, ragged and unequal q/kv lengths, batch 2, every affine (GGUF, bnb int8)
-format through K4.
+format through K4, seq-major operands that are column slices of wider rows
+(K6, K7), and grouped calls of 2 to 8 groups with ragged and empty groups
+(K8).
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from diffusion_rs_tpu_torch.ops import _cuda, flash, qmatmul
 from diffusion_rs_tpu_torch.quant.bnb import bnb_int8_to_canonical
 from diffusion_rs_tpu_torch.quant.gguf_quants import (
     ENCODERS, GGML_FORMATS, gguf_to_canonical)
+from diffusion_rs_tpu_torch.ops.rope import expand_rope_tables, rope_tables
 from diffusion_rs_tpu_torch.quant.qtensor import dequantize
 from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
 
@@ -161,5 +164,75 @@ def test_quantized_matmul_dispatch_on_card(dev):
         assert tuple(y.shape) == (2, 5, 128) and y.dtype == torch.bfloat16
     for kind in ("q8t", "q4_0"):
         qmatmul.quantized_matmul(x, random_qtensor(gen, 256, 64, kind=kind, device=dev))
-    assert _cuda.launch_counts() == {"qmm_s8": 1, "qmm_nf4": 1, "qmm_affine": 2,
-                                     "flash_fwd": 0}
+    assert _cuda.launch_counts() == {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 1,
+                                     "qmm_nf4": 1, "qmm_affine": 2}
+
+
+def _tables(b, s, dev):
+    """Expanded RoPE tables of FLUX-style positions (text rows at 0, then an
+    image grid) on the card."""
+    n_txt = s // 8
+    r = torch.arange(s - n_txt, device=dev)
+    img = torch.stack([torch.zeros_like(r), r // 64, r % 64], -1).float()
+    ids = torch.cat([torch.zeros((n_txt, 3), device=dev), img])
+    cos, sin = rope_tables(ids[None].expand(b, s, 3), (16, 56, 56))
+    return expand_rope_tables(cos, sin)
+
+
+@pytest.mark.parametrize("b,h,sq,skv,wide", [(1, 3, 64, 64, False), (2, 2, 300, 300, True),
+                                             (1, 2, 1, 130, False), (1, 1, 200, 65, True)])
+def test_k6_k7_match_plain(dev, b, h, sq, skv, wide):
+    """K6 against its plain version (band 5e-4, as K3); K7 against its plain
+    version, and equal to K6 run on plain-rotated q/k bit for bit. ``wide``
+    passes q/k/v as column slices of wider rows (as the single blocks'
+    fused projection gives v)."""
+    gen = torch.Generator(device=dev).manual_seed(sq + skv)
+    n = h * 128
+    width = 3 * n + 256 if wide else n
+
+    def operand(s, i):
+        t = torch.randn((b, s, width), generator=gen, device=dev).bfloat16()
+        return t[..., i * n:(i + 1) * n] if wide else t
+
+    q, k, v = operand(sq, 0), operand(skv, 1), operand(skv, 2)
+    scale = 128 ** -0.5
+    before = _cuda.launch_counts()
+    y6 = flash.flash_sm(q, k, v, scale)
+    assert _summed_rel(y6, flash.flash_sm_plain(q, k, v, 128, scale)) <= 5e-4
+    if sq != skv:
+        return  # K7 takes the same tables for q and k only at equal lengths
+    ce, se = _tables(b, sq, dev)
+    y7 = flash.flash_rope(q, k, v, ce, se, ce, se, scale)
+    assert _summed_rel(y7, flash.flash_rope_plain(q, k, v, ce, se, ce, se, 128, scale)) <= 5e-4
+    qr = flash.rope_halfsplit_seqmajor(q, ce, se, 128)
+    kr = flash.rope_halfsplit_seqmajor(k, ce, se, 128)
+    assert torch.equal(y7, flash.flash_sm(qr, kr, v, scale))
+    after = _cuda.launch_counts()
+    assert (after["flash_sm"] - before["flash_sm"], after["flash_rope"] - before["flash_rope"],
+            after["flash_fwd"] - before["flash_fwd"]) == (2, 1, 0)
+
+
+@pytest.mark.parametrize("kind", ["q8t", "q8_0", "q4_0"])
+@pytest.mark.parametrize("ms", [(130, 17), (64, 0, 1, 200, 3, 128, 5, 33)])
+def test_k8_matches_per_group_kernels(dev, kind, ms):
+    """Each group's output equals K1's (q8t) or K4's (q8_0, q4_0) output for
+    that group, bit for bit, and is within its band of the plain version;
+    one launch for the whole call."""
+    gen = torch.Generator(device=dev).manual_seed(len(ms))
+    k, n = 768, 384
+    qts = [random_qtensor(gen, k, n, kind=kind, device=dev) for _ in ms]
+    if kind == "q8t":
+        for qt in qts:
+            qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
+    xs = [torch.randn((m, k), generator=gen, device=dev).bfloat16() for m in ms]
+    name = "qmm_grouped_s8" if kind == "q8t" else "qmm_grouped_affine"
+    assert qmatmul.grouped_plan(qts) == ("s8" if kind == "q8t" else "affine")
+    before = _cuda.launch_counts()[name]
+    ys = qmatmul.quantized_matmul_grouped(xs, qts)
+    assert _cuda.launch_counts()[name] == before + 1
+    single = qmatmul.qmm_s8 if kind == "q8t" else qmatmul.qmm_affine
+    for x, qt, y in zip(xs, qts, ys):
+        assert torch.equal(y, single(x, qt, torch.bfloat16))
+        if x.shape[0]:
+            ref = qmatmul.qmm_grouped_plain([x], [qt], torch.bfloat16)[0]
+            assert _summed_rel(y, ref) <= 1e-5

@@ -130,11 +130,19 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "x = torch.randn(3, 256, generator=g)\n"
         "for kind in ('q8t', 'nf4', 'q4_0', 'q8_0'):\n"
         "    qmatmul.quantized_matmul(x, random_qtensor(g, 256, 128, kind=kind, device='cpu'))\n"
+        "    qts = [random_qtensor(g, 256, 128, kind=kind, device='cpu') for _ in range(2)]\n"
+        "    qmatmul.quantized_matmul_grouped([x, x[:1]], qts)\n"
         "q = torch.randn(1, 1, 5, 128, generator=g)\n"
         "flash.flash_attention(q, q, q, out_seqmajor=True)\n"
+        "qs = torch.randn(1, 5, 256, generator=g)\n"
+        "ce = torch.ones(1, 5, 128)\n"
+        "for inkernel in (False, True):\n"
+        "    flash.flash_attention_fused(qs, qs, qs, ce, ce, 128, rope_in_kernel=inkernel)\n"
         "assert not _cuda.BUILD_DIR.exists(), _cuda.BUILD_DIR\n"
-        "assert _cuda.launch_counts() == {'qmm_s8': 0, 'qmm_nf4': 0, 'qmm_affine': 0,\n"
-        "                                 'flash_fwd': 0}\n"
+        "assert _cuda.launch_counts() == dict.fromkeys(_cuda.KERNELS, 0)\n"
+        "assert set(_cuda.KERNELS) == {'qmm_s8', 'qmm_grouped_s8', 'qmm_nf4', 'qmm_affine',\n"
+        "                              'qmm_grouped_affine', 'flash_fwd', 'flash_sm',\n"
+        "                              'flash_rope'}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"
@@ -166,6 +174,12 @@ def test_cuda_path_has_no_fallback():
     q = torch.zeros((1, 1, 8, 128), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention(q, q, q, out_seqmajor=True)
+    # the seq-major kernels (K6, K7) under both RoPE placements
+    qs = torch.zeros((1, 8, 256), dtype=torch.bfloat16, device="meta")
+    ce = torch.zeros((1, 8, 128), device="meta")
+    for inkernel in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash.flash_attention_fused(qs, qs, qs, ce, ce, 128, rope_in_kernel=inkernel)
     # an affine format (GGUF q4_0) takes K4, whose wrapper raises off the card
     q4 = dataclasses.replace(qt, packed=torch.zeros((128, 128), dtype=torch.uint8),
                              bias=torch.zeros((1, 128)), kind="q4_0", bits=4)

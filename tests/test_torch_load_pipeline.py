@@ -3,7 +3,9 @@
 synthetic checkpoint files (tests/synth.py, dev-style: guidance embedder and
 dynamic shift), from five sources: a dense directory, an nf4 directory, a
 GGUF q4_0 directory, a DDUF, and a base directory with a BFL-named
-single-file q4_0 transformer.
+single-file q4_0 transformer; and the load-time layout options (``fuse=``
+with ``grouped``, DIFFUSION_RS_TPU_FUSED_ROPE=1 under each
+DIFFUSION_RS_TPU_ATTN_LAYOUT) through both packages' loaders.
 
 Both packages get the same noise (the port draws the JAX package's noise
 for the request's seed); the JAX Pallas kernels run in interpret mode and
@@ -73,15 +75,15 @@ def sources(tmp_path_factory):
     return out
 
 
-def _pipelines(src: dict, dtype: str):
+def _pipelines(src: dict, dtype: str, **kwargs):
     jd, td = getattr(JDType, dtype), getattr(TDType, dtype)
     if "dduf" in src:
         js, ts = JSource.dduf(src["dduf"]), TSource.dduf(src["dduf"])
     else:
         js = JSource.from_model_id(src["model_id"], src.get("transformer"))
         ts = TSource.from_model_id(src["model_id"], src.get("transformer"))
-    return (JPipeline(js, silent=True, dtype=jd),
-            TPipeline(ts, silent=True, dtype=td, device="cpu"))
+    return (JPipeline(js, silent=True, dtype=jd, **kwargs),
+            TPipeline(ts, silent=True, dtype=td, device="cpu", **kwargs))
 
 
 def _psnr(a, b) -> float:
@@ -127,9 +129,75 @@ def test_forward_png_decodes_to_forward_arrays(sources):
         np.testing.assert_array_equal(np.asarray(img), a)
 
 
+# name -> (source, Pipeline kwargs, environment): each option through both
+# loaders; "a" and "b" are the layouts of chip_smoke.py's configs A and B.
+LAYOUTS = {
+    "fuse_grouped": ("gguf_q4_0", dict(fuse="grouped"), {}),
+    "fuse_all": ("nf4", dict(fuse="all"), {}),
+    "fused_rope": ("dense", {}, {"DIFFUSION_RS_TPU_FUSED_ROPE": "1"}),
+    "a_env_streams_grouped_inkernel": ("gguf_q4_0", {}, {
+        "DIFFUSION_RS_TPU_FUSE": "img,txt,single,t5,grouped",
+        "DIFFUSION_RS_TPU_FUSED_ROPE": "1", "DIFFUSION_RS_TPU_ATTN_LAYOUT": "inkernel"}),
+    # "all" means every stream only on its own: this fuses img and txt alone
+    "all_comma_grouped": ("gguf_q4_0", dict(fuse="all,grouped"), {}),
+    "b_grouped_seqmajor": ("bfl_gguf", dict(fuse="grouped"), {
+        "DIFFUSION_RS_TPU_FUSED_ROPE": "1", "DIFFUSION_RS_TPU_ATTN_LAYOUT": "seqmajor"}),
+}
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_layout_options_match_jax(name, sources, jax_kernels_interpreted, same_noise,
+                                  monkeypatch):
+    """The port's loader applies the option as the JAX loader does (same
+    config flags, fused keys) and the pipelines agree: f32 latents within
+    LATENT_BAND, bf16 images above the PSNR floor."""
+    src, kwargs, env = LAYOUTS[name]
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    jp, tp = _pipelines(sources[src], "F32", **kwargs)
+    inner = tp._inner
+    assert inner.flux_cfg.grouped_qmm == jp._inner.flux_cfg.grouped_qmm
+    assert inner.flux_cfg.rope_fused == jp._inner.flux_cfg.rope_fused
+    assert inner.flux_cfg.grouped_qmm == ("grouped" in kwargs.get(
+        "fuse", env.get("DIFFUSION_RS_TPU_FUSE", "")))
+    assert inner.flux_cfg.rope_fused == ("DIFFUSION_RS_TPU_FUSED_ROPE" in env)
+    assert sorted(inner.flux_params["double"]["img_attn"]) == sorted(
+        jp._inner.flux_params["double"]["img_attn"])
+    assert sorted(inner.flux_params["single"]) == sorted(jp._inner.flux_params["single"])
+    assert sorted(inner.t5_params["blocks"]["attn"]) == sorted(
+        jp._inner.t5_params["blocks"]["attn"])
+    lat_j = jp.forward_latents(PROMPTS, JParams(**GEN))
+    lat_t = tp.forward_latents(PROMPTS, TParams(**GEN))
+    assert summed_rel(lat_t, lat_j) <= LATENT_BAND
+
+    jp, tp = _pipelines(sources[src], "Auto", **kwargs)
+    img_j = [np.asarray(i) for i in jp.forward_images(PROMPTS, JParams(**GEN))]
+    img_t = tp.forward_images(PROMPTS, TParams(**GEN))
+    for a, b in zip(img_t, img_j):
+        assert _psnr(a, b) >= PSNR_FLOOR
+
+
+@pytest.mark.parametrize("fuse,env", [
+    (None, None), (None, "txt"), (None, "1"), ("all", None), ("all,grouped", None),
+    (" img , single ", None), (True, None), (False, "all"), ("0", None), (("txt", "t5"), None),
+])
+def test_resolve_fuse_matches_jax(monkeypatch, fuse, env):
+    """The fuse selection resolves as in the JAX loader: argument, else
+    DIFFUSION_RS_TPU_FUSE, else the measured default (none); "all" stands
+    for every stream only on its own."""
+    from diffusion_rs_tpu.pipelines.loader import _resolve_fuse as j_resolve
+    from diffusion_rs_tpu_torch.pipelines.loader import _resolve_fuse as t_resolve
+
+    if env is None:
+        monkeypatch.delenv("DIFFUSION_RS_TPU_FUSE", raising=False)
+    else:
+        monkeypatch.setenv("DIFFUSION_RS_TPU_FUSE", env)
+    assert t_resolve(fuse) == j_resolve(fuse)
+
+
 @pytest.mark.parametrize("option,value", [
     ("isq", "q4_0"), ("isq_t5", "q8_0"), ("imatrix", "imatrix.dat"), ("lora", "l.safetensors"),
-    ("fuse", "all"), ("offloading", Offloading.Full), ("mesh", object()),
+    ("offloading", Offloading.Full), ("mesh", object()),
     ("compile_cache", "cache"), ("t5_mask_pads", True), ("step_progress", True),
 ])
 def test_unported_options_raise(sources, option, value):
@@ -138,8 +206,7 @@ def test_unported_options_raise(sources, option, value):
         load_pipeline(src, device="cpu", **{option: value})
 
 
-@pytest.mark.parametrize("env", ["DIFFUSION_RS_TPU_FUSE=1", "DIFFUSION_RS_TPU_FUSED_ROPE=1",
-                                 "DIFFUSION_RS_TPU_T5_MASK_PADS=1"])
+@pytest.mark.parametrize("env", ["DIFFUSION_RS_TPU_T5_MASK_PADS=1"])
 def test_unported_env_knobs_raise(sources, monkeypatch, env):
     key, val = env.split("=")
     monkeypatch.setenv(key, val)

@@ -181,9 +181,7 @@ def test_bfl_single_file_matches_jax(dev_ckpt, tmp_path, quant):
     jt = jb.build_flux_params(js, jcfg)
     tt, tcfg = load_flux_transformer(path, tflux.FluxConfig.from_json(base_json),
                                      device="cpu")
-    assert dataclasses.asdict(tcfg) == {
-        k: v for k, v in dataclasses.asdict(jcfg).items()
-        if k not in ("rope_fused", "grouped_qmm")}
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert tcfg.num_layers == 2 and tcfg.num_single_layers == 2 and tcfg.guidance_embeds
     assert tt["double"]["img_attn"]["qkv"].w.kind == quant
     assert "qkv_mlp" in tt["single"] and "q" not in tt["single"]
