@@ -42,7 +42,22 @@ Phases, each fatal on failure (non-zero exit, no final line):
 9. config B: phase 7's Q4_0 weights (BFL layout, same seed) with
    ``fuse="grouped"`` and DIFFUSION_RS_TPU_FUSED_ROPE=1, attention layout
    ``seqmajor`` (K4, K8-affine, K6; config A's fused T5), run likewise; its
-   latent is held against phase 7's Q4_0 latent.
+   latent is held against phase 7's Q4_0 latent;
+10. config C (between phases 6 and 7, on phase 4's q8t weights): int8
+   attention, DIFFUSION_RS_TPU_ATTN_S8=1 and ATTN_S8PV=1 (the combined K9+K10
+   entry point), run as phase 7 runs its images, its latent held against
+   phase 4's; then one 1-step image with each knob alone (K9, K10) with
+   exact launches, and ``s8pv_dropped_mass`` of the first attention's q/k;
+11. configs D0 and D: FLUX.1-dev in nf4 (the JAX bench's exec format for its
+   nf4 presets) made on the card, D0 in the default layout (K2), D the same
+   weights after ``fuse="grouped"`` (K11 for the img/txt pairs), each run as
+   phase 7 runs its images (config A's fused T5); D's latent must equal D0's
+   (max-abs 0: grouping changes no weight and K11 equals K2 per group).
+
+Phase 2 also holds K9, K10 and the combined entry point at S4608 and S4112,
+K11 at the grouped double-block shapes (against per-group K2 launches, max-abs
+0) and K2 at a FLUX shape; phase 3 also runs the tiny image with both int8
+knobs and with nf4 FLUX plus ``fuse="grouped"``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 at once.
@@ -56,6 +71,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -72,6 +88,13 @@ PEAK_F32_FLOPS = 67e12    # H100 SXM float32 rate outside the tensor cores
 # summation-order bound, as tests/test_torch_cuda.py holds K4 at K=15360.
 K1_TOL, K2_TOL, K3_TOL, K4_TOL = 1e-5, 2e-3, 5e-4, 1e-5
 K4_TOL_LONG_K = 1e-4
+# The int8 attention kernels against their plain versions: the quantized
+# codes and integer dots are exact in both; f32 summation orders and expf
+# of the same arguments differ, as in K3 (tests/test_torch_cuda.py)
+INT8_TOL = K3_TOL
+INT8_MODES = {"flash_s8": (True, False), "flash_s8pv": (False, True),
+              "flash_s8_s8pv": (True, True)}
+ATTN_KNOBS = ("DIFFUSION_RS_TPU_ATTN_S8", "DIFFUSION_RS_TPU_ATTN_S8PV")
 GGUF_KINDS = ("q8_0", "q4_0")
 # The double blocks' grouped (K, N): qkv, proj, mlp in, mlp out; img M 4096
 # and txt M 512 at 1024x1024. The mlp-in shape is the one timed.
@@ -97,6 +120,35 @@ def env(**kv):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def attention_knobs(s8: bool, s8_pv: bool):
+    """DIFFUSION_RS_TPU_ATTN_S8 / ATTN_S8PV for the block; the port reads
+    each once and caches it, so the caches are cleared on entry and exit."""
+    from diffusion_rs_tpu_torch.ops import attention
+
+    def clear():
+        attention._s8_default.cache_clear()
+        attention._s8_pv_default.cache_clear()
+
+    clear()
+    try:
+        with env(**dict(zip(ATTN_KNOBS, (str(int(s8)), str(int(s8_pv)))))):
+            yield
+    finally:
+        clear()
+
+
+def card_state() -> str:
+    """The card's SM clock (and its maximum), power draw, temperature and
+    active clock-throttle reasons, as nvidia-smi reads them: printed beside
+    each timed image, since a card that slows under load moves every time."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True)
+    return r.stdout.strip() if r.returncode == 0 else "not available"
 
 
 def summed_rel(a, b) -> float:
@@ -339,11 +391,71 @@ def check_flash_seqmajor(s_q: int, gen, rope: bool):
     return row
 
 
+def check_flash_int8(s_q: int, gen, entry: str):
+    """K9 (``flash_s8``), K10 (``flash_s8pv``) or both (``flash_s8_s8pv``)
+    against the plain version at B1 H24 S ``s_q``. ``ms`` times the kernel
+    alone on inputs the prepasses made once; ``with_prepass_ms`` times the
+    wrapper, whose plain PyTorch prepasses quantize k and v on every call.
+    Bound: the reference function's 4 B H S^2 D operations, the int8 halves
+    at the int8 rate and the others at the bf16 rate (K10's second QK^T pass
+    is its own cost, not the function's). No PyTorch call computes int8
+    attention: the library time is bf16 scaled_dot_product_attention, a
+    different function."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_rs_tpu_torch.ops import _cuda, flash
+
+    s8, s8_pv = INT8_MODES[entry]
+    b, h, d = 1, 24, 128
+    q, k, v = (torch.randn((b, h, s_q, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    y = flash.flash_int8(q, k, v, scale, s8, s8_pv)
+    torch.cuda.synchronize()
+    ref = flash.flash_int8_plain(q, k, v, scale, s8, s8_pv).transpose(1, 2).reshape(
+        b, s_q, h * d)
+    err = summed_rel(y, ref)
+    max_abs = float((y.float() - ref.float()).abs().max())
+    if not (err <= INT8_TOL) or not torch.isfinite(y).all():
+        raise SystemExit(f"{entry} disagrees with its plain version at S={s_q}: "
+                         f"summed-rel {err:.3e} > {INT8_TOL:g}")
+    qb = flash.quant_block(s_q)
+    kk, sk = flash.quantize_k(k, qb) if s8 else (k, None)
+    if s8_pv:
+        vq, sv, vm = flash.quantize_v(v, qb)
+        vv = flash.v_kernel_layout(vq)
+    else:
+        vv, sv, vm = v, None, None
+    out = torch.empty_like(y)
+    args = (q.data_ptr(), kk.data_ptr(), None if sk is None else sk.data_ptr(), vv.data_ptr(),
+            None if sv is None else sv.data_ptr(), None if vm is None else vm.data_ptr(),
+            out.data_ptr(), b, h, s_q, s_q, qb, float(scale))
+    row = dict(shape=f"B{b} H{h} S{s_q} D{d}", summed_rel=err, max_abs_err=max_abs)
+    row["ms"] = cuda_ms(lambda i: _cuda.launch(entry, *args), 1)
+    if not torch.equal(out, y):
+        raise SystemExit(f"{entry} on pre-quantized inputs differs from its wrapper")
+    row["with_prepass_ms"] = cuda_ms(lambda i: flash.flash_int8(q, k, v, scale, s8, s8_pv), 1)
+    row["plain_ms"] = cuda_ms(lambda i: flash.flash_int8_plain(q, k, v, scale, s8, s8_pv), 1,
+                              iters=2, warmup=1)
+    row["library_ms"] = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v), 1)
+    row["library_note"] = "bf16 scaled_dot_product_attention, a different function"
+    half = 2.0 * b * h * s_q * s_q * d
+    int8_ops = half * (s8 + s8_pv)
+    bf16_ms = half * (2 - s8 - s8_pv) / PEAK_BF16_FLOPS * 1e3
+    skv_p = -(-s_q // qb) * qb
+    nbytes = (b * h * s_q * d * 2 * 2  # q in, out
+              + b * h * (skv_p if s8 else s_q) * d * (1 if s8 else 2)
+              + b * h * (skv_p if s8_pv else s_q) * d * (1 if s8_pv else 2))
+    row["bound_ms"], row["bound_by"] = bound(int8_ops, PEAK_INT8_OPS, nbytes, bf16_ms)
+    return row
+
+
 def check_grouped(kind: str, gen):
-    """K8 at the grouped double-block shapes (img M 4096 + txt M 512): each
-    group equal to its own K1 (q8t) or K4 (q8_0, q4_0) launch bit for bit,
-    and within the K1/K4 band of the plain version; timed at the mlp-in
-    shape, with weights rotated through >100 MB of copies."""
+    """K8 / K11 at the grouped double-block shapes (img M 4096 + txt M 512):
+    each group equal to its own K1 (q8t), K4 (q8_0, q4_0) or K2 (nf4) launch
+    bit for bit, and within the K1/K4/K2 band of the plain version; timed at
+    the mlp-in shape, with weights rotated through >100 MB of copies."""
     import torch
 
     from diffusion_rs_tpu_torch.ops import qmatmul
@@ -351,22 +463,26 @@ def check_grouped(kind: str, gen):
     from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
 
     s8 = kind == "q8t"
-    grouped = qmatmul.qmm_grouped_s8 if s8 else qmatmul.qmm_grouped_affine
-    single = qmatmul.qmm_s8 if s8 else qmatmul.qmm_affine
+    plan, grouped, single = {
+        "q8t": ("s8", qmatmul.qmm_grouped_s8, qmatmul.qmm_s8),
+        "nf4": ("codebook", qmatmul.qmm_grouped_nf4, qmatmul.qmm_nf4),
+    }.get(kind, ("affine", qmatmul.qmm_grouped_affine, qmatmul.qmm_affine))
     bf16 = torch.bfloat16
 
     def weights(k, n):
         qts = [random_qtensor(gen, k, n, kind=kind, device="cuda") for _ in GROUPED_MS]
-        if s8:  # per-(tile, column) scales that differ
-            for qt in qts:
+        for qt in qts:  # scales that differ (q8t per tile and column, nf4 per group)
+            if s8:
                 qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
+            elif kind == "nf4":
+                qt.scale.uniform_(0.01, 0.03, generator=gen)
         return qts
 
     rows = []
     for k, n in GROUPED_SHAPES:
         qts = weights(k, n)
         xs = [torch.randn((m, k), generator=gen, device="cuda").to(bf16) for m in GROUPED_MS]
-        if qmatmul.grouped_plan(qts) != ("s8" if s8 else "affine"):
+        if qmatmul.grouped_plan(qts) != plan:
             raise SystemExit(f"{kind} grouped plan {qmatmul.grouped_plan(qts)}")
         ys = grouped(xs, qts, bf16)
         torch.cuda.synchronize()
@@ -380,9 +496,10 @@ def check_grouped(kind: str, gen):
         if vs_single != 0.0:
             raise SystemExit(f"grouped {kind} at K={k} N={n} differs from its per-group "
                              f"launches: max-abs {vs_single:.3e}")
-        tol = K1_TOL if s8 else (K4_TOL if k <= 3072 else K4_TOL_LONG_K)
+        tol = {"s8": K1_TOL, "codebook": K2_TOL}.get(
+            plan, K4_TOL if k <= 3072 else K4_TOL_LONG_K)
         ok = err <= tol and all(torch.isfinite(y).all() for y in ys)
-        if not s8:
+        if plan == "affine":
             ok = ok and all(within_summation_order(y, r, x, qt)
                             for x, qt, y, r in zip(xs, qts, ys, refs))
         if not ok:
@@ -391,12 +508,12 @@ def check_grouped(kind: str, gen):
                              f"{max_abs:.3e}")
         if (k, n) == GROUPED_TIMED:
             set_bytes = {"q8t": k * n * (1 + 4 / 256), "q8_0": k * n * (1 + 4 / 32),
-                         "q4_0": k * n * (0.5 + 8 / 32)}[kind]
+                         "q4_0": k * n * (0.5 + 8 / 32), "nf4": k * n * (0.5 + 4 / 64)}[kind]
             n_sets = max(2, math.ceil(100e6 / (2 * set_bytes)))
             sets = [qts] + [weights(k, n) for _ in range(n_sets - 1)]
             deq = [[dequantize(qt, bf16) for qt in ws] for ws in sets]
             row["ms"] = cuda_ms(lambda i: grouped(xs, sets[i], bf16), n_sets)
-            row["per_group_ms"] = cuda_ms(
+            row["per_group_ms"] = cuda_ms(  # K1 / K4 / K2
                 lambda i: [single(x, qt, bf16) for x, qt in zip(xs, sets[i])], n_sets)
             row["plain_ms"] = cuda_ms(lambda i: qmatmul.qmm_grouped_plain(xs, sets[i], bf16),
                                       n_sets, iters=2, warmup=1)
@@ -431,11 +548,11 @@ def tiny_configs():
     )
 
 
-def make_params(cfgs, seed: int, device: str) -> dict:
+def make_params(cfgs, seed: int, device: str, flux_kind: str = "q8t") -> dict:
     from diffusion_rs_tpu_torch.util import synthetic as syn
 
     return dict(
-        flux_params=syn.init_flux_params_quantized(seed, cfgs["flux_cfg"], kind="q8t",
+        flux_params=syn.init_flux_params_quantized(seed, cfgs["flux_cfg"], kind=flux_kind,
                                                    device=device),
         t5_params=syn.init_t5_params_quantized(seed + 1, cfgs["t5_cfg"], kind="nf4",
                                                device=device),
@@ -459,12 +576,14 @@ def make_pipeline(cfgs, params: dict, device: str):
     )
 
 
-def tiny_reference_check(attn_layout=None):
+def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=False):
     """The port on the card (kernels) against the port on the CPU (plain
     versions), same weights and noise, tiny config at 64x64, 2 steps. With
     ``attn_layout``, both take the loader's layout transform with every
     stream fused and grouped and DIFFUSION_RS_TPU_FUSED_ROPE=1, and attention
-    runs in that layout; the card run must launch the layout's kernels."""
+    runs in that layout; ``fuse`` alone takes the transform with that fuse=;
+    ``flux_kind`` picks FLUX's weight format; ``int8`` sets both int8
+    attention knobs. The card run must launch the path's kernels."""
     import numpy as np
     import torch
 
@@ -474,12 +593,13 @@ def tiny_reference_check(attn_layout=None):
     from diffusion_rs_tpu_torch.util.tree import tree_map
 
     cfgs = tiny_configs()
-    params = make_params(cfgs, seed=11, device="cpu")
+    params = make_params(cfgs, seed=11, device="cpu", flux_kind=flux_kind)
     if attn_layout is not None:
-        with env(DIFFUSION_RS_TPU_FUSED_ROPE="1"):
+        fuse = FUSE_ALL_GROUPED
+    if fuse is not None:
+        with env(DIFFUSION_RS_TPU_FUSED_ROPE="0" if attn_layout is None else "1"):
             flux, flux_cfg, t5 = apply_layout_options(
-                params["flux_params"], cfgs["flux_cfg"], params["t5_params"],
-                fuse=FUSE_ALL_GROUPED)
+                params["flux_params"], cfgs["flux_cfg"], params["t5_params"], fuse=fuse)
         params = {**params, "flux_params": flux, "t5_params": t5}
         cfgs = {**cfgs, "flux_cfg": flux_cfg}
     cpu = make_pipeline(cfgs, params, device="cpu")
@@ -491,7 +611,7 @@ def tiny_reference_check(attn_layout=None):
     sig = cpu.scheduler.timesteps(2, mu=0.6)
     outs = {}
     layout_env = {} if attn_layout is None else {"DIFFUSION_RS_TPU_ATTN_LAYOUT": attn_layout}
-    with env(**layout_env):
+    with env(**layout_env), attention_knobs(int8, int8):
         for name, pipe, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
             _cuda.reset_launch_counts()
             txt, y = pipe._encode(t5_ids.to(dev), clip_ids.to(dev))
@@ -505,19 +625,29 @@ def tiny_reference_check(attn_layout=None):
     b = outs["cpu"][1].astype(np.float64)
     mse = float(np.mean((a - b) ** 2))
     psnr = float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
-    label = ("default layout" if attn_layout is None else
-             f'fuse="{FUSE_ALL_GROUPED}", FUSED_ROPE=1, ATTN_LAYOUT={attn_layout}')
+    label = ", ".join(
+        ([f"FLUX {flux_kind}"] if flux_kind != "q8t" else [])
+        + ([f'fuse="{fuse}"'] if fuse else [])
+        + ([f"FUSED_ROPE=1, ATTN_LAYOUT={attn_layout}"] if attn_layout else [])
+        + (["ATTN_S8=1, ATTN_S8PV=1"] if int8 else [])) or "default layout"
     print(f"tiny reference ({label}): latent summed-rel {lat_err:.3e}, image PSNR "
           f"{psnr:.1f} dB (card kernels vs CPU plain versions, bf16); card launches "
           f"{ {k: v for k, v in counts.items() if v} }")
     if not (lat_err <= 2e-2 and psnr >= 30.0):
         raise SystemExit("tiny reference check failed: the card's image does not "
                          "agree with the plain versions on the CPU")
-    if attn_layout is not None:
-        flash_kernel = {"inkernel": "flash_rope", "seqmajor": "flash_sm"}[attn_layout]
-        if not (counts[flash_kernel] > 0 and counts["qmm_grouped_s8"] > 0
-                and counts["flash_fwd"] == 0):
-            raise SystemExit(f"tiny {attn_layout} image did not run its kernels: {counts}")
+    flash_kernel = {"inkernel": "flash_rope", "seqmajor": "flash_sm", None: "flash_fwd"}[
+        attn_layout]
+    if int8:
+        flash_kernel = "flash_s8_s8pv"
+    qmm_kernel = {"q8t": "qmm_s8", "nf4": "qmm_nf4"}[flux_kind]
+    if fuse is not None and "grouped" in fuse:
+        qmm_kernel = {"q8t": "qmm_grouped_s8", "nf4": "qmm_grouped_nf4"}[flux_kind]
+    others = [k for k in ("flash_fwd", "flash_sm", "flash_rope", "flash_s8_s8pv")
+              if k != flash_kernel]
+    if not (counts[flash_kernel] > 0 and counts[qmm_kernel] > 0
+            and not any(counts[k] for k in others)):
+        raise SystemExit(f"tiny image ({label}) did not run its kernels: {counts}")
     return lat_err, psnr
 
 
@@ -666,7 +796,7 @@ def gguf_round_trip(encoders, prompts):
         raise SystemExit(f"bad image: {img.dtype} {img.shape}")
 
 
-def timed_image(name: str, pipe, prompts, steps: int, want: dict, t_init: float):
+def timed_image(name: str, pipe, prompts, steps: int, want: dict, t_init=None):
     """A 1-step warm-up, one timed ``steps``-step 1024x1024 image with exact
     launch counts (reset just before it, read just after), then a profiled
     1-step image. Returns the counts and the final latent."""
@@ -685,18 +815,24 @@ def timed_image(name: str, pipe, prompts, steps: int, want: dict, t_init: float)
     pipe._denoise = capture_denoise
     pipe.forward_arrays(prompts, DiffusionGenerationParams(
         height=1024, width=1024, num_steps=1, guidance_scale=3.5, seed=7))
+    before = card_state()
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
     img = pipe.forward_arrays(prompts, DiffusionGenerationParams(
         height=1024, width=1024, num_steps=steps, guidance_scale=3.5, seed=7))
     wall = time.perf_counter() - t0
+    print(f"{name} card (SM clock, max, power, temperature, throttle reasons) before: "
+          f"{before}; after: {card_state()}")
     counts = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     tm = pipe.timings
     want = {**dict.fromkeys(_cuda.KERNELS, 0), **want}
-    print(f"{name} image {wall:.3f} s (weights made on the card in {t_init:.1f} s): encode "
-          f"{tm['encode_s'] * 1e3:.1f} ms, steps ms {[round(x * 1e3, 1) for x in tm['steps_s']]}, "
-          f"decode {tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB")
+    made = "" if t_init is None else f" (weights made on the card in {t_init:.1f} s)"
+    steps_ms = [x * 1e3 for x in tm["steps_s"]]
+    print(f"{name} image {wall:.3f} s{made}: encode {tm['encode_s'] * 1e3:.1f} ms, step median "
+          f"{statistics.median(steps_ms):.2f} ms ({min(steps_ms):.1f}-{max(steps_ms):.1f}), "
+          f"steps ms {[round(x, 1) for x in steps_ms]}, decode {tm['decode_s'] * 1e3:.1f} ms, "
+          f"peak memory {peak:.2f} GiB")
     print(f"{name} launches { {k: v for k, v in counts.items() if v} } (expected "
           f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
     lat = captured["latent"]
@@ -785,6 +921,137 @@ def layout_image(config, encoders, prompts, steps: int, ref_latent):
     return counts, t5_params, dist
 
 
+# Config C's latent against phase 4's (same weights and noise, bf16
+# attention): JAX holds each int8 attention within 2e-2 of the f32 reference
+# (tests/test_ops.py:387). The Euler steps integrate the velocity over one
+# unit of sigma, so a velocity within 2e-2 moves the latent by that order;
+# x2.5 allows for the q8t activation quantize, which turns even f32
+# summation-order changes into 1e-2 at 4 steps (config A).
+INT8_LATENT_TOL = 5e-2
+
+
+def int8_attention_images(pipe, prompts, steps: int, ref_latent):
+    """Config C: phase 4's q8t pipeline with DIFFUSION_RS_TPU_ATTN_S8=1 and
+    ATTN_S8PV=1, run as phase 7 runs its images, its latent held against
+    phase 4's; then a 1-step image under each knob alone with exact
+    launches, and ``s8pv_dropped_mass`` of the first attention call's q/k
+    (double block 0, first step). Returns the int8 entry points' launch
+    counts and the latent distance."""
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.models import flux as flux_model
+    from diffusion_rs_tpu_torch.ops import _cuda, flash
+
+    name = "config C (q8t, ATTN_S8=1, ATTN_S8PV=1)"
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    with attention_knobs(True, True):
+        counts, lat = timed_image(name, pipe, prompts, steps, {
+            "qmm_s8": 503 * steps, "qmm_nf4": 168, "flash_s8_s8pv": 57 * steps})
+    dist = summed_rel(lat, ref_latent)
+    print(f"{name} latent vs phase 4's (bf16 attention): summed-rel {dist:.3e} "
+          f"(band {INT8_LATENT_TOL:g})")
+    if not dist <= INT8_LATENT_TOL:
+        raise SystemExit(f"{name} latent is {dist:.3e} from phase 4's")
+    out = {"flash_s8_s8pv": counts["flash_s8_s8pv"]}
+    seen = {}
+    sdpa_merged = flux_model.sdpa_merged
+
+    def first_call(q, k, v, *a, **kw):
+        seen.setdefault("qk", (q, k))
+        return sdpa_merged(q, k, v, *a, **kw)
+
+    one = DiffusionGenerationParams(height=1024, width=1024, num_steps=1,
+                                    guidance_scale=3.5, seed=7)
+    for entry in ("flash_s8", "flash_s8pv"):
+        s8, s8_pv = INT8_MODES[entry]
+        with attention_knobs(s8, s8_pv):
+            _cuda.reset_launch_counts()
+            flux_model.sdpa_merged = first_call
+            try:
+                pipe.forward_arrays(prompts, one)
+            finally:
+                flux_model.sdpa_merged = sdpa_merged
+            c = _cuda.launch_counts()
+        want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503, "qmm_nf4": 168, entry: 57}
+        print(f"config C, {ATTN_KNOBS[s8_pv]}=1 alone, 1-step image: launches "
+              f"{ {k: v for k, v in c.items() if v} } (expected "
+              f"{ {k: v for k, v in want.items() if v} })")
+        if c != want:
+            raise SystemExit(f"1-step image with {entry} alone: launches {c} differ from {want}")
+        out[entry] = c[entry]
+    q, k = seen["qk"]
+    dropped = flash.s8pv_dropped_mass(q, k)
+    print(f"s8pv_dropped_mass of the first attention call (double block 0, first step, "
+          f"q/k {tuple(q.shape)}): max {float(dropped.max()):.3e}, mean "
+          f"{float(dropped.mean()):.3e} over {dropped.numel()} rows")
+    del seen, q, k, dropped
+    return out, dist
+
+
+# FLUX linears per step that reach a quantized-matmul kernel (every linear
+# but final.proj, N = 64, which takes dequantize + matmul): 19 double blocks
+# x 14 (two mods, and q, k, v, proj, mlp in, mlp out per stream), 38 single
+# blocks x 6 (q, k, v, proj_mlp, linear2, mod) and 9 embedders / final mod.
+# With fuse="grouped" the double blocks' 12 stream linears become 4 grouped
+# calls (fused qkv, proj, mlp in, mlp out).
+FLUX_QMM_PER_STEP = 19 * 14 + 38 * 6 + 9
+FLUX_GROUPED_PER_STEP = 19 * 4
+NF4_SEED = 2
+
+
+def nf4_images(encoders, prompts, steps: int):
+    """Configs D0 and D: FLUX.1-dev nf4 made on the card, D0 in the default
+    layout (K2), D after ``fuse="grouped"`` (K11 for the img/txt pairs, K2
+    for the rest), with config A's fused T5. D's latent must equal D0's bit
+    for bit. Returns D's launch counts."""
+    import torch
+
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.models.t5 import T5Config
+    from diffusion_rs_tpu_torch.pipelines.loader import apply_layout_options
+    from diffusion_rs_tpu_torch.util.synthetic import init_flux_params_quantized
+
+    t5 = encoders["params"]["t5_params"]
+    t5_per_image = T5Config().num_layers * (len(t5["blocks"]["attn"]) + len(t5["blocks"]["ff"]))
+    cfg = FluxConfig()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_flux_params_quantized(NF4_SEED, cfg, kind="nf4", device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
+                         {**encoders["params"], "flux_params": params}, device="cuda")
+    want = {"qmm_nf4": FLUX_QMM_PER_STEP * steps + t5_per_image, "flash_fwd": 57 * steps}
+    _, lat0 = timed_image("config D0 (nf4)", pipe, prompts, steps, want, t_init)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cfg, _ = apply_layout_options(params, cfg, t5, fuse="grouped")
+    torch.cuda.synchronize()
+    t_fuse = time.perf_counter() - t0
+    if not (cfg.grouped_qmm and "qkv" in params["double"]["img_attn"]):
+        raise SystemExit(f"config D: the layout transform did not apply ({cfg})")
+    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
+                         {**encoders["params"], "flux_params": params}, device="cuda")
+    grouped = FLUX_GROUPED_PER_STEP * steps
+    want = {"qmm_nf4": FLUX_QMM_PER_STEP * steps - 3 * grouped + t5_per_image,
+            "qmm_grouped_nf4": grouped, "flash_fwd": 57 * steps}
+    print(f'config D (nf4, fuse="grouped"): img/txt q|k|v fused and grouped in '
+          f"{t_fuse:.1f} s")
+    counts, lat = timed_image("config D (nf4, grouped)", pipe, prompts, steps, want)
+    max_abs = float((lat.float() - lat0.float()).abs().max())
+    print(f"config D latent vs config D0's: max-abs {max_abs:.3e}")
+    if max_abs != 0.0:
+        raise SystemExit(f"config D's latent differs from D0's: max-abs {max_abs:.3e}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps of the timed image")
@@ -819,7 +1086,8 @@ def main() -> int:
         "qmm_s8": [check_qmm("q8t", 1, 3072, 3072, gen, K1_TOL),
                    check_qmm("q8t", 4096, 3072, 3072, gen, K1_TOL)],
         "qmm_nf4": [check_qmm("nf4", 512, 4096, 4096, gen, K2_TOL),
-                    check_qmm("nf4", 512, 10240, 4096, gen, K2_TOL)],
+                    check_qmm("nf4", 512, 10240, 4096, gen, K2_TOL),
+                    check_qmm("nf4", 4608, 3072, 12288, gen, K2_TOL)],  # configs D0/D
         "qmm_affine": [check_qmm(kind, m, 3072, n, gen, K4_TOL)
                        for kind in GGUF_KINDS for m, n in ((1, 18432), (4608, 21504))],
         "flash_fwd": [check_flash(4608, gen), check_flash(4112, gen)],
@@ -827,6 +1095,9 @@ def main() -> int:
         "flash_rope": [check_flash_seqmajor(s_, gen, rope=True) for s_ in (4608, 4112)],
         "qmm_grouped_s8": check_grouped("q8t", gen),
         "qmm_grouped_affine": check_grouped("q8_0", gen) + check_grouped("q4_0", gen),
+        **{entry: [check_flash_int8(s_, gen, entry) for s_ in (4608, 4112)]
+           for entry in INT8_MODES},
+        "qmm_grouped_nf4": check_grouped("nf4", gen),
     }
     for name, rows in checks.items():
         for r in rows:
@@ -839,8 +1110,11 @@ def main() -> int:
                 line += (f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
                          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
                          f"{r['library_ms']:.4f} ms")
+            if "library_note" in r:
+                line += (f" ({r['library_note']}); with the PyTorch prepasses "
+                         f"{r['with_prepass_ms']:.4f} ms")
             if "per_group_ms" in r:
-                line += f" (two calls), per-group K1/K4 launches {r['per_group_ms']:.4f} ms"
+                line += f" (two calls), per-group launches {r['per_group_ms']:.4f} ms"
             print(line)
     k4_formats = [check_affine_format(fmt, 33, 3072, 3072, gen)
                   for fmt in ("q6_k", "q4_k", "int8")]
@@ -849,6 +1123,8 @@ def main() -> int:
               f"max-abs {r['max_abs_err']:.3e} (untimed)")
     for attn_layout in (None, "inkernel", "seqmajor"):
         tiny_reference_check(attn_layout)
+    tiny_reference_check(int8=True)
+    tiny_reference_check(flux_kind="nf4", fuse="grouped")
 
     # -- the full-width main path ---------------------------------------------
     from diffusion_rs_tpu_torch import DiffusionGenerationParams
@@ -881,10 +1157,13 @@ def main() -> int:
     params = DiffusionGenerationParams(height=1024, width=1024, num_steps=args.steps,
                                        guidance_scale=3.5, seed=7)
     torch.cuda.reset_peak_memory_stats()
+    before = card_state()
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
     img = pipe.forward_arrays(prompts, params)
     wall = time.perf_counter() - t0
+    print(f"card (SM clock, max, power, temperature, throttle reasons) before: {before}; "
+          f"after: {card_state()}")
     counts = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     tm = pipe.timings
@@ -911,6 +1190,8 @@ def main() -> int:
                 "params": {"t5_params": pipe.t5_params, "clip_params": pipe.clip_params,
                            "vae_params": pipe.vae_params}}
     gguf_round_trip(encoders, prompts)
+    int8_counts, _ = int8_attention_images(pipe, prompts, args.steps, lat)
+    counts.update(int8_counts)
     pipe.flux_params = None  # free the q8t transformer before the full-depth ones
     gguf = {kind: gguf_image(kind, encoders, prompts, args.steps) for kind in GGUF_KINDS}
     counts["qmm_affine"] = gguf["q4_0"][0]["qmm_affine"]
@@ -927,6 +1208,9 @@ def main() -> int:
         # config B shares config A's fused T5
         encoders = {**encoders, "params": {**encoders["params"], "t5_params": t5_fused}}
 
+    # -- configs D0 and D: FLUX.1 in nf4, default and grouped ----------------
+    counts["qmm_grouped_nf4"] = nf4_images(encoders, prompts, args.steps)["qmm_grouped_nf4"]
+
     src = "diffusion_rs_tpu_torch/csrc/"
     qmm_pallas = "diffusion_rs_tpu/ops/qmatmul_pallas.py"
     flash_pallas = "diffusion_rs_tpu/ops/flash_pallas.py"
@@ -941,6 +1225,10 @@ def main() -> int:
         "flash_rope": ("flash_fwd.cu", f"{flash_pallas}:523", 0),
         "qmm_grouped_s8": ("qmm_s8.cu", f"{qmm_pallas}:630", -1),
         "qmm_grouped_affine": ("qmm_affine.cu", f"{qmm_pallas}:630", -1),
+        "flash_s8": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
+        "flash_s8pv": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
+        "flash_s8_s8pv": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
+        "qmm_grouped_nf4": ("qmm_nf4.cu", f"{qmm_pallas}:630", -1),
     }
     kernels = []
     for name, rows in checks.items():
@@ -954,6 +1242,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
+            **{key: r[key] for key in ("library_note", "with_prepass_ms") if key in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,6 @@
-// Flash attention forward, bf16, head_dim 128, output head-merged
-// [B, Sq, H * 128]. One kernel body, three entry points:
+// Flash attention forward, head_dim 128, output head-merged [B, Sq, H * 128].
+// Two kernel bodies: the bf16 one below with three entry points, and the
+// int8 one further down with three more:
 //
 // K3 flash_fwd: replaces diffusion_rs_tpu/ops/flash_pallas.py:_flash_kernel
 //   in bf16 mode with seq_out=True and no lse (:50-216), reached through
@@ -12,6 +13,10 @@
 // K7 flash_rope: replaces _flash_rope_kernel (:429), reached through
 //   _flash_rope_call -> pl.pallas_call (:523). K6 plus the half-split RoPE
 //   of q and k inside the kernel.
+// K9 flash_s8, K10 flash_s8pv and flash_s8_s8pv (both): replace the int8
+//   modes of _flash_kernel, s8 (:67-99) and s8_pv (:123-176, :200-204),
+//   reached through _flash_call -> pl.pallas_call (:396). A second body,
+//   flash_int8_body, described at its definition; K3's body is untouched.
 //
 // Math (the Pallas kernels'): s = (q . k^T) * scale in f32; kv columns past
 // kv_len masked to -1e30; running max m (starts at -1e30) and sum l in f32;
@@ -371,6 +376,434 @@ flash_rope_kernel(const Rows q, const Rows k, const Rows v, __nv_bfloat16* __res
                           Sq, Skv, scale);
 }
 
+// ---------------------------------------------------------------------------
+// The int8 modes (K9, K10, both). q bf16 [B, H, Sq, 128]; the prepasses
+// (ops/flash.py quantize_k / quantize_v, plain PyTorch) give k and v int8
+// with one f32 scale per quantization block of QB kv rows (QB = JAX's kv
+// block, a multiple of 128; Skv_p = Skv rounded up to QB, zero rows).
+//
+// S8_QK (K9): k int8 [B, H, Skv_p, 128], sk f32 [B, H, Skv_p / QB]. The q
+//   tile is quantized once per block, per row: sq = max|q| / 127 (IEEE
+//   quotient; 1 for a zero row), qq = round-half-even(q / sq). QK^T runs on
+//   mma.sync m16n8k32 s8 -> s32 (exact), and s = f32(s_i) * (sq * (sk *
+//   scale)), each product rounded on its own, as the Pallas kernel orders
+//   it. Without S8_PV the softmax and the bf16 P.V are K3's.
+// S8_PV (K10): v int8, centred on its per-(b, h) channel mean vm f32
+//   [B, H, 128], scale sv f32 [B, H, Skv_p / QB], laid out [B, H, 128,
+//   Skv_p] (kv contiguous, the int8 MMA's B operand) with the rows of each
+//   32-row chunk permuted (ops/flash.py v_kernel_layout) so that a thread's
+//   p values, held in the QK^T accumulator's layout, are its int8 A
+//   fragment as they stand. p is referenced to the row max of the whole
+//   quantization block, as in JAX, so each block takes two passes over its
+//   64-row k tiles: the first computes QK^T for the block's row max m_blk;
+//   the second computes QK^T again, p = exp(s - (m_blk - ln 127)) in
+//   [0, 127], pq = trunc(p + 0.5), and accumulates P.V and sum(pq) in int32
+//   across the block's tiles (1536 * 127 * 127 < 2^31), which is JAX's one
+//   int32 dot per block. Once per block: m_next = max(m, m_blk), alpha =
+//   exp(m - m_next), beta = exp(m_blk - m_next), acc = acc * alpha +
+//   f32(pv) * (beta * (sv / 127)), l = l * alpha + (f32(sum pq) * (1/127)) *
+//   beta. The output is acc * (1 / l) + vm. The second QK^T pass is this
+//   design's own cost (the Pallas kernel holds a whole block in VMEM).
+// Ragged kv: columns at or past Skv are masked to -1e30 (p = 0; the padded
+// k and v rows are zero); tiles past the last real row are not visited.
+// Padded q rows are zero (sq = 1) and not written.
+constexpr int I8_STRIDE = D + 16;    // int8 q / k rows: 144 bytes, conflict-free ldmatrix
+constexpr int VT_STRIDE = BKV + 16;  // int8 v^T rows, one per channel: 80 bytes
+constexpr float LOG127 = 4.844187086458591f;
+constexpr float INV127 = static_cast<float>(1.0 / 127.0);
+
+template <bool S8_QK, bool S8_PV>
+struct Int8Smem {
+  static constexpr int Q = BQ * STRIDE * 2;                       // bf16 q tile
+  static constexpr int QQ = S8_QK ? BQ * I8_STRIDE : 0;           // int8 q tile
+  static constexpr int SQ = S8_QK ? BQ * 4 : 0;                   // q row scales
+  static constexpr int KT = S8_QK ? BKV * I8_STRIDE : TILE * 2;   // one k tile
+  static constexpr int VT = S8_PV ? D * VT_STRIDE : TILE * 2;     // one v tile
+  static constexpr size_t BYTES = (size_t)Q + QQ + SQ + 2 * KT + 2 * VT;
+};
+
+__device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xFF) | ((uint32_t)(b & 0xFF) << 8) | ((uint32_t)(c & 0xFF) << 16) |
+         ((uint32_t)(d & 0xFF) << 24);
+}
+
+template <bool S8_QK, bool S8_PV>
+__device__ __forceinline__ void flash_int8_body(
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_,
+    const float* __restrict__ sk, const void* __restrict__ v_, const float* __restrict__ sv,
+    const float* __restrict__ vm, __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv,
+    int QB, float scale) {
+  using L = Int8Smem<S8_QK, S8_PV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);        // [BQ][STRIDE]
+  int8_t* Qq = reinterpret_cast<int8_t*>(smem + L::Q);               // [BQ][I8_STRIDE]
+  float* Sqs = reinterpret_cast<float*>(smem + L::Q + L::QQ);        // [BQ]
+  unsigned char* Kb = smem + L::Q + L::QQ + L::SQ;                   // [2][k tile]
+  unsigned char* Vb = Kb + 2 * L::KT;                                // [2][v tile]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * BQ;
+  const int nblk = (Skv + QB - 1) / QB;
+  const int skv_p = nblk * QB;
+  const int nkv = (Skv + BKV - 1) / BKV;  // k tiles with a real row
+  const int tpb = QB / BKV;               // k tiles per quantization block
+  const int nsteps = S8_PV ? 2 * nkv : nkv;
+  const __nv_bfloat16* qg = q + (size_t)bh * Sq * D;
+  const int8_t* kq = static_cast<const int8_t*>(k_) + (size_t)bh * skv_p * D;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(k_) + (size_t)bh * Skv * D;
+  const int8_t* vt = static_cast<const int8_t*>(v_) + (size_t)bh * D * skv_p;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(v_) + (size_t)bh * Skv * D;
+
+  // Step s -> (k tile j, pass, last tile of j's quantization block). With
+  // S8_PV each block's tiles come twice: pass 0 (row max), then pass 1.
+  auto step = [&](int s, int& j, int& pass, int& last) {
+    if constexpr (S8_PV) {
+      const int base = (s / (2 * tpb)) * tpb;
+      const int c = min(tpb, nkv - base);
+      const int local = s - 2 * base;
+      pass = local >= c;
+      j = base + (pass ? local - c : local);
+      last = base + c - 1;
+    } else {
+      j = last = s;
+      pass = 1;
+    }
+  };
+
+  // Q tile: 64 rows x 16 chunks of 16 bytes.
+  for (int c = tid; c < BQ * (D / 8); c += THREADS) {
+    const int r = c >> 4;
+    const int ch = c & 15;
+    const int gr = q0 + r;
+    cp_async16(Qs + r * STRIDE + ch * 8, qg + (size_t)(gr < Sq ? gr : 0) * D + ch * 8,
+               gr < Sq ? 16 : 0);
+  }
+  cp_async_commit();
+
+  auto load_step = [&](int s, int buf) {
+    int j, pass, last;
+    step(s, j, pass, last);
+    unsigned char* kd = Kb + buf * L::KT;
+    for (int c = tid; c < BKV * (D / 16 * (S8_QK ? 1 : 2)); c += THREADS) {
+      if constexpr (S8_QK) {  // rows < Skv_p always: padded rows are zero
+        const int r = c >> 3;
+        const int ch = c & 7;
+        cp_async16(kd + r * I8_STRIDE + ch * 16, kq + (size_t)(j * BKV + r) * D + ch * 16, 16);
+      } else {
+        const int r = c >> 4;
+        const int ch = c & 15;
+        const int gr = j * BKV + r;
+        cp_async16(kd + (r * STRIDE + ch * 8) * 2, kg + (size_t)(gr < Skv ? gr : 0) * D + ch * 8,
+                   gr < Skv ? 16 : 0);
+      }
+    }
+    if (pass) {
+      unsigned char* vd = Vb + buf * L::VT;
+      if constexpr (S8_PV) {  // 128 channel rows x 64 kv bytes of v^T
+        for (int c = tid; c < D * (BKV / 16); c += THREADS) {
+          const int r = c >> 2;
+          const int ch = c & 3;
+          cp_async16(vd + r * VT_STRIDE + ch * 16, vt + (size_t)r * skv_p + j * BKV + ch * 16, 16);
+        }
+      } else {
+        for (int c = tid; c < BKV * (D / 8); c += THREADS) {
+          const int r = c >> 4;
+          const int ch = c & 15;
+          const int gr = j * BKV + r;
+          cp_async16(vd + (r * STRIDE + ch * 8) * 2, vg + (size_t)(gr < Skv ? gr : 0) * D + ch * 8,
+                     gr < Skv ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  load_step(0, 0);
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+  if constexpr (S8_QK) {  // quantize the q tile: two threads per row, 64 columns each
+    const int r = tid >> 1;
+    const int c0 = (tid & 1) * 64;
+    const __nv_bfloat16* row = Qs + r * STRIDE + c0;
+    float amax = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < 64; ++c) amax = fmaxf(amax, fabsf(__bfloat162float(row[c])));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    const float sqr = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
+#pragma unroll 4
+    for (int c = 0; c < 64; c += 4) {
+      int qi[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qi[e] = __float2int_rn(__fdiv_rn(__bfloat162float(row[c + e]), sqr));
+      *reinterpret_cast<uint32_t*>(Qq + r * I8_STRIDE + c0 + c) = pack_s8x4(qi[0], qi[1], qi[2], qi[3]);
+    }
+    if ((tid & 1) == 0) Sqs[r] = sqr;
+    __syncthreads();
+  }
+
+  // q fragments: int8 (4 k-chunks of 32) or bf16 (8 k-chunks of 16).
+  uint32_t qf[S8_QK ? D / 32 : D / 16][4];
+  if constexpr (S8_QK) {
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk)
+      ldmatrix_x4(qf[kk], Qq + (warp * 16 + (lane & 15)) * I8_STRIDE + kk * 32 + (lane >> 4) * 16);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
+  }
+  const float sq_row[2] = {S8_QK ? Sqs[warp * 16 + g] : 1.f, S8_QK ? Sqs[warp * 16 + g + 8] : 1.f};
+
+  float o[D / 8][4];
+  int32_t pvi[S8_PV ? D / 8 : 1][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (S8_PV ? D / 8 : 1); ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pvi[i][e] = 0;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};
+  float mx[2] = {NEG_INF, NEG_INF};          // S8_PV: the block's row max so far
+  float alpha[2], beta[2], ref[2];           // S8_PV: this block's factors
+  int lq[2] = {0, 0};                        // S8_PV: sum of pq over the block
+
+  for (int s_ = 0; s_ < nsteps; ++s_) {
+    const int buf = s_ & 1;
+    if (s_ + 1 < nsteps) {
+      load_step(s_ + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int j, pass, last;
+    step(s_, j, pass, last);
+    const unsigned char* kt = Kb + buf * L::KT;
+    const unsigned char* vtile = Vb + buf * L::VT;
+
+    // s = scaled QK^T for this warp's 16 rows x 64 kv columns, masked.
+    float s[BKV / 8][4];
+    if constexpr (S8_QK) {
+      int32_t si[BKV / 8][4];
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) si[i][e] = 0;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) {
+          uint32_t r4[4];
+          ldmatrix_x4(r4, kt + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * I8_STRIDE + kk * 32 +
+                              ((lane >> 3) & 1) * 16);
+          const uint32_t b0[2] = {r4[0], r4[1]};
+          const uint32_t b1[2] = {r4[2], r4[3]};
+          mma_s8_16832(si[2 * jj], qf[kk], b0);
+          mma_s8_16832(si[2 * jj + 1], qf[kk], b1);
+        }
+      }
+      const float skj = __fmul_rn(sk[(size_t)bh * nblk + (j * BKV) / QB], scale);
+      const float fac[2] = {__fmul_rn(sq_row[0], skj), __fmul_rn(sq_row[1], skj)};
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * BKV + i * 8 + 2 * t + (e & 1);
+          s[i][e] = col < Skv ? __fmul_rn(__int2float_rn(si[i][e]), fac[e >> 1]) : NEG_INF;
+        }
+    } else {
+      const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(kt);
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) {
+          uint32_t r4[4];
+          ldmatrix_x4(r4, ks + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          const uint32_t b0[2] = {r4[0], r4[1]};
+          const uint32_t b1[2] = {r4[2], r4[3]};
+          mma_bf16_16816(s[2 * jj], qf[kk], b0);
+          mma_bf16_16816(s[2 * jj + 1], qf[kk], b1);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * BKV + i * 8 + 2 * t + (e & 1);
+          s[i][e] = col < Skv ? __fmul_rn(s[i][e], scale) : NEG_INF;
+        }
+    }
+
+    if constexpr (S8_PV) {
+      if (!pass) {  // pass 0: the block's row max
+#pragma unroll
+        for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
+        if (j == last) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            const float m_next = fmaxf(m_run[r], mx[r]);
+            alpha[r] = expf(__fsub_rn(m_run[r], m_next));
+            beta[r] = expf(__fsub_rn(mx[r], m_next));
+            ref[r] = __fsub_rn(mx[r], LOG127);
+            m_run[r] = m_next;
+            mx[r] = NEG_INF;
+          }
+        }
+      } else {  // pass 1: int8 p, P.V and sum(pq) in int32
+        int pq[BKV / 8][4];
+#pragma unroll
+        for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pq[i][e] = __float2int_rz(__fadd_rn(expf(__fsub_rn(s[i][e], ref[e >> 1])), 0.5f));
+            lq[e >> 1] += pq[i][e];
+          }
+#pragma unroll
+        for (int kc = 0; kc < BKV / 32; ++kc) {
+          const int i0 = 4 * kc;
+          const uint32_t pa[4] = {
+              pack_s8x4(pq[i0][0], pq[i0][1], pq[i0 + 1][0], pq[i0 + 1][1]),
+              pack_s8x4(pq[i0][2], pq[i0][3], pq[i0 + 1][2], pq[i0 + 1][3]),
+              pack_s8x4(pq[i0 + 2][0], pq[i0 + 2][1], pq[i0 + 3][0], pq[i0 + 3][1]),
+              pack_s8x4(pq[i0 + 2][2], pq[i0 + 2][3], pq[i0 + 3][2], pq[i0 + 3][3])};
+#pragma unroll
+          for (int dn = 0; dn < D / 16; ++dn) {
+            uint32_t r4[4];
+            ldmatrix_x4(r4, vtile + (dn * 16 + (lane & 7) + ((lane >> 4) << 3)) * VT_STRIDE +
+                                kc * 32 + ((lane >> 3) & 1) * 16);
+            const uint32_t b0[2] = {r4[0], r4[1]};
+            const uint32_t b1[2] = {r4[2], r4[3]};
+            mma_s8_16832(pvi[2 * dn], pa, b0);
+            mma_s8_16832(pvi[2 * dn + 1], pa, b1);
+          }
+        }
+        if (j == last) {  // fold the block into acc and l
+          const float svq = __fdiv_rn(sv[(size_t)bh * nblk + (j * BKV) / QB], 127.f);
+          float svs[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            lq[r] += __shfl_xor_sync(0xffffffffu, lq[r], 1);
+            lq[r] += __shfl_xor_sync(0xffffffffu, lq[r], 2);
+            const float l_q = __fmul_rn(__int2float_rn(lq[r]), INV127);
+            l_run[r] = __fadd_rn(__fmul_rn(l_run[r], alpha[r]), __fmul_rn(l_q, beta[r]));
+            svs[r] = __fmul_rn(beta[r], svq);
+            lq[r] = 0;
+          }
+#pragma unroll
+          for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              o[i][e] = __fadd_rn(__fmul_rn(o[i][e], alpha[e >> 1]),
+                                  __fmul_rn(__int2float_rn(pvi[i][e]), svs[e >> 1]));
+              pvi[i][e] = 0;
+            }
+        }
+      }
+    } else {  // K3's online softmax over the tile, bf16 P.V
+      float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[i][e]);
+      float al[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float m_new = fmaxf(m_run[r], mt[r]);
+        al[r] = expf(m_run[r] - m_new);
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[i][e] - m_run[e >> 1]);
+          s[i][e] = p;
+          ls[e >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
+        ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
+        l_run[r] = l_run[r] * al[r] + ls[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] *= al[e >> 1];
+      const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(vtile);
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
+        pa[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
+        pa[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        pa[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t r4[4];
+          ldmatrix_x4_trans(r4, vs + (kc * 16 + (lane & 15)) * STRIDE + dn * 16 + (lane >> 4) * 8);
+          const uint32_t b0[2] = {r4[0], r4[1]};
+          const uint32_t b1[2] = {r4[2], r4[3]};
+          mma_bf16_16816(o[2 * dn], pa, b0);
+          mma_bf16_16816(o[2 * dn + 1], pa, b1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int HD = H * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (row >= Sq) continue;
+    const float l = l_run[r] == 0.f ? 1.f : l_run[r];
+    const float inv = __frcp_rn(l);
+    __nv_bfloat16* orow = out + ((size_t)b * Sq + row) * HD + (size_t)h * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = i * 8 + 2 * t;
+      float v0 = __fmul_rn(o[i][2 * r], inv);
+      float v1 = __fmul_rn(o[i][2 * r + 1], inv);
+      if constexpr (S8_PV) {
+        v0 = __fadd_rn(v0, vm[(size_t)bh * D + col]);
+        v1 = __fadd_rn(v1, vm[(size_t)bh * D + col + 1]);
+      }
+      *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16x2(v0, v1);
+    }
+  }
+}
+
+template <bool S8_QK, bool S8_PV>
+__global__ void __launch_bounds__(THREADS)
+flash_int8_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
+                  const float* __restrict__ sk, const void* __restrict__ v,
+                  const float* __restrict__ sv, const float* __restrict__ vm,
+                  __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv, int QB, float scale) {
+  flash_int8_body<S8_QK, S8_PV>(q, k, sk, v, sv, vm, out, H, Sq, Skv, QB, scale);
+}
+
 // Sets the kernel's shared-memory limit once, then launches it.
 template <class Kernel, class... Args>
 int launch(Kernel kernel, size_t smem, bool& attr_set, int B, int H, int Sq, void* stream,
@@ -431,4 +864,47 @@ extern "C" int flash_rope(const void* q, const void* k, const void* v, const voi
                 static_cast<const float*>(ce_q), static_cast<const float*>(se_q),
                 static_cast<const float*>(ce_k), static_cast<const float*>(se_k), H, Sq, Skv,
                 scale);
+}
+
+// K9 / K10 / both. q bf16 [B, H, Sq, 128] contiguous. k: int8 [B, H, Skv_p,
+// 128] with sk f32 [B, H, Skv_p / QB] (S8_QK), else bf16 [B, H, Skv, 128]
+// and sk unused. v: int8 [B, H, 128, Skv_p] in v_kernel_layout order with sv
+// f32 [B, H, Skv_p / QB] and vm f32 [B, H, 128] (S8_PV), else bf16 [B, H,
+// Skv, 128]. Skv_p = Skv rounded up to QB, a multiple of 128. out bf16
+// [B, Sq, H * 128]. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a bad QB.
+template <bool S8_QK, bool S8_PV>
+int launch_int8(bool& attr_set, const void* q, const void* k, const void* sk, const void* v,
+                const void* sv, const void* vm, void* out, int B, int H, int Sq, int Skv,
+                int QB, float scale, void* stream) {
+  if (QB <= 0 || QB % 128) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(flash_int8_kernel<S8_QK, S8_PV>, Int8Smem<S8_QK, S8_PV>::BYTES, attr_set, B, H,
+                Sq, stream, static_cast<const __nv_bfloat16*>(q), k,
+                static_cast<const float*>(sk), v, static_cast<const float*>(sv),
+                static_cast<const float*>(vm), static_cast<__nv_bfloat16*>(out), H, Sq, Skv, QB,
+                scale);
+}
+
+extern "C" int flash_s8(const void* q, const void* k, const void* sk, const void* v,
+                        const void* sv, const void* vm, void* out, int B, int H, int Sq,
+                        int Skv, int QB, float scale, void* stream) {
+  static bool attr_set = false;
+  return launch_int8<true, false>(attr_set, q, k, sk, v, sv, vm, out, B, H, Sq, Skv, QB, scale,
+                                  stream);
+}
+
+extern "C" int flash_s8pv(const void* q, const void* k, const void* sk, const void* v,
+                          const void* sv, const void* vm, void* out, int B, int H, int Sq,
+                          int Skv, int QB, float scale, void* stream) {
+  static bool attr_set = false;
+  return launch_int8<false, true>(attr_set, q, k, sk, v, sv, vm, out, B, H, Sq, Skv, QB, scale,
+                                  stream);
+}
+
+extern "C" int flash_s8_s8pv(const void* q, const void* k, const void* sk, const void* v,
+                             const void* sv, const void* vm, void* out, int B, int H, int Sq,
+                             int Skv, int QB, float scale, void* stream) {
+  static bool attr_set = false;
+  return launch_int8<true, true>(attr_set, q, k, sk, v, sv, vm, out, B, H, Sq, Skv, QB, scale,
+                                 stream);
 }

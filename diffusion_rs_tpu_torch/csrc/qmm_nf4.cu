@@ -3,6 +3,16 @@
 // Replaces diffusion_rs_tpu/ops/qmatmul_pallas.py:_qmm_kernel, 4-bit
 // codebook branch: _dequant_tile (:57-120) with _codebook_select (:34),
 // reached through _qmm_call -> pl.pallas_call (:378).
+// K11 qmm_grouped_nf4: replaces the codebook branch of _qmm_grouped_kernel
+// (:539-554), reached through _qmm_grouped_call -> pl.pallas_call (:630): up
+// to eight products of one [K, N] nf4/fp4 format in one launch. As K8 in
+// qmm_s8.cu and qmm_affine.cu, the kernel takes a group table by value {x,
+// packed, scale, codebook, out, m, tile0}; the grid runs over the sum of the
+// groups' m-tiles, a block finds its group from the tile offsets, and each
+// group's m-tiles start at its own row 0, so a group's output is K2's output
+// for that group bit for bit. K2 is the table of one group. Nothing is
+// stacked or copied per call. No fast16 mode: JAX passes fast16=False to
+// every grouped call (:726).
 //
 // Math: the packed plane is u8 [K/2, N] in split-block order: inside each
 // `split`-row run, packed row r holds k-row r in its low nibble and k-row
@@ -37,12 +47,38 @@ constexpr int W_ELEMS = KS * W_STRIDE;
 constexpr size_t SMEM_BYTES =
     2 * A_ELEMS * sizeof(__nv_bfloat16) + 2 * P_BYTES + W_ELEMS * sizeof(__nv_bfloat16) +
     16 * sizeof(float);
+constexpr int MAX_GROUPS = 8;
+
+// One product of a call: x [m, K], the planes of its [K, N] weight and its
+// codebook, output [m, N]; tile0 is where its m-tiles start in the grid.
+struct Group {
+  const __nv_bfloat16* x;
+  const uint8_t* packed;
+  const float* scale;
+  const float* codebook;
+  __nv_bfloat16* out;
+  int m, tile0;
+};
+
+struct Table {
+  Group g[MAX_GROUPS];
+  int count;
+};
 
 __global__ void __launch_bounds__(THREADS)
-qmm_nf4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-               const float* __restrict__ scale, const float* __restrict__ codebook,
-               __nv_bfloat16* __restrict__ out, int M, int K, int N, int split,
-               int group) {
+qmm_nf4_kernel(const Table tab, int K, int N, int split, int group) {
+  // This block's group: the last one whose m-tiles start at or before it.
+  const int tile = blockIdx.y;
+  Group G = tab.g[0];
+#pragma unroll
+  for (int i = 1; i < MAX_GROUPS; ++i)
+    if (i < tab.count && tile >= tab.g[i].tile0) G = tab.g[i];
+  const __nv_bfloat16* __restrict__ x = G.x;
+  const uint8_t* __restrict__ packed = G.packed;
+  const float* __restrict__ scale = G.scale;
+  const float* __restrict__ codebook = G.codebook;
+  __nv_bfloat16* __restrict__ out = G.out;
+  const int M = G.m;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);            // [2][BM][A_STRIDE]
   uint8_t* Ps = smem + 2 * A_ELEMS * sizeof(__nv_bfloat16);                // [2][PK][BN]
@@ -56,7 +92,7 @@ qmm_nf4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   const int wn = warp & 3;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = (tile - G.tile0) * BM;
   const int n0 = blockIdx.x * BN;
   const int half = split / 2;
   const int stages_per_run = half / PK;
@@ -184,14 +220,8 @@ qmm_nf4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   }
 }
 
-}  // namespace
-
-// x bf16 [M, K]; packed u8 [K/2, N]; scale f32 [K/group, N]; codebook f32
-// [16]; out bf16 [M, N]. Needs split % 64 == 0, K % split == 0,
-// group % 32 == 0, N % 128 == 0. Returns cudaGetLastError().
-extern "C" int qmm_nf4(const void* x, const void* packed, const void* scale,
-                       const void* codebook, void* out, int M, int K, int N,
-                       int split, int group, void* stream) {
+// Fills the tile offsets and launches the kernel for the table.
+int run(Table& tab, int K, int N, int split, int group, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -199,10 +229,47 @@ extern "C" int qmm_nf4(const void* x, const void* packed, const void* scale,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  qmm_nf4_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<const float*>(codebook),
-      static_cast<__nv_bfloat16*>(out), M, K, N, split, group);
+  int tiles = 0;
+  for (int i = 0; i < tab.count; ++i) {
+    tab.g[i].tile0 = tiles;
+    tiles += (tab.g[i].m + BM - 1) / BM;
+  }
+  if (tiles == 0) return 0;
+  dim3 grid(N / BN, tiles);
+  qmm_nf4_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(tab, K, N, split, group);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2. x bf16 [M, K]; packed u8 [K/2, N]; scale f32 [K/group, N]; codebook f32
+// [16]; out bf16 [M, N]. Needs split % 64 == 0, K % split == 0,
+// group % 32 == 0, N % 128 == 0. Returns cudaGetLastError().
+extern "C" int qmm_nf4(const void* x, const void* packed, const void* scale,
+                       const void* codebook, void* out, int M, int K, int N,
+                       int split, int group, void* stream) {
+  Table tab{};
+  tab.count = 1;
+  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+              static_cast<const float*>(scale), static_cast<const float*>(codebook),
+              static_cast<__nv_bfloat16*>(out), M, 0};
+  return run(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
+}
+
+// K11. table: G rows of 6 int64 {x, packed, scale, codebook, out, m}, each
+// group as K2's arguments, all of one K, N, split and group. 1 <= G <= 8.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a bad G.
+extern "C" int qmm_grouped_nf4(const long long* table, int G, int K, int N, int split,
+                               int group, void* stream) {
+  if (G < 1 || G > MAX_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
+  Table tab{};
+  tab.count = G;
+  for (int i = 0; i < G; ++i) {
+    const long long* r = table + 6 * i;
+    tab.g[i] = {reinterpret_cast<const __nv_bfloat16*>(r[0]),
+                reinterpret_cast<const uint8_t*>(r[1]), reinterpret_cast<const float*>(r[2]),
+                reinterpret_cast<const float*>(r[3]), reinterpret_cast<__nv_bfloat16*>(r[4]),
+                static_cast<int>(r[5]), 0};
+  }
+  return run(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
 }

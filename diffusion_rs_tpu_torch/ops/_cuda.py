@@ -10,9 +10,9 @@ source is rebuilt and an unchanged one is reused.
 No ``--use_fast_math``: the s8 matmul divides and rounds half-to-even exactly
 as ``jnp.round(x / sx)`` does, and fast math would change both.
 
-A source may export several entry points (:data:`KERNELS`: the q8t and
+A source may export several entry points (:data:`KERNELS`: the q8t, nf4 and
 affine sources also export their grouped forms, the flash source its
-seq-major and fused-RoPE forms). Every kernel wrapper adds one to its entry
+seq-major, fused-RoPE and int8 forms). Every kernel wrapper adds one to its entry
 point's count in :data:`LAUNCHES` when it launches it, and nowhere else.
 """
 
@@ -48,11 +48,15 @@ KERNELS = {
     "qmm_s8": ("qmm_s8", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "qmm_grouped_s8": ("qmm_s8", [_P, _I, _I, _I, _I, _P]),
     "qmm_nf4": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "qmm_grouped_nf4": ("qmm_nf4", [_P, _I, _I, _I, _I, _I, _P]),
     "qmm_affine": ("qmm_affine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "qmm_grouped_affine": ("qmm_affine", [_P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_fwd": ("flash_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "flash_sm": ("flash_fwd", [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P]),
     "flash_rope": ("flash_fwd", [_P] * 8 + [_I] * 4 + [_L] * 6 + [_F, _P]),
+    "flash_s8": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
+    "flash_s8pv": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
+    "flash_s8_s8pv": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -12,7 +12,13 @@ max/sum/accumulator, QK^T and P.V on bf16 tensor cores, ragged kv masked to
 * K7 ``flash_rope`` (``_flash_rope_kernel``): K6 with the half-split RoPE of
   q and k done inside the kernel from the expanded tables.
 
-Beside them are the plain PyTorch versions, which follow the same
+The int8 modes of ``_flash_kernel`` (``s8`` and ``s8_pv``) are a second
+kernel body in the same source, with three entry points: K9 ``flash_s8``
+(s8 x s8 QK^T), K10 ``flash_s8pv`` (s8 x s8 P.V) and ``flash_s8_s8pv`` (both).
+Their prepasses, :func:`quantize_k` and :func:`quantize_v`, are plain
+PyTorch, as JAX leaves them to XLA.
+
+Beside the kernels are the plain PyTorch versions, which follow the same
 per-kv-block online softmax: ``l`` sums the f32 ``p`` while P.V uses ``p``
 cast to the value dtype. A CPU tensor takes the plain version; a CUDA tensor
 takes the kernel or raises. The TPU tiling machinery (``DEFAULT_BLOCK_Q/K``,
@@ -26,6 +32,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
 from .rope import apply_rope_halfsplit
@@ -35,6 +42,16 @@ _NEG_INF = -1e30
 # blocking by default so the two accumulate in the same order of blocks.
 BLOCK_K = 64
 HEAD_DIM = 128
+# The int8 modes' quantization block is JAX's kv block, min(1536,
+# round_up(Skv, 128)) (flash_pallas.py:763). It is a numerics knob, not a
+# tile: it sets how many kv rows share one k / v scale and, under s8_pv, the
+# rows whose row max p is quantized against. The kernels keep it whatever
+# kv tile they loop over, so s8pv_dropped_mass describes them too.
+QUANT_BLOCK_K = 1536
+_LOG127 = 4.844187086458591  # ln(127): folds the int8 scale of p into the exp
+# entry point of csrc/flash_fwd.cu per (s8, s8_pv)
+INT8_ENTRIES = {(True, False): "flash_s8", (False, True): "flash_s8pv",
+                (True, True): "flash_s8_s8pv"}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,25 +79,44 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: Optional[float] = None,
-                    out_seqmajor: bool = False) -> torch.Tensor:
+                    scale: Optional[float] = None, out_seqmajor: bool = False,
+                    s8: bool = False, s8_pv: bool = False) -> torch.Tensor:
     """q, k, v: [B, H, S, D] -> [B, H, Sq, D], or [B, Sq, H*D] with
-    ``out_seqmajor`` (the layout the kernel writes)."""
+    ``out_seqmajor`` (the layout the kernels write).
+
+    ``s8`` runs QK^T as s8 x s8 (K9), ``s8_pv`` runs P.V as s8 x s8 (K10);
+    both together take the combined entry point. A head dim below 128 is
+    zero-padded to 128, as JAX does (exact: zero q/k columns add nothing to
+    QK^T, the extra v columns are sliced off); the scale stays that of the
+    true head dim. Raises ``NotImplementedError`` for a head dim above 128
+    and for ``out_seqmajor`` with a padded head dim (callers then take the
+    [B, H, S, D] path or ``sdpa_xla``)."""
     b, h, sq, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if d > HEAD_DIM:
+        raise NotImplementedError(f"flash kernels take head dims up to {HEAD_DIM}, got {d}")
+    if d < HEAD_DIM:
+        if out_seqmajor:
+            raise NotImplementedError("out_seqmajor needs head_dim 128")
+        q, k, v = (F.pad(t, (0, HEAD_DIM - d)) for t in (q, k, v))
     if q.device.type == "cpu":
-        o = flash_attention_plain(q, k, v, scale)
-        return o.transpose(1, 2).reshape(b, sq, h * d) if out_seqmajor else o
-    out = flash_fwd(q, k, v, scale)
+        if s8 or s8_pv:
+            o = flash_int8_plain(q, k, v, scale, s8, s8_pv)
+        else:
+            o = flash_attention_plain(q, k, v, scale)
+        if out_seqmajor:
+            return o.transpose(1, 2).reshape(b, sq, h * d)
+        return o[..., :d]
+    out = flash_int8(q, k, v, scale, s8, s8_pv) if s8 or s8_pv else flash_fwd(q, k, v, scale)
     if out_seqmajor:
         return out
-    return out.view(b, sq, h, d).transpose(1, 2)
+    return out.view(b, sq, h, HEAD_DIM).transpose(1, 2)[..., :d]
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float) -> torch.Tensor:
-    """Launch ``csrc/flash_fwd.cu``: bf16 [B, H, S, 128] -> bf16 [B, Sq, H*128]."""
+def _check_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What K3, K9 and K10 take: bf16 q [B, H, Sq, 128] and k/v [B, H, Skv,
+    128], contiguous, on one CUDA device, Skv > 0."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d != HEAD_DIM:
@@ -96,10 +132,200 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if skv == 0:
         raise ValueError("flash kernel needs at least one kv row")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """Launch ``csrc/flash_fwd.cu``: bf16 [B, H, S, 128] -> bf16 [B, Sq, H*128]."""
+    _check_bhsd(q, k, v)
+    b, h, sq, d = q.shape
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
     _cuda.launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, h, sq, skv, float(scale))
+                 out.data_ptr(), b, h, sq, k.shape[2], float(scale))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K9 / K10: the int8 modes (s8 QK^T, s8 P.V)
+# ---------------------------------------------------------------------------
+
+
+def quant_block(skv: int) -> int:
+    """The int8 modes' quantization block for ``skv`` kv rows
+    (:data:`QUANT_BLOCK_K`)."""
+    return min(QUANT_BLOCK_K, -(-skv // 128) * 128)
+
+
+def _div127(t: torch.Tensor) -> torch.Tensor:
+    # Divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient.
+    return t / torch.full_like(t, 127.0)
+
+
+def _block_quantize(xc: torch.Tensor, block: int):
+    """Zero-pad centred [B, H, S, D] rows to a multiple of ``block``; one
+    scale per block, max|.| / 127 (1 where the block is 0); codes rounded
+    half to even. Returns int8 [B, H, S_p, D] and f32 [B, H, S_p / block]."""
+    b, h, s, d = xc.shape
+    s_p = -(-s // block) * block
+    xt = F.pad(xc, (0, 0, 0, s_p - s)).reshape(b, h, s_p // block, block, d)
+    ax = xt.abs().amax(dim=(3, 4))
+    sc = torch.where(ax == 0.0, torch.ones_like(ax), _div127(ax))
+    xq = torch.round(xt / sc[..., None, None]).to(torch.int8)
+    return xq.reshape(b, h, s_p, d), sc
+
+
+def _mean_rows(x: torch.Tensor) -> torch.Tensor:
+    """f32 mean over the sequence axis of [B, H, S, D]: the sum divided by S
+    (``jnp.mean``)."""
+    s = x.sum(dim=2, keepdim=True)
+    return s / torch.full_like(s, x.shape[2])
+
+
+def quantize_k(k: torch.Tensor, block: int):
+    """The s8 prepass (``_quantize_k``, flash_pallas.py:223): k centred on
+    its per-(b, h) mean over the real kv rows (softmax over kv is invariant
+    to that shift), then :func:`_block_quantize`. Returns kq int8 [B, H,
+    Skv_p, D] and sk f32 [B, H, Skv_p / block]."""
+    kf = k.float()
+    return _block_quantize(kf - _mean_rows(kf), block)
+
+
+def quantize_v(v: torch.Tensor, block: int):
+    """The s8_pv prepass (``_quantize_v``, flash_pallas.py:244): v centred on
+    its per-(b, h) channel mean (added back to the output, since the softmax
+    weights sum to 1), then :func:`_block_quantize`. Returns vq int8 [B, H,
+    Skv_p, D], sv f32 [B, H, Skv_p / block] and the mean vm f32 [B, H, D]."""
+    vf = v.float()
+    vm = _mean_rows(vf)
+    vq, sv = _block_quantize(vf - vm, block)
+    return vq, sv, vm[:, :, 0]
+
+
+def v_kernel_layout(vq: torch.Tensor) -> torch.Tensor:
+    """vq [B, H, S_p, D] in the layout K10 reads: transposed to [B, H, D,
+    S_p] (kv contiguous, as the int8 MMA's B operand wants it) with the kv
+    rows of each 32-row chunk permuted so that a thread's p values, which
+    sit in the QK^T accumulator's layout, form its int8 A fragment without
+    a shuffle: position 16a + 4t + 2j + e holds row 8(2a + j) + 2t + e. The
+    P.V sum over kv is the same sum in another order of rows, exact in
+    int32."""
+    i = torch.arange(32, device=vq.device)
+    src = 8 * (2 * (i // 16) + (i // 2) % 2) + 2 * ((i // 4) % 4) + i % 2
+    rows = (torch.arange(vq.shape[2] // 32, device=vq.device)[:, None] * 32 + src).reshape(-1)
+    return vq[:, :, rows].transpose(2, 3).contiguous()
+
+
+def flash_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                     s8: bool, s8_pv: bool, qblock: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K9 (``s8``), K10 (``s8_pv``) and both together, in
+    the kernels' order of operations (``_flash_kernel``, flash_pallas.py:
+    67-204). [B, H, Sq, D] x3 -> [B, H, Sq, D].
+
+    ``s8``: q quantized per row (``sq = max|q| / 127``, IEEE quotient, round
+    half to even), k from :func:`quantize_k`; ``s = f32(qq . kq) * (sq * (sk
+    * scale))``, the integer dot exact in float64. ``s8_pv``: per
+    quantization block, ``p = exp(s - (m_blk - ln 127))`` against the
+    block's own row max, quantized by +0.5 and truncation; ``pv`` and ``l``
+    from the int8 p (exact integer sums) times ``beta = exp(m_blk -
+    m_next)``; the v mean is added back at the end. Without ``s8_pv`` the
+    online softmax runs over ``BLOCK_K`` kv rows at a time, as K3's plain
+    version does; with it, over whole quantization blocks, as the kernel
+    does with its two passes per block."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    qb = qblock or quant_block(skv)
+    qf = q.float()
+    if s8:
+        kq, sk = quantize_k(k, qb)
+        aq = qf.abs().amax(dim=-1, keepdim=True)
+        sqs = torch.where(aq == 0.0, torch.ones_like(aq), _div127(aq))
+        qq = torch.round(qf / sqs).double()
+
+    def scores(c0: int, c1: int) -> torch.Tensor:
+        if not s8:
+            return (qf @ k[:, :, c0:c1].float().transpose(-1, -2)) * scale
+        s_i = (qq @ kq[:, :, c0:c1].double().transpose(-1, -2)).float()
+        return s_i * (sqs * (sk[:, :, c0 // qb, None, None] * scale))
+
+    m = torch.full((b, h, sq, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    if s8_pv:
+        vq, sv, vm = quantize_v(v, qb)
+        for c0 in range(0, skv, qb):
+            c1 = min(c0 + qb, skv)
+            s = scores(c0, c1)
+            m_cur = s.amax(dim=-1, keepdim=True)
+            m_next = torch.maximum(m, m_cur)
+            alpha = torch.exp(m - m_next)
+            beta = torch.exp(m_cur - m_next)
+            pq = torch.trunc(torch.exp(s - (m_cur - _LOG127)) + 0.5).double()
+            pv = (pq @ vq[:, :, c0:c1].double()).float()
+            l_q = pq.sum(dim=-1, keepdim=True).float() * (1.0 / 127.0)
+            l = l * alpha + l_q * beta
+            acc = acc * alpha + pv * (beta * _div127(sv[:, :, c0 // qb, None, None]))
+            m = m_next
+    else:
+        for c0 in range(0, skv, BLOCK_K):
+            c1 = min(c0 + BLOCK_K, skv)
+            s = scores(c0, c1)
+            m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_next)
+            p = torch.exp(s - m_next)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(v.dtype).float() @ v[:, :, c0:c1].float()
+            m = m_next
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = acc * (1.0 / l_safe)
+    if s8_pv:
+        o = o + vm[:, :, None, :]
+    return o.to(q.dtype)
+
+
+def flash_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+               s8: bool, s8_pv: bool, qblock: Optional[int] = None) -> torch.Tensor:
+    """Launch K9 (``s8``), K10 (``s8_pv``) or the combined entry point of
+    ``csrc/flash_fwd.cu`` after the prepasses: bf16 [B, H, S, 128] -> bf16
+    [B, Sq, H*128]."""
+    _check_bhsd(q, k, v)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    qb = qblock or quant_block(skv)
+    if qb % 128:
+        raise ValueError(f"the quantization block must be a multiple of 128, got {qb}")
+    kk, sk = quantize_k(k, qb) if s8 else (k, None)
+    if s8_pv:
+        vq, sv, vm = quantize_v(v, qb)
+        vv = v_kernel_layout(vq)
+    else:
+        vv, sv, vm = v, None, None
+    out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
+    _cuda.launch(INT8_ENTRIES[(bool(s8), bool(s8_pv))], q.data_ptr(), kk.data_ptr(),
+                 None if sk is None else sk.data_ptr(), vv.data_ptr(),
+                 None if sv is None else sv.data_ptr(), None if vm is None else vm.data_ptr(),
+                 out.data_ptr(), b, h, sq, skv, qb, float(scale))
+    return out
+
+
+def s8pv_dropped_mass(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None,
+                      qblock: Optional[int] = None) -> torch.Tensor:
+    """Diagnostic for the s8_pv mode (``s8pv_dropped_mass``, flash_pallas.py:
+    268), plain PyTorch: the share of the true softmax mass that the int8 p
+    truncates to zero, i.e. of the keys whose weight relative to their own
+    quantization block's row max is below 0.5 / 127. [B, H, Sq]. The block
+    defaults to the one the kernels use for this kv length."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    skv = s.shape[-1]
+    qb = qblock or quant_block(skv)
+    skv_p = -(-skv // qb) * qb
+    s = F.pad(s, (0, skv_p - skv), value=_NEG_INF)
+    st = s.reshape(*s.shape[:-1], skv_p // qb, qb)
+    p_rel = torch.exp(st - st.amax(dim=-1, keepdim=True))
+    mass = torch.softmax(s, dim=-1).reshape(st.shape)
+    return torch.where(p_rel < 0.5 / 127.0, mass, torch.zeros_like(mass)).sum(dim=(-1, -2))
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +444,9 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``rope_in_kernel`` (default: ``DIFFUSION_RS_TPU_ATTN_LAYOUT=inkernel``)
     rotates q/k inside the kernel (K7); otherwise they are rotated outside
     and K6 runs on them. Raises ``NotImplementedError`` unless head_dim is a
-    multiple of 128; the caller then takes the [B, H, S, D] path."""
+    multiple of 128; the caller then takes the [B, H, S, D] path. As in JAX
+    (flash_pallas.py:669-711), these kernels have no int8 modes: the
+    ATTN_S8 / ATTN_S8PV knobs act only on :func:`flash_attention`."""
     if head_dim % 128 != 0:
         raise NotImplementedError("fused-RoPE kernel needs head_dim % 128 == 0")
     if q.shape[-1] % head_dim != 0:

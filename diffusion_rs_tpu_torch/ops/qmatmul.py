@@ -12,17 +12,16 @@ Port of ``diffusion_rs_tpu/ops/qmatmul_pallas.py``. The dispatch mirrors
 * every other tensor without a codebook (the affine formats: GGUF
   Q4_0..Q8_K, bnb int8, ``w = q * scale + bias``) takes the affine kernel.
 
-Three hand-written Hopper kernels (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``,
+Three hand-written Hopper kernel sources (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``,
 ``csrc/qmm_affine.cu``) serve the CUDA path. Beside each is its plain PyTorch version, which follows
 the Pallas math tile for tile. A wrapper given a CPU tensor runs the plain
 version; given a CUDA tensor it launches the kernel or raises.
 
 :func:`quantized_matmul_grouped` (``quantized_matmul_grouped`` at
 qmatmul_pallas.py:664) runs several same-format ``[K, N]`` products in one
-launch: K8, the grouped entry points of the q8t and affine kernels. Groups
-that differ in format, or a format the kernels do not tile, take per-group
-:func:`quantized_matmul`, as JAX does; the 4-bit codebook formats have no
-grouped kernel yet and raise on CUDA.
+launch: K8, the grouped entry points of the q8t and affine kernels, and K11,
+that of the nf4 kernel. Groups that differ in format, or a format the
+kernels do not tile, take per-group :func:`quantized_matmul`, as JAX does.
 """
 
 from __future__ import annotations
@@ -151,24 +150,37 @@ def qmm_dequant_plain(x2: torch.Tensor, qt: QuantizedTensor,
     return (x2.float() @ w.float()).to(out_dtype)
 
 
+def _check_nf4(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
+               device=None) -> None:
+    """What K2 takes (K11 checks each group with it): bf16 x [M, K] on
+    ``device`` (any CUDA device when None), the 4-bit codebook planes beside
+    it."""
+    m, k = x2.shape
+    n = qt.n
+    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
+             f"{name} takes bf16 activations and produces bf16")
+    _require(_codebook_ok(qt), f"{name} takes 4-bit codebook codes without a bias ({qt.kind})")
+    _require(qt.split % 64 == 0 and k % qt.split == 0 and qt.group % 32 == 0
+             and k % qt.group == 0 and n % 128 == 0,
+             f"{name} needs split % 64 == 0, group % 32 == 0 and N % 128 == 0 "
+             f"(split={qt.split}, group={qt.group}, N={n})")
+    _check_cuda(x2, (m, k), torch.bfloat16, "x", device)
+    _check_cuda(qt.packed, (k // 2, n), torch.uint8, "packed", x2.device)
+    _check_cuda(qt.scale, (k // qt.group, n), torch.float32, "scale", x2.device)
+    _check_cuda(qt.codebook, (16,), torch.float32, "codebook", x2.device)
+
+
 def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
             out_dtype: torch.dtype) -> torch.Tensor:
     """``x2 [M, K] @ deq(nf4 W) [K, N]`` through ``csrc/qmm_nf4.cu``."""
     if x2.device.type == "cpu":
         return qmm_dequant_plain(x2, qt, out_dtype)
+    _check_nf4("qmm_nf4", x2, qt, out_dtype)
     m, k = x2.shape
     n = qt.n
-    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
-             "qmm_nf4 takes bf16 activations and produces bf16")
-    _require(qt.split % 64 == 0 and k % qt.split == 0 and qt.group % 32 == 0
-             and k % qt.group == 0 and n % 128 == 0,
-             f"qmm_nf4 needs split % 64 == 0, group % 32 == 0 and N % 128 == 0 "
-             f"(split={qt.split}, group={qt.group}, N={n})")
-    _check_cuda(x2, (m, k), torch.bfloat16, "x")
-    _check_cuda(qt.packed, (k // 2, n), torch.uint8, "packed", x2.device)
-    _check_cuda(qt.scale, (k // qt.group, n), torch.float32, "scale", x2.device)
-    _check_cuda(qt.codebook, (16,), torch.float32, "codebook", x2.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    if m == 0:
+        return out
     _cuda.launch("qmm_nf4", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
                  m, k, n, qt.split, qt.group)
@@ -255,10 +267,10 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
 
 
 # ---------------------------------------------------------------------------
-# K8: grouped products (s8 and affine branches)
+# K8 / K11: grouped products (s8, affine and codebook branches)
 # ---------------------------------------------------------------------------
 
-MAX_GROUPS = 8  # group-table capacity of one launch (csrc/qmm_s8.cu, qmm_affine.cu)
+MAX_GROUPS = 8  # group-table capacity of one launch (csrc/qmm_s8.cu, qmm_nf4.cu, qmm_affine.cu)
 
 
 def grouped_plan(qts: Sequence[QuantizedTensor]) -> Optional[str]:
@@ -284,8 +296,8 @@ def grouped_plan(qts: Sequence[QuantizedTensor]) -> Optional[str]:
 
 def qmm_grouped_plain(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
                       out_dtype: torch.dtype) -> List[torch.Tensor]:
-    """Plain version of K8: the per-group plain K1 / K4 (or K2 for the
-    codebook formats, which take the same dequantizing plain version)."""
+    """Plain version of K8 and K11: the per-group plain K1, K4 or K2 (the
+    affine and codebook formats take the same dequantizing plain version)."""
     if q8t_ok(qts[0]):
         return [qmm_s8_plain(x, qt.packed, qt.scale, out_dtype) for x, qt in zip(x2s, qts)]
     return [qmm_dequant_plain(x, qt, out_dtype) for x, qt in zip(x2s, qts)]
@@ -347,9 +359,36 @@ def qmm_grouped_affine(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTenso
     return outs
 
 
+def qmm_grouped_nf4(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
+                    out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """``[x_g [M_g, K] @ deq(nf4/fp4 W_g) [K, N]]`` in one launch of
+    ``qmm_grouped_nf4`` (K11, ``csrc/qmm_nf4.cu``), at most 8 groups. Its
+    plain version is the per-group K2 plain version (there is no fast16
+    mode: JAX passes ``fast16=False`` to every grouped call)."""
+    if x2s[0].device.type == "cpu":
+        return qmm_grouped_plain(x2s, qts, out_dtype)
+    _require(1 <= len(x2s) <= MAX_GROUPS, f"qmm_grouped_nf4 takes 1..{MAX_GROUPS} groups")
+    _require(grouped_plan(qts) == "codebook",
+             "qmm_grouped_nf4 takes groups of one 4-bit codebook format")
+    q0 = qts[0]
+    k, n = q0.shape
+    rows, outs = [], []
+    for x2, qt in zip(x2s, qts):
+        _check_nf4("qmm_grouped_nf4", x2, qt, out_dtype, x2s[0].device)
+        m = x2.shape[0]
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+        outs.append(out)
+        rows.append((x2.data_ptr(), qt.packed.data_ptr(), qt.scale.data_ptr(),
+                     qt.codebook.data_ptr(), out.data_ptr(), m))
+    table = _table(rows)
+    _cuda.launch("qmm_grouped_nf4", ctypes.addressof(table), len(rows), k, n, q0.split,
+                 q0.group)
+    return outs
+
+
 def quantized_matmul_grouped(xs: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
                              out_dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
-    """Grouped ``[x_g @ deq(qt_g) for g]``: one K8 launch per 8 groups when
+    """Grouped ``[x_g @ deq(qt_g) for g]``: one K8 / K11 launch per 8 groups when
     :func:`grouped_plan` finds a grouped branch, else per-group
     :func:`quantized_matmul`. x_g [..., K] -> [..., N]."""
     assert len(xs) == len(qts) and len(xs) >= 2
@@ -362,16 +401,9 @@ def quantized_matmul_grouped(xs: Sequence[torch.Tensor], qts: Sequence[Quantized
     ys: List[torch.Tensor] = []
     for i in range(0, len(x2s), MAX_GROUPS):
         xg, qg = x2s[i:i + MAX_GROUPS], qts[i:i + MAX_GROUPS]
-        if plan == "s8":
-            ys += qmm_grouped_s8(xg, qg, out_dtype)
-        elif plan == "affine":
-            ys += qmm_grouped_affine(xg, qg, out_dtype)
-        elif xg[0].device.type == "cpu":
-            ys += qmm_grouped_plain(xg, qg, out_dtype)
-        else:
-            raise NotImplementedError(
-                "quantized_matmul_grouped: the grouped 4-bit codebook (nf4/fp4) "
-                "kernel is not ported yet (ROADMAP Queue 2 item 8c)")
+        grouped = {"s8": qmm_grouped_s8, "affine": qmm_grouped_affine,
+                   "codebook": qmm_grouped_nf4}[plan]
+        ys += grouped(xg, qg, out_dtype)
     return [y.reshape(*x.shape[:-1], n) for x, y in zip(xs, ys)]
 
 

@@ -9,8 +9,9 @@ the repo's conftest:
 Shapes cover what chip_smoke.py does not: ragged M, K-tiles of 64, split
 128, ragged and unequal q/kv lengths, batch 2, every affine (GGUF, bnb int8)
 format through K4, seq-major operands that are column slices of wider rows
-(K6, K7), and grouped calls of 2 to 8 groups with ragged and empty groups
-(K8).
+(K6, K7), grouped calls of 2 to 8 groups with ragged and empty groups
+(K8, K11), and the int8 attention modes (K9, K10, both) over one or several
+quantization blocks with a ragged last block.
 """
 
 import numpy as np
@@ -212,27 +213,59 @@ def test_k6_k7_match_plain(dev, b, h, sq, skv, wide):
             after["flash_fwd"] - before["flash_fwd"]) == (2, 1, 0)
 
 
-@pytest.mark.parametrize("kind", ["q8t", "q8_0", "q4_0"])
+@pytest.mark.parametrize("kind", ["q8t", "q8_0", "q4_0", "nf4"])
 @pytest.mark.parametrize("ms", [(130, 17), (64, 0, 1, 200, 3, 128, 5, 33)])
 def test_k8_matches_per_group_kernels(dev, kind, ms):
-    """Each group's output equals K1's (q8t) or K4's (q8_0, q4_0) output for
-    that group, bit for bit, and is within its band of the plain version;
-    one launch for the whole call."""
+    """Each group's output equals K1's (q8t), K4's (q8_0, q4_0) or K2's
+    (nf4: K11) output for that group, bit for bit, and is within its band of
+    the plain version (K2's 2e-3 for nf4); one launch for the whole call."""
     gen = torch.Generator(device=dev).manual_seed(len(ms))
     k, n = 768, 384
     qts = [random_qtensor(gen, k, n, kind=kind, device=dev) for _ in ms]
-    if kind == "q8t":
+    if kind in ("q8t", "nf4"):
         for qt in qts:
-            qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
+            qt.scale.uniform_(*((0.5e-3, 2e-3) if kind == "q8t" else (0.01, 0.03)),
+                              generator=gen)
     xs = [torch.randn((m, k), generator=gen, device=dev).bfloat16() for m in ms]
-    name = "qmm_grouped_s8" if kind == "q8t" else "qmm_grouped_affine"
-    assert qmatmul.grouped_plan(qts) == ("s8" if kind == "q8t" else "affine")
+    plan, name, single = {
+        "q8t": ("s8", "qmm_grouped_s8", qmatmul.qmm_s8),
+        "nf4": ("codebook", "qmm_grouped_nf4", qmatmul.qmm_nf4),
+    }.get(kind, ("affine", "qmm_grouped_affine", qmatmul.qmm_affine))
+    assert qmatmul.grouped_plan(qts) == plan
     before = _cuda.launch_counts()[name]
     ys = qmatmul.quantized_matmul_grouped(xs, qts)
     assert _cuda.launch_counts()[name] == before + 1
-    single = qmatmul.qmm_s8 if kind == "q8t" else qmatmul.qmm_affine
     for x, qt, y in zip(xs, qts, ys):
         assert torch.equal(y, single(x, qt, torch.bfloat16))
         if x.shape[0]:
             ref = qmatmul.qmm_grouped_plain([x], [qt], torch.bfloat16)[0]
-            assert _summed_rel(y, ref) <= 1e-5
+            assert _summed_rel(y, ref) <= (2e-3 if kind == "nf4" else 1e-5)
+
+
+INT8_MODES = {"flash_s8": (True, False), "flash_s8pv": (False, True),
+              "flash_s8_s8pv": (True, True)}
+
+
+@pytest.mark.parametrize("entry", list(INT8_MODES))
+@pytest.mark.parametrize("b,h,sq,skv,qblock", [
+    (1, 3, 64, 64, None), (2, 2, 300, 300, None), (1, 2, 1, 130, None),
+    (1, 1, 200, 65, None), (1, 2, 300, 300, 128), (1, 2, 130, 1600, None)])
+def test_k9_k10_match_plain(dev, entry, b, h, sq, skv, qblock):
+    """K9 / K10 / both against their plain version: the quantized codes and
+    integer dots are exact in both, so only f32 summation orders (K9's bf16
+    P.V, K10's bf16-mode QK^T) and expf against torch.exp of the same
+    arguments differ: K3's band, 5e-4. One launch of the mode's entry point
+    and none of K3's. (S1600: two quantization blocks of 1536, the second
+    ragged; qblock 128 at S300: three, the last ragged.)"""
+    s8, s8_pv = INT8_MODES[entry]
+    gen = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = torch.randn((b, h, sq, 128), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, h, skv, 128), generator=gen, device=dev).bfloat16()
+    v = (torch.randn((b, h, skv, 128), generator=gen, device=dev) + 1.0).bfloat16()
+    before = _cuda.launch_counts()
+    y = flash.flash_int8(q, k, v, 128 ** -0.5, s8, s8_pv, qblock=qblock)
+    after = _cuda.launch_counts()
+    assert (after[entry] - before[entry], after["flash_fwd"] - before["flash_fwd"]) == (1, 0)
+    ref = flash.flash_int8_plain(q, k, v, 128 ** -0.5, s8, s8_pv, qblock=qblock)
+    assert torch.isfinite(y).all()
+    assert _summed_rel(y, ref.transpose(1, 2).reshape(b, sq, h * 128)) <= 5e-4

@@ -134,15 +134,19 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "    qmatmul.quantized_matmul_grouped([x, x[:1]], qts)\n"
         "q = torch.randn(1, 1, 5, 128, generator=g)\n"
         "flash.flash_attention(q, q, q, out_seqmajor=True)\n"
+        "for s8, s8_pv in ((True, False), (False, True), (True, True)):\n"
+        "    flash.flash_attention(q, q, q, out_seqmajor=True, s8=s8, s8_pv=s8_pv)\n"
         "qs = torch.randn(1, 5, 256, generator=g)\n"
         "ce = torch.ones(1, 5, 128)\n"
         "for inkernel in (False, True):\n"
         "    flash.flash_attention_fused(qs, qs, qs, ce, ce, 128, rope_in_kernel=inkernel)\n"
         "assert not _cuda.BUILD_DIR.exists(), _cuda.BUILD_DIR\n"
         "assert _cuda.launch_counts() == dict.fromkeys(_cuda.KERNELS, 0)\n"
-        "assert set(_cuda.KERNELS) == {'qmm_s8', 'qmm_grouped_s8', 'qmm_nf4', 'qmm_affine',\n"
+        "assert set(_cuda.KERNELS) == {'qmm_s8', 'qmm_grouped_s8', 'qmm_nf4',\n"
+        "                              'qmm_grouped_nf4', 'qmm_affine',\n"
         "                              'qmm_grouped_affine', 'flash_fwd', 'flash_sm',\n"
-        "                              'flash_rope'}\n"
+        "                              'flash_rope', 'flash_s8', 'flash_s8pv',\n"
+        "                              'flash_s8_s8pv'}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"
@@ -174,6 +178,10 @@ def test_cuda_path_has_no_fallback():
     q = torch.zeros((1, 1, 8, 128), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention(q, q, q, out_seqmajor=True)
+    # the int8 modes (K9, K10, both)
+    for s8, s8_pv in ((True, False), (False, True), (True, True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash.flash_attention(q, q, q, out_seqmajor=True, s8=s8, s8_pv=s8_pv)
     # the seq-major kernels (K6, K7) under both RoPE placements
     qs = torch.zeros((1, 8, 256), dtype=torch.bfloat16, device="meta")
     ce = torch.zeros((1, 8, 128), device="meta")
@@ -185,3 +193,9 @@ def test_cuda_path_has_no_fallback():
                              bias=torch.zeros((1, 128)), kind="q4_0", bits=4)
     with pytest.raises(ValueError, match="CUDA"):
         qmatmul.quantized_matmul(x, q4)
+    # grouped nf4 takes K11, whose wrapper raises off the card
+    nf4 = dataclasses.replace(qt, packed=torch.zeros((128, 128), dtype=torch.uint8),
+                              scale=torch.ones((4, 128)), codebook=torch.zeros(16),
+                              kind="nf4", bits=4, group=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        qmatmul.quantized_matmul_grouped([x, x], [nf4, nf4])

@@ -134,6 +134,8 @@ def test_forward_png_decodes_to_forward_arrays(sources):
 LAYOUTS = {
     "fuse_grouped": ("gguf_q4_0", dict(fuse="grouped"), {}),
     "fuse_all": ("nf4", dict(fuse="all"), {}),
+    # nf4 with grouped img/txt pairs: the grouped codebook branch (K11)
+    "nf4_grouped": ("nf4", dict(fuse="grouped"), {}),
     "fused_rope": ("dense", {}, {"DIFFUSION_RS_TPU_FUSED_ROPE": "1"}),
     "a_env_streams_grouped_inkernel": ("gguf_q4_0", {}, {
         "DIFFUSION_RS_TPU_FUSE": "img,txt,single,t5,grouped",

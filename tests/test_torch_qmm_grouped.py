@@ -6,7 +6,7 @@ a txt-like M): q8t takes the s8 branch, GGUF q8_0 and q4_0 the affine one.
 K8's plain version is the per-group plain K1 / K4, bit for bit, and is held
 against the JAX grouped call at the bands of tests/test_torch_qmm.py.
 Groups that differ in format run per group in both packages; the 4-bit
-codebook branch has no grouped kernel yet and raises off the CPU.
+codebook branch (K11) has its own file, tests/test_torch_nf4_grouped.py.
 """
 
 import dataclasses
@@ -90,9 +90,9 @@ def test_mismatched_groups_run_per_group(rng, case):
 
 def test_grouped_codebook_plain_on_cpu_raises_elsewhere(rng):
     """nf4 groups: per-group plain versions on the CPU (equal to the JAX
-    grouped call); off the CPU the grouped codebook kernel is not ported
-    and the call raises instead of running per group (checked on the
-    'meta' device, which is not the CPU)."""
+    grouped call); off the CPU the call reaches K11's wrapper, which
+    launches or raises, and never runs per group (checked on the 'meta'
+    device, which is not the CPU)."""
     ws = [(rng.standard_normal((256, 512)) * 0.05).astype(np.float32) for _ in MS]
     jqts = [jbnb.quantize_nf4(w) for w in ws]  # [out, in] -> [K=512, N=256]
     xs = [rng.standard_normal((m, 512)).astype(np.float32) for m in MS]
@@ -103,8 +103,10 @@ def test_grouped_codebook_plain_on_cpu_raises_elsewhere(rng):
         assert summed_rel(to_np(y), np.asarray(y_j)) <= QMM_BAND
     meta = [q.map(lambda t: t.to("meta")) for q in tqts]
     xm = [torch.zeros((m, 512), dtype=torch.bfloat16, device="meta") for m in MS]
-    with pytest.raises(NotImplementedError, match="8c"):
+    with pytest.raises(ValueError, match="CUDA"):
         tq.quantized_matmul_grouped(xm, meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        tq.qmm_grouped_nf4(xm, meta, torch.bfloat16)
 
 
 def test_grouped_wrappers_have_no_fallback():
