@@ -54,10 +54,35 @@ Phases, each fatal on failure (non-zero exit, no final line):
    phase 7 runs its images (config A's fused T5); D's latent must equal D0's
    (max-abs 0: grouping changes no weight and K11 equals K2 per group).
 
+12. config F (between D0 and D): D0's nf4 weights with
+   DIFFUSION_RS_TPU_QMM_FAST16=1 (K12 on FLUX and T5), its latent against
+   D0's and the two step medians side by side;
+13. the dense preset (dev-1024-bf16: full-depth bf16 FLUX.1-dev and T5-XXL
+   made on the card; K3 alone), then configs E and E0: those weights through
+   the loader's weight options (ISQ to q4_k on the card, a seeded imatrix
+   over every FLUX linear written and read back, a seeded rank-16 LoRA on
+   the attention projections as runtime terms; T5 follows isq), with
+   DIFFUSION_RS_TPU_QMM_FAST16=1 (E: K13) and unset (E0: K4); the ISQ time,
+   the weights' bytes, and a few full-size planes quantized on the CPU with
+   the same function (equal without the imatrix, within the stated bands
+   with it);
+14. an ISQ file round trip at full width: a diffusers-layout directory (FLUX
+   1 double + 1 single block, T5-XXL cut to 1 layer, CLIP-L and the VAE
+   whole, bf16) written by the port, ``Pipeline(isq="q4_k", imatrix=,
+   lora=)`` onto the card, its planes equal to the in-memory weight options
+   on the same weights, and one 1024x1024 step with exact K13 launches.
+
 Phase 2 also holds K9, K10 and the combined entry point at S4608 and S4112,
 K11 at the grouped double-block shapes (against per-group K2 launches, max-abs
-0) and K2 at a FLUX shape; phase 3 also runs the tiny image with both int8
-knobs and with nf4 FLUX plus ``fuse="grouped"``.
+0), K2 at a FLUX shape, and the fast16 kernels K12 (nf4, at the T5 and D0
+shapes) and K13 (Q4_0 and Q4_K at M4608 K3072 N21504; Q8_0, Q6_K, bnb int8
+and a Q4_K plane with s == 0 groups untimed), each with its decoded weight
+(the product with the identity) equal to the plain version's and timed
+beside its f32-decode kernel on the same weights; phase 3 also runs the
+tiny image with both int8 knobs, with nf4 FLUX plus ``fuse="grouped"``, and
+from dense weights through the loader's ISQ (q4_k, imatrix, LoRA) under
+DIFFUSION_RS_TPU_QMM_FAST16=1. Every image prints the capacity check's
+estimate beside its measured peak.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 at once.
@@ -109,9 +134,14 @@ FUSE_ALL_GROUPED = "img,txt,single,t5,grouped"
 
 @contextlib.contextmanager
 def env(**kv):
-    """Set environment variables for the block, then restore them."""
+    """Set environment variables for the block (None unsets one), then
+    restore them."""
     old = {k: os.environ.get(k) for k in kv}
-    os.environ.update(kv)
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -281,6 +311,116 @@ def check_affine_format(fmt: str, m: int, k: int, n: int, gen):
     return dict(shape=f"M{m} K{k} N{n} {fmt} (group {qt.group}, bias "
                       f"{'yes' if qt.bias is not None else 'no'})",
                 summed_rel=err, max_abs_err=max_abs)
+
+
+def fast16_weights(kind: str, k: int, n: int, gen):
+    """A weight for the fast16 kernels on the card: nf4 from the synthetic
+    factory with per-group scales that differ, Q4_0 from it with f16-rounded
+    scales, Q4_K from the device quantizer on a normal [K, N] plane."""
+    import torch
+
+    from diffusion_rs_tpu_torch.quant.gguf_quants import quantize_canonical
+    from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
+
+    if kind == "q4_k":
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        return quantize_canonical(w, "q4_k")
+    qt = random_qtensor(gen, k, n, kind=kind, device="cuda")
+    if kind == "nf4":
+        qt.scale.uniform_(0.01, 0.03, generator=gen)
+    return qt
+
+
+def check_fast16(kind: str, m: int, k: int, n: int, gen):
+    """K12 (nf4) or K13 (Q4_0, Q4_K) at [m, k] x [k, n]: its decoded weight
+    (the product with the identity) equal to the plain fast16 decode
+    (max-abs 0), its output within K2's / K4's band of the plain version;
+    then timed against the f32-decode kernel (K2 / K4) on the same weights,
+    the plain version and one bf16 torch.matmul on the decoded weight."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import qmatmul
+
+    codebook = kind == "nf4"
+    kern = qmatmul.qmm_nf4_fast16 if codebook else qmatmul.qmm_affine_fast16
+    f32_kern = qmatmul.qmm_nf4 if codebook else qmatmul.qmm_affine
+    tol = K2_TOL if codebook else K4_TOL
+    bf16 = torch.bfloat16
+    set_bytes = k * n * (0.5 + 4 / 64) if codebook else k * n * (0.5 + 8 / 32)
+    n_sets = max(2, math.ceil(100e6 / set_bytes))
+    qts = [fast16_weights(kind, k, n, gen) for _ in range(n_sets)]
+    eye = torch.eye(k, device="cuda", dtype=bf16)
+    w16 = qmatmul.dequantize_fast16(qts[0], bf16)
+    decoded = float((kern(eye, qts[0], bf16).float() - w16.float()).abs().max())
+    del eye
+    x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+    y = kern(x, qts[0], bf16)
+    torch.cuda.synchronize()
+    ref = qmatmul.qmm_dequant_fast16_plain(x, qts[0], bf16)
+    err = summed_rel(y, ref)
+    max_abs = float((y.float() - ref.float()).abs().max())
+    vs_f32 = summed_rel(f32_kern(x, qts[0], bf16), ref)
+    name = kern.__name__
+    if decoded != 0.0:
+        raise SystemExit(f"{name} decodes another weight than its plain version at K={k} "
+                         f"N={n}: max-abs {decoded:.3e}")
+    if not (err <= tol) or not torch.isfinite(y).all():
+        raise SystemExit(f"{name} disagrees with its plain version at M={m} K={k} N={n}: "
+                         f"summed-rel {err:.3e} > {tol:g}")
+    deq = [qmatmul.dequantize_fast16(qt, bf16) for qt in qts]
+    row = dict(shape=f"M{m} K{k} N{n} {kind}", summed_rel=err, max_abs_err=max_abs,
+               decoded_max_abs=decoded, vs_f32_decode=vs_f32)
+    row["ms"] = cuda_ms(lambda i: kern(x, qts[i], bf16), n_sets)
+    row["f32_decode_ms"] = cuda_ms(lambda i: f32_kern(x, qts[i], bf16), n_sets)
+    row["plain_ms"] = cuda_ms(lambda i: qmatmul.qmm_dequant_fast16_plain(x, qts[i], bf16),
+                              n_sets, iters=4, warmup=1)
+    row["library_ms"] = cuda_ms(lambda i: torch.matmul(x, deq[i]), n_sets)
+    row["bound_ms"], row["bound_by"] = bound(2.0 * m * k * n, PEAK_BF16_FLOPS,
+                                             m * k * 2 + set_bytes + m * n * 2)
+    return row
+
+
+def check_fast16_format(fmt: str, m: int, k: int, n: int, gen):
+    """K13 against its plain version (untimed) for Q8_0, Q6_K (device
+    quantizer), bnb int8 and a Q4_K plane with s == 0 groups (a super-block
+    of values in [-4e-6, -2e-6] in 16 columns: d underflows f16, dmin does
+    not): decoded weight max-abs 0, output within K4's band."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import qmatmul
+    from diffusion_rs_tpu_torch.quant.bnb import bnb_int8_to_canonical
+    from diffusion_rs_tpu_torch.quant.gguf_quants import quantize_canonical
+
+    bf16 = torch.bfloat16
+    if fmt == "int8":
+        rng = np.random.default_rng(k + n)
+        qt = bnb_int8_to_canonical(rng.integers(-127, 128, size=(n, k), dtype=np.int8),
+                                   rng.uniform(0.5, 2.0, size=n).astype(np.float32))
+        qt = qt.map(lambda t: t.cuda())
+    else:
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        if fmt == "q4_k_zero_scales":
+            w[:256, :16] = -2e-6 - 2e-6 * torch.rand((256, 16), generator=gen, device="cuda")
+        qt = quantize_canonical(w, fmt.removesuffix("_zero_scales"))
+    zero = int((qt.scale == 0).sum())
+    if fmt == "q4_k_zero_scales" and not (zero and bool((qt.bias[qt.scale == 0] != 0).any())):
+        raise SystemExit("the Q4_K plane holds no s == 0 groups with a bias")
+    eye = torch.eye(k, device="cuda", dtype=bf16)
+    decoded = float((qmatmul.qmm_affine_fast16(eye, qt, bf16).float()
+                     - qmatmul.dequantize_fast16(qt, bf16).float()).abs().max())
+    x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+    y = qmatmul.qmm_affine_fast16(x, qt, bf16)
+    torch.cuda.synchronize()
+    ref = qmatmul.qmm_dequant_fast16_plain(x, qt, bf16)
+    err = summed_rel(y, ref)
+    if decoded != 0.0 or not (err <= K4_TOL) or not torch.isfinite(y).all():
+        raise SystemExit(f"qmm_affine_fast16 disagrees with its plain version for {fmt}: "
+                         f"decoded max-abs {decoded:.3e}, summed-rel {err:.3e}")
+    return dict(shape=f"M{m} K{k} N{n} {fmt} (group {qt.group}, bias "
+                      f"{'yes' if qt.bias is not None else 'no'}, {zero} zero scales)",
+                summed_rel=err, max_abs_err=float((y.float() - ref.float()).abs().max()),
+                decoded_max_abs=decoded)
 
 
 def check_flash(s_q: int, gen):
@@ -576,14 +716,19 @@ def make_pipeline(cfgs, params: dict, device: str):
     )
 
 
-def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=False):
+def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=False,
+                         isq=False):
     """The port on the card (kernels) against the port on the CPU (plain
     versions), same weights and noise, tiny config at 64x64, 2 steps. With
     ``attn_layout``, both take the loader's layout transform with every
     stream fused and grouped and DIFFUSION_RS_TPU_FUSED_ROPE=1, and attention
     runs in that layout; ``fuse`` alone takes the transform with that fuse=;
     ``flux_kind`` picks FLUX's weight format; ``int8`` sets both int8
-    attention knobs. The card run must launch the path's kernels."""
+    attention knobs; ``isq`` starts from dense FLUX and T5, each device
+    quantizes its own copy through the loader's weight options (config E's
+    q4_k with an imatrix and a LoRA, tiny_isq_params) and both run with
+    DIFFUSION_RS_TPU_QMM_FAST16=1. The card run must launch the path's
+    kernels."""
     import numpy as np
     import torch
 
@@ -602,8 +747,12 @@ def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=Fals
                 params["flux_params"], cfgs["flux_cfg"], params["t5_params"], fuse=fuse)
         params = {**params, "flux_params": flux, "t5_params": t5}
         cfgs = {**cfgs, "flux_cfg": flux_cfg}
-    cpu = make_pipeline(cfgs, params, device="cpu")
-    gpu = make_pipeline(cfgs, tree_map(lambda t: t.cuda(), params), device="cuda")
+    if isq:
+        cpu_params, gpu_params = tiny_isq_params(cfgs, params)
+    else:
+        cpu_params, gpu_params = params, tree_map(lambda t: t.cuda(), params)
+    cpu = make_pipeline(cfgs, cpu_params, device="cpu")
+    gpu = make_pipeline(cfgs, gpu_params, device="cuda")
     prompts = ["a photo of a small cat"]
     t5_ids = torch.from_numpy(tokenize_and_pad(prompts, cpu.t5_tokenizer, pad_to=512))
     clip_ids = torch.from_numpy(tokenize_and_pad(prompts, cpu.clip_tokenizer))
@@ -611,6 +760,8 @@ def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=Fals
     sig = cpu.scheduler.timesteps(2, mu=0.6)
     outs = {}
     layout_env = {} if attn_layout is None else {"DIFFUSION_RS_TPU_ATTN_LAYOUT": attn_layout}
+    if isq:
+        layout_env["DIFFUSION_RS_TPU_QMM_FAST16"] = "1"
     with env(**layout_env), attention_knobs(int8, int8):
         for name, pipe, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
             _cuda.reset_launch_counts()
@@ -629,7 +780,8 @@ def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=Fals
         ([f"FLUX {flux_kind}"] if flux_kind != "q8t" else [])
         + ([f'fuse="{fuse}"'] if fuse else [])
         + ([f"FUSED_ROPE=1, ATTN_LAYOUT={attn_layout}"] if attn_layout else [])
-        + (["ATTN_S8=1, ATTN_S8PV=1"] if int8 else [])) or "default layout"
+        + (["ATTN_S8=1, ATTN_S8PV=1"] if int8 else [])
+        + (['isq="q4_k", imatrix, LoRA, QMM_FAST16=1'] if isq else [])) or "default layout"
     print(f"tiny reference ({label}): latent summed-rel {lat_err:.3e}, image PSNR "
           f"{psnr:.1f} dB (card kernels vs CPU plain versions, bf16); card launches "
           f"{ {k: v for k, v in counts.items() if v} }")
@@ -645,10 +797,143 @@ def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=Fals
         qmm_kernel = {"q8t": "qmm_grouped_s8", "nf4": "qmm_grouped_nf4"}[flux_kind]
     others = [k for k in ("flash_fwd", "flash_sm", "flash_rope", "flash_s8_s8pv")
               if k != flash_kernel]
+    if isq:  # every quantized FLUX and T5 linear is q4_k: K13 alone
+        qmm_kernel = "qmm_affine_fast16"
+        others += ["qmm_s8", "qmm_nf4", "qmm_affine"]
     if not (counts[flash_kernel] > 0 and counts[qmm_kernel] > 0
             and not any(counts[k] for k in others)):
         raise SystemExit(f"tiny image ({label}) did not run its kernels: {counts}")
     return lat_err, psnr
+
+
+def flux_linear_names(params) -> dict:
+    """Dotted name -> K of every FLUX linear, per layer for stacked blocks
+    (``double.3.img_attn.q``): the names quant/isq.isq_tree looks up."""
+    from diffusion_rs_tpu_torch.ops.linear import Linear
+
+    out = {}
+
+    def walk(node, names):
+        if isinstance(node, Linear):
+            k = node.w.shape[-2]
+            if node.w.dim() == 3:
+                for i in range(node.w.shape[0]):
+                    out[".".join(names[:1] + [str(i)] + names[1:])] = k
+            else:
+                out[".".join(names)] = k
+        elif isinstance(node, dict):
+            for key, v in node.items():
+                walk(v, names + [key])
+
+    walk(params, [])
+    return out
+
+
+def write_flux_imatrix(path, params, seed: int) -> dict:
+    """A seeded imatrix file covering every FLUX linear (positive log-normal
+    importances), written with the port's save_imatrix and read back with
+    load_imatrix; returns what load_imatrix read."""
+    import numpy as np
+
+    from diffusion_rs_tpu_torch.io.imatrix import load_imatrix, save_imatrix
+
+    rng = np.random.default_rng(seed)
+    data = {name: np.exp(rng.standard_normal(k)).astype(np.float32)
+            for name, k in flux_linear_names(params).items()}
+    save_imatrix(str(path), data, ncall=8)
+    back = load_imatrix(str(path))
+    if sorted(back) != sorted(data):
+        raise SystemExit("the imatrix file did not read back its names")
+    return back
+
+
+def write_flux_lora(path, cfg, seed: int, rank: int = 16) -> int:
+    """A seeded rank-``rank`` diffusers-PEFT LoRA written with the port's
+    safetensors writer: to_q / to_k / to_v of every block and to_out.0 of the
+    double blocks (single blocks have no to_out), alpha = rank. Returns the
+    number of factor pairs."""
+    import numpy as np
+
+    from diffusion_rs_tpu_torch.io.safetensors import save_safetensors
+
+    rng = np.random.default_rng(seed)
+    h = cfg.hidden_size
+    bases = [f"transformer_blocks.{i}.attn.{p}" for i in range(cfg.num_layers)
+             for p in ("to_q", "to_k", "to_v", "to_out.0")]
+    bases += [f"single_transformer_blocks.{i}.attn.{p}" for i in range(cfg.num_single_layers)
+              for p in ("to_q", "to_k", "to_v")]
+    t = {}
+    for base in bases:
+        t[f"transformer.{base}.lora_A.weight"] = (
+            rng.standard_normal((rank, h)) * h ** -0.5).astype(np.float32)
+        t[f"transformer.{base}.lora_B.weight"] = (
+            rng.standard_normal((h, rank)) * 0.01).astype(np.float32)
+        t[f"transformer.{base}.alpha"] = np.float32(rank)
+    save_safetensors(str(path), t)
+    return len(bases)
+
+
+ISQ_TARGET = "q4_k"
+
+
+def tiny_isq_params(cfgs, params):
+    """Dense tiny FLUX and T5 (the preset's factories) with CLIP and the VAE
+    of ``params``, through the loader's weight options on each device: the
+    CPU copy quantized on the CPU, the card's copy on the card (q4_k, a
+    seeded imatrix over every FLUX linear, a rank-4 LoRA;
+    DIFFUSION_RS_TPU_ISQ_MIN=64 for the tiny widths). Every plane must be
+    equal on both: the imatrix group sums run term by term in one order on
+    either device. Returns (CPU params, card params)."""
+    import tempfile
+
+    import torch
+
+    from diffusion_rs_tpu_torch.pipelines.loader import apply_weight_options
+    from diffusion_rs_tpu_torch.quant import QuantizedTensor
+    from diffusion_rs_tpu_torch.util import synthetic as syn
+    from diffusion_rs_tpu_torch.util.tree import tree_map
+
+    dense = {**params, "flux_params": syn.init_flux_params(21, cfgs["flux_cfg"], device="cpu"),
+             "t5_params": syn.init_t5_params(22, cfgs["t5_cfg"], device="cpu")}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, env(DIFFUSION_RS_TPU_ISQ_MIN="64"):
+        write_flux_imatrix(f"{tmp}/imatrix.dat", dense["flux_params"], seed=23)
+        write_flux_lora(f"{tmp}/lora.safetensors", cfgs["flux_cfg"], seed=24, rank=4)
+        for dev in ("cpu", "cuda"):
+            p = dense if dev == "cpu" else tree_map(lambda t: t.cuda(), dense)
+            flux, t5 = apply_weight_options(
+                p["flux_params"], cfgs["flux_cfg"], p["t5_params"], isq=ISQ_TARGET,
+                imatrix=f"{tmp}/imatrix.dat", lora=f"{tmp}/lora.safetensors")
+            out[dev] = {**p, "flux_params": flux, "t5_params": t5}
+    planes = differ = 0
+    for tree in ("flux_params", "t5_params"):
+        a = [x for x in _walk_qts(out["cpu"][tree])]
+        b = [x for x in _walk_qts(out["cuda"][tree])]
+        for qa, qb in zip(a, b):
+            for f in ("packed", "scale", "bias"):
+                planes += 1
+                differ += not torch.equal(getattr(qa, f), getattr(qb, f).cpu())
+        if len(a) != len(b) or not a or not all(isinstance(q, QuantizedTensor) for q in b):
+            raise SystemExit("tiny ISQ quantized different linears on the card and the CPU")
+    line = (f"tiny ISQ ({ISQ_TARGET}, imatrix, LoRA) on the card and on the CPU: {differ} of "
+            f"{planes} planes differ")
+    if differ:
+        raise SystemExit(line)
+    print(line)
+    return out["cpu"], out["cuda"]
+
+
+def _walk_qts(tree):
+    """QuantizedTensors of a tree's Linears, in a fixed order."""
+    from diffusion_rs_tpu_torch.ops.linear import Linear
+    from diffusion_rs_tpu_torch.quant import QuantizedTensor
+
+    if isinstance(tree, Linear):
+        if isinstance(tree.w, QuantizedTensor):
+            yield tree.w
+    elif isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _walk_qts(tree[key])
 
 
 def profile_image(pipe, prompts) -> None:
@@ -829,10 +1114,11 @@ def timed_image(name: str, pipe, prompts, steps: int, want: dict, t_init=None):
     want = {**dict.fromkeys(_cuda.KERNELS, 0), **want}
     made = "" if t_init is None else f" (weights made on the card in {t_init:.1f} s)"
     steps_ms = [x * 1e3 for x in tm["steps_s"]]
+    median = statistics.median(steps_ms)
     print(f"{name} image {wall:.3f} s{made}: encode {tm['encode_s'] * 1e3:.1f} ms, step median "
-          f"{statistics.median(steps_ms):.2f} ms ({min(steps_ms):.1f}-{max(steps_ms):.1f}), "
+          f"{median:.2f} ms ({min(steps_ms):.1f}-{max(steps_ms):.1f}), "
           f"steps ms {[round(x, 1) for x in steps_ms]}, decode {tm['decode_s'] * 1e3:.1f} ms, "
-          f"peak memory {peak:.2f} GiB")
+          f"peak memory {peak:.2f} GiB ({capacity_estimate(pipe)})")
     print(f"{name} launches { {k: v for k, v in counts.items() if v} } (expected "
           f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
     lat = captured["latent"]
@@ -844,7 +1130,20 @@ def timed_image(name: str, pipe, prompts, steps: int, want: dict, t_init=None):
         raise SystemExit(f"bad {name} latent: {tuple(lat.shape)}, finite "
                          f"{bool(torch.isfinite(lat).all())}")
     profile_image(pipe, prompts)
-    return counts, lat
+    return counts, lat, median
+
+
+def capacity_estimate(pipe) -> str:
+    """check_denoise_capacity's numbers for a 1024x1024 batch-1 image of
+    ``pipe``: the transformer's resident bytes plus the activation estimate
+    (util/capacity.py), printed beside a measured peak."""
+    from diffusion_rs_tpu_torch.util.capacity import (
+        estimate_denoise_activation_bytes, tree_device_bytes)
+
+    w = tree_device_bytes(pipe.flux_params)
+    act = estimate_denoise_activation_bytes(1, 4096, 512, pipe.flux_cfg.hidden_size)
+    return (f"capacity estimate {(w + act) / 2**30:.2f} GiB = {w / 2**30:.2f} weights + "
+            f"{act / 2**30:.2f} activations")
 
 
 def gguf_image(kind: str, encoders, prompts, steps: int):
@@ -913,7 +1212,7 @@ def layout_image(config, encoders, prompts, steps: int, ref_latent):
     print(f"{name}: fuse={fuse!r}, DIFFUSION_RS_TPU_FUSED_ROPE=1, "
           f"DIFFUSION_RS_TPU_ATTN_LAYOUT={attn}, fused T5")
     with env(DIFFUSION_RS_TPU_ATTN_LAYOUT=attn):
-        counts, lat = timed_image(name, pipe, prompts, steps, want, t_init)
+        counts, lat, _ = timed_image(name, pipe, prompts, steps, want, t_init)
     dist = summed_rel(lat, ref_latent)
     print(f"{name} latent vs the same weights in the default layout: summed-rel {dist:.3e}")
     if not dist <= LAYOUT_LATENT_TOL:
@@ -947,7 +1246,7 @@ def int8_attention_images(pipe, prompts, steps: int, ref_latent):
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     with attention_knobs(True, True):
-        counts, lat = timed_image(name, pipe, prompts, steps, {
+        counts, lat, _ = timed_image(name, pipe, prompts, steps, {
             "qmm_s8": 503 * steps, "qmm_nf4": 168, "flash_s8_s8pv": 57 * steps})
     dist = summed_rel(lat, ref_latent)
     print(f"{name} latent vs phase 4's (bf16 attention): summed-rel {dist:.3e} "
@@ -999,6 +1298,15 @@ def int8_attention_images(pipe, prompts, steps: int, ref_latent):
 FLUX_QMM_PER_STEP = 19 * 14 + 38 * 6 + 9
 FLUX_GROUPED_PER_STEP = 19 * 4
 NF4_SEED = 2
+# A fast16 latent against the f32 decode's (same weights and noise): the
+# 16-bit decode rounds each weight once more (2.3e-3 summed-rel per product
+# for nf4 and Q4_0, 4.7e-3 for Q4_K, whose offset b/s is no integer), through
+# every block and step: 1.5e-2 (nf4) and 6.1e-2 (Q4_K) after 4 steps, 6.3e-3
+# and 5.7e-2 after 28, on an H100. Each band is about three times its config's
+# larger reading; E's stays under the whole q4_k error (E0 against the dense
+# preset: 0.19-0.22). The kernel phase holds the decoded weights at max-abs 0.
+FAST16_F_LATENT_TOL = 5e-2
+FAST16_E_LATENT_TOL = 0.15
 
 
 def nf4_images(encoders, prompts, steps: int):
@@ -1026,7 +1334,18 @@ def nf4_images(encoders, prompts, steps: int):
     pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
                          {**encoders["params"], "flux_params": params}, device="cuda")
     want = {"qmm_nf4": FLUX_QMM_PER_STEP * steps + t5_per_image, "flash_fwd": 57 * steps}
-    _, lat0 = timed_image("config D0 (nf4)", pipe, prompts, steps, want, t_init)
+    _, lat0, med0 = timed_image("config D0 (nf4)", pipe, prompts, steps, want, t_init)
+    # config F: D0's weights with the fast16 decode (K12 on FLUX and T5)
+    want = {"qmm_nf4_fast16": FLUX_QMM_PER_STEP * steps + t5_per_image,
+            "flash_fwd": 57 * steps}
+    with env(DIFFUSION_RS_TPU_QMM_FAST16="1"):
+        counts_f, lat_f, med_f = timed_image("config F (nf4, DIFFUSION_RS_TPU_QMM_FAST16=1)",
+                                             pipe, prompts, steps, want)
+    dist = summed_rel(lat_f, lat0)
+    print(f"config F latent vs config D0's (f32 decode): summed-rel {dist:.3e} (band "
+          f"{FAST16_F_LATENT_TOL:g}); step median F {med_f:.2f} ms beside D0 {med0:.2f} ms")
+    if not (0.0 < dist <= FAST16_F_LATENT_TOL):
+        raise SystemExit(f"config F's latent is {dist:.3e} from D0's")
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1044,12 +1363,441 @@ def nf4_images(encoders, prompts, steps: int):
             "qmm_grouped_nf4": grouped, "flash_fwd": 57 * steps}
     print(f'config D (nf4, fuse="grouped"): img/txt q|k|v fused and grouped in '
           f"{t_fuse:.1f} s")
-    counts, lat = timed_image("config D (nf4, grouped)", pipe, prompts, steps, want)
+    counts, lat, _ = timed_image("config D (nf4, grouped)", pipe, prompts, steps, want)
     max_abs = float((lat.float() - lat0.float()).abs().max())
     print(f"config D latent vs config D0's: max-abs {max_abs:.3e}")
     if max_abs != 0.0:
         raise SystemExit(f"config D's latent differs from D0's: max-abs {max_abs:.3e}")
+    return {**counts, "qmm_nf4_fast16": counts_f["qmm_nf4_fast16"]}
+
+
+ISQ_SEED = 4
+# The imatrix refinement on the card against the CPU: the share of codes
+# another order of the group sums may move at a tie, and the relative change
+# of the importance-weighted error (tests/test_torch_isq.py's bands, far
+# inside the weighted-vs-unweighted gap)
+CODE_MOVE_BAND = 1e-3
+WEIGHTED_ERR_BAND = 1e-3
+
+
+def count_qmm_linears(params) -> int:
+    """Quantized-matmul launches per forward of a model's params: Linears
+    whose weight is a QuantizedTensor the kernels tile (``supports``; the
+    others take dequantize + matmul), stacked ones once per layer."""
+    from diffusion_rs_tpu_torch.ops.linear import Linear
+    from diffusion_rs_tpu_torch.ops.qmatmul import supports
+    from diffusion_rs_tpu_torch.quant import QuantizedTensor
+
+    if isinstance(params, Linear):
+        w = params.w
+        if isinstance(w, QuantizedTensor) and supports(w):
+            return w.packed.shape[0] if w.packed.dim() == 3 else 1
+        return 0
+    if isinstance(params, dict):
+        return sum(count_qmm_linears(v) for v in params.values())
+    return 0
+
+
+def _plane(params, name: str):
+    """Layer ``i`` of the Linear at ``prefix.i.rest`` (or the Linear at a
+    plain dotted name) of a param tree: its weight."""
+    parts = name.split(".")
+    layer = int(parts[1]) if len(parts) > 1 and parts[1].isdigit() else None
+    node = params
+    for key in parts[:1] + parts[2 if layer is not None else 1:]:
+        node = node[key]
+    w = node.w
+    if layer is None:
+        return w
+    return w.map(lambda t: t[layer]) if hasattr(w, "map") else w[layer]
+
+
+def check_isq_planes(pick: dict, flux_q, t5_q, imat: dict) -> None:
+    """Full-size planes quantized on the CPU with the same function as on
+    the card: equal codes and planes without the imatrix, and, for the FLUX
+    planes the loader refined with it, within CODE_MOVE_BAND /
+    WEIGHTED_ERR_BAND of the CPU's refinement."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch.quant import dequantize, unpack4
+    from diffusion_rs_tpu_torch.quant.isq import isq_quantize_weight
+
+    for name, w in pick.items():
+        cpu_w = w.float().cpu()
+        card = isq_quantize_weight(w, ISQ_TARGET)
+        cpu = isq_quantize_weight(cpu_w, ISQ_TARGET)
+        equal = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+                    for f in ("packed", "scale", "bias"))
+        line = f"ISQ plane {name} {tuple(w.shape)}: card vs CPU without the imatrix equal {equal}"
+        if not equal:
+            raise SystemExit(line)
+        imp = imat.get(name)
+        if imp is not None:
+            got = _plane(flux_q, name).map(lambda t: t.cpu())
+            want = isq_quantize_weight(cpu_w, ISQ_TARGET, imatrix=imp)
+            moved = float((unpack4(got.packed, got.split) != unpack4(want.packed, want.split))
+                          .float().mean())
+            w64 = cpu_w.double().numpy()
+
+            def werr(qt):
+                d = w64 - dequantize(qt, torch.float32).double().numpy()
+                return float((imp.astype(np.float64)[:, None] * d * d).sum())
+
+            e_got, e_want, e_plain = werr(got), werr(want), werr(cpu)
+            rel = abs(e_got - e_want) / e_want
+            line += (f"; with it: codes moved {moved:.3e}, weighted error {e_got:.6e} vs CPU "
+                     f"{e_want:.6e} (rel {rel:.3e}; unweighted {e_plain:.6e})")
+            if not (moved <= CODE_MOVE_BAND and rel <= WEIGHTED_ERR_BAND):
+                raise SystemExit(line)
+        print(line)
+
+
+def isq_images(encoders, prompts, steps: int):
+    """The dense preset (dev-1024-bf16: full-depth bf16 FLUX.1-dev and
+    T5-XXL made on the card), then configs E / E0: those weights through the
+    loader's weight options (q4_k, a seeded imatrix over every FLUX linear,
+    a rank-16 LoRA; T5 follows isq), run with DIFFUSION_RS_TPU_QMM_FAST16=1
+    (K13) and unset (K4). Returns config E's launch counts."""
+    import tempfile
+
+    import torch
+
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.models.t5 import T5Config
+    from diffusion_rs_tpu_torch.pipelines.loader import apply_weight_options
+    from diffusion_rs_tpu_torch.util import synthetic as syn
+    from diffusion_rs_tpu_torch.util.capacity import tree_device_bytes
+
+    cfg = FluxConfig()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flux = syn.init_flux_params(ISQ_SEED, cfg, device="cuda")
+    t5 = syn.init_t5_params(ISQ_SEED + 1, T5Config(), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    print(f"dense preset (dev-1024-bf16): FLUX.1-dev {tree_device_bytes(flux) / 1e9:.2f} GB, "
+          f"T5-XXL {tree_device_bytes(t5) / 1e9:.2f} GB of bf16 weights")
+    params = {**encoders["params"], "t5_params": t5, "flux_params": flux}
+    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg}, params, device="cuda")
+    _, lat_dense, med_dense = timed_image("dense bf16 (dev-1024-bf16)", pipe, prompts, steps,
+                                          {"flash_fwd": 57 * steps}, t_init)
+    del pipe, params
+    pick = {"double.0.img_attn.q": flux["double"]["img_attn"]["q"].w[0],
+            "double.0.img_mlp.in": flux["double"]["img_mlp"]["in"].w[0],
+            "single.0.linear2": flux["single"]["linear2"].w[0],
+            "t5 blocks.0.ff.wi_0": t5["blocks"]["ff"]["wi_0"].w[0]}
+    with tempfile.TemporaryDirectory() as tmp:
+        imat = write_flux_imatrix(f"{tmp}/imatrix.dat", flux, seed=ISQ_SEED + 2)
+        pairs = write_flux_lora(f"{tmp}/lora.safetensors", cfg, seed=ISQ_SEED + 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flux_q, t5_q = apply_weight_options(flux, cfg, t5, isq=ISQ_TARGET,
+                                            imatrix=f"{tmp}/imatrix.dat",
+                                            lora=f"{tmp}/lora.safetensors")
+        torch.cuda.synchronize()
+        t_isq = time.perf_counter() - t0
+    print(f"ISQ {ISQ_TARGET} with a {len(imat)}-entry imatrix and a {pairs}-pair rank-16 LoRA "
+          f"on the card in {t_isq:.1f} s: FLUX {tree_device_bytes(flux_q) / 1e9:.2f} GB, "
+          f"T5 {tree_device_bytes(t5_q) / 1e9:.2f} GB (T5 "
+          f"{t5_q['blocks']['attn']['q'].w.kind}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if t5_q["blocks"]["attn"]["q"].w.kind != ISQ_TARGET:
+        raise SystemExit("T5 did not follow isq under the card's budget")
+    check_isq_planes(pick, flux_q, t5_q, imat)
+    del flux, t5, pick
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = make_pipeline({**encoders["cfgs"], "flux_cfg": cfg},
+                         {**encoders["params"], "t5_params": t5_q, "flux_params": flux_q},
+                         device="cuda")
+    per_image = count_qmm_linears(flux_q) * steps + count_qmm_linears(t5_q)
+    with env(DIFFUSION_RS_TPU_QMM_FAST16="1"):
+        counts, lat_e, med_e = timed_image(
+            f"config E ({ISQ_TARGET} ISQ + imatrix + LoRA, DIFFUSION_RS_TPU_QMM_FAST16=1)",
+            pipe, prompts, steps, {"qmm_affine_fast16": per_image, "flash_fwd": 57 * steps})
+    with env(DIFFUSION_RS_TPU_QMM_FAST16=None):
+        _, lat_e0, med_e0 = timed_image("config E0 (config E's weights, f32 decode)", pipe,
+                                        prompts, steps,
+                                        {"qmm_affine": per_image, "flash_fwd": 57 * steps})
+    dist = summed_rel(lat_e, lat_e0)
+    print(f"config E latent vs E0's: summed-rel {dist:.3e} (band {FAST16_E_LATENT_TOL:g}); "
+          f"E0 vs the dense preset's: {summed_rel(lat_e0, lat_dense):.3e}; step medians E "
+          f"{med_e:.2f} ms, E0 {med_e0:.2f} ms, dense {med_dense:.2f} ms")
+    if not (0.0 < dist <= FAST16_E_LATENT_TOL):
+        raise SystemExit(f"config E's latent is {dist:.3e} from E0's")
     return counts
+
+
+def write_diffusers_dir(root, cfgs: dict, seed: int) -> None:
+    """A diffusers-layout FLUX.1-dev directory written by the port: random
+    bf16 weights (normal, std 1/sqrt(K) for linears) named as the published
+    checkpoint names them, with its configs (dev: guidance embedder, dynamic
+    shift) and small tokenizer files (a character BPE for CLIP, a word-level
+    T5 tokenizer; ids stay inside the vocabularies)."""
+    import json
+    from pathlib import Path
+
+    import torch
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    from diffusion_rs_tpu_torch.io.safetensors import save_safetensors
+
+    root = Path(root)
+    gen = torch.Generator().manual_seed(seed)
+    fc, tc, cc, vc = cfgs["flux_cfg"], cfgs["t5_cfg"], cfgs["clip_cfg"], cfgs["vae_cfg"]
+    for d in ("scheduler", "text_encoder", "text_encoder_2", "tokenizer", "tokenizer_2",
+              "transformer", "vae"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen) * std).to(torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.bfloat16)
+
+    def lin(t, name, n_out, n_in, bias=True):
+        t[f"{name}.weight"] = normal((n_out, n_in), n_in ** -0.5)
+        if bias:
+            t[f"{name}.bias"] = zeros(n_out)
+
+    def save(path, t, config=None):
+        save_safetensors(str(root / path), t)
+        if config is not None:
+            (root / Path(path).parent / "config.json").write_text(json.dumps(config))
+
+    (root / "model_index.json").write_text(json.dumps({"_class_name": "FluxPipeline"}))
+    (root / "scheduler/scheduler_config.json").write_text(json.dumps({
+        "_class_name": "FlowMatchEulerDiscreteScheduler", "base_image_seq_len": 256,
+        "base_shift": 0.5, "max_image_seq_len": 4096, "max_shift": 1.15, "shift": 3.0,
+        "use_dynamic_shifting": True}))
+    d, L = cc.projection_dim, cc.num_hidden_layers
+    t = {"text_model.embeddings.token_embedding.weight": normal((cc.vocab_size, d), 0.02),
+         "text_model.embeddings.position_embedding.weight":
+             normal((cc.max_position_embeddings, d), 0.02),
+         "text_model.final_layer_norm.weight": ones(d),
+         "text_model.final_layer_norm.bias": zeros(d)}
+    for i in range(L):
+        p = f"text_model.encoder.layers.{i}"
+        for stub in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(t, f"{p}.self_attn.{stub}", d, d)
+        lin(t, f"{p}.mlp.fc1", cc.intermediate_size, d)
+        lin(t, f"{p}.mlp.fc2", d, cc.intermediate_size)
+        for ln in ("layer_norm1", "layer_norm2"):
+            t[f"{p}.{ln}.weight"], t[f"{p}.{ln}.bias"] = ones(d), zeros(d)
+    save("text_encoder/model.safetensors", t, {
+        "vocab_size": cc.vocab_size, "hidden_size": d, "intermediate_size": cc.intermediate_size,
+        "max_position_embeddings": cc.max_position_embeddings, "num_hidden_layers": L,
+        "num_attention_heads": cc.num_attention_heads, "hidden_act": "quick_gelu"})
+    dm, inner = tc.d_model, tc.num_heads * tc.d_kv
+    t = {"shared.weight": normal((tc.vocab_size, dm), 1.0),
+         "encoder.final_layer_norm.weight": ones(dm),
+         "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+             normal((tc.relative_attention_num_buckets, tc.num_heads), 1.0)}
+    for i in range(tc.num_layers):
+        p = f"encoder.block.{i}.layer"
+        for k in "qkv":
+            lin(t, f"{p}.0.SelfAttention.{k}", inner, dm, bias=False)
+        lin(t, f"{p}.0.SelfAttention.o", dm, inner, bias=False)
+        t[f"{p}.0.layer_norm.weight"] = ones(dm)
+        lin(t, f"{p}.1.DenseReluDense.wi_0", tc.d_ff, dm, bias=False)
+        lin(t, f"{p}.1.DenseReluDense.wi_1", tc.d_ff, dm, bias=False)
+        lin(t, f"{p}.1.DenseReluDense.wo", dm, tc.d_ff, bias=False)
+        t[f"{p}.1.layer_norm.weight"] = ones(dm)
+    save("text_encoder_2/model.safetensors", t, {
+        "vocab_size": tc.vocab_size, "d_model": dm, "d_kv": tc.d_kv, "d_ff": tc.d_ff,
+        "num_layers": tc.num_layers, "num_heads": tc.num_heads,
+        "relative_attention_num_buckets": tc.relative_attention_num_buckets,
+        "relative_attention_max_distance": tc.relative_attention_max_distance,
+        "layer_norm_epsilon": tc.layer_norm_epsilon, "feed_forward_proj": "gated-gelu"})
+    chars = {chr(c): i for i, c in enumerate(range(32, 127))}
+    (root / "tokenizer/vocab.json").write_text(json.dumps(chars))
+    (root / "tokenizer/merges.txt").write_text("#version: 0.2\n")
+    words = ["<pad>", "</s>", "<unk>", "a", "photo", "of", "cat", "on", "the", "table"]
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    (root / "tokenizer_2/tokenizer.json").write_text(tok.to_str())
+    h, m = fc.hidden_size, fc.mlp_size
+    t = {}
+    tops = {"x_embedder": (h, fc.in_channels), "context_embedder": (h, fc.joint_attention_dim),
+            "time_text_embed.timestep_embedder.linear_1": (h, 256),
+            "time_text_embed.timestep_embedder.linear_2": (h, h),
+            "time_text_embed.text_embedder.linear_1": (h, fc.pooled_projection_dim),
+            "time_text_embed.text_embedder.linear_2": (h, h),
+            "time_text_embed.guidance_embedder.linear_1": (h, 256),
+            "time_text_embed.guidance_embedder.linear_2": (h, h),
+            "norm_out.linear": (2 * h, h), "proj_out": (fc.in_channels, h)}
+    for name, (o, n) in tops.items():
+        lin(t, name, o, n)
+    for i in range(fc.num_layers):
+        p = f"transformer_blocks.{i}"
+        for name, (o, n) in {
+                "norm1.linear": (6 * h, h), "norm1_context.linear": (6 * h, h),
+                "attn.to_q": (h, h), "attn.to_k": (h, h), "attn.to_v": (h, h),
+                "attn.to_out.0": (h, h), "attn.add_q_proj": (h, h), "attn.add_k_proj": (h, h),
+                "attn.add_v_proj": (h, h), "attn.to_add_out": (h, h),
+                "ff.net.0.proj": (m, h), "ff.net.2": (h, m),
+                "ff_context.net.0.proj": (m, h), "ff_context.net.2": (h, m)}.items():
+            lin(t, f"{p}.{name}", o, n)
+        for k in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            t[f"{p}.attn.{k}.weight"] = ones(fc.head_dim)
+    for i in range(fc.num_single_layers):
+        p = f"single_transformer_blocks.{i}"
+        for name, (o, n) in {"attn.to_q": (h, h), "attn.to_k": (h, h), "attn.to_v": (h, h),
+                             "proj_mlp": (m, h), "proj_out": (h, h + m),
+                             "norm.linear": (3 * h, h)}.items():
+            lin(t, f"{p}.{name}", o, n)
+        for k in ("norm_q", "norm_k"):
+            t[f"{p}.attn.{k}.weight"] = ones(fc.head_dim)
+    save("transformer/diffusion_pytorch_model.safetensors", t, {
+        "in_channels": fc.in_channels, "pooled_projection_dim": fc.pooled_projection_dim,
+        "joint_attention_dim": fc.joint_attention_dim,
+        "num_attention_heads": fc.num_attention_heads, "attention_head_dim": fc.head_dim,
+        "axes_dims_rope": list(fc.axes_dim), "num_layers": fc.num_layers,
+        "num_single_layers": fc.num_single_layers, "guidance_embeds": fc.guidance_embeds})
+    t = {}
+
+    def conv(p, cout, cin, k):
+        t[f"{p}.weight"] = normal((cout, cin, k, k), (cin * k * k) ** -0.5)
+        t[f"{p}.bias"] = zeros(cout)
+
+    def gn(p, c):
+        t[f"{p}.weight"], t[f"{p}.bias"] = ones(c), zeros(c)
+
+    def resnet(p, cin, cout):
+        gn(f"{p}.norm1", cin)
+        conv(f"{p}.conv1", cout, cin, 3)
+        gn(f"{p}.norm2", cout)
+        conv(f"{p}.conv2", cout, cout, 3)
+        if cin != cout:
+            conv(f"{p}.conv_shortcut", cout, cin, 1)
+
+    def mid(p, c):
+        resnet(f"{p}.resnets.0", c, c)
+        resnet(f"{p}.resnets.1", c, c)
+        gn(f"{p}.attentions.0.group_norm", c)
+        for k in ("to_q", "to_k", "to_v", "to_out.0"):
+            lin(t, f"{p}.attentions.0.{k}", c, c)
+
+    boc, lpb = vc.block_out_channels, vc.layers_per_block
+    conv("encoder.conv_in", boc[0], vc.in_channels, 3)
+    c = boc[0]
+    for i, cout in enumerate(boc):
+        for j in range(lpb):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", c, cout)
+            c = cout
+        if i != len(boc) - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", c, c, 3)
+    mid("encoder.mid_block", c)
+    gn("encoder.conv_norm_out", c)
+    conv("encoder.conv_out", 2 * vc.latent_channels, c, 3)
+    conv("decoder.conv_in", boc[-1], vc.latent_channels, 3)
+    mid("decoder.mid_block", boc[-1])
+    c = boc[-1]
+    for i, cout in enumerate(reversed(boc)):
+        for j in range(lpb + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", c, cout)
+            c = cout
+        if i != len(boc) - 1:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", c, c, 3)
+    gn("decoder.conv_norm_out", boc[0])
+    conv("decoder.conv_out", vc.out_channels, boc[0], 3)
+    save("vae/diffusion_pytorch_model.safetensors", t, {
+        "_class_name": "AutoencoderKL", "in_channels": vc.in_channels,
+        "out_channels": vc.out_channels, "block_out_channels": list(boc),
+        "layers_per_block": lpb, "latent_channels": vc.latent_channels,
+        "norm_num_groups": vc.norm_num_groups, "scaling_factor": vc.scaling_factor,
+        "shift_factor": vc.shift_factor, "mid_block_add_attention": vc.mid_block_add_attention,
+        "use_quant_conv": vc.use_quant_conv, "use_post_quant_conv": vc.use_post_quant_conv})
+
+
+def isq_file_round_trip(prompts) -> int:
+    """A diffusers-layout directory at full width (FLUX.1-dev with 1 double
+    + 1 single block, T5-XXL cut to 1 layer, CLIP-L and the VAE whole, bf16)
+    written by the port, then ``Pipeline(isq="q4_k", imatrix=, lora=)`` onto
+    the card under DIFFUSION_RS_TPU_QMM_FAST16=1: its quantized planes and
+    LoRA terms must equal the loader's weight options applied in memory to
+    the same directory's dense load, and one 1024x1024 step runs with exact
+    K13 launches. Returns the K13 launches."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams, ModelSource, Pipeline
+    from diffusion_rs_tpu_torch.models.clip import ClipTextConfig
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.models.t5 import T5Config
+    from diffusion_rs_tpu_torch.models.vae import VAEConfig
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.pipelines.loader import apply_weight_options, load_pipeline
+
+    cfgs = dict(flux_cfg=dataclasses.replace(FluxConfig(), num_layers=1, num_single_layers=1),
+                t5_cfg=dataclasses.replace(T5Config(), num_layers=1),
+                clip_cfg=ClipTextConfig(), vae_cfg=VAEConfig())
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_diffusers_dir(f"{tmp}/flux", cfgs, seed=ISQ_SEED + 4)
+        t_write = time.perf_counter() - t0
+        dense = load_pipeline(ModelSource.from_model_id(f"{tmp}/flux"), silent=True,
+                              device="cuda")
+        if dense.flux_cfg != cfgs["flux_cfg"]:
+            raise SystemExit(f"the directory loads as {dense.flux_cfg}")
+        write_flux_imatrix(f"{tmp}/imatrix.dat", dense.flux_params, seed=ISQ_SEED + 5)
+        write_flux_lora(f"{tmp}/lora.safetensors", cfgs["flux_cfg"], seed=ISQ_SEED + 6)
+        opts = dict(isq=ISQ_TARGET, imatrix=f"{tmp}/imatrix.dat",
+                    lora=f"{tmp}/lora.safetensors")
+        ref_flux, ref_t5 = apply_weight_options(dense.flux_params, dense.flux_cfg,
+                                                dense.t5_params, **opts)
+        del dense
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with env(DIFFUSION_RS_TPU_QMM_FAST16="1"):
+            pipe = Pipeline(ModelSource.from_model_id(f"{tmp}/flux"), silent=True,
+                            device="cuda", **opts)._inner
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    compared = 0
+    for got, want in ((pipe.flux_params, ref_flux), (pipe.t5_params, ref_t5)):
+        a, b = list(_walk_qts(got)), list(_walk_qts(want))
+        if len(a) != len(b) or not a:
+            raise SystemExit("the loaded pipeline quantized other linears than in memory")
+        for qa, qb in zip(a, b):
+            for f in ("packed", "scale", "bias"):
+                compared += 1
+                if qa.kind != ISQ_TARGET or not torch.equal(getattr(qa, f), getattr(qb, f)):
+                    raise SystemExit(f"a loaded {qa.kind} plane differs from the in-memory ISQ")
+    lora = pipe.flux_params["double"]["img_attn"]["q"].lora
+    want_lora = ref_flux["double"]["img_attn"]["q"].lora
+    if lora is None or not all(torch.equal(x, y) for x, y in zip(lora, want_lora)):
+        raise SystemExit("the loaded LoRA terms differ from the in-memory ones")
+    want = {**dict.fromkeys(_cuda.KERNELS, 0), "flash_fwd": 2,
+            "qmm_affine_fast16": count_qmm_linears(pipe.flux_params)
+            + count_qmm_linears(pipe.t5_params)}
+    with env(DIFFUSION_RS_TPU_QMM_FAST16="1"):
+        _cuda.reset_launch_counts()
+        img = pipe.forward_arrays(prompts, DiffusionGenerationParams(
+            height=1024, width=1024, num_steps=1, guidance_scale=3.5, seed=7))
+        counts = _cuda.launch_counts()
+    print(f"isq file round trip: diffusers directory (FLUX 1+1 blocks, T5 1 layer, CLIP-L, "
+          f"VAE; bf16) written in {t_write:.1f} s, loaded with isq={ISQ_TARGET!r}, an "
+          f"imatrix and a LoRA in {t_load:.1f} s; {compared} planes equal to the in-memory "
+          f"ISQ; 1-step image {pipe.timings['steps_s'][0] * 1e3:.1f} ms step; launches "
+          f"{ {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} })")
+    if counts != want:
+        raise SystemExit(f"isq file round trip launch counts {counts} differ from {want}")
+    if img.shape != (1, 1024, 1024, 3) or img.dtype.name != "uint8":
+        raise SystemExit(f"bad image: {img.dtype} {img.shape}")
+    return counts["qmm_affine_fast16"]
 
 
 def main() -> int:
@@ -1098,11 +1846,16 @@ def main() -> int:
         **{entry: [check_flash_int8(s_, gen, entry) for s_ in (4608, 4112)]
            for entry in INT8_MODES},
         "qmm_grouped_nf4": check_grouped("nf4", gen),
+        # K12 / K13, each beside its f32-decode kernel (K2 / K4) in this run
+        "qmm_nf4_fast16": [check_fast16("nf4", 512, 10240, 4096, gen),
+                           check_fast16("nf4", 4608, 3072, 12288, gen)],  # config F
+        "qmm_affine_fast16": [check_fast16("q4_0", 4608, 3072, 21504, gen),
+                              check_fast16("q4_k", 4608, 3072, 21504, gen)],  # config E
     }
     for name, rows in checks.items():
         for r in rows:
-            extra = "".join(f", {key} {r[key]:.3e}" for key in ("vs_k6_max_abs",
-                                                                "vs_single_max_abs")
+            extra = "".join(f", {key} {r[key]:.3e}" for key in (
+                "vs_k6_max_abs", "vs_single_max_abs", "decoded_max_abs", "vs_f32_decode")
                             if key in r)
             line = (f"kernel {name} {r['shape']}: summed-rel {r['summed_rel']:.3e} "
                     f"max-abs {r['max_abs_err']:.3e}{extra}")
@@ -1115,16 +1868,25 @@ def main() -> int:
                          f"{r['with_prepass_ms']:.4f} ms")
             if "per_group_ms" in r:
                 line += f" (two calls), per-group launches {r['per_group_ms']:.4f} ms"
+            if "f32_decode_ms" in r:
+                line += f"; the f32-decode kernel on the same weights {r['f32_decode_ms']:.4f} ms"
             print(line)
     k4_formats = [check_affine_format(fmt, 33, 3072, 3072, gen)
                   for fmt in ("q6_k", "q4_k", "int8")]
     for r in k4_formats:
         print(f"kernel qmm_affine {r['shape']}: summed-rel {r['summed_rel']:.3e} "
               f"max-abs {r['max_abs_err']:.3e} (untimed)")
+    fast16_formats = [check_fast16_format(fmt, 33, 3072, 3072, gen)
+                      for fmt in ("q8_0", "q6_k", "int8", "q4_k_zero_scales")]
+    for r in fast16_formats:
+        print(f"kernel qmm_affine_fast16 {r['shape']}: decoded max-abs "
+              f"{r['decoded_max_abs']:.3e}, summed-rel {r['summed_rel']:.3e} max-abs "
+              f"{r['max_abs_err']:.3e} (untimed)")
     for attn_layout in (None, "inkernel", "seqmajor"):
         tiny_reference_check(attn_layout)
     tiny_reference_check(int8=True)
     tiny_reference_check(flux_kind="nf4", fuse="grouped")
+    tiny_reference_check(isq=True)
 
     # -- the full-width main path ---------------------------------------------
     from diffusion_rs_tpu_torch import DiffusionGenerationParams
@@ -1171,7 +1933,8 @@ def main() -> int:
             "qmm_nf4": 168, "flash_fwd": 57 * args.steps}
     print(f"image {wall:.3f} s: encode {tm['encode_s'] * 1e3:.1f} ms, steps ms "
           f"{[round(s * 1e3, 1) for s in tm['steps_s']]}, decode "
-          f"{tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB")
+          f"{tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB "
+          f"({capacity_estimate(pipe)})")
     print(f"launches { {k: v for k, v in counts.items() if v} } (expected "
           f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
     lat = captured["latent"]
@@ -1209,7 +1972,15 @@ def main() -> int:
         encoders = {**encoders, "params": {**encoders["params"], "t5_params": t5_fused}}
 
     # -- configs D0 and D: FLUX.1 in nf4, default and grouped ----------------
-    counts["qmm_grouped_nf4"] = nf4_images(encoders, prompts, args.steps)["qmm_grouped_nf4"]
+    nf4_counts = nf4_images(encoders, prompts, args.steps)
+    for name in ("qmm_grouped_nf4", "qmm_nf4_fast16"):
+        counts[name] = nf4_counts[name]
+
+    # -- the dense preset, configs E / E0 (ISQ + imatrix + LoRA), the file ----
+    del encoders["params"]["t5_params"]  # the nf4 T5s: the configs below bring theirs
+    pipe.t5_params = None
+    counts["qmm_affine_fast16"] = isq_images(encoders, prompts, args.steps)["qmm_affine_fast16"]
+    isq_file_round_trip(prompts)
 
     src = "diffusion_rs_tpu_torch/csrc/"
     qmm_pallas = "diffusion_rs_tpu/ops/qmatmul_pallas.py"
@@ -1229,12 +2000,15 @@ def main() -> int:
         "flash_s8pv": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
         "flash_s8_s8pv": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
         "qmm_grouped_nf4": ("qmm_nf4.cu", f"{qmm_pallas}:630", -1),
+        "qmm_nf4_fast16": ("qmm_nf4.cu", f"{qmm_pallas}:378", -1),
+        "qmm_affine_fast16": ("qmm_affine.cu", f"{qmm_pallas}:378", -1),
     }
     kernels = []
     for name, rows in checks.items():
         source, replaces, which = sources[name]
         r = [x for x in rows if "ms" in x][which]
-        errs = rows + (k4_formats if name == "qmm_affine" else [])
+        errs = rows + {"qmm_affine": k4_formats, "qmm_affine_fast16": fast16_formats}.get(
+            name, [])
         kernels.append({
             "name": name, "route": "cuda", "source": f"{src}{source}",
             "replaces": replaces, "launches": counts[name],

@@ -61,3 +61,30 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// Packed bf16 pairs (low half = lower address), each result rounded once to
+// nearest even: fma.rn of an exact product or sum, so a * 1 + b is the
+// correctly rounded sum and a * b + (-0) the correctly rounded product, as
+// bf16 arithmetic that rounds after every op computes them. Written as PTX,
+// so nothing is contracted across two calls.
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+constexpr uint32_t BF16X2_ONE = 0x3F803F80u;       // (1.0, 1.0)
+constexpr uint32_t BF16X2_NEG_ZERO = 0x80008000u;  // (-0.0, -0.0)
+
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  return bf16x2_fma(a, b, BF16X2_NEG_ZERO);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
+  return bf16x2_fma(a, BF16X2_ONE, b);
+}
+
+// Bits of the bf16 nearest to v (ties to even).
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}

@@ -17,6 +17,20 @@
 // each group's m-tiles start at its own row 0, so a group's output is K4's
 // output for that group bit for bit. K4 is the table of one group. Nothing
 // is stacked or copied per call.
+// K13 qmm_affine_fast16: replaces the affine branches with fast16=True, the
+// opt-in 16-bit decode of _dequant_tile (:80-120): the code in bf16 (exact),
+// then, with a bias plane, the centred form w = ((q + off) * s) + b' with
+// off = b / s and b' = 0 where s != 0, off = 0 and b' = b where s == 0
+// (K-quant groups whose f16 d underflowed), each op rounded to bf16;
+// without one, w = q * s in bf16. It is K4's kernel with FAST16 = true:
+// the scale and bias rows of the stage's four 16-row chunks (every group
+// spans whole chunks: group % 16 == 0) ride in the stage's cp.async group,
+// and before the stage's decode the threads that copied them turn them into
+// bf16 s, off and b' in shared memory, off by __fdiv_rn in f32, inside the
+// kernel (no extra launch); the decode then runs on fma.rn.bf16x2 pairs. The
+// decoded weight equals the plain version's (ops/qmatmul.dequantize_fast16)
+// bit for bit; only the f32 summation order of the product differs.
+// FAST16 = false is K4's code as it was.
 //
 // Math, bit for bit the plain version's decoded weight: w = q * s in f32
 // (__fmul_rn), then w + b (__fadd_rn; the two stay separate roundings, as in
@@ -50,12 +64,21 @@ constexpr int W_STRIDE = BN + 8;    // bf16: 272-byte rows, conflict-free ldmatr
 constexpr int A_ELEMS = BM * A_STRIDE;
 constexpr int W_ELEMS = KS * W_STRIDE;
 
-template <int BITS>
+constexpr int CHUNKS = KS / 16;  // 16-row plane chunks per stage (K13)
+
+constexpr int PLANE_ELEMS = 2 * CHUNKS * BN;  // K13: f32 scale and bias rows of a stage
+constexpr int PLANE_THREADS = CHUNKS * BN / 4;  // K13: threads that copy and convert them
+
+template <int BITS, bool FAST16>
 struct Layout {
   static constexpr int P_ROWS = BITS == 4 ? KS / 2 : KS;  // packed rows per stage
   static constexpr int P_BYTES = P_ROWS * BN;
-  static constexpr size_t SMEM_BYTES =
-      2 * A_ELEMS * sizeof(__nv_bfloat16) + 2 * P_BYTES + W_ELEMS * sizeof(__nv_bfloat16);
+  // K13: the stage's f32 plane rows, double-buffered, and their bf16 s, off
+  // and b' of each chunk and column
+  static constexpr size_t PLANE16_BYTES =
+      FAST16 ? 2 * PLANE_ELEMS * sizeof(float) + 3 * CHUNKS * BN * sizeof(uint16_t) : 0;
+  static constexpr size_t SMEM_BYTES = 2 * A_ELEMS * sizeof(__nv_bfloat16) + 2 * P_BYTES +
+                                       W_ELEMS * sizeof(__nv_bfloat16) + PLANE16_BYTES;
 };
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -76,6 +99,19 @@ __device__ __forceinline__ uint2 decode4(const float* q, const float4 s, const f
   return make_uint2(pack_bf16x2(w[0], w[1]), pack_bf16x2(w[2], w[3]));
 }
 
+// K13: four weights of one k-row, codes as bf16 pairs (q01, q23), against
+// chunk j of the stage's bf16 planes [3][CHUNKS][BN] (s, off, b').
+template <bool HAS_BIAS>
+__device__ __forceinline__ uint2 decode4_fast16(uint32_t q01, uint32_t q23,
+                                                const uint16_t* planes, int j, int c4) {
+  const uint2 s = *reinterpret_cast<const uint2*>(planes + j * BN + c4);
+  if (!HAS_BIAS) return make_uint2(bf16x2_mul(q01, s.x), bf16x2_mul(q23, s.y));
+  const uint2 o = *reinterpret_cast<const uint2*>(planes + (CHUNKS + j) * BN + c4);
+  const uint2 b = *reinterpret_cast<const uint2*>(planes + (2 * CHUNKS + j) * BN + c4);
+  return make_uint2(bf16x2_add(bf16x2_mul(bf16x2_add(q01, o.x), s.x), b.x),
+                    bf16x2_add(bf16x2_mul(bf16x2_add(q23, o.y), s.y), b.y));
+}
+
 constexpr int MAX_GROUPS = 8;
 
 // One product of a call: x [m, K], the planes of its [K, N] weight, output
@@ -94,10 +130,10 @@ struct Table {
   int count;
 };
 
-template <int BITS, bool HAS_BIAS>
+template <int BITS, bool HAS_BIAS, bool FAST16>
 __global__ void __launch_bounds__(THREADS)
 qmm_affine_kernel(const Table tab, int K, int N, int split, int group) {
-  using L = Layout<BITS>;
+  using L = Layout<BITS, FAST16>;
   // This block's group: the last one whose m-tiles start at or before it.
   const int tile = blockIdx.y;
   Group G = tab.g[0];
@@ -114,6 +150,11 @@ qmm_affine_kernel(const Table tab, int K, int N, int split, int group) {
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);               // [2][BM][A_STRIDE]
   uint8_t* Ps = smem + 2 * A_ELEMS * sizeof(__nv_bfloat16);                   // [2][P_ROWS][BN]
   __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(Ps + 2 * L::P_BYTES);  // [KS][W_STRIDE]
+  float* Pf = reinterpret_cast<float*>(Ws + W_ELEMS);             // K13: [2][2][CHUNKS][BN]
+  uint16_t* P16 = reinterpret_cast<uint16_t*>(Pf + 2 * PLANE_ELEMS);  // K13: [3][CHUNKS][BN]
+  // K13: the chunk and four columns this thread copies and converts
+  const int pj = threadIdx.x / (BN / 4);
+  const int pc4 = (threadIdx.x % (BN / 4)) * 4;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -169,6 +210,14 @@ qmm_affine_kernel(const Table tab, int K, int N, int split, int group) {
       const int ch = c & 7;
       cp_async16(p + r * BN + ch * 16, packed + (size_t)(prow + r) * N + n0 + ch * 16, 16);
     }
+    if constexpr (FAST16) {
+      if (tid < PLANE_THREADS) {
+        const size_t o = (size_t)(k_of(k_lo, 16 * pj) / group) * N + n0 + pc4;
+        float* pf = Pf + buf * PLANE_ELEMS;
+        cp_async16(pf + pj * BN + pc4, scale + o, 16);
+        if (HAS_BIAS) cp_async16(pf + (CHUNKS + pj) * BN + pc4, bias + o, 16);
+      }
+    }
     cp_async_commit();
   };
 
@@ -182,9 +231,40 @@ qmm_affine_kernel(const Table tab, int K, int N, int split, int group) {
     } else {
       cp_async_wait<0>();
     }
+    if constexpr (FAST16) {
+      // the plane rows this thread copied for the stage (its own cp.async
+      // group is complete) in bf16; the previous stage's decode is done, the
+      // loop's last barrier came after it
+      if (tid < PLANE_THREADS) {
+        const float* pf = Pf + buf * PLANE_ELEMS;
+        const float4 sv = *reinterpret_cast<const float4*>(pf + pj * BN + pc4);
+        const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+        uint16_t sb[4], ob[4], bb[4];
+        float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (HAS_BIAS) bv = *reinterpret_cast<const float4*>(pf + (CHUNKS + pj) * BN + pc4);
+        const float ba[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool z = sa[e] == 0.f;
+          sb[e] = bf16_bits(sa[e]);
+          ob[e] = bf16_bits(z ? 0.f : __fdiv_rn(ba[e], sa[e]));
+          bb[e] = bf16_bits(z ? ba[e] : 0.f);
+        }
+        auto pack = [](const uint16_t* v) {
+          return make_uint2(v[0] | (static_cast<uint32_t>(v[1]) << 16),
+                            v[2] | (static_cast<uint32_t>(v[3]) << 16));
+        };
+        *reinterpret_cast<uint2*>(P16 + pj * BN + pc4) = pack(sb);
+        if (HAS_BIAS) {
+          *reinterpret_cast<uint2*>(P16 + (CHUNKS + pj) * BN + pc4) = pack(ob);
+          *reinterpret_cast<uint2*>(P16 + (2 * CHUNKS + pj) * BN + pc4) = pack(bb);
+        }
+      }
+    }
     __syncthreads();
 
-    // Decode the stage into Ws [64 k-rows][128 columns] (f32 math, then bf16).
+    // Decode the stage into Ws [64 k-rows][128 columns] (f32 math, then bf16;
+    // K13: bf16 math).
     {
       const int k_lo = k_lo_of(s);
       const uint8_t* p = Ps + buf * L::P_BYTES;
@@ -194,6 +274,30 @@ qmm_affine_kernel(const Table tab, int K, int N, int split, int group) {
         const int r = wi / (BN / 4);
         const int c4 = (wi % (BN / 4)) * 4;
         const uint32_t word = *reinterpret_cast<const uint32_t*>(p + r * BN + c4);
+        if constexpr (FAST16) {
+          // codes -> exact bf16 pairs; chunk of row r (and of its high-nibble
+          // partner KS / 2 + r)
+          if (BITS == 4) {
+            const float l0 = word & 0xFu, h0 = (word >> 4) & 0xFu;
+            const float l1 = (word >> 8) & 0xFu, h1 = (word >> 12) & 0xFu;
+            const float l2 = (word >> 16) & 0xFu, h2 = (word >> 20) & 0xFu;
+            const float l3 = (word >> 24) & 0xFu, h3 = word >> 28;
+            *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) = decode4_fast16<HAS_BIAS>(
+                pack_bf16x2(l0, l1), pack_bf16x2(l2, l3), P16, r / 16, c4);
+            *reinterpret_cast<uint2*>(Ws + (KS / 2 + r) * W_STRIDE + c4) =
+                decode4_fast16<HAS_BIAS>(pack_bf16x2(h0, h1), pack_bf16x2(h2, h3), P16,
+                                         CHUNKS / 2 + r / 16, c4);
+          } else {
+            float q[4];
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              q[b] = static_cast<float>(static_cast<int8_t>((word >> (8 * b)) & 0xFFu));
+            }
+            *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) = decode4_fast16<HAS_BIAS>(
+                pack_bf16x2(q[0], q[1]), pack_bf16x2(q[2], q[3]), P16, r / 16, c4);
+          }
+          continue;
+        }
         if (BITS == 4) {
           const size_t o_lo = (size_t)((k_lo + r) / group) * N + n0 + c4;
           const size_t o_hi = (size_t)((k_lo + half + r) / group) * N + n0 + c4;
@@ -264,24 +368,26 @@ qmm_affine_kernel(const Table tab, int K, int N, int split, int group) {
   }
 }
 
-template <int BITS, bool HAS_BIAS>
+template <int BITS, bool HAS_BIAS, bool FAST16>
 int launch(const Table& tab, int tiles, int K, int N, int split, int group,
            cudaStream_t stream) {
-  constexpr size_t smem = Layout<BITS>::SMEM_BYTES;
+  constexpr size_t smem = Layout<BITS, FAST16>::SMEM_BYTES;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(qmm_affine_kernel<BITS, HAS_BIAS>,
+    cudaError_t err = cudaFuncSetAttribute(qmm_affine_kernel<BITS, HAS_BIAS, FAST16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   dim3 grid(N / BN, tiles);
-  qmm_affine_kernel<BITS, HAS_BIAS><<<grid, THREADS, smem, stream>>>(tab, K, N, split, group);
+  qmm_affine_kernel<BITS, HAS_BIAS, FAST16><<<grid, THREADS, smem, stream>>>(tab, K, N, split,
+                                                                             group);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Fills the tile offsets and launches the instantiation for (bits, bias).
+template <bool FAST16>
 int run(Table& tab, int K, int N, int bits, int split, int group, bool has_bias,
         cudaStream_t st) {
   int tiles = 0;
@@ -291,12 +397,12 @@ int run(Table& tab, int K, int N, int bits, int split, int group, bool has_bias,
   }
   if (tiles == 0) return 0;
   if (bits == 4) {
-    return has_bias ? launch<4, true>(tab, tiles, K, N, split, group, st)
-                    : launch<4, false>(tab, tiles, K, N, split, group, st);
+    return has_bias ? launch<4, true, FAST16>(tab, tiles, K, N, split, group, st)
+                    : launch<4, false, FAST16>(tab, tiles, K, N, split, group, st);
   }
   if (bits == 8) {
-    return has_bias ? launch<8, true>(tab, tiles, K, N, split, group, st)
-                    : launch<8, false>(tab, tiles, K, N, split, group, st);
+    return has_bias ? launch<8, true, FAST16>(tab, tiles, K, N, split, group, st)
+                    : launch<8, false, FAST16>(tab, tiles, K, N, split, group, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -317,8 +423,23 @@ extern "C" int qmm_affine(const void* x, const void* packed, const void* scale,
   tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
               static_cast<const float*>(scale), static_cast<const float*>(bias),
               static_cast<__nv_bfloat16*>(out), M, 0};
-  return run(tab, K, N, bits, split, group, bias != nullptr,
-             static_cast<cudaStream_t>(stream));
+  return run<false>(tab, K, N, bits, split, group, bias != nullptr,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// K13: K4 with the fast16 decode; the same arguments, and group % 16 == 0.
+// Returns cudaErrorInvalidValue for another group.
+extern "C" int qmm_affine_fast16(const void* x, const void* packed, const void* scale,
+                                 const void* bias, void* out, int M, int K, int N, int bits,
+                                 int split, int group, void* stream) {
+  if (group % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Table tab{};
+  tab.count = 1;
+  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+              static_cast<const float*>(scale), static_cast<const float*>(bias),
+              static_cast<__nv_bfloat16*>(out), M, 0};
+  return run<true>(tab, K, N, bits, split, group, bias != nullptr,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // K8, affine branch. table: G rows of 6 int64 {x, packed, scale, bias, out,
@@ -338,6 +459,6 @@ extern "C" int qmm_grouped_affine(const long long* table, int G, int K, int N, i
                 reinterpret_cast<const float*>(r[3]), reinterpret_cast<__nv_bfloat16*>(r[4]),
                 static_cast<int>(r[5]), 0};
   }
-  return run(tab, K, N, bits, split, group, has_bias != 0,
-             static_cast<cudaStream_t>(stream));
+  return run<false>(tab, K, N, bits, split, group, has_bias != 0,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -13,6 +13,16 @@
 // for that group bit for bit. K2 is the table of one group. Nothing is
 // stacked or copied per call. No fast16 mode: JAX passes fast16=False to
 // every grouped call (:726).
+// K12 qmm_nf4_fast16: replaces the same branch with fast16=True, the opt-in
+// 16-bit decode of _dequant_tile (:45-54 with val_dtype bf16, :100-120):
+// each codebook entry rounded to bf16, times the group scale rounded to
+// bf16, the product rounded to bf16. It is K2's kernel with FAST16 = true:
+// only the per-stage decode into the bf16 shared tile changes. The codebook
+// sits in shared memory as bf16 bits; two weights pair into one
+// fma.rn.bf16x2 (a * s + -0: one rounding), half the decode's multiplies
+// of K2's f32 path. The decoded weight equals the plain version's
+// (ops/qmatmul.dequantize_fast16) bit for bit; only the f32 summation order
+// of the product differs. FAST16 = false is K2's code as it was.
 //
 // Math: the packed plane is u8 [K/2, N] in split-block order: inside each
 // `split`-row run, packed row r holds k-row r in its low nibble and k-row
@@ -65,6 +75,7 @@ struct Table {
   int count;
 };
 
+template <bool FAST16>
 __global__ void __launch_bounds__(THREADS)
 qmm_nf4_kernel(const Table tab, int K, int N, int split, int group) {
   // This block's group: the last one whose m-tiles start at or before it.
@@ -84,6 +95,7 @@ qmm_nf4_kernel(const Table tab, int K, int N, int split, int group) {
   uint8_t* Ps = smem + 2 * A_ELEMS * sizeof(__nv_bfloat16);                // [2][PK][BN]
   __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(Ps + 2 * P_BYTES);  // [KS][W_STRIDE]
   float* cb = reinterpret_cast<float*>(Ws + W_ELEMS);                      // [16]
+  uint16_t* cbh = reinterpret_cast<uint16_t*>(cb);  // FAST16: [16] bf16 bits
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -98,7 +110,13 @@ qmm_nf4_kernel(const Table tab, int K, int N, int split, int group) {
   const int stages_per_run = half / PK;
   const int nstages = (K / 2) / PK;
 
-  if (tid < 16) cb[tid] = codebook[tid];
+  if (tid < 16) {
+    if constexpr (FAST16) {
+      cbh[tid] = bf16_bits(codebook[tid]);
+    } else {
+      cb[tid] = codebook[tid];
+    }
+  }
 
   float acc[4][4][4];
 #pragma unroll
@@ -161,6 +179,24 @@ qmm_nf4_kernel(const Table tab, int K, int N, int split, int group) {
         const uint32_t word = *reinterpret_cast<const uint32_t*>(p + r * BN + c4);
         const float4 sl = *reinterpret_cast<const float4*>(s_lo + c4);
         const float4 sh = *reinterpret_cast<const float4*>(s_hi + c4);
+        if constexpr (FAST16) {
+          // pairs of bf16 entries times pairs of bf16 scales, one rounding
+          uint32_t lo[2], hi[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t b0 = (word >> (16 * h)) & 0xFFu;
+            const uint32_t b1 = (word >> (16 * h + 8)) & 0xFFu;
+            lo[h] = cbh[b0 & 0xFu] | (static_cast<uint32_t>(cbh[b1 & 0xFu]) << 16);
+            hi[h] = cbh[b0 >> 4] | (static_cast<uint32_t>(cbh[b1 >> 4]) << 16);
+          }
+          *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) =
+              make_uint2(bf16x2_mul(lo[0], pack_bf16x2(sl.x, sl.y)),
+                         bf16x2_mul(lo[1], pack_bf16x2(sl.z, sl.w)));
+          *reinterpret_cast<uint2*>(Ws + (PK + r) * W_STRIDE + c4) =
+              make_uint2(bf16x2_mul(hi[0], pack_bf16x2(sh.x, sh.y)),
+                         bf16x2_mul(hi[1], pack_bf16x2(sh.z, sh.w)));
+          continue;
+        }
         const float slv[4] = {sl.x, sl.y, sl.z, sl.w};
         const float shv[4] = {sh.x, sh.y, sh.z, sh.w};
         float lo[4], hi[4];
@@ -221,11 +257,12 @@ qmm_nf4_kernel(const Table tab, int K, int N, int split, int group) {
 }
 
 // Fills the tile offsets and launches the kernel for the table.
+template <bool FAST16>
 int run(Table& tab, int K, int N, int split, int group, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        qmm_nf4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+        qmm_nf4_kernel<FAST16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
@@ -236,7 +273,7 @@ int run(Table& tab, int K, int N, int split, int group, cudaStream_t stream) {
   }
   if (tiles == 0) return 0;
   dim3 grid(N / BN, tiles);
-  qmm_nf4_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(tab, K, N, split, group);
+  qmm_nf4_kernel<FAST16><<<grid, THREADS, SMEM_BYTES, stream>>>(tab, K, N, split, group);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -253,7 +290,19 @@ extern "C" int qmm_nf4(const void* x, const void* packed, const void* scale,
   tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
               static_cast<const float*>(scale), static_cast<const float*>(codebook),
               static_cast<__nv_bfloat16*>(out), M, 0};
-  return run(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
+  return run<false>(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
+}
+
+// K12: K2 with the fast16 decode; the same arguments.
+extern "C" int qmm_nf4_fast16(const void* x, const void* packed, const void* scale,
+                              const void* codebook, void* out, int M, int K, int N,
+                              int split, int group, void* stream) {
+  Table tab{};
+  tab.count = 1;
+  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+              static_cast<const float*>(scale), static_cast<const float*>(codebook),
+              static_cast<__nv_bfloat16*>(out), M, 0};
+  return run<true>(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
 }
 
 // K11. table: G rows of 6 int64 {x, packed, scale, codebook, out, m}, each
@@ -271,5 +320,5 @@ extern "C" int qmm_grouped_nf4(const long long* table, int G, int K, int N, int 
                 reinterpret_cast<const float*>(r[3]), reinterpret_cast<__nv_bfloat16*>(r[4]),
                 static_cast<int>(r[5]), 0};
   }
-  return run(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
+  return run<false>(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
 }

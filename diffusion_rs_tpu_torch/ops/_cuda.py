@@ -11,8 +11,9 @@ No ``--use_fast_math``: the s8 matmul divides and rounds half-to-even exactly
 as ``jnp.round(x / sx)`` does, and fast math would change both.
 
 A source may export several entry points (:data:`KERNELS`: the q8t, nf4 and
-affine sources also export their grouped forms, the flash source its
-seq-major, fused-RoPE and int8 forms). Every kernel wrapper adds one to its entry
+affine sources also export their grouped forms, the nf4 and affine sources
+their fast16 forms, the flash source its seq-major, fused-RoPE and int8
+forms). Every kernel wrapper adds one to its entry
 point's count in :data:`LAUNCHES` when it launches it, and nowhere else.
 """
 
@@ -49,8 +50,10 @@ KERNELS = {
     "qmm_grouped_s8": ("qmm_s8", [_P, _I, _I, _I, _I, _P]),
     "qmm_nf4": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "qmm_grouped_nf4": ("qmm_nf4", [_P, _I, _I, _I, _I, _I, _P]),
+    "qmm_nf4_fast16": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "qmm_affine": ("qmm_affine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "qmm_grouped_affine": ("qmm_affine", [_P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "qmm_affine_fast16": ("qmm_affine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "flash_fwd": ("flash_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "flash_sm": ("flash_fwd", [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P]),
     "flash_rope": ("flash_fwd", [_P] * 8 + [_I] * 4 + [_L] * 6 + [_F, _P]),

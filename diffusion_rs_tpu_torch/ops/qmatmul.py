@@ -10,7 +10,9 @@ Port of ``diffusion_rs_tpu/ops/qmatmul_pallas.py``. The dispatch mirrors
   crossover default is 2^30 rows (:297);
 * a 4-bit codebook tensor (nf4/fp4) takes the nf4 kernel;
 * every other tensor without a codebook (the affine formats: GGUF
-  Q4_0..Q8_K, bnb int8, ``w = q * scale + bias``) takes the affine kernel.
+  Q4_0..Q8_K, bnb int8, ``w = q * scale + bias``) takes the affine kernel;
+* with DIFFUSION_RS_TPU_QMM_FAST16 set and 16-bit activations (:466-471),
+  the nf4 and affine kernels decode in bf16 arithmetic instead (K12, K13).
 
 Three hand-written Hopper kernel sources (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``,
 ``csrc/qmm_affine.cu``) serve the CUDA path. Beside each is its plain PyTorch version, which follows
@@ -27,11 +29,12 @@ kernels do not tile, take per-group :func:`quantized_matmul`, as JAX does.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import List, Optional, Sequence
 
 import torch
 
-from ..quant.qtensor import QuantizedTensor, dequantize
+from ..quant.qtensor import QuantizedTensor, dequantize, unpack4
 from . import _cuda
 
 
@@ -236,6 +239,98 @@ def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
 
 
 # ---------------------------------------------------------------------------
+# K12 / K13: the fast16 decode (DIFFUSION_RS_TPU_QMM_FAST16) of K2 and K4
+# ---------------------------------------------------------------------------
+
+
+def fast16_enabled(x: torch.Tensor) -> bool:
+    """The JAX package's opt-in 16-bit decode (qmatmul_pallas.py:466-471):
+    on when DIFFUSION_RS_TPU_QMM_FAST16 is set to anything non-empty and the
+    activations are a 2-byte dtype; read at every call, as JAX reads it at
+    every trace. q8t (K1) and the grouped calls (K8, K11) never take it."""
+    return x.element_size() == 2 and bool(os.environ.get("DIFFUSION_RS_TPU_QMM_FAST16"))
+
+
+def dequantize_fast16(qt: QuantizedTensor, dtype: torch.dtype) -> torch.Tensor:
+    """``_dequant_tile``'s fast16 decode (qmatmul_pallas.py:72-120) of the
+    whole ``[K, N]`` weight in the 16-bit ``dtype``, rounded after every op:
+
+    * codebook: the entry in ``dtype`` times the scale in ``dtype``;
+    * affine with a bias: ``off = where(s == 0, 0, b / where(s == 0, 1, s))``
+      (f32, IEEE quotient) and ``b' = where(s == 0, b, 0)``, both then in
+      ``dtype``; ``w = ((q + off) * s) + b'`` (the centred form: for Q4_0
+      the offset is the exact integer -8);
+    * affine without a bias: ``q * s``.
+
+    The codes are exact in ``dtype`` (|q| <= 128). Per-layer ``[K, N]``
+    weights only, as quantized_matmul passes them."""
+    k, n = qt.shape
+    q = unpack4(qt.packed, qt.split) if qt.bits == 4 else qt.packed
+    _require(q.shape == (k, n), f"dequantize_fast16 takes a [K, N] weight, got {tuple(q.shape)}")
+    s = qt.scale.float()
+    w = qt.codebook.to(dtype)[q.long()] if qt.codebook is not None else q.to(dtype)
+    w = w.reshape(k // qt.group, qt.group, n)
+    plane = (k // qt.group, 1, n)
+    if qt.codebook is None and qt.bias is not None:
+        b = qt.bias.float()
+        zero = s == 0
+        off = torch.where(zero, torch.zeros_like(s), b / torch.where(zero, torch.ones_like(s), s))
+        w = w + off.to(dtype).reshape(plane)
+        w = w * s.to(dtype).reshape(plane)
+        w = w + torch.where(zero, b, torch.zeros_like(b)).to(dtype).reshape(plane)
+    else:
+        w = w * s.to(dtype).reshape(plane)
+        if qt.bias is not None:
+            w = w + qt.bias.to(dtype).reshape(plane)
+    return w.reshape(k, n)
+
+
+def qmm_dequant_fast16_plain(x2: torch.Tensor, qt: QuantizedTensor,
+                             out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K12 and K13: :func:`dequantize_fast16` in the
+    activation dtype, then the dot with f32 accumulation."""
+    w = dequantize_fast16(qt, x2.dtype)
+    return (x2.float() @ w.float()).to(out_dtype)
+
+
+def qmm_nf4_fast16(x2: torch.Tensor, qt: QuantizedTensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """K12: ``x2 [M, K] @ deq16(nf4/fp4 W) [K, N]`` through
+    ``csrc/qmm_nf4.cu`` (``qmm_nf4_fast16``), K2 with the fast16 decode."""
+    if x2.device.type == "cpu":
+        return qmm_dequant_fast16_plain(x2, qt, out_dtype)
+    _check_nf4("qmm_nf4_fast16", x2, qt, out_dtype)
+    m, k = x2.shape
+    out = torch.empty((m, qt.n), dtype=torch.bfloat16, device=x2.device)
+    if m == 0:
+        return out
+    _cuda.launch("qmm_nf4_fast16", x2.data_ptr(), qt.packed.data_ptr(),
+                 qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
+                 m, k, qt.n, qt.split, qt.group)
+    return out
+
+
+def qmm_affine_fast16(x2: torch.Tensor, qt: QuantizedTensor,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """K13: ``x2 [M, K] @ deq16(affine W) [K, N]`` through
+    ``csrc/qmm_affine.cu`` (``qmm_affine_fast16``), K4 with the fast16
+    decode; it needs the scale groups to be multiples of 16 rows."""
+    if x2.device.type == "cpu":
+        return qmm_dequant_fast16_plain(x2, qt, out_dtype)
+    _check_affine("qmm_affine_fast16", x2, qt, out_dtype)
+    _require(qt.group % 16 == 0, f"qmm_affine_fast16 needs group % 16 == 0 (group={qt.group})")
+    m, k = x2.shape
+    out = torch.empty((m, qt.n), dtype=torch.bfloat16, device=x2.device)
+    if m == 0:
+        return out
+    _cuda.launch("qmm_affine_fast16", x2.data_ptr(), qt.packed.data_ptr(),
+                 qt.scale.data_ptr(),
+                 None if qt.bias is None else qt.bias.data_ptr(),
+                 out.data_ptr(), m, k, qt.n, qt.bits, qt.split, qt.group)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 
@@ -243,22 +338,25 @@ def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
 def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x [..., K] @ deq(qt) [K, N] -> [..., N]`` with the weight staying
-    packed. Shapes the kernels do not tile take dequantize + matmul."""
+    packed. Shapes the kernels do not tile take dequantize + matmul. With
+    DIFFUSION_RS_TPU_QMM_FAST16 set and 16-bit activations, the codebook and
+    affine formats decode in 16-bit arithmetic (K12, K13)."""
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     k, n = qt.shape
     x2 = x.reshape(-1, k).contiguous()
+    fast16 = fast16_enabled(x)
     if not supports(qt):
         w = dequantize(qt, x.dtype)
         y = torch.matmul(x2.float(), w.float()).to(out_dtype)
     elif q8t_ok(qt):
         y = qmm_s8(x2, qt, out_dtype)
     elif _codebook_ok(qt):
-        y = qmm_nf4(x2, qt, out_dtype)
+        y = (qmm_nf4_fast16 if fast16 else qmm_nf4)(x2, qt, out_dtype)
     elif qt.codebook is None:
-        y = qmm_affine(x2, qt, out_dtype)
+        y = (qmm_affine_fast16 if fast16 else qmm_affine)(x2, qt, out_dtype)
     elif x2.device.type == "cpu":
-        y = qmm_dequant_plain(x2, qt, out_dtype)
+        y = (qmm_dequant_fast16_plain if fast16 else qmm_dequant_plain)(x2, qt, out_dtype)
     else:
         raise NotImplementedError(
             f"quantized_matmul: no CUDA kernel for a {qt.bits}-bit codebook "

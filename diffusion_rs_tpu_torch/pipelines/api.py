@@ -85,11 +85,15 @@ class Pipeline:
     ``fuse`` (None: DIFFUSION_RS_TPU_FUSE, else none; True / "all": img,
     txt, single and t5; or a comma list of those and "grouped") and the
     environment's DIFFUSION_RS_TPU_FUSED_ROPE=1 / DIFFUSION_RS_TPU_ATTN_LAYOUT
-    work as in the JAX package (loader.apply_layout_options). ``isq``,
-    ``isq_t5``, ``imatrix``, ``lora``, ``offloading``, ``mesh``,
-    ``compile_cache`` and the ``t5_mask_pads`` / ``step_progress`` toggles
-    keep the JAX package's names but are not ported yet: setting one raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    work as in the JAX package (loader.apply_layout_options), and so do
+    ``isq`` (in-situ quantization to one of quant/isq.SUPPORTED, on the
+    weights' device), ``isq_t5`` (T5's own target; by default T5 follows
+    ``isq`` unless the capacity guard keeps it), ``imatrix`` (a llama.cpp
+    importance-matrix file weighting ISQ), ``lora`` (one LoRA file or a
+    list) and ``lora_scale`` (loader.apply_weight_options). ``offloading``,
+    ``mesh``, ``compile_cache`` and the ``t5_mask_pads`` / ``step_progress``
+    toggles keep the JAX package's names but are not ported yet: setting one
+    raises ``NotImplementedError`` naming its ROADMAP item."""
 
     def __init__(
         self,

@@ -11,6 +11,7 @@ tiled decode, offload and meshes are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import List, Optional
@@ -23,7 +24,9 @@ from ..models.clip import ClipTextConfig, clip_encode
 from ..models.flux import FluxConfig, compute_pe, flux_forward
 from ..models.t5 import T5Config, t5_encode
 from ..models.vae import VAEConfig, vae_decode
+from ..util.capacity import check_denoise_capacity
 from ..util.device import resolve_device
+from ..util.tracing import warn_once
 from .sampling import (
     denoise,
     get_noise,
@@ -129,6 +132,21 @@ class FluxPipeline:
         z = self._pre_decode(latent, height, width)
         return self._to_u8(vae_decode(self.vae_params, self.vae_cfg, z))
 
+    def _check_capacity(self, params, batch: int, txt_tokens: int) -> None:
+        """The JAX pipeline's static check before the denoise
+        (util/capacity.py): raises when the transformer's weights alone
+        exceed the device's memory, warns once when the activation estimate
+        takes them over it. On a CPU device it runs only where
+        DIFFUSION_RS_TPU_HBM_BYTES sets a budget."""
+        if self.device.type != "cuda" and not os.environ.get("DIFFUSION_RS_TPU_HBM_BYTES"):
+            return
+        img_tokens = ((params.height + 15) // 16) * ((params.width + 15) // 16)
+        msg = check_denoise_capacity(self.flux_params, batch=batch, img_tokens=img_tokens,
+                                     txt_tokens=txt_tokens,
+                                     hidden=self.flux_cfg.hidden_size, device=self.device)
+        if msg:
+            warn_once(f"capacity-{params.height}x{params.width}-{batch}", msg)
+
     # -- front end --------------------------------------------------------------
 
     def forward_arrays(self, prompts: List[str], params,
@@ -169,6 +187,7 @@ class FluxPipeline:
                        device=dev)
             if self.flux_cfg.guidance_embeds else None
         )
+        self._check_capacity(params, len(prompts), txt.shape[1])
         latent = self._denoise(txt, y, sigmas, guidance, noise)
         t2 = self._sync()
         self.timings["denoise_s"] = t2 - t1

@@ -8,11 +8,13 @@ transformer: from ``transformer/`` of the source, from another repo, or
 from a single-file GGUF (:func:`load_flux_transformer`, the city96-style
 files with BFL tensor names, whose config comes from the tensors).
 
-The load-time layout options (``fuse=`` / ``DIFFUSION_RS_TPU_FUSE``, with
-``grouped``, and ``DIFFUSION_RS_TPU_FUSED_ROPE=1``) run in
-:func:`apply_layout_options`, with the JAX package's names, defaults and
-order. Options of the JAX loader that the port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP item; none is silently ignored.
+The load-time weight options (``isq``, ``isq_t5``, ``imatrix``, ``lora``,
+``lora_scale``) run in :func:`apply_weight_options`, then the layout
+options (``fuse=`` / ``DIFFUSION_RS_TPU_FUSE``, with ``grouped``, and
+``DIFFUSION_RS_TPU_FUSED_ROPE=1``) in :func:`apply_layout_options`, with the
+JAX package's names, defaults and order. Options of the JAX loader that the
+port does not carry yet raise ``NotImplementedError`` naming their ROADMAP
+item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..models.flux import FluxConfig
 from ..models.t5 import T5Config
 from ..models.vae import VAEConfig
 from ..util.device import resolve_device
+from ..util.tree import tree_leaves
 from .api import ModelDType, ModelSource, Offloading
 from .flux_pipeline import FluxPipeline
 from .scheduler import SchedulerConfig
@@ -121,16 +124,73 @@ def apply_layout_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
     return flux_params, flux_cfg, t5_params
 
 
-def _check_unported(offloading, isq, isq_t5, imatrix, lora, mesh, t5_mask_pads,
-                    step_progress, compile_cache) -> None:
+def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dict,
+                         isq: Optional[str] = None, isq_t5: Optional[str] = None,
+                         imatrix: Optional[str] = None,
+                         lora: Union[str, Sequence[str], None] = None,
+                         lora_scale: Union[float, Sequence[float]] = 1.0,
+                         dtype=torch.bfloat16, silent: bool = True) -> Tuple[dict, dict]:
+    """The JAX loader's load-time weight transforms, in its order, on
+    in-memory trees and on their own device: ISQ of FLUX (``isq``, weighted
+    by the ``imatrix`` file when given), the T5 capacity guard, ISQ of T5,
+    then each LoRA file with its scale. Returns the FLUX and T5 params.
+
+    T5 follows ``isq`` unless ``isq_t5`` names its own target; the guard
+    keeps T5 in its present format when following ``isq`` would put FLUX
+    and T5 together over 92% of the device budget (util/capacity.py) and
+    its present format is the smaller; it runs on a CUDA device, or where
+    DIFFUSION_RS_TPU_HBM_BYTES sets a budget. ``imatrix`` and ``isq_t5``
+    do nothing without ``isq``. LoRA factors fuse into dense bases and
+    become runtime terms on quantized ones (io/lora.py), so an ISQ'd base
+    keeps its adapter outside the quantizer."""
+    from ..io.imatrix import load_imatrix
+    from ..io.lora import apply_flux_lora
+    from ..quant.isq import isq_tree
+    from ..util import capacity
+    from ..util.tracing import warn_once
+
+    if isq:
+        imat = load_imatrix(imatrix) if imatrix else None
+        flux_params = isq_tree(flux_params, isq, imatrix=imat)
+        t5_target = isq_t5 if isq_t5 is not None else isq
+        device = tree_leaves(flux_params)[0].device
+        if isq_t5 is None and (device.type == "cuda"
+                               or os.environ.get("DIFFUSION_RS_TPU_HBM_BYTES")):
+            budget = int(0.92 * capacity.per_chip_hbm_bytes(device))  # 8% headroom
+            flux_b = capacity.tree_device_bytes(flux_params)
+            t5_now = capacity.tree_device_bytes(t5_params)
+            t5_isq = capacity.estimate_isq_tree_bytes(t5_params, isq)
+            if flux_b + t5_isq > budget and t5_now < t5_isq:
+                warn_once(
+                    "isq-t5-capacity",
+                    f"isq='{isq}' would put T5 at ~{t5_isq / 1e9:.1f} GB beside "
+                    f"{flux_b / 1e9:.1f} GB transformer weights — over the "
+                    f"{budget / 1e9:.1f} GB budget; keeping T5 in its current "
+                    "(smaller) format. Pass isq_t5= to force.")
+                t5_target = None
+        if t5_target:
+            t5_params = isq_tree(t5_params, t5_target, imatrix=imat)
+        if not silent:
+            log.info("applied ISQ (%s%s) to transformer%s linears", isq,
+                     ", imatrix-weighted" if imat else "",
+                     f" + T5 ({t5_target})" if t5_target else " (T5 kept)")
+    if lora:
+        loras = [lora] if isinstance(lora, str) else list(lora)
+        scales = ([lora_scale] * len(loras) if isinstance(lora_scale, (int, float))
+                  else list(lora_scale))
+        if len(scales) != len(loras):
+            raise ValueError(f"{len(loras)} LoRA files but {len(scales)} scales")
+        for lf, sc in zip(loras, scales):
+            flux_params = apply_flux_lora(flux_params, flux_cfg, lf, scale=sc, dtype=dtype)
+            if not silent:
+                log.info("applied LoRA %s (scale %.2f)", lf, sc)
+    return flux_params, t5_params
+
+
+def _check_unported(offloading, mesh, t5_mask_pads, step_progress, compile_cache) -> None:
     """The JAX loader's options that the port does not carry yet, resolved
     the way the JAX package resolves them (argument, else its environment
     variable)."""
-    if isq or isq_t5 or imatrix:
-        _not_ported("isq / isq_t5 / imatrix (in-situ quantization)",
-                    "Queue 1 item 9")
-    if lora:
-        _not_ported("lora", "Queue 1 item 10")
     if offloading is not None:
         _not_ported(f"offloading={offloading}", "Queue 1 item 11")
     if compile_cache or os.environ.get("DIFFUSION_RS_TPU_COMPILE_CACHE"):
@@ -207,8 +267,7 @@ def load_pipeline(
     device="cuda",
 ) -> FluxPipeline:
     device = resolve_device(device)
-    _check_unported(offloading, isq, isq_t5, imatrix, lora, mesh, t5_mask_pads,
-                    step_progress, compile_cache)
+    _check_unported(offloading, mesh, t5_mask_pads, step_progress, compile_cache)
     loader = FileLoader(model_id=source.model_id, dduf_file=source.dduf_file,
                         token=token, revision=revision, silent=silent)
     index = json.loads(loader.read_bytes("model_index.json"))
@@ -257,6 +316,9 @@ def load_pipeline(
             json.loads(flux_loader.read_bytes("transformer/config.json")))
         flux_params = build_flux_params(
             _component_store(flux_loader, "transformer", dt, device), flux_cfg, dt)
+    flux_params, t5_params = apply_weight_options(
+        flux_params, flux_cfg, t5_params, isq=isq, isq_t5=isq_t5, imatrix=imatrix, lora=lora,
+        lora_scale=lora_scale, dtype=dt, silent=silent)
     flux_params, flux_cfg, t5_params = apply_layout_options(
         flux_params, flux_cfg, t5_params, fuse=fuse, silent=silent)
     if not silent:

@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .qtensor import QuantizedTensor, choose_split, pack4
+from .qtensor import QuantizedTensor, choose_split, pack4, pack4_tensor
 
 # 16-entry codebooks, indexed by the 4-bit code (bitsandbytes' NF4 normal
 # map, and FP4 e2m1 with bit 3 the sign).
@@ -107,6 +107,79 @@ def bnb4bit_to_canonical(weight_bytes: np.ndarray, absmax: np.ndarray, shape: tu
         split=split,
         shape=(k_in, n_out),
         out_dtype=out_dtype,
+    )
+
+
+def quantize_4bit_bnb_layout(w: np.ndarray, blocksize: int = 64,
+                             kind: str = "nf4") -> tuple[np.ndarray, np.ndarray]:
+    """Quantize a torch-layout ``[out, in]`` weight into bnb's byte layout:
+    (packed bytes, absmax). Each code is the nearest codebook entry of
+    ``w / absmax`` (the first on a tie), as bitsandbytes' quantize_4bit."""
+    cb = CODEBOOKS[kind]
+    flat = w.astype(np.float32).reshape(-1)
+    pad = (-flat.size) % blocksize
+    if pad:
+        flat = np.concatenate([flat, np.zeros(pad, np.float32)])
+    blocks = flat.reshape(-1, blocksize)
+    absmax = np.abs(blocks).max(axis=1)
+    safe = np.where(absmax == 0, 1.0, absmax)
+    normed = blocks / safe[:, None]
+    codes = np.abs(normed[..., None] - cb[None, None, :]).argmin(axis=-1)
+    codes = codes.reshape(-1).astype(np.uint8)[: w.size]
+    if codes.size % 2:
+        codes = np.concatenate([codes, np.zeros(1, np.uint8)])
+    packed = (codes[0::2] << 4) | codes[1::2]
+    return packed, absmax[: (w.size + blocksize - 1) // blocksize]
+
+
+def quantize_nf4(w: np.ndarray, blocksize: int = 64) -> QuantizedTensor:
+    """A torch-layout ``[out, in]`` weight -> canonical nf4 (host numpy)."""
+    packed, absmax = quantize_4bit_bnb_layout(w, blocksize, "nf4")
+    return bnb4bit_to_canonical(packed, absmax, w.shape, blocksize, "nf4")
+
+
+def quantize_fp4(w: np.ndarray, blocksize: int = 64) -> QuantizedTensor:
+    """A torch-layout ``[out, in]`` weight -> canonical fp4 (host numpy)."""
+    packed, absmax = quantize_4bit_bnb_layout(w, blocksize, "fp4")
+    return bnb4bit_to_canonical(packed, absmax, w.shape, blocksize, "fp4")
+
+
+def quantize_4bit_canonical(w_kmajor: torch.Tensor, kind: str = "nf4",
+                            blocksize: int = 64) -> QuantizedTensor:
+    """:func:`quantize_nf4` / :func:`quantize_fp4` of ``w_kmajor.T`` on the
+    weight's own device, straight to the canonical planes: the same blocks
+    (``blocksize`` along K per column), the same f32 operations and the
+    first-minimum tie rule, so the codes and scales equal the host
+    encoder's."""
+    k, n = w_kmajor.shape
+    if k % blocksize:
+        raise ValueError(f"in_features {k} not divisible by blocksize {blocksize}")
+    dev = w_kmajor.device
+    blocks = w_kmajor.float().reshape(k // blocksize, blocksize, n)
+    absmax = blocks.abs().amax(dim=1)
+    safe = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+    normed = blocks / safe[:, None, :]
+    cb = torch.as_tensor(CODEBOOKS[kind], device=dev)
+    best = (normed - cb[0]).abs()
+    codes = torch.zeros(normed.shape, dtype=torch.uint8, device=dev)
+    for i in range(1, 16):  # strict '<' keeps the first minimum, as argmin
+        d = (normed - cb[i]).abs()
+        closer = d < best
+        best = torch.where(closer, d, best)
+        codes.masked_fill_(closer, i)
+        del d, closer
+    split = choose_split(k)
+    return QuantizedTensor(
+        packed=pack4_tensor(codes.reshape(k, n), split),
+        scale=absmax,
+        bias=None,
+        codebook=cb.clone(),
+        kind=kind,
+        bits=4,
+        group=blocksize,
+        split=split,
+        shape=(k, n),
+        out_dtype="bfloat16",
     )
 
 

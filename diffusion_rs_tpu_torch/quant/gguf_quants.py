@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .qtensor import QuantizedTensor, choose_split, pack4
+from .qtensor import QuantizedTensor, choose_split, pack4, pack4_tensor
 
 QK_K = 256
 K_SCALE_SIZE = 12
@@ -647,3 +647,183 @@ ENCODERS = {
     "q5_k": encode_q5_k,
     "q6_k": encode_q6_k,
 }
+
+
+# ---------------------------------------------------------------------------
+# Quantizers on the weight's device (ISQ). Each gives what
+# ``gguf_to_canonical(fmt, ENCODERS[fmt](w.T), (N, K))`` gives, without GGML
+# bytes: the same f32 operations in the same order (f64 where numpy promotes,
+# in Q3K), the codes chosen with the unrounded d / dmin as the encoders
+# choose them, and the scale and bias planes decoded from the f16-rounded d /
+# dmin times the integer sub-scales as the decoders do. Quotients divide by
+# tensors: PyTorch's CUDA division by a Python scalar multiplies by its
+# reciprocal, which is not the IEEE quotient numpy computes.
+# ---------------------------------------------------------------------------
+
+
+def _div(a: torch.Tensor, c: float) -> torch.Tensor:
+    return a / torch.full_like(a, c)
+
+
+def _inv(d: torch.Tensor) -> torch.Tensor:
+    """``where(d != 0, 1 / where(d == 0, 1, d), 0)``."""
+    one = torch.ones_like(d)
+    return torch.where(d != 0, one / torch.where(d == 0, one, d), torch.zeros_like(d))
+
+
+def _nonzero(d: torch.Tensor) -> torch.Tensor:
+    """``where(d == 0, 1e-12, d)`` (the k-quant encoders' guard)."""
+    return torch.where(d == 0, torch.full_like(d, 1e-12), d)
+
+
+def _safe(e: torch.Tensor) -> torch.Tensor:
+    return torch.where(e == 0, torch.ones_like(e), e)
+
+
+def _f16_round(d: torch.Tensor) -> torch.Tensor:
+    """The f16 round trip of a stored block scale (nearest even, subnormals
+    kept, 1e-12 -> 0)."""
+    return d.half().float()
+
+
+def _first_absmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The signed element of largest magnitude along ``dim`` (the first one on
+    a tie, as numpy's argmax), with ``dim`` kept."""
+    a = x.abs()
+    m = a.amax(dim=dim, keepdim=True)
+    shape = [1] * x.dim()
+    shape[dim] = x.shape[dim]
+    pos = torch.arange(x.shape[dim], device=x.device).reshape(shape)
+    first = torch.where(a == m, pos, x.shape[dim]).amin(dim=dim, keepdim=True)
+    return torch.gather(x, dim, first)
+
+
+def _symmetric(b, levels: float, offset: float, hi: float):
+    """Q4_0 / Q5_0 codes: ``d = signed absmax / -levels``, ``q = trunc(clip(
+    w * (1/d) + offset, 0, hi))``."""
+    d = _div(_first_absmax(b, 1), -levels)
+    q = torch.clamp(b * _inv(d) + offset, 0, hi).to(torch.uint8)
+    return q, d
+
+
+def _minmax(b, levels: float):
+    """Q4_1 / Q5_1 codes: ``d = (max - min) / levels``, ``q = trunc(clip(
+    (w - min) * (1/d) + 0.5, 0, levels))``."""
+    mn = b.amin(dim=1, keepdim=True)
+    mx = b.amax(dim=1, keepdim=True)
+    d = _div(mx - mn, levels)
+    q = torch.clamp((b - mn) * _inv(d) + 0.5, 0, levels).to(torch.uint8)
+    return q, d, mn
+
+
+def _kquant_affine(sub, levels: float, sub_levels: float):
+    """Q2K / Q4K / Q5K on ``sub [nb, n_sub, sub_len, N]``: per sub-block an
+    affine range of ``levels`` steps, its scale and negated min quantized
+    against the super-block's d / dmin (``sub_levels`` = 15 for Q2K's 4-bit
+    sub-scales, 63 for the 6-bit ones); codes from the unrounded d / dmin."""
+    mn = torch.clamp(sub.amin(dim=2), max=0.0)
+    mx = torch.clamp(sub.amax(dim=2), min=0.0)
+    ls = _div(mx - mn, levels)
+    lm = -mn
+    d = _nonzero(_div(ls.amax(dim=1), sub_levels))
+    dmin = _nonzero(_div(torch.clamp(lm, min=0.0).amax(dim=1), sub_levels))
+    sc = torch.clamp(torch.round(ls / d[:, None]), 0, sub_levels).to(torch.uint8)
+    mq = torch.clamp(torch.round(lm / dmin[:, None]), 0, sub_levels).to(torch.uint8)
+    eff_s = d[:, None] * sc
+    eff_m = dmin[:, None] * mq
+    q = torch.clamp(torch.round((sub + eff_m[:, :, None]) / _safe(eff_s)[:, :, None]), 0,
+                    levels)
+    scale = _f16_round(d)[:, None] * sc
+    bias = -(_f16_round(dmin)[:, None] * mq)
+    return q.to(torch.uint8), scale, bias
+
+
+def _q3_k(sub):
+    """Q3K on ``sub [nb, 16, 16, N]``: symmetric 3-bit (codes 0..7 for
+    q' + 4), signed 6-bit sub-scales; numpy takes the codes' quotient in f64
+    (f32 d times int32 sub-scales), and so does this."""
+    ls = _div(_first_absmax(sub, 2).squeeze(2), -4.0)
+    d = _nonzero(_div(ls.abs().amax(dim=1), 31.0))
+    sc = torch.clamp(torch.round(ls / d[:, None]), -32, 31)
+    eff = d.double()[:, None] * sc.double()
+    qp = torch.clamp(torch.round(sub.double() / _safe(eff)[:, :, None]), -4, 3)
+    scale = _f16_round(d)[:, None] * sc
+    return (qp + 4).to(torch.uint8), scale, -4.0 * scale
+
+
+def _q6_k(sub):
+    """Q6K on ``sub [nb, 16, 16, N]``: symmetric 6-bit codes, int8
+    sub-scales against one d per super-block."""
+    raw = _div(sub.abs().amax(dim=2), 31.0)
+    d = _nonzero(_div(raw.amax(dim=1), 127.0))
+    sc = torch.clamp(torch.round(raw / d[:, None]), -128, 127)
+    eff = d[:, None] * sc
+    q = torch.clamp(torch.round(sub / _safe(eff)[:, :, None]), -32, 31)
+    return q.to(torch.int8), _f16_round(d)[:, None] * sc
+
+
+# format -> (bits of the carrier, scale group)
+CANONICAL_LAYOUT = {
+    "q4_0": (4, 32), "q4_1": (4, 32), "q5_0": (8, 32), "q5_1": (8, 32),
+    "q8_0": (8, 32), "q2_k": (4, 16), "q3_k": (4, 16), "q4_k": (4, 32),
+    "q5_k": (8, 32), "q6_k": (8, 16),
+}
+
+
+def quantize_canonical(w_kmajor: torch.Tensor, fmt: str,
+                       out_dtype: str = "bfloat16") -> QuantizedTensor:
+    """A K-major ``[K, N]`` weight -> the canonical ``fmt`` tensor on the
+    weight's device, equal (codes, scale plane, bias plane) to
+    ``gguf_to_canonical(fmt, ENCODERS[fmt](w.T), (N, K))``."""
+    if fmt not in CANONICAL_LAYOUT:
+        raise ValueError(f"no device quantizer for {fmt!r}")
+    k, n = w_kmajor.shape
+    block = GGML_FORMATS[fmt].block_elems
+    if k % block:
+        raise ValueError(f"{fmt}: in_features {k} not divisible by {block}")
+    bits, group = CANONICAL_LAYOUT[fmt]
+    w = w_kmajor.float()
+    bias = None
+    if fmt in ("q4_0", "q5_0"):
+        levels, offset, hi = (8.0, 8.5, 15.0) if fmt == "q4_0" else (16.0, 16.5, 31.0)
+        q, d = _symmetric(w.reshape(k // 32, 32, n), levels, offset, hi)
+        scale = _f16_round(d)
+        if fmt == "q4_0":
+            bias = -8.0 * scale
+        else:
+            q = (q.to(torch.int16) - 16).to(torch.int8)
+    elif fmt in ("q4_1", "q5_1"):
+        q, d, mn = _minmax(w.reshape(k // 32, 32, n), 15.0 if fmt == "q4_1" else 31.0)
+        scale, bias = _f16_round(d), _f16_round(mn)
+        if fmt == "q5_1":
+            q = q.to(torch.int8)
+    elif fmt == "q8_0":
+        b = w.reshape(k // 32, 32, n)
+        d = _div(b.abs().amax(dim=1, keepdim=True), 127.0)
+        q = torch.clamp(torch.round(b * _inv(d)), -128, 127).to(torch.int8)
+        scale = _f16_round(d)
+    elif fmt == "q2_k":
+        q, scale, bias = _kquant_affine(w.reshape(k // QK_K, 16, 16, n), 3.0, 15.0)
+    elif fmt == "q3_k":
+        q, scale, bias = _q3_k(w.reshape(k // QK_K, 16, 16, n))
+    elif fmt in ("q4_k", "q5_k"):
+        levels = 15.0 if fmt == "q4_k" else 31.0
+        q, scale, bias = _kquant_affine(w.reshape(k // QK_K, 8, 32, n), levels, 63.0)
+        if fmt == "q5_k":
+            q = q.to(torch.int8)
+    else:  # q6_k
+        q, scale = _q6_k(w.reshape(k // QK_K, 16, 16, n))
+    q = q.reshape(k, n)
+    split = choose_split(k)
+    return QuantizedTensor(
+        packed=pack4_tensor(q, split) if bits == 4 else q,
+        scale=scale.reshape(k // group, n).contiguous(),
+        bias=None if bias is None else bias.reshape(k // group, n).contiguous(),
+        codebook=None,
+        kind=fmt,
+        bits=bits,
+        group=group,
+        split=split,
+        shape=(k, n),
+        out_dtype=out_dtype,
+    )

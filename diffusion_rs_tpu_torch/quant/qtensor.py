@@ -83,6 +83,17 @@ def pack4(q: np.ndarray, split: int) -> np.ndarray:
     return packed.reshape(k // 2, n)
 
 
+def pack4_tensor(q: torch.Tensor, split: int) -> torch.Tensor:
+    """:func:`pack4` on a tensor's own device (u8 codes 0..15 ``[K, N]``)."""
+    k, n = q.shape
+    if split % 2 != 0 or k % split != 0:
+        raise ValueError(f"K={k} not divisible by even split={split}")
+    q = q.to(torch.uint8).reshape(k // split, split, n)
+    lo = q[:, : split // 2, :] & 0xF
+    hi = q[:, split // 2:, :] & 0xF
+    return (lo | (hi << 4)).reshape(k // 2, n)
+
+
 def unpack4(packed: torch.Tensor, split: int) -> torch.Tensor:
     """Inverse of :func:`pack4` on tensors; keeps leading stack dims."""
     k2, n = packed.shape[-2:]
@@ -144,6 +155,33 @@ def quantize_q8_tile(w: np.ndarray, tile: int = SPLIT_MAX) -> QuantizedTensor:
     return QuantizedTensor(
         packed=torch.from_numpy(q.reshape(k, n)),
         scale=torch.from_numpy(d.reshape(k // g, n).astype(np.float32)),
+        bias=None,
+        codebook=None,
+        kind="q8t",
+        bits=8,
+        group=g,
+        split=choose_split(k),
+        shape=(k, n),
+        out_dtype="bfloat16",
+    )
+
+
+def quantize_q8_tile_tensor(w: torch.Tensor, tile: int = SPLIT_MAX) -> QuantizedTensor:
+    """:func:`quantize_q8_tile` on the weight's own device, with the same f32
+    operations (IEEE quotients: divided by tensors, not by Python scalars)."""
+    k, n = w.shape
+    g = min(tile, k)
+    if k % g:
+        raise ValueError(f"K={k} not divisible by tile={g}")
+    wf = w.float().reshape(k // g, g, n)
+    amax = wf.abs().amax(dim=1, keepdim=True)
+    d = amax / torch.full_like(amax, 127.0)
+    one = torch.ones_like(d)
+    inv_d = torch.where(d != 0.0, one / torch.where(d == 0.0, one, d), torch.zeros_like(d))
+    q = torch.clamp(torch.round(wf * inv_d), -127, 127).to(torch.int8)
+    return QuantizedTensor(
+        packed=q.reshape(k, n),
+        scale=d.reshape(k // g, n),
         bias=None,
         codebook=None,
         kind="q8t",

@@ -93,6 +93,101 @@ def _normal(gen, shape, std, dtype, device):
                         device=device) * std).to(dtype)
 
 
+def _dense_linear(gen, k_in: int, n_out: int, dtype, device, stack=None,
+                  bias: bool = True) -> Linear:
+    """A dense Linear ``[K, N]`` (or stacked ``[L, K, N]``) with normal
+    weights of std 1/sqrt(K), drawn one layer at a time (no f32 copy of the
+    whole stack), and a zero bias."""
+    w = torch.empty(((stack,) if stack else ()) + (k_in, n_out), dtype=dtype, device=device)
+    for i in range(stack or 1):
+        dst = w[i] if stack else w
+        dst.copy_(torch.randn((k_in, n_out), generator=gen, dtype=torch.float32,
+                              device=device) * k_in ** -0.5)
+    b = None
+    if bias:
+        b = torch.zeros(((stack,) if stack else ()) + (n_out,), dtype=dtype, device=device)
+    return Linear(w=w, b=b)
+
+
+def init_flux_params(seed: int, cfg: FluxConfig, dtype=torch.bfloat16, device="cuda"):
+    """Dense FLUX params with the tree schema of the JAX package's
+    ``init_flux_params`` (models/flux.py) and of a dense checkpoint's load:
+    separate q/k/v projections, stacked [L, ...] blocks, normal weights of
+    std 1/sqrt(K), zero biases, QK-norm scales ones. Made on ``device``."""
+    device = resolve_device(device)
+    gen = _gen(seed, device)
+    h, m, hd = cfg.hidden_size, cfg.mlp_size, cfg.head_dim
+    L, S = cfg.num_layers, cfg.num_single_layers
+
+    def lin(k_in, n_out, stack=None):
+        return _dense_linear(gen, k_in, n_out, dtype, device, stack)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def attn(stack):
+        return {"q": lin(h, h, stack), "k": lin(h, h, stack), "v": lin(h, h, stack),
+                "proj": lin(h, h, stack), "q_norm": ones(stack, hd), "k_norm": ones(stack, hd)}
+
+    params = {
+        "img_in": lin(cfg.in_channels, h),
+        "txt_in": lin(cfg.joint_attention_dim, h),
+        "time_in": {"in": lin(256, h), "out": lin(h, h)},
+        "vector_in": {"in": lin(cfg.pooled_projection_dim, h), "out": lin(h, h)},
+        "double": {
+            "img_mod": lin(h, 6 * h, L),
+            "txt_mod": lin(h, 6 * h, L),
+            "img_attn": attn(L),
+            "txt_attn": attn(L),
+            "img_mlp": {"in": lin(h, m, L), "out": lin(m, h, L)},
+            "txt_mlp": {"in": lin(h, m, L), "out": lin(m, h, L)},
+        },
+        "single": {
+            "q": lin(h, h, S), "k": lin(h, h, S), "v": lin(h, h, S),
+            "q_norm": ones(S, hd), "k_norm": ones(S, hd),
+            "proj_mlp": lin(h, m, S),
+            "linear2": lin(h + m, h, S),
+            "mod": lin(h, 3 * h, S),
+        },
+        "final": {"mod": lin(h, 2 * h), "proj": lin(h, cfg.in_channels)},
+    }
+    if cfg.guidance_embeds:
+        params["guidance_in"] = {"in": lin(256, h), "out": lin(h, h)}
+    return params
+
+
+def init_t5_params(seed: int, cfg: T5Config, dtype=torch.bfloat16, device="cuda"):
+    """Dense T5 encoder params with the tree schema of the JAX package's
+    ``init_t5_params`` (models/t5.py): stacked bias-free block linears of
+    std 1/sqrt(K), unit-normal embedding and relative-position bias, norm
+    scales ones. Made on ``device``."""
+    device = resolve_device(device)
+    gen = _gen(seed, device)
+    L = cfg.num_layers
+    inner = cfg.num_heads * cfg.d_kv
+
+    def lin(k_in, n_out):
+        return _dense_linear(gen, k_in, n_out, dtype, device, stack=L, bias=False)
+
+    ff = ({"wi_0": lin(cfg.d_model, cfg.d_ff), "wi_1": lin(cfg.d_model, cfg.d_ff),
+           "wo": lin(cfg.d_ff, cfg.d_model)}
+          if cfg.gated_act
+          else {"wi": lin(cfg.d_model, cfg.d_ff), "wo": lin(cfg.d_ff, cfg.d_model)})
+    return {
+        "shared": _normal(gen, (cfg.vocab_size, cfg.d_model), 1.0, dtype, device),
+        "rel_bias": _normal(gen, (cfg.relative_attention_num_buckets, cfg.num_heads), 1.0,
+                            dtype, device),
+        "blocks": {
+            "attn": {"q": lin(cfg.d_model, inner), "k": lin(cfg.d_model, inner),
+                     "v": lin(cfg.d_model, inner), "o": lin(inner, cfg.d_model)},
+            "attn_norm": torch.ones((L, cfg.d_model), dtype=dtype, device=device),
+            "ff": ff,
+            "ff_norm": torch.ones((L, cfg.d_model), dtype=dtype, device=device),
+        },
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+
+
 def init_flux_params_quantized(seed: int, cfg: FluxConfig, dtype=torch.bfloat16,
                                kind: str = "q8t", device="cuda",
                                layout: str = "diffusers"):

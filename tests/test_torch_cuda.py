@@ -10,9 +10,13 @@ Shapes cover what chip_smoke.py does not: ragged M, K-tiles of 64, split
 128, ragged and unequal q/kv lengths, batch 2, every affine (GGUF, bnb int8)
 format through K4, seq-major operands that are column slices of wider rows
 (K6, K7), grouped calls of 2 to 8 groups with ragged and empty groups
-(K8, K11), and the int8 attention modes (K9, K10, both) over one or several
-quantization blocks with a ragged last block.
+(K8, K11), the int8 attention modes (K9, K10, both) over one or several
+quantization blocks with a ragged last block, and the fast16 decodes (K12
+for nf4 / fp4, K13 for every affine format and Q4_K with s == 0 groups:
+decoded weights bit for bit through the identity) with their dispatch.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -269,3 +273,98 @@ def test_k9_k10_match_plain(dev, entry, b, h, sq, skv, qblock):
     ref = flash.flash_int8_plain(q, k, v, 128 ** -0.5, s8, s8_pv, qblock=qblock)
     assert torch.isfinite(y).all()
     assert _summed_rel(y, ref.transpose(1, 2).reshape(b, sq, h * 128)) <= 5e-4
+
+
+def _q4_k_with_zero_scales(k: int, n: int, seed: int):
+    """A Q4_K tensor whose first super-block of the first 16 output columns
+    holds values in [-4e-6, -2e-6]: d underflows f16 (scale 0) while dmin
+    does not (bias != 0), the groups the fast16 decode keeps on the plain
+    bias add."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+    w[:16, :256] = rng.uniform(-4e-6, -2e-6, size=(16, 256)).astype(np.float32)
+    qt = gguf_to_canonical("q4_k", ENCODERS["q4_k"](w), (n, k))
+    zero = qt.scale == 0
+    assert zero.any() and (qt.bias[zero] != 0).any()
+    return qt
+
+
+def _fast16_within_summation_order(y, ref, x, w16) -> bool:
+    """``_within_summation_order`` against the fast16 weight ``w16``."""
+    y, ref = y.float(), ref.float()
+    mag = x.float().abs() @ w16.float().abs()
+    tol = torch.maximum(y.abs(), ref.abs()) * 2.0 ** -7 + mag * (2 * w16.shape[0] * 2.0 ** -24)
+    return bool(((y - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("kind", ["nf4", "fp4"])
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 384), (130, 1024, 384), (64, 640, 128)])
+def test_k12_matches_plain(dev, kind, m, k, n):
+    """K12's decoded weight (the product with the identity) equals the plain
+    fast16 decode bit for bit; its output is within the f32 summation-order
+    bound of the plain version and K2's 2e-3 band; one K12 launch, no K2."""
+    from diffusion_rs_tpu_torch.quant.bnb import CODEBOOKS
+
+    gen = torch.Generator(device=dev).manual_seed(m + k)
+    qt = random_qtensor(gen, k, n, kind="nf4", device=dev)
+    qt.scale.uniform_(0.01, 0.03, generator=gen)
+    if kind == "fp4":
+        qt = dataclasses.replace(qt, kind="fp4", codebook=torch.as_tensor(
+            CODEBOOKS["fp4"], device=dev))
+    w16 = qmatmul.dequantize_fast16(qt, torch.bfloat16)
+    eye = torch.eye(k, device=dev, dtype=torch.bfloat16)
+    assert torch.equal(qmatmul.qmm_nf4_fast16(eye, qt, torch.bfloat16), w16)
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    before = _cuda.launch_counts()
+    y = qmatmul.qmm_nf4_fast16(x, qt, torch.bfloat16)
+    after = _cuda.launch_counts()
+    assert (after["qmm_nf4_fast16"] - before["qmm_nf4_fast16"],
+            after["qmm_nf4"] - before["qmm_nf4"]) == (1, 0)
+    ref = qmatmul.qmm_dequant_fast16_plain(x, qt, torch.bfloat16)
+    assert _fast16_within_summation_order(y, ref, x, w16)
+    assert _summed_rel(y, ref) <= 2e-3
+
+
+@pytest.mark.parametrize("fmt", K4_FORMATS + ["q4_k_zero_scales"])
+@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (130, 768, 384)])
+def test_k13_matches_plain(dev, fmt, m, k, n):
+    """K13's decoded weight equals the plain fast16 decode bit for bit (Q4_K
+    with s == 0 groups included); its output is within the f32
+    summation-order bound of the plain version and K4's 1e-5 band."""
+    if fmt == "q4_k_zero_scales":
+        qt = _q4_k_with_zero_scales(k, n, seed=m)
+    else:
+        qt = _affine_qtensor(fmt, k, n, seed=m)
+    qt = qt.map(lambda t: t.to(dev))
+    w16 = qmatmul.dequantize_fast16(qt, torch.bfloat16)
+    eye = torch.eye(k, device=dev, dtype=torch.bfloat16)
+    assert torch.equal(qmatmul.qmm_affine_fast16(eye, qt, torch.bfloat16), w16)
+    gen = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    before = _cuda.launch_counts()
+    y = qmatmul.qmm_affine_fast16(x, qt, torch.bfloat16)
+    after = _cuda.launch_counts()
+    assert (after["qmm_affine_fast16"] - before["qmm_affine_fast16"],
+            after["qmm_affine"] - before["qmm_affine"]) == (1, 0)
+    ref = qmatmul.qmm_dequant_fast16_plain(x, qt, torch.bfloat16)
+    assert torch.isfinite(y).all() and _fast16_within_summation_order(y, ref, x, w16)
+    assert _summed_rel(y, ref) <= 1e-5
+
+
+def test_fast16_dispatch_on_card(dev, monkeypatch):
+    """With DIFFUSION_RS_TPU_QMM_FAST16 set, nf4 takes K12 and the affine
+    kinds K13; q8t keeps K1 and the grouped calls keep K11 / K8 (JAX passes
+    fast16=False to them); f32 activations leave fast16 off."""
+    monkeypatch.setenv("DIFFUSION_RS_TPU_QMM_FAST16", "1")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, 5, 256), generator=gen, device=dev).bfloat16()
+    _cuda.reset_launch_counts()
+    for kind in ("q8t", "nf4", "q4_0", "q8_0"):
+        qmatmul.quantized_matmul(x, random_qtensor(gen, 256, 128, kind=kind, device=dev))
+    for kind in ("nf4", "q4_0"):
+        qts = [random_qtensor(gen, 256, 128, kind=kind, device=dev) for _ in range(2)]
+        qmatmul.quantized_matmul_grouped([x, x[:1]], qts)
+    assert _cuda.launch_counts() == {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 1,
+                                     "qmm_nf4_fast16": 1, "qmm_affine_fast16": 2,
+                                     "qmm_grouped_nf4": 1, "qmm_grouped_affine": 1}
+    assert not qmatmul.fast16_enabled(x.float())

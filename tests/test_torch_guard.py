@@ -102,6 +102,8 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: syn.init_t5_params_quantized(0, T5Config()),
         lambda: syn.init_clip_params(0, ClipTextConfig()),
         lambda: syn.init_vae_decoder_params(0, VAEConfig()),
+        lambda: syn.init_flux_params(0, FluxConfig()),
+        lambda: syn.init_t5_params(0, T5Config()),
         lambda: from_numpy_tree({"w": np.zeros((2, 2), np.float32)}),
         lambda: FluxPipeline(flux_params=None, flux_cfg=FluxConfig(), t5_params=None,
                              t5_cfg=T5Config(), clip_params=None,
@@ -130,6 +132,8 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "x = torch.randn(3, 256, generator=g)\n"
         "for kind in ('q8t', 'nf4', 'q4_0', 'q8_0'):\n"
         "    qmatmul.quantized_matmul(x, random_qtensor(g, 256, 128, kind=kind, device='cpu'))\n"
+        "    qmatmul.quantized_matmul(x.bfloat16(), random_qtensor(g, 256, 128, kind=kind,\n"
+        "                                                          device='cpu'))\n"
         "    qts = [random_qtensor(g, 256, 128, kind=kind, device='cpu') for _ in range(2)]\n"
         "    qmatmul.quantized_matmul_grouped([x, x[:1]], qts)\n"
         "q = torch.randn(1, 1, 5, 128, generator=g)\n"
@@ -143,10 +147,10 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "assert not _cuda.BUILD_DIR.exists(), _cuda.BUILD_DIR\n"
         "assert _cuda.launch_counts() == dict.fromkeys(_cuda.KERNELS, 0)\n"
         "assert set(_cuda.KERNELS) == {'qmm_s8', 'qmm_grouped_s8', 'qmm_nf4',\n"
-        "                              'qmm_grouped_nf4', 'qmm_affine',\n"
-        "                              'qmm_grouped_affine', 'flash_fwd', 'flash_sm',\n"
-        "                              'flash_rope', 'flash_s8', 'flash_s8pv',\n"
-        "                              'flash_s8_s8pv'}\n"
+        "                              'qmm_grouped_nf4', 'qmm_nf4_fast16', 'qmm_affine',\n"
+        "                              'qmm_grouped_affine', 'qmm_affine_fast16',\n"
+        "                              'flash_fwd', 'flash_sm', 'flash_rope', 'flash_s8',\n"
+        "                              'flash_s8pv', 'flash_s8_s8pv'}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"
@@ -155,7 +159,8 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "    raise AssertionError('build_all ran without nvcc')\n"
     )
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path / "none"),
-               DIFFUSION_RS_TORCH_BUILD=str(tmp_path / "build"))
+               DIFFUSION_RS_TORCH_BUILD=str(tmp_path / "build"),
+               DIFFUSION_RS_TPU_QMM_FAST16="1")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr

@@ -198,7 +198,6 @@ def test_resolve_fuse_matches_jax(monkeypatch, fuse, env):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("isq", "q4_0"), ("isq_t5", "q8_0"), ("imatrix", "imatrix.dat"), ("lora", "l.safetensors"),
     ("offloading", Offloading.Full), ("mesh", object()),
     ("compile_cache", "cache"), ("t5_mask_pads", True), ("step_progress", True),
 ])
