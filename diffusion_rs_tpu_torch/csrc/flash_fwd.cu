@@ -17,6 +17,17 @@
 //   modes of _flash_kernel, s8 (:67-99) and s8_pv (:123-176, :200-204),
 //   reached through _flash_call -> pl.pallas_call (:396). A second body,
 //   flash_int8_body, described at its definition; K3's body is untouched.
+// K14 flash_fwd_lse, flash_s8_lse, flash_s8pv_lse, flash_s8_s8pv_lse:
+//   replace _flash_kernel's save_lse output (_finalize, :213-216; sliced to
+//   one lane at :420), which ring attention merges chunks with: K3's and the
+//   int8 body's output plus lse = m + log(l_safe) in f32 [B, H, Sq], written
+//   once per row by the thread of its quad with t == 0 (all four hold the
+//   row's reduced m and l). Under s8_pv, l is the quantized sum(pq) * beta /
+//   127, m the running max, so lse is in JAX's units; under s8 the scores
+//   are those of the mean-centred k, as in JAX (the ring adds scale * q . km
+//   back). The lse is a template flag of both bodies (LSE), compiled out of
+//   K3 / K9 / K10, with thin kernels of its own; the output stays seq-major
+//   [B, Sq, H * 128]. Its bound is K3's: the lse is Sq * 4 bytes per head.
 //
 // Math (the Pallas kernels'): s = (q . k^T) * scale in f32; kv columns past
 // kv_len masked to -1e30; running max m (starts at -1e30) and sum l in f32;
@@ -133,13 +144,14 @@ struct Rows {
 // compile-time D; q/k/v point at the tensors. Otherwise (K6, K7) the rows
 // are described by qs/ks/vs. ce/se (K7 only): the expanded tables
 // [B, Sq, 128] for q and [B, Skv, 128] for k.
-template <bool ROPE, bool DENSE>
+template <bool ROPE, bool DENSE, bool LSE = false>
 __device__ __forceinline__ void flash_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const Rows qs, const Rows ks, const Rows vs,
     __nv_bfloat16* __restrict__ out, const float* __restrict__ ce_q,
     const float* __restrict__ se_q, const float* __restrict__ ce_k,
-    const float* __restrict__ se_k, int H, int Sq, int Skv, float scale) {
+    const float* __restrict__ se_k, int H, int Sq, int Skv, float scale,
+    float* __restrict__ lse = nullptr) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][STRIDE]
   __nv_bfloat16* Ks = Qs + BQ * STRIDE;                        // [2][BKV][STRIDE]
@@ -345,6 +357,9 @@ __device__ __forceinline__ void flash_body(
       *reinterpret_cast<uint32_t*>(orow + i * 8 + 2 * t) =
           pack_bf16x2(__fmul_rn(o[i][2 * r], inv), __fmul_rn(o[i][2 * r + 1], inv));
     }
+    if constexpr (LSE) {
+      if (t == 0) lse[(size_t)bh * Sq + row] = __fadd_rn(m_run[r], logf(l));
+    }
   }
 }
 
@@ -356,6 +371,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const Rows none{};
   flash_body<false, true>(q, k, v, none, none, none, out, nullptr, nullptr, nullptr, nullptr,
                           H, Sq, Skv, scale);
+}
+
+// K14, bf16: K3 plus lse f32 [B, H, Sq].
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_lse_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int H, int Sq, int Skv, float scale) {
+  const Rows none{};
+  flash_body<false, true, true>(q, k, v, none, none, none, out, nullptr, nullptr, nullptr,
+                                nullptr, H, Sq, Skv, scale, lse);
 }
 
 // K6: seq-major q/k/v.
@@ -427,12 +452,12 @@ __device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
          ((uint32_t)(d & 0xFF) << 24);
 }
 
-template <bool S8_QK, bool S8_PV>
+template <bool S8_QK, bool S8_PV, bool LSE = false>
 __device__ __forceinline__ void flash_int8_body(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_,
     const float* __restrict__ sk, const void* __restrict__ v_, const float* __restrict__ sv,
     const float* __restrict__ vm, __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv,
-    int QB, float scale) {
+    int QB, float scale, float* __restrict__ lse = nullptr) {
   using L = Int8Smem<S8_QK, S8_PV>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);        // [BQ][STRIDE]
@@ -792,6 +817,9 @@ __device__ __forceinline__ void flash_int8_body(
       }
       *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16x2(v0, v1);
     }
+    if constexpr (LSE) {
+      if (t == 0) lse[(size_t)bh * Sq + row] = __fadd_rn(m_run[r], logf(l));
+    }
   }
 }
 
@@ -802,6 +830,17 @@ flash_int8_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ 
                   const float* __restrict__ sv, const float* __restrict__ vm,
                   __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv, int QB, float scale) {
   flash_int8_body<S8_QK, S8_PV>(q, k, sk, v, sv, vm, out, H, Sq, Skv, QB, scale);
+}
+
+// K14, int8 modes: K9 / K10 / both plus lse f32 [B, H, Sq].
+template <bool S8_QK, bool S8_PV>
+__global__ void __launch_bounds__(THREADS)
+flash_int8_lse_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
+                      const float* __restrict__ sk, const void* __restrict__ v,
+                      const float* __restrict__ sv, const float* __restrict__ vm,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int Sq,
+                      int Skv, int QB, float scale) {
+  flash_int8_body<S8_QK, S8_PV, true>(q, k, sk, v, sv, vm, out, H, Sq, Skv, QB, scale, lse);
 }
 
 // Sets the kernel's shared-memory limit once, then launches it.
@@ -834,6 +873,17 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   return launch(flash_fwd_kernel, SMEM_BYTES, attr_set, B, H, Sq, stream,
                 static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                 static_cast<const bf16*>(v), static_cast<bf16*>(out), H, Sq, Skv, scale);
+}
+
+// K14, bf16: as flash_fwd, plus lse f32 [B, H, Sq] contiguous.
+extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v, void* out, void* lse,
+                             int B, int H, int Sq, int Skv, float scale, void* stream) {
+  static bool attr_set = false;
+  using bf16 = __nv_bfloat16;
+  return launch(flash_fwd_lse_kernel, SMEM_BYTES, attr_set, B, H, Sq, stream,
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse),
+                H, Sq, Skv, scale);
 }
 
 // K6. q bf16 [B, Sq, H * 128], k and v bf16 [B, Skv, H * 128], each with
@@ -871,40 +921,63 @@ extern "C" int flash_rope(const void* q, const void* k, const void* v, const voi
 // and sk unused. v: int8 [B, H, 128, Skv_p] in v_kernel_layout order with sv
 // f32 [B, H, Skv_p / QB] and vm f32 [B, H, 128] (S8_PV), else bf16 [B, H,
 // Skv, 128]. Skv_p = Skv rounded up to QB, a multiple of 128. out bf16
-// [B, Sq, H * 128]. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a bad QB.
-template <bool S8_QK, bool S8_PV>
+// [B, Sq, H * 128]; the K14 forms also lse f32 [B, H, Sq]. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a bad QB.
+template <bool S8_QK, bool S8_PV, bool LSE>
 int launch_int8(bool& attr_set, const void* q, const void* k, const void* sk, const void* v,
-                const void* sv, const void* vm, void* out, int B, int H, int Sq, int Skv,
-                int QB, float scale, void* stream) {
+                const void* sv, const void* vm, void* out, void* lse, int B, int H, int Sq,
+                int Skv, int QB, float scale, void* stream) {
   if (QB <= 0 || QB % 128) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(flash_int8_kernel<S8_QK, S8_PV>, Int8Smem<S8_QK, S8_PV>::BYTES, attr_set, B, H,
-                Sq, stream, static_cast<const __nv_bfloat16*>(q), k,
-                static_cast<const float*>(sk), v, static_cast<const float*>(sv),
-                static_cast<const float*>(vm), static_cast<__nv_bfloat16*>(out), H, Sq, Skv, QB,
-                scale);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* skf = static_cast<const float*>(sk);
+  const auto* svf = static_cast<const float*>(sv);
+  const auto* vmf = static_cast<const float*>(vm);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  constexpr size_t smem = Int8Smem<S8_QK, S8_PV>::BYTES;
+  if constexpr (LSE) {
+    return launch(flash_int8_lse_kernel<S8_QK, S8_PV>, smem, attr_set, B, H, Sq, stream, qb, k,
+                  skf, v, svf, vmf, o, static_cast<float*>(lse), H, Sq, Skv, QB, scale);
+  } else {
+    return launch(flash_int8_kernel<S8_QK, S8_PV>, smem, attr_set, B, H, Sq, stream, qb, k, skf,
+                  v, svf, vmf, o, H, Sq, Skv, QB, scale);
+  }
 }
 
 extern "C" int flash_s8(const void* q, const void* k, const void* sk, const void* v,
                         const void* sv, const void* vm, void* out, int B, int H, int Sq,
                         int Skv, int QB, float scale, void* stream) {
   static bool attr_set = false;
-  return launch_int8<true, false>(attr_set, q, k, sk, v, sv, vm, out, B, H, Sq, Skv, QB, scale,
-                                  stream);
+  return launch_int8<true, false, false>(attr_set, q, k, sk, v, sv, vm, out, nullptr, B, H, Sq,
+                                         Skv, QB, scale, stream);
 }
 
 extern "C" int flash_s8pv(const void* q, const void* k, const void* sk, const void* v,
                           const void* sv, const void* vm, void* out, int B, int H, int Sq,
                           int Skv, int QB, float scale, void* stream) {
   static bool attr_set = false;
-  return launch_int8<false, true>(attr_set, q, k, sk, v, sv, vm, out, B, H, Sq, Skv, QB, scale,
-                                  stream);
+  return launch_int8<false, true, false>(attr_set, q, k, sk, v, sv, vm, out, nullptr, B, H, Sq,
+                                         Skv, QB, scale, stream);
 }
 
 extern "C" int flash_s8_s8pv(const void* q, const void* k, const void* sk, const void* v,
                              const void* sv, const void* vm, void* out, int B, int H, int Sq,
                              int Skv, int QB, float scale, void* stream) {
   static bool attr_set = false;
-  return launch_int8<true, true>(attr_set, q, k, sk, v, sv, vm, out, B, H, Sq, Skv, QB, scale,
-                                 stream);
+  return launch_int8<true, true, false>(attr_set, q, k, sk, v, sv, vm, out, nullptr, B, H, Sq,
+                                        Skv, QB, scale, stream);
 }
+
+// K14, int8 modes: as flash_s8 / flash_s8pv / flash_s8_s8pv, plus lse f32
+// [B, H, Sq] contiguous (after out in the argument list).
+#define FLASH_INT8_LSE(NAME, S8_QK, S8_PV)                                                     \
+  extern "C" int NAME(const void* q, const void* k, const void* sk, const void* v,            \
+                      const void* sv, const void* vm, void* out, void* lse, int B, int H,     \
+                      int Sq, int Skv, int QB, float scale, void* stream) {                   \
+    static bool attr_set = false;                                                              \
+    return launch_int8<S8_QK, S8_PV, true>(attr_set, q, k, sk, v, sv, vm, out, lse, B, H, Sq, \
+                                           Skv, QB, scale, stream);                            \
+  }
+FLASH_INT8_LSE(flash_s8_lse, true, false)
+FLASH_INT8_LSE(flash_s8pv_lse, false, true)
+FLASH_INT8_LSE(flash_s8_s8pv_lse, true, true)
+#undef FLASH_INT8_LSE

@@ -285,7 +285,7 @@ def build_clip_params(store: VarStore, cfg: ClipTextConfig, dtype=torch.bfloat16
 def build_vae_params(store: VarStore, cfg: VAEConfig, dtype=torch.bfloat16):
     """diffusers AutoencoderKL paths, decode half: the decoder tower and
     ``post_quant_conv``. The encoder's weights are not loaded (VAE encode
-    is not ported yet, ROADMAP Queue 1 item 10)."""
+    is not ported yet, ROADMAP Queue 1 item 1)."""
     v = store.pp("")
 
     def gn(p):

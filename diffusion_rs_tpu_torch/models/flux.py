@@ -15,6 +15,12 @@ RoPE on q/k columns re-laid by models/optimize.rope_halfsplit_permute,
 attention on seq-major [B, S, H*D] operands, DIFFUSION_RS_TPU_ATTN_LAYOUT
 choosing the kernel per call) and ``grouped_qmm`` (each img/txt projection
 pair of a double block as one grouped launch).
+
+Under a mesh with an ``sp`` axis each rank runs the blocks on its own rows
+of the text and of the image tokens (``S_txt / sp`` and ``S_img / sp``, its
+local joint sequence ``[txt_r; img_r]``) with the matching RoPE rows, and
+joint attention runs over the sp group (ops/partitioned.py); ``vec`` is
+per sample and the same on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from ..ops import (apply_rope, apply_rope_halfsplit, expand_rope_tables, layer_n
                    linear, linear_grouped, rms_norm, rope_tables, sdpa_merged)
 from ..ops.flash import flash_attention_fused
 from ..ops.linear import Linear
+from ..ops.partitioned import SeqShard, partitioned_flash_rope
+from ..parallel.mesh import split_sizes
 from ..util.tree import take_layer
 
 Params = Dict[str, Any]
@@ -133,12 +141,13 @@ def _qkv(p: Params, x: torch.Tensor, n_heads: int, proj=None):
     return q, k, _split_heads(vc, n_heads)
 
 
-def _joint_attention(q, k, v, cos, sin):
+def _joint_attention(q, k, v, cos, sin, seq: Optional[SeqShard] = None):
     """RoPE + attention; the flash kernel writes the head-merged
-    [B, S, H*D] layout directly."""
+    [B, S, H*D] layout directly. ``seq``: the rows are this rank's of a
+    sequence split over the sp group."""
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    return sdpa_merged(q.contiguous(), k.contiguous(), v.contiguous())
+    return sdpa_merged(q.contiguous(), k.contiguous(), v.contiguous(), seq=seq)
 
 
 def _norm_sm(t: torch.Tensor, scale: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -159,7 +168,7 @@ def _qkv_sm(p: Params, x: torch.Tensor, n_heads: int, proj=None):
     return _norm_sm(qc, p["q_norm"], n_heads), _norm_sm(kc, p["k_norm"], n_heads), vc
 
 
-def _joint_attention_sm(q, k, v, ce, se, head_dim: int):
+def _joint_attention_sm(q, k, v, ce, se, head_dim: int, seq: Optional[SeqShard] = None):
     """Attention in the half-split RoPE convention on seq-major q/k/v
     [B, S, H*D] with the expanded tables ce/se (ops/rope.expand_rope_tables);
     needs params re-laid by models/optimize.rope_halfsplit_permute.
@@ -168,7 +177,10 @@ def _joint_attention_sm(q, k, v, ce, se, head_dim: int):
     outside and runs the seq-major kernel (K6); ``inkernel`` rotates inside
     it (K7); ``bhsd`` (the default), or a head dim the fused kernels do not
     take, rotates outside, splits heads and runs the [B, H, S, D] kernel
-    (K3)."""
+    (K3). Under ``seq`` every layout rotates outside and takes the ring (or
+    its gather fallback), as JAX's sp rules do."""
+    if seq is not None:
+        return partitioned_flash_rope(q, k, v, ce, se, head_dim, seq)
     layout = os.environ.get("DIFFUSION_RS_TPU_ATTN_LAYOUT", "bhsd")
     if head_dim % 128 == 0 and layout in ("seqmajor", "inkernel"):
         try:
@@ -188,7 +200,8 @@ def _joint_attention_sm(q, k, v, ce, se, head_dim: int):
     return sdpa_merged(qr.contiguous(), kr.contiguous(), split(v).contiguous())
 
 
-def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
+def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig,
+                 seq: Optional[SeqShard] = None):
     """Double-stream block; txt tokens lead in the joint sequence. With
     ``cfg.rope_fused``, (cos, sin) carry the expanded (ce, se) tables."""
     i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = _modulation(
@@ -213,14 +226,14 @@ def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
         q = torch.cat([tq, iq], dim=1)
         k = torch.cat([tk, ik], dim=1)
         v = torch.cat([tv, iv], dim=1)
-        attn = _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim)
+        attn = _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim, seq)
     else:
         iq, ik, iv = _qkv(p["img_attn"], img_mod, heads, proj=i_proj)
         tq, tk, tv = _qkv(p["txt_attn"], txt_mod, heads, proj=t_proj)
         q = torch.cat([tq, iq], dim=2)
         k = torch.cat([tk, ik], dim=2)
         v = torch.cat([tv, iv], dim=2)
-        attn = _joint_attention(q, k, v, cos, sin)
+        attn = _joint_attention(q, k, v, cos, sin, seq)
     txt_len = txt.shape[1]
     txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
 
@@ -249,7 +262,8 @@ def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
     return img, txt
 
 
-def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
+def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig,
+                 seq: Optional[SeqShard] = None):
     """Single-stream block: a shared pre-norm feeds attention and the
     parallel MLP; their outputs concatenate into one projection. With
     ``cfg.rope_fused``, (cos, sin) carry the expanded (ce, se) tables."""
@@ -267,7 +281,7 @@ def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
         else:
             q, k, v = _qkv_sm(p, x_mod, heads)
             mlp = _gelu(linear(x_mod, p["proj_mlp"]))
-        attn = _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim)
+        attn = _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim, seq)
     else:
         if "qkv_mlp" in p:
             # fused q|k|v|mlp projection (BFL linear1)
@@ -279,7 +293,7 @@ def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
         else:
             q, k, v = _qkv(p, x_mod, heads)
             mlp = _gelu(linear(x_mod, p["proj_mlp"]))
-        attn = _joint_attention(q, k, v, cos, sin)
+        attn = _joint_attention(q, k, v, cos, sin, seq)
     out = linear(torch.cat([attn, mlp], dim=-1), p["linear2"])
     return x + gate * out
 
@@ -314,9 +328,14 @@ def flux_forward(params: Params, cfg: FluxConfig, img: torch.Tensor,
                  guidance: Optional[torch.Tensor] = None,
                  txt_ids: Optional[torch.Tensor] = None,
                  img_ids: Optional[torch.Tensor] = None,
-                 pe=None) -> torch.Tensor:
+                 pe=None, mesh=None) -> torch.Tensor:
     """Full MMDiT forward. img [B, S_img, in_channels] packed patches,
-    txt [B, S_txt, joint_attention_dim], t [B], y [B, pooled_dim]."""
+    txt [B, S_txt, joint_attention_dim], t [B], y [B, pooled_dim].
+
+    ``mesh`` (parallel.make_mesh) with sp > 1: ``img`` holds this rank's
+    rows of the image tokens (parallel.sequence_sharding), ``txt`` and the
+    position ids / ``pe`` the whole sequence; the result is this rank's
+    image rows."""
     dtype = img.dtype
     if pe is None:
         pe = compute_pe(cfg, txt_ids, img_ids)
@@ -324,14 +343,38 @@ def flux_forward(params: Params, cfg: FluxConfig, img: torch.Tensor,
     if cfg.rope_fused:
         # expanded once; the blocks take (ce, se) through the (cos, sin) slots
         cos, sin = expand_rope_tables(cos, sin)
+    seq = None
+    if mesh is not None and mesh.shape["sp"] > 1:
+        txt, cos, sin, seq = _shard_sequence(mesh, img, txt, cos, sin)
     txt_h = linear(txt, params["txt_in"])
     img_h = linear(img, params["img_in"])
     vec = conditioning_vector(params, cfg, t, y, guidance, dtype)
     txt_len = txt_h.shape[1]
     for i in range(cfg.num_layers):
         img_h, txt_h = double_block(take_layer(params["double"], i), img_h,
-                                    txt_h, vec, cos, sin, cfg)
+                                    txt_h, vec, cos, sin, cfg, seq)
     x = torch.cat([txt_h, img_h], dim=1)
     for i in range(cfg.num_single_layers):
-        x = single_block(take_layer(params["single"], i), x, vec, cos, sin, cfg)
+        x = single_block(take_layer(params["single"], i), x, vec, cos, sin, cfg, seq)
     return final_layer(params["final"], x[:, txt_len:], vec)
+
+
+def _shard_sequence(mesh, img, txt, cos, sin):
+    """This sp rank's text rows and RoPE rows (its text rows, then its image
+    rows), and the :class:`SeqShard` of the local joint sequences. Text and
+    image split separately (``torch.tensor_split``), so that every rank runs
+    the same linears on the same row count when sp divides both."""
+    sp, r = mesh.shape["sp"], mesh.coords["sp"]
+    n_txt = txt.shape[1]
+    n_img = cos.shape[1] - n_txt
+    txt_sizes, img_sizes = split_sizes(n_txt, sp), split_sizes(n_img, sp)
+    if img.shape[1] != img_sizes[r]:
+        raise ValueError(f"sp rank {r} holds {img.shape[1]} image rows, expected "
+                         f"{img_sizes[r]} of {n_img}")
+
+    def rows(t):
+        return torch.cat([torch.tensor_split(t[:, :n_txt], sp, dim=1)[r],
+                          torch.tensor_split(t[:, n_txt:], sp, dim=1)[r]], dim=1)
+
+    seq = SeqShard(mesh.groups["sp"], [a + b for a, b in zip(txt_sizes, img_sizes)])
+    return torch.tensor_split(txt, sp, dim=1)[r], rows(cos), rows(sin), seq

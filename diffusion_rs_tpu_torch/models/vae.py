@@ -1,8 +1,8 @@
 """AutoencoderKL decoder (port of the decode half of ``models/vae.py``):
 conv_in -> mid (resnet, spatial attention, resnet) -> up tower of resnets
 with nearest-2x upsampling -> GroupNorm/SiLU/conv_out, all channels-last
-(NHWC). Scale/shift factors are applied by the caller. VAE encode and the
-tiled decode are not ported yet."""
+(NHWC), and the spatially tiled decode with feathered seams. Scale/shift
+factors are applied by the caller. VAE encode is not ported yet."""
 
 from __future__ import annotations
 
@@ -98,3 +98,69 @@ def vae_decode(params: Params, cfg: VAEConfig, z_nhwc: torch.Tensor) -> torch.Te
             h = conv2d(upsample_nearest_2x(h), up["upsample"], padding=_PAD1)
     h = group_norm(h, g, p["norm_out"]["w"], p["norm_out"]["b"])
     return conv2d(F.silu(h), p["conv_out"], padding=_PAD1)
+
+
+def _vae_scale(cfg: VAEConfig) -> int:
+    """Decoder spatial upsampling factor: one 2x per stage but the last
+    (FLUX: 4 stages -> 8x)."""
+    return 2 ** (len(cfg.block_out_channels) - 1)
+
+
+def _ramp(blend: int, device) -> torch.Tensor:
+    """arange(blend) / blend in f32, divided by a tensor: PyTorch's CUDA
+    division by a Python scalar multiplies by the reciprocal instead."""
+    r = torch.arange(blend, dtype=torch.float32, device=device)
+    return r / torch.full_like(r, blend)
+
+
+def _blend_v(a: torch.Tensor, b: torch.Tensor, blend: int) -> torch.Tensor:
+    """Feather the top ``blend`` pixel rows of b against the bottom of a."""
+    blend = min(blend, a.shape[1], b.shape[1])
+    ramp = _ramp(blend, b.device)[None, :, None, None]
+    mixed = (a[:, -blend:].float() * (1.0 - ramp) + b[:, :blend].float() * ramp).to(b.dtype)
+    return torch.cat([mixed, b[:, blend:]], dim=1)
+
+
+def _blend_h(a: torch.Tensor, b: torch.Tensor, blend: int) -> torch.Tensor:
+    """Feather the left ``blend`` pixel columns of b against the right of a."""
+    blend = min(blend, a.shape[2], b.shape[2])
+    ramp = _ramp(blend, b.device)[None, None, :, None]
+    mixed = (a[:, :, -blend:].float() * (1.0 - ramp) + b[:, :, :blend].float() * ramp).to(b.dtype)
+    return torch.cat([mixed, b[:, :, blend:]], dim=2)
+
+
+def _decode_tile(params: Params, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
+    """One tile's decode: the seam through which callers see the tiles."""
+    return vae_decode(params, cfg, z)
+
+
+def vae_decode_tiled(params: Params, cfg: VAEConfig, z_nhwc: torch.Tensor,
+                     tile: int = 128, overlap: int = 16) -> torch.Tensor:
+    """Spatially tiled decode: latent tiles of ``tile`` x ``tile`` with
+    ``overlap`` latent pixels of overlap, each decoded on its own (GroupNorm
+    statistics per tile), the seams feathered linearly over ``overlap * f``
+    pixels, first against the tile above, then against the tile to the
+    left, and the result cropped to ``h * f`` x ``w * f``. A latent that fits
+    one tile takes :func:`vae_decode` unchanged. Peak memory is one tile's
+    decoder temporaries plus the decoded tiles."""
+    b, h, w, _ = z_nhwc.shape
+    if h <= tile and w <= tile:
+        return vae_decode(params, cfg, z_nhwc)
+    f = _vae_scale(cfg)
+    overlap = max(1, min(overlap, tile // 2))
+    stride = tile - overlap
+    blend = overlap * f
+    limit = stride * f
+    rows = [[_decode_tile(params, cfg, z_nhwc[:, i:i + tile, j:j + tile, :])
+             for j in range(0, w, stride)] for i in range(0, h, stride)]
+    out_rows = []
+    for i, row in enumerate(rows):
+        parts = []
+        for j, t in enumerate(row):
+            if i > 0:
+                t = _blend_v(rows[i - 1][j], t, blend)
+            if j > 0:
+                t = _blend_h(row[j - 1], t, blend)
+            parts.append(t[:, :limit, :limit, :])
+        out_rows.append(torch.cat(parts, dim=2))
+    return torch.cat(out_rows, dim=1)[:, : h * f, : w * f, :]

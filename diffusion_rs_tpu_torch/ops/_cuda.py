@@ -13,8 +13,9 @@ as ``jnp.round(x / sx)`` does, and fast math would change both.
 A source may export several entry points (:data:`KERNELS`: the q8t, nf4 and
 affine sources also export their grouped forms, the nf4 and affine sources
 their fast16 forms, the flash source its seq-major, fused-RoPE and int8
-forms). Every kernel wrapper adds one to its entry
-point's count in :data:`LAUNCHES` when it launches it, and nowhere else.
+forms, and the bf16 and int8 forms that also write the log-sum-exp, K14).
+Every kernel wrapper adds one to its entry point's count in
+:data:`LAUNCHES` when it launches it, and nowhere else.
 """
 
 from __future__ import annotations
@@ -60,6 +61,10 @@ KERNELS = {
     "flash_s8": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
     "flash_s8pv": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
     "flash_s8_s8pv": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
+    "flash_fwd_lse": ("flash_fwd", [_P] * 5 + [_I] * 4 + [_F, _P]),
+    "flash_s8_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "flash_s8pv_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "flash_s8_s8pv_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -151,13 +156,16 @@ def _entry(name: str):
     return fn
 
 
-def launch(name: str, *args) -> None:
-    """Call entry point ``<name>(...)`` on the current stream; raise on a
-    CUDA error."""
+def launch(name: str, *args, device) -> None:
+    """Call entry point ``<name>(...)`` on ``device`` (the card its operands
+    lie on), on that card's current stream; raise on a CUDA error. The
+    launch runs under that device's context whatever the thread's current
+    device is, so a rank whose tensors lie on ``cuda:r`` launches there."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _entry(name)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _entry(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     LAUNCHES[name] += 1

@@ -4,9 +4,11 @@
 additive bias and tanh softcap; T5, CLIP and the VAE call it directly
 (``impl="xla"``). ``sdpa`` / ``sdpa_merged`` dispatch the unbiased case to
 the flash kernels (ops/flash.py), which is what FLUX joint attention
-reaches. The int8 modes are read from the JAX package's environment knobs,
-with its parsing and defaults: ``DIFFUSION_RS_TPU_ATTN_S8`` (s8 QK^T, K9,
-off), ``DIFFUSION_RS_TPU_ATTN_S8PV`` (s8 P.V, K10, off) and
+reaches; under sequence parallelism ``sdpa_merged(seq=...)`` takes the ring
+or its gather fallback (ops/partitioned.py). The int8 modes are read from
+the JAX package's environment knobs, with its parsing and defaults:
+``DIFFUSION_RS_TPU_ATTN_S8`` (s8 QK^T, K9, off),
+``DIFFUSION_RS_TPU_ATTN_S8PV`` (s8 P.V, K10, off) and
 ``DIFFUSION_RS_TPU_ATTN_MERGED`` (the kernel's head-merged output, on).
 Each is read once and cached; ``<knob>.cache_clear()`` re-reads it.
 """
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from .flash import flash_attention
+from .partitioned import SeqShard, partitioned_flash
 
 
 def sdpa_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,13 +97,21 @@ def sdpa(q, k, v, scale: Optional[float] = None, bias=None,
 
 def sdpa_merged(q, k, v, scale: Optional[float] = None,
                 impl: Optional[str] = None, s8: Optional[bool] = None,
-                s8_pv: Optional[bool] = None):
+                s8_pv: Optional[bool] = None, seq: Optional[SeqShard] = None):
     """Attention returning the head-merged layout [B, H, S, D] -> [B, S, H*D];
     on the flash path the kernel writes that layout directly (unless
-    DIFFUSION_RS_TPU_ATTN_MERGED=0, or the shape needs the [B, H, S, D] path)."""
+    DIFFUSION_RS_TPU_ATTN_MERGED=0, or the shape needs the [B, H, S, D] path).
+    ``seq``: q/k/v are this rank's rows of a sequence split over a process
+    group, and the flash path runs :func:`partitioned_flash` (the ring);
+    another ``impl`` raises, since it would attend the local rows only."""
+    if seq is not None and impl not in (None, "flash"):
+        raise NotImplementedError(f"attention impl {impl!r} has no sequence-parallel form; "
+                                  "under an sp mesh only the flash path runs")
     if impl in (None, "flash"):
         s8 = _s8_default() if s8 is None else s8
         s8_pv = _s8_pv_default() if s8_pv is None else s8_pv
+        if seq is not None:
+            return partitioned_flash(q, k, v, seq, scale, s8, s8_pv)
         if _merged_default():
             try:
                 return flash_attention(q, k, v, scale=scale, out_seqmajor=True, s8=s8,

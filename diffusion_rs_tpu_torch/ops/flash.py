@@ -18,6 +18,13 @@ kernel body in the same source, with three entry points: K9 ``flash_s8``
 Their prepasses, :func:`quantize_k` and :func:`quantize_v`, are plain
 PyTorch, as JAX leaves them to XLA.
 
+K14 is ``_flash_kernel``'s ``save_lse`` output, which ring attention
+(ops/partitioned.py) merges chunks with: both bodies take it as a template
+flag, compiled out of K3 / K9 / K10, behind four more entry points
+(``flash_fwd_lse``, ``flash_s8_lse``, ``flash_s8pv_lse``,
+``flash_s8_s8pv_lse``) that also write each q row's ``m + log(l)`` in f32
+[B, H, Sq] (``flash_attention(..., save_lse=True)``).
+
 Beside the kernels are the plain PyTorch versions, which follow the same
 per-kv-block online softmax: ``l`` sums the f32 ``p`` while P.V uses ``p``
 cast to the value dtype. A CPU tensor takes the plain version; a CUDA tensor
@@ -52,11 +59,21 @@ _LOG127 = 4.844187086458591  # ln(127): folds the int8 scale of p into the exp
 # entry point of csrc/flash_fwd.cu per (s8, s8_pv)
 INT8_ENTRIES = {(True, False): "flash_s8", (False, True): "flash_s8pv",
                 (True, True): "flash_s8_s8pv"}
+# the same modes with the per-row log-sum-exp (K14)
+INT8_LSE_ENTRIES = {mode: f"{name}_lse" for mode, name in INT8_ENTRIES.items()}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float, block_k: int = BLOCK_K) -> torch.Tensor:
     """[B, H, Sq, D] x3 -> [B, H, Sq, D], kv block by kv block."""
+    return flash_attention_lse_plain(q, k, v, scale, block_k)[0]
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float, block_k: int = BLOCK_K):
+    """Plain version of K3 and of K14's bf16 entry: [B, H, Sq, D] x3 -> (o
+    [B, H, Sq, D] in q's dtype, lse f32 [B, H, Sq]), the online softmax's
+    ``m + log(l)`` with ``l == 0 -> 1`` (``_finalize``)."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     qf = q.float()
@@ -75,12 +92,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha + pv
         m = m_next
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc * (1.0 / l_safe)).to(q.dtype)
+    return (acc * (1.0 / l_safe)).to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None, out_seqmajor: bool = False,
-                    s8: bool = False, s8_pv: bool = False) -> torch.Tensor:
+                    s8: bool = False, s8_pv: bool = False, save_lse: bool = False):
     """q, k, v: [B, H, S, D] -> [B, H, Sq, D], or [B, Sq, H*D] with
     ``out_seqmajor`` (the layout the kernels write).
 
@@ -90,7 +107,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     QK^T, the extra v columns are sliced off); the scale stays that of the
     true head dim. Raises ``NotImplementedError`` for a head dim above 128
     and for ``out_seqmajor`` with a padded head dim (callers then take the
-    [B, H, S, D] path or ``sdpa_xla``)."""
+    [B, H, S, D] path or ``sdpa_xla``).
+
+    ``save_lse`` (``_flash_call(..., save_lse=True)``, K14) returns (o, lse,
+    km): lse f32 [B, H, Sq] is the log-sum-exp of each row's scores in JAX's
+    units, and km f32 [B, H, D] the k mean the s8 prepass removed, so that
+    under ``s8`` the lse is that of the centred k's scores (None without
+    ``s8``)."""
     b, h, sq, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -102,16 +125,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = (F.pad(t, (0, HEAD_DIM - d)) for t in (q, k, v))
     if q.device.type == "cpu":
         if s8 or s8_pv:
-            o = flash_int8_plain(q, k, v, scale, s8, s8_pv)
+            o, lse, km = flash_int8_lse_plain(q, k, v, scale, s8, s8_pv)
         else:
-            o = flash_attention_plain(q, k, v, scale)
-        if out_seqmajor:
-            return o.transpose(1, 2).reshape(b, sq, h * d)
-        return o[..., :d]
-    out = flash_int8(q, k, v, scale, s8, s8_pv) if s8 or s8_pv else flash_fwd(q, k, v, scale)
-    if out_seqmajor:
-        return out
-    return out.view(b, sq, h, HEAD_DIM).transpose(1, 2)[..., :d]
+            (o, lse), km = flash_attention_lse_plain(q, k, v, scale), None
+        o = o.transpose(1, 2)
+    else:
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if save_lse else None
+        if s8 or s8_pv:
+            o, km = _int8_launch(q, k, v, scale, s8, s8_pv, None, lse)
+        else:
+            o, km = flash_fwd(q, k, v, scale, lse), None
+        o = o.view(b, sq, h, HEAD_DIM)
+    # o: [B, Sq, H, 128]
+    o = o.reshape(b, sq, h * d) if out_seqmajor else o[..., :d].transpose(1, 2)
+    if not save_lse:
+        return o
+    return o, lse, None if km is None else km[..., :d]
 
 
 def _check_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -134,15 +163,31 @@ def _check_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash kernel needs at least one kv row")
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float) -> torch.Tensor:
-    """Launch ``csrc/flash_fwd.cu``: bf16 [B, H, S, 128] -> bf16 [B, Sq, H*128]."""
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K3 (``flash_fwd`` of ``csrc/flash_fwd.cu``): bf16 [B, H, S,
+    128] -> bf16 [B, Sq, H*128]. Given ``lse`` (f32 [B, H, Sq], contiguous),
+    K14's bf16 entry (``flash_fwd_lse``) also writes each q row's
+    log-sum-exp there."""
     _check_bhsd(q, k, v)
     b, h, sq, d = q.shape
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
-    _cuda.launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, h, sq, k.shape[2], float(scale))
+    if lse is None:
+        _cuda.launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), b, h, sq, k.shape[2], float(scale), device=q.device)
+    else:
+        _check_lse(lse, q)
+        _cuda.launch("flash_fwd_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), b, h, sq, k.shape[2], float(scale), device=q.device)
     return out
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    shape = tuple(q.shape[:3])
+    if (lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != shape
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse: expected contiguous f32 {shape} on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -185,10 +230,13 @@ def _mean_rows(x: torch.Tensor) -> torch.Tensor:
 def quantize_k(k: torch.Tensor, block: int):
     """The s8 prepass (``_quantize_k``, flash_pallas.py:223): k centred on
     its per-(b, h) mean over the real kv rows (softmax over kv is invariant
-    to that shift), then :func:`_block_quantize`. Returns kq int8 [B, H,
-    Skv_p, D] and sk f32 [B, H, Skv_p / block]."""
+    to that shift, but the row's log-sum-exp moves by ``scale * q . km``),
+    then :func:`_block_quantize`. Returns kq int8 [B, H, Skv_p, D], sk f32
+    [B, H, Skv_p / block] and the mean km f32 [B, H, D]."""
     kf = k.float()
-    return _block_quantize(kf - _mean_rows(kf), block)
+    km = _mean_rows(kf)
+    kq, sk = _block_quantize(kf - km, block)
+    return kq, sk, km[:, :, 0]
 
 
 def quantize_v(v: torch.Tensor, block: int):
@@ -218,6 +266,13 @@ def v_kernel_layout(vq: torch.Tensor) -> torch.Tensor:
 
 def flash_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                      s8: bool, s8_pv: bool, qblock: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K9, K10 and both: :func:`flash_int8_lse_plain`'s
+    output alone."""
+    return flash_int8_lse_plain(q, k, v, scale, s8, s8_pv, qblock)[0]
+
+
+def flash_int8_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                         s8: bool, s8_pv: bool, qblock: Optional[int] = None):
     """Plain version of K9 (``s8``), K10 (``s8_pv``) and both together, in
     the kernels' order of operations (``_flash_kernel``, flash_pallas.py:
     67-204). [B, H, Sq, D] x3 -> [B, H, Sq, D].
@@ -231,13 +286,19 @@ def flash_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
     m_next)``; the v mean is added back at the end. Without ``s8_pv`` the
     online softmax runs over ``BLOCK_K`` kv rows at a time, as K3's plain
     version does; with it, over whole quantization blocks, as the kernel
-    does with its two passes per block."""
+    does with its two passes per block.
+
+    Returns (o [B, H, Sq, D] in q's dtype, lse f32 [B, H, Sq] = ``m +
+    log(l_safe)`` in JAX's units: with ``s8_pv``, l sums the quantized p
+    times each block's beta; with ``s8``, the scores are those of the
+    centred k, km [B, H, D] (else None))."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     qb = qblock or quant_block(skv)
     qf = q.float()
+    km = None
     if s8:
-        kq, sk = quantize_k(k, qb)
+        kq, sk, km = quantize_k(k, qb)
         aq = qf.abs().amax(dim=-1, keepdim=True)
         sqs = torch.where(aq == 0.0, torch.ones_like(aq), _div127(aq))
         qq = torch.round(qf / sqs).double()
@@ -280,32 +341,47 @@ def flash_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
     o = acc * (1.0 / l_safe)
     if s8_pv:
         o = o + vm[:, :, None, :]
-    return o.to(q.dtype)
+    return o.to(q.dtype), (m + torch.log(l_safe))[..., 0], km
 
 
-def flash_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-               s8: bool, s8_pv: bool, qblock: Optional[int] = None) -> torch.Tensor:
-    """Launch K9 (``s8``), K10 (``s8_pv``) or the combined entry point of
-    ``csrc/flash_fwd.cu`` after the prepasses: bf16 [B, H, S, 128] -> bf16
-    [B, Sq, H*128]."""
+def _int8_launch(q, k, v, scale: float, s8: bool, s8_pv: bool, qblock: Optional[int],
+                 lse: Optional[torch.Tensor] = None):
+    """The prepasses, then one launch of the mode's int8 entry point (its
+    K14 form when ``lse`` is given); returns the bf16 [B, Sq, H*128] output
+    and the k mean the s8 prepass removed."""
     _check_bhsd(q, k, v)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     qb = qblock or quant_block(skv)
     if qb % 128:
         raise ValueError(f"the quantization block must be a multiple of 128, got {qb}")
-    kk, sk = quantize_k(k, qb) if s8 else (k, None)
+    mode = (bool(s8), bool(s8_pv))
+    if lse is not None:
+        _check_lse(lse, q)
+    entry = INT8_ENTRIES[mode] if lse is None else INT8_LSE_ENTRIES[mode]
+    kk, sk, km = quantize_k(k, qb) if s8 else (k, None, None)
     if s8_pv:
         vq, sv, vm = quantize_v(v, qb)
         vv = v_kernel_layout(vq)
     else:
         vv, sv, vm = v, None, None
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
-    _cuda.launch(INT8_ENTRIES[(bool(s8), bool(s8_pv))], q.data_ptr(), kk.data_ptr(),
-                 None if sk is None else sk.data_ptr(), vv.data_ptr(),
-                 None if sv is None else sv.data_ptr(), None if vm is None else vm.data_ptr(),
-                 out.data_ptr(), b, h, sq, skv, qb, float(scale))
-    return out
+    ptrs = [q.data_ptr(), kk.data_ptr(), None if sk is None else sk.data_ptr(), vv.data_ptr(),
+            None if sv is None else sv.data_ptr(), None if vm is None else vm.data_ptr(),
+            out.data_ptr()] + ([] if lse is None else [lse.data_ptr()])
+    _cuda.launch(entry, *ptrs, b, h, sq, skv, qb, float(scale), device=q.device)
+    return out, km
+
+
+def flash_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+               s8: bool, s8_pv: bool, qblock: Optional[int] = None,
+               lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K9 (``s8``), K10 (``s8_pv``) or the combined entry point of
+    ``csrc/flash_fwd.cu`` after the prepasses: bf16 [B, H, S, 128] -> bf16
+    [B, Sq, H*128]. Given ``lse`` (f32 [B, H, Sq]), the mode's K14 entry
+    (``flash_s8_lse``, ``flash_s8pv_lse``, ``flash_s8_s8pv_lse``) also
+    writes each q row's log-sum-exp there."""
+    return _int8_launch(q, k, v, scale, s8, s8_pv, qblock, lse)[0]
 
 
 def s8pv_dropped_mass(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None,
@@ -412,7 +488,7 @@ def flash_sm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (b, h, sq, skv), strides = _seqmajor_args(q, k, v)
     out = torch.empty((b, sq, h * HEAD_DIM), dtype=torch.bfloat16, device=q.device)
     _cuda.launch("flash_sm", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, h, sq, skv, *strides, float(scale))
+                 b, h, sq, skv, *strides, float(scale), device=q.device)
     return out
 
 
@@ -429,7 +505,7 @@ def flash_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, h * HEAD_DIM), dtype=torch.bfloat16, device=q.device)
     _cuda.launch("flash_rope", q.data_ptr(), k.data_ptr(), v.data_ptr(), ce_q.data_ptr(),
                  se_q.data_ptr(), ce_k.data_ptr(), se_k.data_ptr(), out.data_ptr(),
-                 b, h, sq, skv, *strides, float(scale))
+                 b, h, sq, skv, *strides, float(scale), device=q.device)
     return out
 
 

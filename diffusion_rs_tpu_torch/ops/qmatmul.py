@@ -132,7 +132,7 @@ def qmm_s8(x2: torch.Tensor, qt: QuantizedTensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     _cuda.launch("qmm_s8", x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
                  qt.packed.data_ptr(), qt.scale.data_ptr(), out.data_ptr(),
-                 m, k, n, bk)
+                 m, k, n, bk, device=x2.device)
     return out
 
 
@@ -186,7 +186,7 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
         return out
     _cuda.launch("qmm_nf4", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
-                 m, k, n, qt.split, qt.group)
+                 m, k, n, qt.split, qt.group, device=x2.device)
     return out
 
 
@@ -234,7 +234,7 @@ def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
     _cuda.launch("qmm_affine", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(),
                  None if qt.bias is None else qt.bias.data_ptr(),
-                 out.data_ptr(), m, k, n, qt.bits, qt.split, qt.group)
+                 out.data_ptr(), m, k, n, qt.bits, qt.split, qt.group, device=x2.device)
     return out
 
 
@@ -306,7 +306,7 @@ def qmm_nf4_fast16(x2: torch.Tensor, qt: QuantizedTensor,
         return out
     _cuda.launch("qmm_nf4_fast16", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
-                 m, k, qt.n, qt.split, qt.group)
+                 m, k, qt.n, qt.split, qt.group, device=x2.device)
     return out
 
 
@@ -326,7 +326,8 @@ def qmm_affine_fast16(x2: torch.Tensor, qt: QuantizedTensor,
     _cuda.launch("qmm_affine_fast16", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(),
                  None if qt.bias is None else qt.bias.data_ptr(),
-                 out.data_ptr(), m, k, qt.n, qt.bits, qt.split, qt.group)
+                 out.data_ptr(), m, k, qt.n, qt.bits, qt.split, qt.group,
+                 device=x2.device)
     return out
 
 
@@ -428,7 +429,8 @@ def qmm_grouped_s8(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
         rows.append((x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(),
                      qt.scale.data_ptr(), out.data_ptr(), m))
     table = _table(rows)
-    _cuda.launch("qmm_grouped_s8", ctypes.addressof(table), len(rows), k, n, bk)
+    _cuda.launch("qmm_grouped_s8", ctypes.addressof(table), len(rows), k, n, bk,
+                 device=x2s[0].device)
     return outs
 
 
@@ -453,7 +455,7 @@ def qmm_grouped_affine(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTenso
                      0 if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(), m))
     table = _table(rows)
     _cuda.launch("qmm_grouped_affine", ctypes.addressof(table), len(rows), k, n, q0.bits,
-                 q0.split, q0.group, int(q0.bias is not None))
+                 q0.split, q0.group, int(q0.bias is not None), device=x2s[0].device)
     return outs
 
 
@@ -480,7 +482,7 @@ def qmm_grouped_nf4(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
                      qt.codebook.data_ptr(), out.data_ptr(), m))
     table = _table(rows)
     _cuda.launch("qmm_grouped_nf4", ctypes.addressof(table), len(rows), k, n, q0.split,
-                 q0.group)
+                 q0.group, device=x2s[0].device)
     return outs
 
 

@@ -7,7 +7,7 @@ single-file GGUF), or a DDUF zip.
 The port's own differences: ``device`` (CUDA by default; raises without
 it), PNG encoding with the standard library (no Pillow), and
 ``forward_images`` returning u8 ``[H, W, 3]`` arrays instead of PIL images.
-img2img and inpaint are not ported yet (ROADMAP Queue 1 item 10).
+img2img and inpaint are not ported yet (ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from .flux_pipeline import DiffusionGenerationParams
 class Offloading(enum.Enum):
     """Memory-capacity modes: ``Full`` swaps whole components between host
     and device around their use, ``Stream`` streams transformer blocks. Not
-    ported yet (ROADMAP Queue 1 item 11): passing either raises."""
+    ported yet (ROADMAP Queue 1 item 3): passing either raises."""
 
     Full = "full"
     Stream = "stream"
@@ -90,10 +90,13 @@ class Pipeline:
     weights' device), ``isq_t5`` (T5's own target; by default T5 follows
     ``isq`` unless the capacity guard keeps it), ``imatrix`` (a llama.cpp
     importance-matrix file weighting ISQ), ``lora`` (one LoRA file or a
-    list) and ``lora_scale`` (loader.apply_weight_options). ``offloading``,
-    ``mesh``, ``compile_cache`` and the ``t5_mask_pads`` / ``step_progress``
-    toggles keep the JAX package's names but are not ported yet: setting one
-    raises ``NotImplementedError`` naming its ROADMAP item."""
+    list) and ``lora_scale`` (loader.apply_weight_options). ``mesh`` (a
+    parallel.make_mesh built on every rank after parallel.init_multihost)
+    runs the pipeline data- and sequence-parallel, each rank holding the
+    whole weights; a mesh with tp > 1 raises. ``offloading``,
+    ``compile_cache`` and the ``t5_mask_pads`` / ``step_progress`` toggles
+    keep the JAX package's names but are not ported yet: setting one raises
+    ``NotImplementedError`` naming its ROADMAP item."""
 
     def __init__(
         self,

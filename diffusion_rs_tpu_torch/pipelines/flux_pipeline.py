@@ -1,11 +1,19 @@
 """FLUX text-to-image pipeline (port of ``pipelines/flux_pipeline.py``,
 txt2img only): tokenize + pad both encoders, T5 + CLIP encode, seeded
 latent noise, patchify + position ids, resolution shift mu, Euler denoise,
-unpack, VAE scale/shift + one-shot decode, (clamp + 1) * 127.5 -> u8.
+unpack, VAE scale/shift + decode (one shot, or tiled above a 128-pixel
+latent side; batch-chunked), (clamp + 1) * 127.5 -> u8.
 
 The JAX stage seams stay methods (``_encode``, ``_denoise``, ``_decode``), so
-tests can inject the same noise into both packages. img2img, inpainting,
-tiled decode, offload and meshes are not ported yet.
+tests can inject the same noise into both packages. img2img, inpainting and
+offload are not ported yet.
+
+Under a mesh (``parallel.make_mesh``; one process per rank, SPMD) every
+rank tokenizes the whole batch and encodes its dp rows, draws the whole
+batch's noise from the seed and keeps its dp rows, packs them and keeps its
+sp rows of the image tokens through the Euler loop (the update is per
+token), then gathers the whole latent over sp and dp before the decode, so
+that ``forward_arrays`` returns the same images on every rank.
 """
 
 from __future__ import annotations
@@ -23,13 +31,15 @@ from ..io.tokenizer import tokenize_and_pad
 from ..models.clip import ClipTextConfig, clip_encode
 from ..models.flux import FluxConfig, compute_pe, flux_forward
 from ..models.t5 import T5Config, t5_encode
-from ..models.vae import VAEConfig, vae_decode
+from ..models.vae import VAEConfig, vae_decode, vae_decode_tiled
+from ..parallel.mesh import Sharding, batch_sharding, sequence_sharding
 from ..util.capacity import check_denoise_capacity
 from ..util.device import resolve_device
 from ..util.tracing import warn_once
 from .sampling import (
     denoise,
     get_noise,
+    latent_hw,
     make_img_ids,
     make_txt_ids,
     pack_latents,
@@ -54,14 +64,19 @@ class DiffusionGenerationParams:
 
 class FluxPipeline:
     """Holds the four components' params on one device. ``device`` defaults
-    to CUDA and raises when CUDA is absent."""
+    to CUDA (under a ``mesh``, the rank's card) and raises when CUDA is
+    absent. With ``mesh``, every rank builds the pipeline on the same
+    (replicated) params."""
 
     def __init__(self, *, flux_params, flux_cfg: FluxConfig, t5_params,
                  t5_cfg: T5Config, clip_params, clip_cfg: ClipTextConfig,
                  vae_params, vae_cfg: VAEConfig, scheduler: SchedulerConfig,
                  t5_tokenizer, clip_tokenizer, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None and self.device.type == "cuda":
+            self.device = mesh.device
+        self.mesh = mesh
         self.flux_params = flux_params
         self.flux_cfg = flux_cfg
         self.t5_params = t5_params
@@ -93,9 +108,13 @@ class FluxPipeline:
 
     @torch.no_grad()
     def _denoise(self, txt, y, sigmas: np.ndarray, guidance, noise):
+        """The Euler loop over ``noise`` [B, 16, h, w] (this rank's dp rows
+        under a mesh); returns the packed latent, this rank's sp rows."""
         dt = self.dtype
         bs = txt.shape[0]
         img = pack_latents(noise.to(dt))
+        if self.mesh is not None:  # this rank's image rows
+            img = Sharding(self.mesh, (None, "sp")).local(img)
         h2, w2 = noise.shape[2] // 2, noise.shape[3] // 2
         pe = compute_pe(self.flux_cfg, make_txt_ids(bs, txt.shape[1], txt.device),
                         make_img_ids(bs, h2, w2, txt.device))
@@ -103,7 +122,7 @@ class FluxPipeline:
         def step(x, t):
             t_vec = torch.full((bs,), t, dtype=torch.float32, device=x.device)
             return flux_forward(self.flux_params, self.flux_cfg, x.to(dt), txt,
-                                t_vec, y, guidance, pe=pe)
+                                t_vec, y, guidance, pe=pe, mesh=self.mesh)
 
         steps = []
         last = [self._sync()]
@@ -131,6 +150,46 @@ class FluxPipeline:
     def _decode(self, latent, height: int, width: int):
         z = self._pre_decode(latent, height, width)
         return self._to_u8(vae_decode(self.vae_params, self.vae_cfg, z))
+
+    # Above this latent side the decode runs in tiles (the JAX package's
+    # threshold, where its one-shot decode outgrew a 16 GB TPU); tile size
+    # from DIFFUSION_RS_TPU_VAE_TILE (latent pixels; 0 disables tiling).
+    _TILE_DECODE_ABOVE = 128
+
+    @torch.no_grad()
+    def _decode_any(self, latent, height: int, width: int):
+        """One-shot decode, or :func:`vae_decode_tiled` when the latent's
+        longer side exceeds ``_TILE_DECODE_ABOVE``."""
+        tile = int(os.environ.get("DIFFUSION_RS_TPU_VAE_TILE", "128"))
+        if tile <= 0 or max(latent_hw(height, width)) <= self._TILE_DECODE_ABOVE:
+            return self._decode(latent, height, width)
+        z = self._pre_decode(latent, height, width)
+        return self._to_u8(vae_decode_tiled(self.vae_params, self.vae_cfg, z, tile=tile))
+
+    def _decode_chunk(self, n: int, params) -> int:
+        """Samples per decode call: DIFFUSION_RS_TPU_DECODE_CHUNK, else the
+        whole batch under a mesh, else about 1M decoded pixels."""
+        chunk = os.environ.get("DIFFUSION_RS_TPU_DECODE_CHUNK")
+        if chunk is not None:
+            return max(1, int(chunk))
+        if self.mesh is not None:
+            return n
+        px = ((params.height + 15) // 16 * 16) * ((params.width + 15) // 16 * 16)
+        return max(1, (1 << 20) // max(1, px))
+
+    def _sigmas(self, params) -> np.ndarray:
+        """The flow-match schedule. The resolution shift's sequence argument
+        is the packed-patch count, or with DIFFUSION_RS_TPU_REFERENCE_MU=1 the
+        latent channel count (the reference's quirk), as in JAX."""
+        if os.environ.get("DIFFUSION_RS_TPU_REFERENCE_MU") == "1":
+            seq_arg = self.vae_cfg.latent_channels
+        else:
+            seq_arg = ((params.height + 15) // 16) * ((params.width + 15) // 16)
+        mu = calculate_shift(seq_arg, self.scheduler.base_image_seq_len,
+                             self.scheduler.max_image_seq_len,
+                             self.scheduler.base_shift, self.scheduler.max_shift)
+        return self.scheduler.timesteps(
+            params.num_steps, mu=mu if self.scheduler.use_dynamic_shifting else None)
 
     def _check_capacity(self, params, batch: int, txt_tokens: int) -> None:
         """The JAX pipeline's static check before the denoise
@@ -167,33 +226,40 @@ class FluxPipeline:
                 "over the truncated window", stacklevel=2)
             clip_ids = clip_ids[:, :CLIP_MAX_LEN]
 
+        n = len(prompts)
+        t5_ids, clip_ids = torch.from_numpy(t5_ids), torch.from_numpy(clip_ids)
+        seed = params.seed if params.seed is not None else time.time_ns() % (1 << 31)
+        noise = get_noise(seed, n, params.height, params.width, dev)
+        if self.mesh is not None:  # this rank's dp rows of the whole batch
+            if n % self.mesh.shape["dp"]:
+                raise ValueError(f"a batch of {n} does not split over dp={self.mesh.shape['dp']}")
+            rows = batch_sharding(self.mesh)
+            t5_ids, clip_ids, noise = rows.local(t5_ids), rows.local(clip_ids), rows.local(noise)
+
         self.timings = {}
         t0 = self._sync()
-        txt, y = self._encode(torch.from_numpy(t5_ids).to(dev),
-                              torch.from_numpy(clip_ids).to(dev))
+        txt, y = self._encode(t5_ids.to(dev), clip_ids.to(dev))
         t1 = self._sync()
         self.timings["encode_s"] = t1 - t0
 
-        seq_len = ((params.height + 15) // 16) * ((params.width + 15) // 16)
-        mu = calculate_shift(seq_len, self.scheduler.base_image_seq_len,
-                             self.scheduler.max_image_seq_len,
-                             self.scheduler.base_shift, self.scheduler.max_shift)
-        sigmas = self.scheduler.timesteps(
-            params.num_steps, mu=mu if self.scheduler.use_dynamic_shifting else None)
-        seed = params.seed if params.seed is not None else time.time_ns() % (1 << 31)
-        noise = get_noise(seed, len(prompts), params.height, params.width, dev)
+        sigmas = self._sigmas(params)
         guidance = (
-            torch.full((len(prompts),), params.guidance_scale, dtype=torch.float32,
+            torch.full((txt.shape[0],), params.guidance_scale, dtype=torch.float32,
                        device=dev)
             if self.flux_cfg.guidance_embeds else None
         )
-        self._check_capacity(params, len(prompts), txt.shape[1])
+        self._check_capacity(params, n, txt.shape[1])
         latent = self._denoise(txt, y, sigmas, guidance, noise)
+        if self.mesh is not None:  # the whole latent on every rank
+            h2, w2 = noise.shape[2] // 2, noise.shape[3] // 2
+            latent = sequence_sharding(self.mesh).gather(latent, (n, h2 * w2, latent.shape[2]))
         t2 = self._sync()
         self.timings["denoise_s"] = t2 - t1
         if output_type == "latent":
             return latent.float().cpu().numpy()
-        img = self._decode(latent, params.height, params.width)
-        out = img.cpu().numpy()
+        chunk = self._decode_chunk(n, params)
+        out = np.concatenate([self._decode_any(latent[i:i + chunk], params.height,
+                                               params.width).cpu().numpy()
+                              for i in range(0, n, chunk)])
         self.timings["decode_s"] = self._sync() - t2
         return out

@@ -12,9 +12,11 @@ The load-time weight options (``isq``, ``isq_t5``, ``imatrix``, ``lora``,
 ``lora_scale``) run in :func:`apply_weight_options`, then the layout
 options (``fuse=`` / ``DIFFUSION_RS_TPU_FUSE``, with ``grouped``, and
 ``DIFFUSION_RS_TPU_FUSED_ROPE=1``) in :func:`apply_layout_options`, with the
-JAX package's names, defaults and order. Options of the JAX loader that the
-port does not carry yet raise ``NotImplementedError`` naming their ROADMAP
-item; none is silently ignored.
+JAX package's names, defaults and order. ``mesh=`` (parallel.make_mesh,
+built on every rank) replicates the weights on every rank and turns
+``grouped`` off, as in JAX. Options of the JAX loader that the port does not
+carry yet raise ``NotImplementedError`` naming their ROADMAP item; none is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -86,20 +88,27 @@ def _resolve_fuse(fuse) -> tuple:
 
 
 def apply_layout_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dict,
-                         fuse=None, silent: bool = True
+                         fuse=None, silent: bool = True, mesh=None
                          ) -> Tuple[dict, FluxConfig, dict]:
     """The JAX loader's load-time layout transforms, in its order: projection
     fusion (``fuse``; ``grouped`` adds the img and txt streams and sets
-    ``grouped_qmm``), then, with DIFFUSION_RS_TPU_FUSED_ROPE=1, the RoPE
-    half-split re-layout of the final q/k columns (sets ``rope_fused``). A
-    transform that does not apply (mixed dense/quantized weights, LoRA
-    terms) is skipped with a log line, as in JAX. Returns the new FLUX
-    params and config and the T5 params."""
+    ``grouped_qmm``, or under a ``mesh`` is dropped with JAX's warning),
+    then, with DIFFUSION_RS_TPU_FUSED_ROPE=1, the RoPE half-split re-layout
+    of the final q/k columns (sets ``rope_fused``). A transform that does
+    not apply (mixed dense/quantized weights, LoRA terms) is skipped with a
+    log line, as in JAX. Returns the new FLUX params and config and the T5
+    params."""
     from ..models.optimize import fuse_flux_qkv, fuse_t5, rope_halfsplit_permute
+    from ..util.tracing import warn_once
 
     streams = _resolve_fuse(fuse)
     if "grouped" in streams:
-        streams = tuple(dict.fromkeys(streams + ("img", "txt")))
+        if mesh is not None:
+            warn_once("grouped-mesh", "fuse='grouped' has no mesh partitioning rule; "
+                                      "running the per-stream calls instead")
+            streams = tuple(s for s in streams if s != "grouped")
+        else:
+            streams = tuple(dict.fromkeys(streams + ("img", "txt")))
     if streams:
         try:
             flux_params = fuse_flux_qkv(flux_params, streams)
@@ -192,19 +201,19 @@ def _check_unported(offloading, mesh, t5_mask_pads, step_progress, compile_cache
     the way the JAX package resolves them (argument, else its environment
     variable)."""
     if offloading is not None:
-        _not_ported(f"offloading={offloading}", "Queue 1 item 11")
+        _not_ported(f"offloading={offloading}", "Queue 1 item 3")
     if compile_cache or os.environ.get("DIFFUSION_RS_TPU_COMPILE_CACHE"):
-        _not_ported("compile_cache", "Queue 1 item 12")
-    if mesh is not None:
-        _not_ported("mesh", "Queue 1 item 13")
+        _not_ported("compile_cache", "Queue 1 item 4")
+    if mesh is not None and mesh.shape.get("tp", 1) > 1:
+        _not_ported(f"a mesh with tp={mesh.shape['tp']}", "Queue 1 item 5")
     mask = (t5_mask_pads if t5_mask_pads is not None
             else os.environ.get("DIFFUSION_RS_TPU_T5_MASK_PADS") == "1")
     if mask:
-        _not_ported("t5_mask_pads", "Queue 1, left out of slice 2")
+        _not_ported("t5_mask_pads", "Queue 1 item 1")
     progress = (step_progress if step_progress is not None
                 else os.environ.get("DIFFUSION_RS_TPU_PROGRESS"))
     if progress:
-        _not_ported("step_progress", "Queue 1, left out of slice 2")
+        _not_ported("step_progress", "Queue 1 item 1")
 
 
 def _component_store(loader: FileLoader, prefix: str, dtype, device) -> VarStore:
@@ -266,8 +275,10 @@ def load_pipeline(
     compile_cache: Optional[str] = None,
     device="cuda",
 ) -> FluxPipeline:
-    device = resolve_device(device)
     _check_unported(offloading, mesh, t5_mask_pads, step_progress, compile_cache)
+    device = resolve_device(device)
+    if mesh is not None and device.type == "cuda":
+        device = mesh.device  # every rank loads the whole (replicated) weights
     loader = FileLoader(model_id=source.model_id, dduf_file=source.dduf_file,
                         token=token, revision=revision, silent=silent)
     index = json.loads(loader.read_bytes("model_index.json"))
@@ -320,7 +331,7 @@ def load_pipeline(
         flux_params, flux_cfg, t5_params, isq=isq, isq_t5=isq_t5, imatrix=imatrix, lora=lora,
         lora_scale=lora_scale, dtype=dt, silent=silent)
     flux_params, flux_cfg, t5_params = apply_layout_options(
-        flux_params, flux_cfg, t5_params, fuse=fuse, silent=silent)
+        flux_params, flux_cfg, t5_params, fuse=fuse, silent=silent, mesh=mesh)
     if not silent:
         log.info("loaded FLUX transformer (%d double + %d single blocks, guidance=%s)",
                  flux_cfg.num_layers, flux_cfg.num_single_layers, flux_cfg.guidance_embeds)
@@ -329,5 +340,5 @@ def load_pipeline(
         flux_params=flux_params, flux_cfg=flux_cfg, t5_params=t5_params, t5_cfg=t5_cfg,
         clip_params=clip_params, clip_cfg=clip_cfg, vae_params=vae_params,
         vae_cfg=vae_cfg, scheduler=scheduler, t5_tokenizer=t5_tokenizer,
-        clip_tokenizer=clip_tokenizer, dtype=dt, device=device,
+        clip_tokenizer=clip_tokenizer, dtype=dt, device=device, mesh=mesh,
     )

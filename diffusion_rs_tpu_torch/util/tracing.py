@@ -1,6 +1,6 @@
 """Once-per-process warnings (port of ``warn_once`` in the JAX package's
 ``util/tracing.py``). The spans and the profiler context of that module are
-not ported yet (ROADMAP Queue 1 item 12)."""
+not ported yet (ROADMAP Queue 1 item 4)."""
 
 from __future__ import annotations
 

@@ -13,7 +13,9 @@ format through K4, seq-major operands that are column slices of wider rows
 (K8, K11), the int8 attention modes (K9, K10, both) over one or several
 quantization blocks with a ragged last block, and the fast16 decodes (K12
 for nf4 / fp4, K13 for every affine format and Q4_K with s == 0 groups:
-decoded weights bit for bit through the identity) with their dispatch.
+decoded weights bit for bit through the identity) with their dispatch,
+K14's four entries (the output and per-row log-sum-exp of K3 and of the
+int8 modes) and a two-rank ring on one card over gloo.
 """
 
 import dataclasses
@@ -29,6 +31,7 @@ from diffusion_rs_tpu_torch.quant.gguf_quants import (
 from diffusion_rs_tpu_torch.ops.rope import expand_rope_tables, rope_tables
 from diffusion_rs_tpu_torch.quant.qtensor import dequantize
 from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
+from torch_mesh_workers import RING_MODES
 
 pytestmark = pytest.mark.cuda
 
@@ -368,3 +371,95 @@ def test_fast16_dispatch_on_card(dev, monkeypatch):
                                      "qmm_nf4_fast16": 1, "qmm_affine_fast16": 2,
                                      "qmm_grouped_nf4": 1, "qmm_grouped_affine": 1}
     assert not qmatmul.fast16_enabled(x.float())
+
+
+LSE_ENTRIES = {"flash_fwd_lse": (False, False), **{f"{e}_lse": m for e, m in INT8_MODES.items()}}
+
+
+@pytest.mark.parametrize("entry", list(LSE_ENTRIES))
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 3, 64, 64), (2, 2, 300, 300), (1, 2, 1, 130),
+                                        (1, 1, 200, 65), (1, 2, 130, 1600)])
+def test_k14_matches_plain(dev, entry, b, h, sq, skv):
+    """K14 against the plain versions: o within K3's band (5e-4), lse within
+    1e-3 max-abs (f32 summation orders and expf against torch.exp, on
+    log-sum-exps of magnitude ~5); one launch of the entry and none of K3,
+    K9 or K10; the s8 entry returns the k mean its prepass removed."""
+    s8, s8_pv = LSE_ENTRIES[entry]
+    gen = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = torch.randn((b, h, sq, 128), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, h, skv, 128), generator=gen, device=dev).bfloat16()
+    v = (torch.randn((b, h, skv, 128), generator=gen, device=dev) + 1.0).bfloat16()
+    _cuda.reset_launch_counts()
+    o, lse, km = flash.flash_attention(q, k, v, 128 ** -0.5, out_seqmajor=True, s8=s8,
+                                       s8_pv=s8_pv, save_lse=True)
+    assert _cuda.launch_counts() == {**dict.fromkeys(_cuda.KERNELS, 0), entry: 1}
+    if s8 or s8_pv:
+        ref, lse_ref, km_ref = flash.flash_int8_lse_plain(q, k, v, 128 ** -0.5, s8, s8_pv)
+        assert (km is None) == (not s8) and (km is None or torch.equal(km, km_ref))
+    else:
+        ref, lse_ref = flash.flash_attention_lse_plain(q, k, v, 128 ** -0.5)
+        assert km is None
+    assert torch.isfinite(o).all() and tuple(lse.shape) == (b, h, sq)
+    assert _summed_rel(o, ref.transpose(1, 2).reshape(b, sq, h * 128)) <= 5e-4
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+def test_ring_two_ranks_on_one_card(dev, tmp_path):
+    """Two ranks over gloo, on cuda:0 on a one-card host (k/v staged through
+    pinned host memory): the ring's output equals the plain attention of the whole
+    sequence within 4e-3 summed-rel (each chunk's bf16 output is rounded
+    before the f32 merge), and each rank launched K14 once per chunk and
+    no other flash kernel."""
+    from diffusion_rs_tpu_torch.parallel import spawn
+    from torch_mesh_workers import cuda_ring_rank
+
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((1, 4, 512, 128)).astype(np.float32) for _ in range(3))
+    modes = ["bf16", "s8_pv"]
+    np.savez(tmp_path / "inputs.npz", q=q, k=k, v=v + 1.0, modes=np.array(modes))
+    spawn(cuda_ring_rank, 2, "gloo", args=(str(tmp_path),))
+    parts = _check_cuda_ring(dev, tmp_path, 2, q, k, v, modes)
+    # LOCAL_RANK's card, modulo the cards there are: both on cuda:0 on a
+    # one-card host
+    n = torch.cuda.device_count()
+    assert [int(p["device"]) for p in parts] == [0, 1 % n]
+
+
+def _check_cuda_ring(dev, tmp_path, world, q, k, v, modes):
+    """The ranks' ring outputs (``cuda_ring_rank``) against the plain
+    attention of the whole sequence, and each rank's launches: K14 once per
+    chunk, no other kernel."""
+    parts = [np.load(tmp_path / f"cuda_ring_{r}.npz", allow_pickle=True) for r in range(world)]
+    qt, kt, vt = (torch.from_numpy(a).to(dev).bfloat16() for a in (q, k, v + 1.0))
+    for mode in modes:
+        s8, s8_pv = RING_MODES[mode]
+        got = torch.from_numpy(np.concatenate([p[mode] for p in parts], axis=1))
+        if s8_pv:
+            ref = flash.flash_int8_plain(qt, kt, vt, 128 ** -0.5, s8, s8_pv)
+        else:
+            ref = flash.flash_attention_plain(qt, kt, vt, 128 ** -0.5)
+        ref = ref.transpose(1, 2).reshape(1, 512, 512).float().cpu()
+        assert _summed_rel(got, ref) <= (4e-3 if mode == "bf16" else 2e-2)
+        entry = "flash_fwd_lse" if mode == "bf16" else "flash_s8pv_lse"
+        for p in parts:
+            assert [tuple(x) for x in p[f"{mode}_launches"]] == [(entry, world)]
+    return parts
+
+
+def test_ring_nccl_one_card_per_rank(dev, tmp_path):
+    """Two ranks over NCCL, each on its own card (init_multihost makes
+    ``LOCAL_RANK``'s card current; every launch runs on its operands' card
+    and stream): the same outputs and launches as the ranks sharing one
+    card, with rank r's tensors and kernels on cuda:r. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from diffusion_rs_tpu_torch.parallel import spawn
+    from torch_mesh_workers import cuda_ring_rank
+
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((1, 4, 512, 128)).astype(np.float32) for _ in range(3))
+    modes = ["bf16", "s8_pv"]
+    np.savez(tmp_path / "inputs.npz", q=q, k=k, v=v + 1.0, modes=np.array(modes))
+    spawn(cuda_ring_rank, 2, "nccl", args=(str(tmp_path),))
+    parts = _check_cuda_ring(dev, tmp_path, 2, q, k, v, modes)
+    assert [int(p["device"]) for p in parts] == [0, 1]

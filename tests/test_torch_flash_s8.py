@@ -67,7 +67,9 @@ def test_quantize_prepasses_match_jax(rng, which, s, block):
     x = (rng.standard_normal((1, 2, s, 128)) * 0.3 + 0.1).astype(np.float32)
     if which == "k":
         cj, sj = jfp._quantize_k(jnp.asarray(x), block)
-        ct, st = tflash.quantize_k(torch.from_numpy(x), block)
+        ct, st, mt = tflash.quantize_k(torch.from_numpy(x), block)
+        np.testing.assert_allclose(to_np(mt), np.asarray(jnp.mean(jnp.asarray(x), axis=2)),
+                                   rtol=1e-6, atol=1e-7)
     else:
         cj, sj, mj = jfp._quantize_v(jnp.asarray(x), block)
         ct, st, mt = tflash.quantize_v(torch.from_numpy(x), block)

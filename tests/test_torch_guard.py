@@ -41,6 +41,14 @@ def test_port_module_imports_no_jax(path):
         assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_workers.py"],
+                         ids=lambda p: p.name)
+def test_card_scripts_import_no_jax(path):
+    """The smoke run and the spawned ranks' module run on the card host,
+    which has no JAX: neither imports jax or the JAX package."""
+    test_port_module_imports_no_jax(path)
+
+
 def test_port_import_leaves_jax_unloaded():
     """Every module of the package, imported in a fresh interpreter, loads
     neither jax nor the JAX package."""
@@ -89,6 +97,7 @@ def test_default_device_entry_points_raise_without_cuda():
     from diffusion_rs_tpu_torch.models.t5 import T5Config
     from diffusion_rs_tpu_torch.models.vae import VAEConfig
     from diffusion_rs_tpu_torch.io.varstore import VarStore
+    from diffusion_rs_tpu_torch.parallel import make_mesh
     from diffusion_rs_tpu_torch.pipelines.api import ModelSource, Pipeline
     from diffusion_rs_tpu_torch.pipelines.loader import load_flux_transformer, load_pipeline
     from diffusion_rs_tpu_torch.util import synthetic as syn
@@ -114,6 +123,7 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: load_pipeline(ModelSource.from_model_id(str(ROOT / "no-such-model"))),
         lambda: Pipeline(ModelSource.from_model_id(str(ROOT / "no-such-model"))),
         lambda: load_flux_transformer(ROOT / "no-such-file.gguf"),
+        lambda: make_mesh(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -140,6 +150,8 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "flash.flash_attention(q, q, q, out_seqmajor=True)\n"
         "for s8, s8_pv in ((True, False), (False, True), (True, True)):\n"
         "    flash.flash_attention(q, q, q, out_seqmajor=True, s8=s8, s8_pv=s8_pv)\n"
+        "    flash.flash_attention(q, q, q, s8=s8, s8_pv=s8_pv, save_lse=True)\n"
+        "flash.flash_attention(q, q, q, save_lse=True)\n"
         "qs = torch.randn(1, 5, 256, generator=g)\n"
         "ce = torch.ones(1, 5, 128)\n"
         "for inkernel in (False, True):\n"
@@ -150,7 +162,8 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "                              'qmm_grouped_nf4', 'qmm_nf4_fast16', 'qmm_affine',\n"
         "                              'qmm_grouped_affine', 'qmm_affine_fast16',\n"
         "                              'flash_fwd', 'flash_sm', 'flash_rope', 'flash_s8',\n"
-        "                              'flash_s8pv', 'flash_s8_s8pv'}\n"
+        "                              'flash_s8pv', 'flash_s8_s8pv', 'flash_fwd_lse',\n"
+        "                              'flash_s8_lse', 'flash_s8pv_lse', 'flash_s8_s8pv_lse'}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"
@@ -187,6 +200,10 @@ def test_cuda_path_has_no_fallback():
     for s8, s8_pv in ((True, False), (False, True), (True, True)):
         with pytest.raises(ValueError, match="CUDA"):
             flash.flash_attention(q, q, q, out_seqmajor=True, s8=s8, s8_pv=s8_pv)
+    # K14, bf16 and the int8 modes
+    for s8, s8_pv in ((False, False), (True, False), (False, True), (True, True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash.flash_attention(q, q, q, s8=s8, s8_pv=s8_pv, save_lse=True)
     # the seq-major kernels (K6, K7) under both RoPE placements
     qs = torch.zeros((1, 8, 256), dtype=torch.bfloat16, device="meta")
     ce = torch.zeros((1, 8, 128), device="meta")

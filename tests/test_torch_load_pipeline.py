@@ -14,6 +14,7 @@ the port runs its kernels' plain versions on the CPU.
 
 import importlib
 import io
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -198,7 +199,8 @@ def test_resolve_fuse_matches_jax(monkeypatch, fuse, env):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("offloading", Offloading.Full), ("mesh", object()),
+    # a mesh runs (tests/test_torch_mesh.py) unless it has a tp axis
+    ("offloading", Offloading.Full), ("mesh", SimpleNamespace(shape={"dp": 1, "sp": 1, "tp": 2})),
     ("compile_cache", "cache"), ("t5_mask_pads", True), ("step_progress", True),
 ])
 def test_unported_options_raise(sources, option, value):

@@ -52,6 +52,28 @@ def to_numpy_tree(tree):
     return np.asarray(tree)
 
 
+def to_jax_tree(tree):
+    """The port's dense params (f32 tensors, ``Linear``, ``Conv``) -> the JAX
+    package's: the reverse of the bridge, for params the port's fast
+    synthetic factories made."""
+    from diffusion_rs_tpu_torch.ops.conv import Conv as TConv
+    from diffusion_rs_tpu_torch.ops.linear import Linear as TLinear
+
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return jnp.asarray(tree.detach().cpu().numpy())
+    if isinstance(tree, TLinear):
+        return JLinear(w=to_jax_tree(tree.w), b=to_jax_tree(tree.b))
+    if isinstance(tree, TConv):
+        return JConv(w=to_jax_tree(tree.w), b=to_jax_tree(tree.b))
+    if isinstance(tree, dict):
+        return {k: to_jax_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_jax_tree(v) for v in tree)
+    raise TypeError(f"unexpected leaf {type(tree)}")
+
+
 def quantize_tree(params, quantize, dtype):
     """Quantize every 2-D/stacked-3-D Linear weight; other leaves -> dtype.
     Biases become small random values so the bias add is exercised."""
