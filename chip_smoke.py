@@ -9,8 +9,11 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; build every CUDA kernel from ``diffusion_rs_tpu_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card at its
-   main-path shapes (error, kernel ms, plain ms, bound ms, library ms); the
-   affine kernel (K4) also, untimed, for Q6_K, Q4_K and bnb int8; the
+   main-path shapes (error, kernel ms, plain ms, bound ms, library ms): K1
+   and K8-s8 bit for bit (max-abs 0), K1 also timed per pass (quantize,
+   product; profiler) beside torch._int_mm on its int8 operands, K2's
+   decoded weight (the product with the identity) equal to dequantize's;
+   the affine kernel (K4) also, untimed, for Q6_K, Q4_K and bnb int8; the
    seq-major flash kernels (K6, K7) at B1 H24 S4608 and the ragged S4112,
    K7 also against K6 on plain-rotated q/k (max-abs 0); the grouped kernel
    (K8: s8, Q8_0 and Q4_0) at the grouped double-block shapes (M 4096 +
@@ -123,12 +126,15 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12    # H100 SXM float32 rate outside the tensor cores
 
-# summed-relative error bands; K4 decodes the same bf16 weight as its plain
-# version bit for bit, so only the f32 summation order differs. That order
-# moves more outputs by a bf16 ulp as K grows: at K > 3072 (K8's mlp-out
-# shape, K=12288) K4 and K8 are held to 1e-4 and to every element's
+# summed-relative error bands. K1 (and K8-s8) is bit for bit with its plain
+# version: same IEEE quotient and rounding, an exact integer dot, the same
+# f32 fold order; its band is 0. K2 and K4 decode the same bf16 weight as
+# their plain versions bit for bit (K2's decoded weight is checked through
+# the identity), so only the f32 summation order differs. That order moves
+# more outputs by a bf16 ulp as K grows: at K > 3072 (K8's mlp-out shape,
+# K=12288) K4 and K8 are held to 1e-4 and to every element's
 # summation-order bound, as tests/test_torch_cuda.py holds K4 at K=15360.
-K1_TOL, K2_TOL, K3_TOL, K4_TOL = 1e-5, 2e-3, 5e-4, 1e-5
+K1_TOL, K2_TOL, K3_TOL, K4_TOL = 0.0, 2e-3, 5e-4, 1e-5
 K4_TOL_LONG_K = 1e-4
 # The int8 attention kernels against their plain versions: the quantized
 # codes and integer dots are exact in both; f32 summation orders and expf
@@ -249,8 +255,54 @@ def bound(ops: float, peak_ops: float, nbytes: float, extra_ops_ms: float = 0.0)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def kernel_device_ms(fn, n_sets: int, names, iters: int = 24) -> dict:
+    """Device ms per call of ``fn(i)`` of each kernel whose name holds one of
+    ``names``, from torch.profiler over ``iters`` calls (after a warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i % n_sets)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i % n_sets)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {name: sum(e.device_time_total for e in events if name in e.key) / 1e3 / iters
+            for name in names}
+
+
+def int8_gemm_ms(x, qts, bk: int, n_sets: int):
+    """torch._int_mm (cuBLASLt's int8 GEMM) on K1's int8 operands, the
+    activation codes and the weight plane: the product without K1's
+    per-K-tile fold or its quantize pass, so not the library row. Timed
+    with the plane as stored ([K, N], row-major) and as a column-major copy
+    (the layout cuBLASLt's int8 kernels take without a transpose); None
+    where cuBLASLt does not take the shape (M <= 16)."""
+    import torch
+
+    m, k = x.shape
+    xf = x.float().view(m, k // bk, bk)
+    ax = xf.abs().amax(-1, keepdim=True)
+    sx = torch.where(ax == 0, torch.ones_like(ax), ax / torch.full_like(ax, 127.0))
+    xq = torch.round(xf / sx).to(torch.int8).view(m, k)
+    try:
+        torch._int_mm(xq, qts[0].packed)
+    except RuntimeError as e:
+        print(f"  torch._int_mm refuses M{m} K{k}: {str(e).splitlines()[0][:120]}")
+        return None
+    row_major = cuda_ms(lambda i: torch._int_mm(xq, qts[i].packed), n_sets)
+    cols = [qt.packed.t().contiguous().t() for qt in qts]
+    col_major = cuda_ms(lambda i: torch._int_mm(xq, cols[i]), n_sets)
+    return {"row_major_ms": row_major, "col_major_ms": col_major}
+
+
 def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float):
-    """One quantized-matmul kernel against its plain version at [m, k] x [k, n]."""
+    """One quantized-matmul kernel against its plain version at [m, k] x [k, n]
+    (K1 bit for bit; K2 also through the identity: its decoded weight equal
+    to ``dequantize(qt, f32).to(bf16)``)."""
     import torch
 
     from diffusion_rs_tpu_torch.ops import qmatmul
@@ -290,16 +342,32 @@ def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float):
     max_abs = float((y.float() - ref.float()).abs().max())
     if not (err <= tol) or not torch.isfinite(y).all():
         raise SystemExit(f"{kind} kernel disagrees with its plain version at "
-                         f"M={m} K={k} N={n}: summed-rel {err:.3e} > {tol:g}")
+                         f"M={m} K={k} N={n}: summed-rel {err:.3e} > {tol:g}, "
+                         f"max-abs {max_abs:.3e}")
+    extra = {}
+    if kind == "nf4":
+        eye = torch.eye(k, device="cuda", dtype=torch.bfloat16)
+        extra["decoded_max_abs"] = float((kern(eye, qts[0], torch.bfloat16).float() - dequantize(
+            qts[0], torch.float32).to(torch.bfloat16).float()).abs().max())
+        del eye
+        if extra["decoded_max_abs"] != 0.0:
+            raise SystemExit(f"qmm_nf4 decodes another weight than dequantize at K={k} N={n}: "
+                             f"max-abs {extra['decoded_max_abs']:.3e}")
     w_deq = [dequantize(qt, torch.bfloat16) for qt in qts]
     ms = cuda_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets)
     plain_ms = cuda_ms(lambda i: plain(x, qts[i]), n_sets, iters=4, warmup=1)
     lib_ms = cuda_ms(lambda i: torch.matmul(x, w_deq[i]), n_sets)
+    if kind == "q8t":
+        passes = kernel_device_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets,
+                                  ("quantize_rows_kernel", "qmm_s8_kernel"))
+        extra["pass1_ms"] = passes["quantize_rows_kernel"]
+        extra["pass2_ms"] = passes["qmm_s8_kernel"]
+        extra["int8_gemm_ms"] = int8_gemm_ms(x, qts, qts[0].group, n_sets)
     b_ms, b_by = bound(ops, peak, nbytes)
     return dict(shape=f"M{m} K{k} N{n}" + (f" {kind}" if kind in GGUF_KINDS else ""),
                 summed_rel=err, max_abs_err=max_abs,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, **extra)
 
 
 def check_affine_format(fmt: str, m: int, k: int, n: int, gen):
@@ -2232,6 +2300,14 @@ def main() -> int:
                 line += f" (two calls), per-group launches {r['per_group_ms']:.4f} ms"
             if "f32_decode_ms" in r:
                 line += f"; the f32-decode kernel on the same weights {r['f32_decode_ms']:.4f} ms"
+            if "pass1_ms" in r:
+                i8 = r["int8_gemm_ms"]
+                line += (f"; pass 1 (quantize) {r['pass1_ms']:.4f} ms, pass 2 (product) "
+                         f"{r['pass2_ms']:.4f} ms (profiler); int8 GEMM alone, not the library "
+                         "row: torch._int_mm " + ("n/a" if i8 is None else
+                                                  f"{i8['row_major_ms']:.4f} ms on the [K, N] "
+                                                  f"plane, {i8['col_major_ms']:.4f} ms on a "
+                                                  "column-major copy"))
             print(line)
     k4_formats = [check_affine_format(fmt, 33, 3072, 3072, gen)
                   for fmt in ("q6_k", "q4_k", "int8")]
@@ -2404,7 +2480,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **{key: r[key] for key in ("library_note", "with_prepass_ms") if key in r},
+            **{key: r[key] for key in ("library_note", "with_prepass_ms", "pass1_ms",
+                                       "pass2_ms", "int8_gemm_ms") if key in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,64 +6,84 @@
 // K11 qmm_grouped_nf4: replaces the codebook branch of _qmm_grouped_kernel
 // (:539-554), reached through _qmm_grouped_call -> pl.pallas_call (:630): up
 // to eight products of one [K, N] nf4/fp4 format in one launch. As K8 in
-// qmm_s8.cu and qmm_affine.cu, the kernel takes a group table by value {x,
-// packed, scale, codebook, out, m, tile0}; the grid runs over the sum of the
-// groups' m-tiles, a block finds its group from the tile offsets, and each
-// group's m-tiles start at its own row 0, so a group's output is K2's output
-// for that group bit for bit. K2 is the table of one group. Nothing is
-// stacked or copied per call. No fast16 mode: JAX passes fast16=False to
-// every grouped call (:726).
+// qmm_s8.cu and qmm_affine.cu, the kernel takes a group table by value; the
+// output tiles run over the sum of the groups' m-tiles, a tile's group comes
+// from the tile offsets, and each group's m-tiles start at its own row 0, so
+// a group's output is K2's output for that group bit for bit. K2 is the
+// table of one group. Nothing is stacked or copied per call. No fast16
+// mode: JAX passes fast16=False to every grouped call (:726).
 // K12 qmm_nf4_fast16: replaces the same branch with fast16=True, the opt-in
 // 16-bit decode of _dequant_tile (:45-54 with val_dtype bf16, :100-120):
 // each codebook entry rounded to bf16, times the group scale rounded to
 // bf16, the product rounded to bf16. It is K2's kernel with FAST16 = true:
-// only the per-stage decode into the bf16 shared tile changes. The codebook
-// sits in shared memory as bf16 bits; two weights pair into one
-// fma.rn.bf16x2 (a * s + -0: one rounding), half the decode's multiplies
-// of K2's f32 path. The decoded weight equals the plain version's
-// (ops/qmatmul.dequantize_fast16) bit for bit; only the f32 summation order
-// of the product differs. FAST16 = false is K2's code as it was.
+// only the decode changes. The codebook sits in shared memory as bf16 bits;
+// the two weights of an A register pair into one fma.rn.bf16x2 (a * s + -0:
+// one rounding).
 //
 // Math: the packed plane is u8 [K/2, N] in split-block order: inside each
 // `split`-row run, packed row r holds k-row r in its low nibble and k-row
 // r + split/2 in its high nibble. Each code is looked up in the 16-entry f32
 // codebook, multiplied by its per-group f32 scale, rounded to bf16, and the
-// product runs bf16 x bf16 with f32 accumulation; one cast to bf16 at the end.
+// product runs bf16 x bf16 with f32 accumulation; one cast to bf16 at the
+// end. So the decoded weight equals dequantize(qt, f32).to(bf16) (K12:
+// dequantize_fast16) bit for bit; only the f32 summation order differs.
 //
 // Bound on the H100: at the T5-XXL encode shapes (M = 512, K x N of
-// 4096 x 4096 up to 4096 x 10240) the bf16 tensor-core rate bounds it
-// (2*M*K*N operations against K*N/2 weight bytes). Design: a stage takes 32
-// packed rows, which decode into 64 k-rows (32 low-nibble rows and the 32
-// high-nibble rows split/2 further on), together with the matching two
-// 32-column slices of x. cp.async double-buffers the packed bytes and the x
-// tile; the block decodes the stage into a bf16 shared tile once (one
-// codebook lookup and one multiply per weight) and eight warps run
-// mma.sync m16n8k16 on it through ldmatrix (.trans for the K-major weight).
-// 128x128 output tiles, 64x32 per warp. wgmma/TMA are left for later work.
+// 4096 x 4096 up to 10240 x 4096) and FLUX's nf4 linears (M = 4608) the
+// bf16 tensor-core rate (2*M*K*N operations against K*N/2 weight bytes); a
+// mixed-input kernel is held back further by the decode's instructions and
+// its codebook lookups in shared memory. The kernel is warp-specialised for
+// Hopper and computes the tile of y^T = W^T x^T, so the decoded tile never
+// goes through shared memory and the planes keep their [K, N] layout:
+// * a producer warp feeds an mbarrier ring with TMA: per stage 64 packed
+//   rows x 128 columns (128-byte swizzle) and, for each half of them (32
+//   rows, inside one split-block run), the two BM x 32 slices of x they pair
+//   with (wgmma's K-major B operand, 64-byte swizzle: k_lo.. and
+//   k_lo + split/2..) and the scale row of each slice (512-byte bulk copies);
+// * two consumer warpgroups (setmaxnreg gives them the producer's
+//   registers), 64 output columns each over all BM rows: per 16 packed rows
+//   a thread loads two bytes (its two columns) of four rows, decodes them
+//   into the A fragments of two wgmma.m64nBMk16 products (one packed byte
+//   feeds k and k + split/2), and issues them while it decodes the next;
+// * shared memory bandwidth bounds the consumers: wgmma reads x once per
+//   64 A rows, and the decode reads the codebook once per weight, whose
+//   value then serves BM rows. Where the grid still fills the card four
+//   times over, BM is 256 (ops/qmatmul.py qmm_plan), halving the lookups
+//   per product;
+// * the kernel is persistent (at most one block per SM walks the output
+//   tiles through one ring), and each group's codebook sits in shared
+//   memory, since a block's tiles may belong to several groups.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int PK = 32;              // packed rows per stage
-constexpr int KS = 2 * PK;          // k values per stage
-constexpr int THREADS = 256;
-constexpr int A_STRIDE = KS + 8;    // bf16: 144-byte rows, conflict-free ldmatrix
-constexpr int W_STRIDE = BN + 8;    // bf16: 272-byte rows, conflict-free ldmatrix
-constexpr int A_ELEMS = BM * A_STRIDE;
-constexpr int P_BYTES = PK * BN;
-constexpr int W_ELEMS = KS * W_STRIDE;
-constexpr size_t SMEM_BYTES =
-    2 * A_ELEMS * sizeof(__nv_bfloat16) + 2 * P_BYTES + W_ELEMS * sizeof(__nv_bfloat16) +
-    16 * sizeof(float);
+constexpr int BN = 128;                    // output columns per tile: 64 per consumer warpgroup
+constexpr int PK = 64;                     // packed rows per ring stage: 128 k positions
+constexpr int P_BOX = PK * BN;             // packed [64][128 columns], 128-byte swizzle
+constexpr int S_ROW = BN * 4;              // one scale row of the block's columns
+constexpr int THREADS = 384;               // producer warpgroup + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;          // each releases a stage once its wgmmas are done
 constexpr int MAX_GROUPS = 8;
 
-// One product of a call: x [m, K], the planes of its [K, N] weight and its
-// codebook, output [m, N]; tile0 is where its m-tiles start in the grid.
+// A ring stage for tiles of BM rows (128 or 256; a multiple of 1024 bytes):
+// 4 x slices [BM m][32 k] bf16 (64-byte swizzle), the packed box, 4 scale rows.
+template <int BM>
+struct Ring {
+  static constexpr int STAGES = BM == 256 ? 3 : 4;
+  static constexpr int X_BOX = BM * 32 * 2;
+  static constexpr int P_OFF = 4 * X_BOX;
+  static constexpr int S_OFF = P_OFF + P_BOX;
+  static constexpr int STAGE_BYTES = S_OFF + 4 * S_ROW;
+  static constexpr size_t SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t);
+};
+
+// One product of a call: maps of x [m, K] (box BM x 32 bf16) and of the
+// packed plane [K/2, N] (box 64 x 128), the scale plane [K/group, N], the
+// codebook [16] and the output [m, N]; tile0 is where its m-tiles start
+// among the call's.
 struct Group {
-  const __nv_bfloat16* x;
-  const uint8_t* packed;
+  CUtensorMap xmap;
+  CUtensorMap pmap;
   const float* scale;
   const float* codebook;
   __nv_bfloat16* out;
@@ -75,250 +95,313 @@ struct Table {
   int count;
 };
 
-template <bool FAST16>
-__global__ void __launch_bounds__(THREADS)
-qmm_nf4_kernel(const Table tab, int K, int N, int split, int group) {
-  // This block's group: the last one whose m-tiles start at or before it.
-  const int tile = blockIdx.y;
-  Group G = tab.g[0];
-#pragma unroll
-  for (int i = 1; i < MAX_GROUPS; ++i)
-    if (i < tab.count && tile >= tab.g[i].tile0) G = tab.g[i];
-  const __nv_bfloat16* __restrict__ x = G.x;
-  const uint8_t* __restrict__ packed = G.packed;
-  const float* __restrict__ scale = G.scale;
-  const float* __restrict__ codebook = G.codebook;
-  __nv_bfloat16* __restrict__ out = G.out;
-  const int M = G.m;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);            // [2][BM][A_STRIDE]
-  uint8_t* Ps = smem + 2 * A_ELEMS * sizeof(__nv_bfloat16);                // [2][PK][BN]
-  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(Ps + 2 * P_BYTES);  // [KS][W_STRIDE]
-  float* cb = reinterpret_cast<float*>(Ws + W_ELEMS);                      // [16]
-  uint16_t* cbh = reinterpret_cast<uint16_t*>(cb);  // FAST16: [16] bf16 bits
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = (tile - G.tile0) * BM;
-  const int n0 = blockIdx.x * BN;
+// First k of the low nibbles of packed rows p.. (p % 32 == 0; the 32 rows
+// lie in one run since split % 64 == 0); their high nibbles start split/2
+// further on.
+__device__ __forceinline__ int slice_k(int p, int split) {
   const int half = split / 2;
-  const int stages_per_run = half / PK;
-  const int nstages = (K / 2) / PK;
+  return (p / half) * split + p % half;
+}
 
-  if (tid < 16) {
-    if constexpr (FAST16) {
-      cbh[tid] = bf16_bits(codebook[tid]);
-    } else {
-      cb[tid] = codebook[tid];
-    }
-  }
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // Stage s: packed rows run*half + r0 .. +PK, i.e. k_lo .. k_lo+PK (low
-  // nibbles) and k_lo+half .. +PK (high nibbles).
-  auto k_lo_of = [&](int s) {
-    return (s / stages_per_run) * split + (s % stages_per_run) * PK;
-  };
-  auto load_stage = [&](int s, int buf) {
-    const int k_lo = k_lo_of(s);
-    const int prow = (s / stages_per_run) * half + (s % stages_per_run) * PK;
-    __nv_bfloat16* a = As + buf * A_ELEMS;
-    // x: BM rows x (32 low + 32 high) bf16 = 8 chunks of 16 bytes per row
-#pragma unroll
-    for (int c = tid; c < BM * 8; c += THREADS) {
-      const int r = c >> 3;
-      const int ch = c & 7;
-      const int kg = (ch < 4) ? k_lo + ch * 8 : k_lo + half + (ch - 4) * 8;
-      const int gr = m0 + r;
-      cp_async16(a + r * A_STRIDE + ch * 8, x + (size_t)(gr < M ? gr : 0) * K + kg,
-                 gr < M ? 16 : 0);
-    }
-    uint8_t* p = Ps + buf * P_BYTES;
-    for (int c = tid; c < PK * BN / 16; c += THREADS) {
-      const int r = c >> 3;
-      const int ch = c & 7;
-      cp_async16(p + r * BN + ch * 16, packed + (size_t)(prow + r) * N + n0 + ch * 16, 16);
-    }
-    cp_async_commit();
-  };
-
-  load_stage(0, 0);
-  for (int s = 0; s < nstages; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < nstages) {
-      load_stage(s + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // Decode: 32 x 128 packed bytes -> 64 x 128 bf16 (f32 math, then round).
-    {
-      const int k_lo = k_lo_of(s);
-      const float* s_lo = scale + (size_t)(k_lo / group) * N + n0;
-      const float* s_hi = scale + (size_t)((k_lo + half) / group) * N + n0;
-      const uint8_t* p = Ps + buf * P_BYTES;
-#pragma unroll
-      for (int q = 0; q < (PK * BN / 4) / THREADS; ++q) {
-        const int wi = tid + q * THREADS;
-        const int r = wi / (BN / 4);
-        const int c4 = (wi % (BN / 4)) * 4;
-        const uint32_t word = *reinterpret_cast<const uint32_t*>(p + r * BN + c4);
-        const float4 sl = *reinterpret_cast<const float4*>(s_lo + c4);
-        const float4 sh = *reinterpret_cast<const float4*>(s_hi + c4);
-        if constexpr (FAST16) {
-          // pairs of bf16 entries times pairs of bf16 scales, one rounding
-          uint32_t lo[2], hi[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint32_t b0 = (word >> (16 * h)) & 0xFFu;
-            const uint32_t b1 = (word >> (16 * h + 8)) & 0xFFu;
-            lo[h] = cbh[b0 & 0xFu] | (static_cast<uint32_t>(cbh[b1 & 0xFu]) << 16);
-            hi[h] = cbh[b0 >> 4] | (static_cast<uint32_t>(cbh[b1 >> 4]) << 16);
-          }
-          *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) =
-              make_uint2(bf16x2_mul(lo[0], pack_bf16x2(sl.x, sl.y)),
-                         bf16x2_mul(lo[1], pack_bf16x2(sl.z, sl.w)));
-          *reinterpret_cast<uint2*>(Ws + (PK + r) * W_STRIDE + c4) =
-              make_uint2(bf16x2_mul(hi[0], pack_bf16x2(sh.x, sh.y)),
-                         bf16x2_mul(hi[1], pack_bf16x2(sh.z, sh.w)));
-          continue;
-        }
-        const float slv[4] = {sl.x, sl.y, sl.z, sl.w};
-        const float shv[4] = {sh.x, sh.y, sh.z, sh.w};
-        float lo[4], hi[4];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const uint32_t byte = (word >> (8 * b)) & 0xFFu;
-          lo[b] = __fmul_rn(cb[byte & 0xFu], slv[b]);
-          hi[b] = __fmul_rn(cb[byte >> 4], shv[b]);
-        }
-        *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) =
-            make_uint2(pack_bf16x2(lo[0], lo[1]), pack_bf16x2(lo[2], lo[3]));
-        *reinterpret_cast<uint2*>(Ws + (PK + r) * W_STRIDE + c4) =
-            make_uint2(pack_bf16x2(hi[0], hi[1]), pack_bf16x2(hi[2], hi[3]));
-      }
-    }
-    __syncthreads();
-
-    const __nv_bfloat16* a_s = As + buf * A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ldmatrix_x4(a[i], a_s + (wm * 64 + i * 16 + (lane & 15)) * A_STRIDE + kk + (lane >> 4) * 8);
-      }
-      uint32_t b[4][2];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        uint32_t r4[4];
-        ldmatrix_x4_trans(r4, Ws + (kk + (lane & 15)) * W_STRIDE + wn * 32 + jj * 16 + (lane >> 4) * 8);
-        b[2 * jj][0] = r4[0];
-        b[2 * jj][1] = r4[1];
-        b[2 * jj + 1][0] = r4[2];
-        b[2 * jj + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = m0 + wm * 64 + i * 16 + g + hr * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
-            pack_bf16x2(acc[i][j][hr * 2], acc[i][j][hr * 2 + 1]);
-      }
-    }
+template <int BM>
+__device__ __forceinline__ void wgmma_bf16(float* acc, const uint32_t* a, uint64_t desc) {
+  if constexpr (BM == 256) {
+    wgmma_bf16_m64n256k16(acc, a, desc, 1);
+  } else {
+    wgmma_bf16_m64n128k16(acc, a, desc, 1);
   }
 }
 
-// Fills the tile offsets and launches the kernel for the table.
-template <bool FAST16>
-int run(Table& tab, int K, int N, int split, int group, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        qmm_nf4_kernel<FAST16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+// Output tile t of a call: m-tile t / n_tiles (of the groups' m-tiles, in
+// order), n-tile t % n_tiles; consecutive tiles share their x rows.
+struct TileAt {
+  int gi, m0, n0;
+};
+
+template <int BM>
+__device__ __forceinline__ TileAt tile_at(const Table& tab, int t, int n_tiles) {
+  const int mt = t / n_tiles;
+  int gi = 0;
+#pragma unroll
+  for (int i = 1; i < MAX_GROUPS; ++i)
+    if (i < tab.count && mt >= tab.g[i].tile0) gi = i;
+  return {gi, (mt - tab.g[gi].tile0) * BM, (t % n_tiles) * BN};
+}
+
+// Persistent: each block walks tiles blockIdx.x, + gridDim.x, ... through
+// one ring, so the producer loads the next tile while the consumers store
+// the last one.
+template <bool FAST16, int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_nf4_kernel(const __grid_constant__ Table tab, int tiles, int K, int N, int split,
+               int group) {
+  using R = Ring<BM>;
+  constexpr int STAGES = R::STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ float cb[MAX_GROUPS][16];
+  __shared__ uint16_t cbh[MAX_GROUPS][16];  // FAST16: bf16 bits
+  uint8_t* stages = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * R::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int n_tiles = N / BN;
+  const int prows = K / 2;
+  const int nstages = (prows + PK - 1) / PK;  // per tile
+
+  if (threadIdx.x < 16 * MAX_GROUPS && threadIdx.x / 16 < tab.count) {
+    const int gc = threadIdx.x / 16, e = threadIdx.x % 16;
+    if constexpr (FAST16) {
+      cbh[gc][e] = bf16_bits(tab.g[gc].codebook[e]);
+    } else {
+      cb[gc][e] = tab.g[gc].codebook[e];
+    }
   }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;  // stages issued so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const TileAt T = tile_at<BM>(tab, t, n_tiles);
+        const Group& G = tab.g[T.gi];
+        for (int sp = 0; sp < nstages; ++sp, ++s) {
+          const int buf = s % STAGES;
+          if (s >= STAGES) mbar_wait(&empty[buf], ((s / STAGES) + 1) & 1);
+          uint8_t* st = stages + buf * R::STAGE_BYTES;
+          // a last stage of 32 rows (K/2 % 64 == 32) loads one half
+          const int halves = prows - sp * PK > 32 ? 2 : 1;
+          mbar_expect_tx(&full[buf], P_BOX + halves * 2 * (R::X_BOX + S_ROW));
+          tma_load_2d(st + R::P_OFF, &G.pmap, T.n0, sp * PK, &full[buf]);
+          for (int hs = 0; hs < halves; ++hs) {
+            const int k_lo = slice_k(sp * PK + 32 * hs, split);
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              // slice 2hs + b: k_lo (b = 0) or k_lo + split/2; a 32-aligned
+              // slice lies in one scale group (group % 32 == 0)
+              const int k = k_lo + b * (split / 2);
+              tma_load_2d(st + (2 * hs + b) * R::X_BOX, &G.xmap, k, T.m0, &full[buf]);
+              bulk_load(st + R::S_OFF + (2 * hs + b) * S_ROW,
+                        G.scale + (size_t)(k / group) * N + T.n0, S_ROW, &full[buf]);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups.
+  setmaxnreg_inc<232>();
+  const int ct = threadIdx.x - 128;
+  const int cw = ct >> 7;
+  const int w = (ct >> 5) & 3;
+  const int lane = ct & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // A rows 16w + g and 16w + g + 8 of the warpgroup hold block columns nb
+  // and nb + 1: one 16-bit load per packed row gives both. Its packed rows
+  // 2t + {0, 1, 8, 9} of a 16-row block: k 2t, 2t + 1 (a0, a1) and 2t + 8,
+  // 2t + 9 (a2, a3); the swizzle puts the four t on four 16-byte chunks.
+  const int nb = 64 * cw + 16 * w + 2 * g;
+  uint32_t p_off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = 2 * t4 + (j & 1) + 8 * (j >> 1);
+    p_off[j] = r * BN + (((nb >> 4) ^ (r & 7)) << 4) + (nb & 15);
+  }
+
+  int s = 0;  // stages consumed so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TileAt T = tile_at<BM>(tab, t, n_tiles);
+    const float* cbg = cb[T.gi];
+    const uint16_t* cbhg = cbh[T.gi];
+    // two codes (k, k + 1 of one column) times that column's scale -> one A register
+    auto decode2 = [&](uint32_t c0, uint32_t c1, float sc) -> uint32_t {
+      if constexpr (FAST16) {
+        const uint32_t e = static_cast<uint32_t>(cbhg[c0]) | (static_cast<uint32_t>(cbhg[c1]) << 16);
+        return bf16x2_mul(e, pack_bf16x2(sc, sc));
+      } else {
+        return pack_bf16x2(__fmul_rn(cbg[c0], sc), __fmul_rn(cbg[c1], sc));
+      }
+    };
+    float acc[BM / 2];
+#pragma unroll
+    for (int r = 0; r < BM / 2; ++r) acc[r] = 0.f;
+
+    // A stage is released once its wgmmas are done: one stage's group stays
+    // in flight while the next stage decodes.
+    int pending = -1;
+    for (int sp = 0; sp < nstages; ++sp, ++s) {
+      const int buf = s % STAGES;
+      mbar_wait(&full[buf], (s / STAGES) & 1);
+      const uint8_t* st = stages + buf * R::STAGE_BYTES;
+      const int blocks = min(PK, prows - sp * PK) / 16;
+#pragma unroll
+      for (int i = 0; i < PK / 16; ++i) {
+        if (i < blocks) {
+          // packed rows 16i..16i+15: low nibbles in slice 2(i/2), high
+          // nibbles in slice 2(i/2) + 1, 16 k (32 bytes) into each
+          const int b_lo = 2 * (i >> 1), b_hi = b_lo + 1;
+          const int k_off = 32 * (i & 1);
+          const float2 s_lo =
+              *reinterpret_cast<const float2*>(st + R::S_OFF + b_lo * S_ROW + nb * 4);
+          const float2 s_hi =
+              *reinterpret_cast<const float2*>(st + R::S_OFF + b_hi * S_ROW + nb * 4);
+          uint32_t v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = *reinterpret_cast<const uint16_t*>(st + R::P_OFF + 16 * i * BN + p_off[j]);
+          // byte 0: column nb (rows g: a0, a2), byte 1: nb + 1 (rows g + 8: a1, a3)
+          uint32_t a_lo[4], a_hi[4];
+          a_lo[0] = decode2(v[0] & 15u, v[1] & 15u, s_lo.x);
+          a_lo[1] = decode2((v[0] >> 8) & 15u, (v[1] >> 8) & 15u, s_lo.y);
+          a_lo[2] = decode2(v[2] & 15u, v[3] & 15u, s_lo.x);
+          a_lo[3] = decode2((v[2] >> 8) & 15u, (v[3] >> 8) & 15u, s_lo.y);
+          a_hi[0] = decode2((v[0] >> 4) & 15u, (v[1] >> 4) & 15u, s_hi.x);
+          a_hi[1] = decode2(v[0] >> 12, v[1] >> 12, s_hi.y);
+          a_hi[2] = decode2((v[2] >> 4) & 15u, (v[3] >> 4) & 15u, s_hi.x);
+          a_hi[3] = decode2(v[2] >> 12, v[3] >> 12, s_hi.y);
+          wgmma_fence();
+          wgmma_bf16<BM>(acc, a_lo, wgmma_desc(st + b_lo * R::X_BOX + k_off, 512, 2));
+          wgmma_bf16<BM>(acc, a_hi, wgmma_desc(st + b_hi * R::X_BOX + k_off, 512, 2));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (pending >= 0 && lane == 0) mbar_arrive(&empty[pending]);
+      pending = buf;
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[pending]);
+#pragma unroll
+    for (int r = 0; r < BM / 2; ++r) reg_fence(acc[r]);
+
+    // acc[4j + 2h + e]: row m0 + 8j + 2t + e, block column nb + h.
+    const Group& G = tab.g[T.gi];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = T.m0 + 8 * j + 2 * t4 + e;
+        if (row < G.m)
+          *reinterpret_cast<uint32_t*>(G.out + (size_t)row * N + T.n0 + nb) =
+              pack_bf16x2(acc[4 * j + e], acc[4 * j + 2 + e]);
+      }
+  }
+}
+
+// One product's arguments, as the entry points take them.
+struct Args {
+  const void* x;
+  const void* packed;
+  const void* scale;
+  const void* codebook;
+  void* out;
+  int m;
+};
+
+// The kernel over m_tiles x N/128 output tiles, one block per SM at most.
+template <bool FAST16, int BM>
+cudaError_t launch(const Table& tab, int m_tiles, int K, int N, int split, int group,
+                   cudaStream_t stream) {
+  static int sms = 0;
+  const size_t smem = Ring<BM>::SMEM_BYTES;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(qmm_nf4_kernel<FAST16, BM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return err;
+    }
+  }
+  const int tiles = m_tiles * (N / BN);
+  qmm_nf4_kernel<FAST16, BM><<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
+      tab, tiles, K, N, split, group);
+  return cudaGetLastError();
+}
+
+// Encodes the groups' maps and launches the kernel with blocks of bm rows
+// (128 or 256). Returns a cudaError_t.
+template <bool FAST16>
+int run(const Args* args, int count, int K, int N, int split, int group, int bm,
+        cudaStream_t stream) {
+  if (split % 64 != 0 || K % split != 0 || group % 32 != 0 || K % group != 0 || N % BN != 0 ||
+      (bm != 128 && bm != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Table tab{};
+  tab.count = count;
   int tiles = 0;
-  for (int i = 0; i < tab.count; ++i) {
-    tab.g[i].tile0 = tiles;
-    tiles += (tab.g[i].m + BM - 1) / BM;
+  for (int i = 0; i < count; ++i) {
+    const Args& a = args[i];
+    Group& g = tab.g[i];
+    g.scale = static_cast<const float*>(a.scale);
+    g.codebook = static_cast<const float*>(a.codebook);
+    g.out = static_cast<__nv_bfloat16*>(a.out);
+    g.m = a.m;
+    g.tile0 = tiles;
+    if (a.m > 0) {
+      int err = encode_tensor_map_2d(&g.xmap, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.m, K,
+                                     bm, 32, CU_TENSOR_MAP_SWIZZLE_64B);
+      if (err == 0)
+        err = encode_tensor_map_2d(&g.pmap, a.packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2, N,
+                                   PK, BN, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err != 0) return err;
+    }
+    tiles += (a.m + bm - 1) / bm;
   }
   if (tiles == 0) return 0;
-  dim3 grid(N / BN, tiles);
-  qmm_nf4_kernel<FAST16><<<grid, THREADS, SMEM_BYTES, stream>>>(tab, K, N, split, group);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = bm == 256 ? launch<FAST16, 256>(tab, tiles, K, N, split, group, stream)
+                                    : launch<FAST16, 128>(tab, tiles, K, N, split, group, stream);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // K2. x bf16 [M, K]; packed u8 [K/2, N]; scale f32 [K/group, N]; codebook f32
-// [16]; out bf16 [M, N]. Needs split % 64 == 0, K % split == 0,
-// group % 32 == 0, N % 128 == 0. Returns cudaGetLastError().
+// [16]; out bf16 [M, N]; blocks of block_m rows, 128 or 256 (ops/qmatmul.py
+// qmm_plan). Needs split % 64 == 0, K % split == 0, group % 32 == 0,
+// N % 128 == 0, and 16-byte aligned x, packed and scale. Returns
+// cudaGetLastError(), or the tensor-map encoder's refusal.
 extern "C" int qmm_nf4(const void* x, const void* packed, const void* scale,
                        const void* codebook, void* out, int M, int K, int N,
-                       int split, int group, void* stream) {
-  Table tab{};
-  tab.count = 1;
-  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-              static_cast<const float*>(scale), static_cast<const float*>(codebook),
-              static_cast<__nv_bfloat16*>(out), M, 0};
-  return run<false>(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
+                       int split, int group, int block_m, void* stream) {
+  const Args a{x, packed, scale, codebook, out, M};
+  return run<false>(&a, 1, K, N, split, group, block_m, static_cast<cudaStream_t>(stream));
 }
 
 // K12: K2 with the fast16 decode; the same arguments.
 extern "C" int qmm_nf4_fast16(const void* x, const void* packed, const void* scale,
                               const void* codebook, void* out, int M, int K, int N,
-                              int split, int group, void* stream) {
-  Table tab{};
-  tab.count = 1;
-  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-              static_cast<const float*>(scale), static_cast<const float*>(codebook),
-              static_cast<__nv_bfloat16*>(out), M, 0};
-  return run<true>(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
+                              int split, int group, int block_m, void* stream) {
+  const Args a{x, packed, scale, codebook, out, M};
+  return run<true>(&a, 1, K, N, split, group, block_m, static_cast<cudaStream_t>(stream));
 }
 
 // K11. table: G rows of 6 int64 {x, packed, scale, codebook, out, m}, each
 // group as K2's arguments, all of one K, N, split and group. 1 <= G <= 8.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a bad G.
 extern "C" int qmm_grouped_nf4(const long long* table, int G, int K, int N, int split,
-                               int group, void* stream) {
+                               int group, int block_m, void* stream) {
   if (G < 1 || G > MAX_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
-  Table tab{};
-  tab.count = G;
+  Args args[MAX_GROUPS];
   for (int i = 0; i < G; ++i) {
     const long long* r = table + 6 * i;
-    tab.g[i] = {reinterpret_cast<const __nv_bfloat16*>(r[0]),
-                reinterpret_cast<const uint8_t*>(r[1]), reinterpret_cast<const float*>(r[2]),
-                reinterpret_cast<const float*>(r[3]), reinterpret_cast<__nv_bfloat16*>(r[4]),
-                static_cast<int>(r[5]), 0};
+    args[i] = {reinterpret_cast<const void*>(r[0]), reinterpret_cast<const void*>(r[1]),
+               reinterpret_cast<const void*>(r[2]), reinterpret_cast<const void*>(r[3]),
+               reinterpret_cast<void*>(r[4]), static_cast<int>(r[5])};
   }
-  return run<false>(tab, K, N, split, group, static_cast<cudaStream_t>(stream));
+  return run<false>(args, G, K, N, split, group, block_m, static_cast<cudaStream_t>(stream));
 }

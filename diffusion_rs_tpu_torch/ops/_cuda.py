@@ -49,9 +49,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNELS = {
     "qmm_s8": ("qmm_s8", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "qmm_grouped_s8": ("qmm_s8", [_P, _I, _I, _I, _I, _P]),
-    "qmm_nf4": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "qmm_grouped_nf4": ("qmm_nf4", [_P, _I, _I, _I, _I, _I, _P]),
-    "qmm_nf4_fast16": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "qmm_nf4": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "qmm_grouped_nf4": ("qmm_nf4", [_P, _I, _I, _I, _I, _I, _I, _P]),
+    "qmm_nf4_fast16": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "qmm_affine": ("qmm_affine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "qmm_grouped_affine": ("qmm_affine", [_P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "qmm_affine_fast16": ("qmm_affine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

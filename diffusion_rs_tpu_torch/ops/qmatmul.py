@@ -17,7 +17,10 @@ Port of ``diffusion_rs_tpu/ops/qmatmul_pallas.py``. The dispatch mirrors
 Three hand-written Hopper kernel sources (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``,
 ``csrc/qmm_affine.cu``) serve the CUDA path. Beside each is its plain PyTorch version, which follows
 the Pallas math tile for tile. A wrapper given a CPU tensor runs the plain
-version; given a CUDA tensor it launches the kernel or raises.
+version; given a CUDA tensor it launches the kernel or raises. The q8t and
+nf4 kernels are fed by TMA: :func:`qmm_plan` is their launch plan (tiles,
+ring, scratch layout) and :func:`check_tma_operand` the alignment their
+operands need.
 
 :func:`quantized_matmul_grouped` (``quantized_matmul_grouped`` at
 qmatmul_pallas.py:664) runs several same-format ``[K, N]`` products in one
@@ -29,8 +32,9 @@ kernels do not tile, take per-group :func:`quantized_matmul`, as JAX does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,6 +79,100 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Launch plans of the TMA-fed kernels: K1 / K8-s8 and K2 / K11 / K12
+# ---------------------------------------------------------------------------
+
+
+SMS = 132  # streaming multiprocessors of the H100 SXM the plans are made for
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmPlan:
+    """How ``csrc/qmm_s8.cu`` (``kind="s8"``: K1, K8-s8) or
+    ``csrc/qmm_nf4.cu`` (``"nf4"``: K2, K11, K12) tiles one ``[M, K] x
+    [K, N]`` product; the numbers mirror the sources' constants. An output
+    tile is ``block_m`` rows x ``block_n`` columns, computed by two consumer
+    warpgroups that walk K through a ring of ``stages`` TMA stages of
+    ``stage_k`` k values each; the kernels are persistent, min(tiles, SMs)
+    blocks taking the tiles in order. ``sx_rows`` is the row count of the
+    s8 path's activation-scale scratch ``[K / bk, sx_rows]``: M rounded up
+    to ``block_m``, so that a tile's scales of one K-tile are one 512-byte
+    copy (0 for nf4)."""
+
+    kind: str
+    m: int
+    k: int
+    n: int
+    block_m: int
+    block_n: int
+    stage_k: int
+    stages: int
+    sx_rows: int
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """(column tiles, row tiles) of a one-group call of ``m`` rows."""
+        return self.n // self.block_n, -(-self.m // self.block_m)
+
+    def tiles(self) -> List[Tuple[int, int, int, int]]:
+        """``(m0, n0, rows, cols)`` of every output tile, rows clipped to M."""
+        gx, gy = self.grid
+        return [(by * self.block_m, bx * self.block_n,
+                 min(self.block_m, self.m - by * self.block_m), self.block_n)
+                for by in range(gy) for bx in range(gx)]
+
+
+def qmm_plan(kind: str, m: int, k: int, n: int, *, bk: Optional[int] = None,
+             split: Optional[int] = None, group: Optional[int] = None,
+             group_ms: Optional[Sequence[int]] = None) -> QmmPlan:
+    """The launch plan of the q8t kernel (``kind="s8"``, K-tile ``bk``) or
+    the 4-bit codebook kernel (``"nf4"``, ``split``, ``group``) for an
+    ``[m, k] x [k, n]`` product, or for a grouped call whose groups have
+    ``group_ms`` rows. Raises ValueError for a shape the kernel does not
+    take.
+
+    q8t tiles are 128 x 128 and stage 128 k where the K-tile allows (64
+    for img_in's K = 64): at M4096 K3072 N3072, 768 tiles, 5.8 per SM of
+    the card's 132. nf4 tiles are 128 columns by 256 rows where that still
+    leaves four tiles per SM (M4608 N12288: 1728 tiles), else 128 rows (the
+    T5 shapes, M512 N4096: 128 tiles)."""
+    if kind == "s8":
+        _require(k % 64 == 0 and bk % 64 == 0 and k % bk == 0 and n % 128 == 0,
+                 f"qmm_s8 needs K, K-tile % 64 == 0 and N % 128 == 0 (K={k}, "
+                 f"tile={bk}, N={n})")
+        stage_k = 128 if bk % 128 == 0 else 64
+        return QmmPlan("s8", m, k, n, block_m=128, block_n=128, stage_k=stage_k,
+                       stages=6 if stage_k == 128 else 8, sx_rows=-(-m // 128) * 128)
+    if kind == "nf4":
+        _require(split % 64 == 0 and k % split == 0 and group % 32 == 0
+                 and k % group == 0 and n % 128 == 0,
+                 f"qmm_nf4 needs split % 64 == 0, group % 32 == 0 and N % 128 == 0 "
+                 f"(split={split}, group={group}, N={n})")
+        ms = [m] if group_ms is None else group_ms
+        wide = sum(-(-mi // 256) for mi in ms) * (n // 128) >= 4 * SMS
+        block_m = 256 if wide else 128
+        return QmmPlan("nf4", m, k, n, block_m=block_m, block_n=128, stage_k=128,
+                       stages=3 if wide else 4, sx_rows=0)
+    raise ValueError(f"qmm_plan: no TMA-fed kernel of kind {kind!r}")
+
+
+TMA_ALIGN = 16  # bytes
+
+
+def check_tma_operand(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` can be read by TMA (and by K1's quantize pass,
+    which loads 16 bytes per lane): a 16-byte aligned base and, for a
+    matrix, a 16-byte aligned row stride with unit column stride."""
+    base = t.data_ptr() % TMA_ALIGN
+    row = t.stride(0) * t.element_size() if t.dim() >= 2 else 0
+    unit = t.dim() < 2 or t.stride(-1) == 1
+    if base or row % TMA_ALIGN or not unit:
+        raise ValueError(f"{name}: TMA needs a {TMA_ALIGN}-byte aligned base and row "
+                         f"stride (base {base} bytes past alignment, row stride "
+                         f"{row} bytes, column stride {t.stride(-1)})")
+
+
+# ---------------------------------------------------------------------------
 # K1: s8 x s8 -> s32 (q8t)
 # ---------------------------------------------------------------------------
 
@@ -104,19 +202,29 @@ def qmm_s8_plain(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 def _check_s8(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
-              device=None) -> None:
+              device=None) -> QmmPlan:
     """What K1 takes (K8-s8 checks each group with it): bf16 x [M, K] on
-    ``device`` (any CUDA device when None), the q8t planes beside it."""
+    ``device`` (any CUDA device when None), the q8t planes beside it, each
+    aligned for TMA. Returns the launch plan."""
     m, k = x2.shape
     n, bk = qt.n, qt.group
     _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
              f"{name} takes bf16 activations and produces bf16")
-    _require(k % 64 == 0 and bk % 64 == 0 and k % bk == 0 and n % 128 == 0,
-             f"{name} needs K, K-tile % 64 == 0 and N % 128 == 0 (K={k}, "
-             f"tile={bk}, N={n})")
+    plan = qmm_plan("s8", m, k, n, bk=bk)
     _check_cuda(x2, (m, k), torch.bfloat16, "x", device)
     _check_cuda(qt.packed, (k, n), torch.int8, "packed", x2.device)
     _check_cuda(qt.scale, (k // bk, n), torch.float32, "scale", x2.device)
+    for nm, t in (("x", x2), ("packed", qt.packed), ("scale", qt.scale)):
+        check_tma_operand(nm, t)
+    return plan
+
+
+def _s8_scratch(x2: torch.Tensor, plan: QmmPlan, bk: int):
+    """K1's scratch for one group: the int8 copy of x [M, K] and the
+    transposed activation scales [K / bk, sx_rows]."""
+    xq = torch.empty((plan.m, plan.k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((plan.k // bk, plan.sx_rows), dtype=torch.float32, device=x2.device)
+    return xq, sx
 
 
 def qmm_s8(x2: torch.Tensor, qt: QuantizedTensor,
@@ -124,11 +232,10 @@ def qmm_s8(x2: torch.Tensor, qt: QuantizedTensor,
     """``x2 [M, K] @ deq(q8t W) [K, N]`` through ``csrc/qmm_s8.cu``."""
     if x2.device.type == "cpu":
         return qmm_s8_plain(x2, qt.packed, qt.scale, out_dtype)
-    _check_s8("qmm_s8", x2, qt, out_dtype)
+    plan = _check_s8("qmm_s8", x2, qt, out_dtype)
     m, k = x2.shape
     n, bk = qt.n, qt.group
-    xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
-    sx = torch.empty((m, k // bk), dtype=torch.float32, device=x2.device)
+    xq, sx = _s8_scratch(x2, plan, bk)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     _cuda.launch("qmm_s8", x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
                  qt.packed.data_ptr(), qt.scale.data_ptr(), out.data_ptr(),
@@ -154,23 +261,23 @@ def qmm_dequant_plain(x2: torch.Tensor, qt: QuantizedTensor,
 
 
 def _check_nf4(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
-               device=None) -> None:
+               device=None) -> QmmPlan:
     """What K2 takes (K11 checks each group with it): bf16 x [M, K] on
     ``device`` (any CUDA device when None), the 4-bit codebook planes beside
-    it."""
+    it, each aligned for TMA. Returns the launch plan."""
     m, k = x2.shape
     n = qt.n
     _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
              f"{name} takes bf16 activations and produces bf16")
     _require(_codebook_ok(qt), f"{name} takes 4-bit codebook codes without a bias ({qt.kind})")
-    _require(qt.split % 64 == 0 and k % qt.split == 0 and qt.group % 32 == 0
-             and k % qt.group == 0 and n % 128 == 0,
-             f"{name} needs split % 64 == 0, group % 32 == 0 and N % 128 == 0 "
-             f"(split={qt.split}, group={qt.group}, N={n})")
+    plan = qmm_plan("nf4", m, k, n, split=qt.split, group=qt.group)
     _check_cuda(x2, (m, k), torch.bfloat16, "x", device)
     _check_cuda(qt.packed, (k // 2, n), torch.uint8, "packed", x2.device)
     _check_cuda(qt.scale, (k // qt.group, n), torch.float32, "scale", x2.device)
     _check_cuda(qt.codebook, (16,), torch.float32, "codebook", x2.device)
+    for nm, t in (("x", x2), ("packed", qt.packed), ("scale", qt.scale)):
+        check_tma_operand(nm, t)
+    return plan
 
 
 def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
@@ -178,7 +285,7 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
     """``x2 [M, K] @ deq(nf4 W) [K, N]`` through ``csrc/qmm_nf4.cu``."""
     if x2.device.type == "cpu":
         return qmm_dequant_plain(x2, qt, out_dtype)
-    _check_nf4("qmm_nf4", x2, qt, out_dtype)
+    plan = _check_nf4("qmm_nf4", x2, qt, out_dtype)
     m, k = x2.shape
     n = qt.n
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
@@ -186,7 +293,7 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
         return out
     _cuda.launch("qmm_nf4", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
-                 m, k, n, qt.split, qt.group, device=x2.device)
+                 m, k, n, qt.split, qt.group, plan.block_m, device=x2.device)
     return out
 
 
@@ -299,14 +406,14 @@ def qmm_nf4_fast16(x2: torch.Tensor, qt: QuantizedTensor,
     ``csrc/qmm_nf4.cu`` (``qmm_nf4_fast16``), K2 with the fast16 decode."""
     if x2.device.type == "cpu":
         return qmm_dequant_fast16_plain(x2, qt, out_dtype)
-    _check_nf4("qmm_nf4_fast16", x2, qt, out_dtype)
+    plan = _check_nf4("qmm_nf4_fast16", x2, qt, out_dtype)
     m, k = x2.shape
     out = torch.empty((m, qt.n), dtype=torch.bfloat16, device=x2.device)
     if m == 0:
         return out
     _cuda.launch("qmm_nf4_fast16", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
-                 m, k, qt.n, qt.split, qt.group, device=x2.device)
+                 m, k, qt.n, qt.split, qt.group, plan.block_m, device=x2.device)
     return out
 
 
@@ -419,10 +526,9 @@ def qmm_grouped_s8(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
     bk = qts[0].group
     rows, outs, keep = [], [], []
     for x2, qt in zip(x2s, qts):
-        _check_s8("qmm_grouped_s8", x2, qt, out_dtype, x2s[0].device)
+        plan = _check_s8("qmm_grouped_s8", x2, qt, out_dtype, x2s[0].device)
         m = x2.shape[0]
-        xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
-        sx = torch.empty((m, k // bk), dtype=torch.float32, device=x2.device)
+        xq, sx = _s8_scratch(x2, plan, bk)
         out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
         keep += [xq, sx]  # alive until the launch: the table holds bare pointers
         outs.append(out)
@@ -481,8 +587,10 @@ def qmm_grouped_nf4(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
         rows.append((x2.data_ptr(), qt.packed.data_ptr(), qt.scale.data_ptr(),
                      qt.codebook.data_ptr(), out.data_ptr(), m))
     table = _table(rows)
+    plan = qmm_plan("nf4", rows[0][5], k, n, split=q0.split, group=q0.group,
+                    group_ms=[r[5] for r in rows])
     _cuda.launch("qmm_grouped_nf4", ctypes.addressof(table), len(rows), k, n, q0.split,
-                 q0.group, device=x2s[0].device)
+                 q0.group, plan.block_m, device=x2s[0].device)
     return outs
 
 

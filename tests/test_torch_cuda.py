@@ -61,10 +61,15 @@ def _within_summation_order(y, ref, x, qt) -> bool:
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 768, 384), (200, 768, 384), (513, 64, 256),
-                                   (33, 3072, 128)])
+                                   (33, 3072, 128), (4, 320, 256)]
+                         + [(m, 64, n) for m in (1, 8, 9, 65, 257) for n in (128, 384)])
 def test_k1_matches_plain(dev, m, k, n):
-    """Bit for bit: same IEEE quotient, same integer dot, same f32 epilogue
-    order; the band allows nothing beyond bf16 output ties."""
+    """Bit for bit: same IEEE quotient, same integer dot (exact in s32 and in
+    the plain version's float64), same f32 fold order, so torch.equal. The
+    kernel's edges: M of one row, below and across 64 and the 128-row tile
+    (1, 8, 9, 65, 257), K = 64 (img_in: one 64-wide K-tile, one 64-k ring
+    stage), N of one and of three 128-column tiles, and K-tiles of 64 over
+    K = 320 (five K-tiles of one stage each)."""
     gen = torch.Generator(device=dev).manual_seed(m)
     qt = random_qtensor(gen, k, n, kind="q8t", device=dev)
     qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
@@ -73,7 +78,7 @@ def test_k1_matches_plain(dev, m, k, n):
     y = qmatmul.qmm_s8(x, qt, torch.bfloat16)
     assert _cuda.launch_counts()["qmm_s8"] == before + 1
     ref = qmatmul.qmm_s8_plain(x, qt.packed, qt.scale, torch.bfloat16)
-    assert _summed_rel(y, ref) <= 1e-5
+    assert torch.equal(y, ref)
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 1024, 384), (130, 1024, 384), (64, 640, 128)])
@@ -86,6 +91,49 @@ def test_k2_matches_plain(dev, m, k, n):
     y = qmatmul.qmm_nf4(x, qt, torch.bfloat16)
     ref = qmatmul.qmm_dequant_plain(x, qt, torch.bfloat16)
     assert _summed_rel(y, ref) <= 2e-3
+
+
+@pytest.mark.parametrize("kind", ["nf4", "fp4"])
+@pytest.mark.parametrize("k,split", [(192, 64), (384, 128), (512, 256)])
+@pytest.mark.parametrize("group", [32, 64])
+def test_k2_decodes_dequantize_exactly(dev, kind, k, split, group):
+    """K2's decoded weight, the product with the identity, equals
+    ``dequantize(qt, f32).to(bf16)`` bit for bit (each output is one weight
+    times 1 plus zeros): the f32 codebook entry times the f32 group scale,
+    rounded once. Splits 64 (K=192: a last ring stage of 32 packed rows),
+    128 and 256; scale groups of 32 and 64."""
+    from diffusion_rs_tpu_torch.quant.bnb import CODEBOOKS
+
+    gen = torch.Generator(device=dev).manual_seed(k + group)
+    qt = random_qtensor(gen, k, 256, kind="nf4", group=group, device=dev)
+    assert qt.split == split
+    qt.scale.uniform_(0.01, 0.03, generator=gen)
+    if kind == "fp4":
+        qt = dataclasses.replace(qt, kind="fp4", codebook=torch.as_tensor(
+            CODEBOOKS["fp4"], device=dev))
+    eye = torch.eye(k, device=dev, dtype=torch.bfloat16)
+    before = _cuda.launch_counts()["qmm_nf4"]
+    w = qmatmul.qmm_nf4(eye, qt, torch.bfloat16)
+    assert _cuda.launch_counts()["qmm_nf4"] == before + 1
+    assert torch.equal(w, dequantize(qt, torch.float32).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("fast16", [False, True])
+def test_k2_rows_do_not_depend_on_block_rows(dev, fast16):
+    """The plan runs M4608 N12288 in 256-row tiles and M512 of the same
+    weight in 128-row tiles (wgmma N 256 and 128); each row must come out
+    the same either way: config D's grouped K11 runs the txt rows in the
+    img rows' 256-row tiles, D0's K2 in 128-row ones, and D's latent must
+    equal D0's."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    qt = random_qtensor(gen, 3072, 12288, kind="nf4", device=dev)
+    qt.scale.uniform_(0.01, 0.03, generator=gen)
+    x = torch.randn((4608, 3072), generator=gen, device=dev).bfloat16()
+    plan = lambda m: qmatmul.qmm_plan("nf4", m, 3072, 12288, split=qt.split, group=qt.group)
+    assert (plan(4608).block_m, plan(512).block_m) == (256, 128)
+    kern = qmatmul.qmm_nf4_fast16 if fast16 else qmatmul.qmm_nf4
+    assert torch.equal(kern(x, qt, torch.bfloat16)[:512],
+                       kern(x[:512].contiguous(), qt, torch.bfloat16))
 
 
 def _affine_qtensor(fmt: str, k: int, n: int, seed: int):
