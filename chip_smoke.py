@@ -8,6 +8,10 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; build every CUDA kernel from ``diffusion_rs_tpu_torch/csrc``;
+   the SASS line: per kernel function its instruction count and its
+   HGMMA / IGMMA / HMMA / IMMA instructions (cuobjdump), failing unless
+   every wgmma body (K1, K2, the bf16 flash body, the affine body) holds
+   warpgroup MMAs and no mma.sync, and the int8 flash body the reverse;
 2. hold each kernel against its plain PyTorch version on the card at its
    main-path shapes (error, kernel ms, plain ms, bound ms, library ms): K1
    and K8-s8 bit for bit (max-abs 0), K1 also timed per pass (quantize,
@@ -89,7 +93,12 @@ Phases 7, 9 and 11-13 run 5 double + 10 single blocks at FLUX.1-dev's
 widths (EARLIER_DEPTH; ``--full-depth`` restores 19 + 38); phases 4, 5, 8
 and 10 run the full depth.
 
-Phase 2 also holds K9, K10 and the combined entry point at S4608 and S4112,
+Phase 2 also holds K7's rotation pass (``rope_qk``) to
+``rope_halfsplit_seqmajor`` bit for bit on column slices of a fused qkv at
+S4608 and S4112 and times it (K7's rows also time it alone), gives the K4
+M1 rows (the modulation products) their device time from torch.profiler
+beside the events' time, and holds K9, K10 and the combined entry point at
+S4608 and S4112,
 K14's four entry points (K3's and the int8 modes' output with the per-row
 log-sum-exp) at S2304 (config S's rows per rank), S4608 and S4112,
 K11 at the grouped double-block shapes (against per-group K2 launches, max-abs
@@ -357,6 +366,9 @@ def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float):
     ms = cuda_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets)
     plain_ms = cuda_ms(lambda i: plain(x, qts[i]), n_sets, iters=4, warmup=1)
     lib_ms = cuda_ms(lambda i: torch.matmul(x, w_deq[i]), n_sets)
+    if kind in GGUF_KINDS and m <= 64:  # byte-bound: the device time beside the events'
+        extra["device_ms"] = kernel_device_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets,
+                                              ("qmm_affine_kernel",))["qmm_affine_kernel"]
     if kind == "q8t":
         passes = kernel_device_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets,
                                   ("quantize_rows_kernel", "qmm_s8_kernel"))
@@ -609,6 +621,8 @@ def check_flash_seqmajor(s_q: int, gen, rope: bool):
             raise SystemExit(f"flash_rope differs from flash_sm on plain-rotated q/k at "
                              f"S={s_q}: max-abs {row['vs_k6_max_abs']:.3e}")
     row["ms"] = cuda_ms(lambda i: kern(), 1)
+    if rope:  # K7 = the rotation pass + K6's body; the pass alone
+        row["rope_ms"] = cuda_ms(lambda i: flash.rope_qk(q, k, ce, se, ce, se), 1)
     row["plain_ms"] = cuda_ms(lambda i: plain(), 1, iters=3, warmup=1)
     row["library_ms"] = cuda_ms(lambda i: F.scaled_dot_product_attention(*lib_args), 1)
     ops = 4.0 * b * h * s_q * s_q * d
@@ -619,6 +633,97 @@ def check_flash_seqmajor(s_q: int, gen, rope: bool):
         rot_ms = 2 * 3.0 * b * s_q * h * d / PEAK_F32_FLOPS * 1e3
     row["bound_ms"], row["bound_by"] = bound(ops, PEAK_BF16_FLOPS, nbytes, rot_ms)
     return row
+
+
+def check_rope_qk(s: int, gen):
+    """K7's rotation pass (``rope_qk``) against its plain version,
+    ``rope_halfsplit_seqmajor`` on q and k, bit for bit (``torch.equal``), on
+    seq-major [1, S, 24*128] column slices of a fused qkv at FLUX positions.
+    Bound: its bytes (q and k in and out, the cos and sin halves of the
+    tables, read once); no PyTorch call rotates."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import flash
+
+    b, h, d = 1, 24, 128
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k = qkv[..., :h * d], qkv[..., h * d:2 * h * d]
+    ce, se = flux_tables(s)
+    qr, kr = flash.rope_qk(q, k, ce, se, ce, se)
+    torch.cuda.synchronize()
+
+    def plain():
+        return (flash.rope_halfsplit_seqmajor(q, ce, se, d),
+                flash.rope_halfsplit_seqmajor(k, ce, se, d))
+
+    ref_q, ref_k = plain()
+    if not (torch.equal(qr, ref_q) and torch.equal(kr, ref_k)):
+        raise SystemExit(f"rope_qk differs from rope_halfsplit_seqmajor at S={s}")
+    row = dict(shape=f"B{b} H{h} S{s} D{d} (q and k)", summed_rel=0.0, max_abs_err=0.0)
+    row["ms"] = cuda_ms(lambda i: flash.rope_qk(q, k, ce, se, ce, se), 1)
+    row["plain_ms"] = cuda_ms(lambda i: plain(), 1)
+    row["library_ms"] = None
+    nbytes = 2 * (2 * b * s * h * d * 2) + 2 * b * s * (d // 2) * 4
+    row["bound_ms"], row["bound_by"] = bound(2 * 6.0 * b * s * h * d / 2, PEAK_F32_FLOPS, nbytes)
+    return row
+
+
+def sass_classes() -> dict:
+    """Per kernel function of the built libraries (anonymous-namespace
+    hash stripped): its instruction count and its warpgroup (HGMMA, IGMMA)
+    and warp-level (HMMA, IMMA) tensor-core instructions, from cuobjdump."""
+    import re
+
+    from diffusion_rs_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = {}
+    for src in _cuda.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_cuda._lib_path(src))], check=True,
+                              capture_output=True, text=True).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                # drop the anonymous namespace (_ZN<length>_GLOBAL__N__<file hash>...)
+                name = re.sub(r"^_ZN(\d+)(_GLOBAL__N__\w+)",
+                              lambda a: a.group(2)[int(a.group(1)):], m.group(1))
+                out[name] = dict.fromkeys(("instructions", "HGMMA", "IGMMA", "HMMA", "IMMA"), 0)
+            elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+                out[name]["instructions"] += 1
+                for op in ("HGMMA", "IGMMA", "HMMA", "IMMA"):
+                    out[name][op] += bool(re.search(r"\b" + op + r"\.", line))
+    return out
+
+
+# kernel functions on Hopper's warpgroup MMA (no mma.sync), by name: K1 /
+# K8-s8 (PR 7), K2 / K11 / K12 (PR 7), the bf16 flash body and the affine
+# body (PR 8); the int8 flash body stays on mma.sync
+WGMMA_KERNELS = ("qmm_s8_kernel", "qmm_nf4_kernel", "flash_wg_kernel", "qmm_affine_kernel")
+MMA_SYNC_KERNELS = ("flash_int8_kernel", "flash_int8_lse_kernel")
+
+
+def check_sass() -> str:
+    """The SASS line, per kernel function [instructions, HGMMA, IGMMA, HMMA,
+    IMMA]: every wgmma body holds HGMMA or IGMMA and no HMMA or IMMA; the
+    int8 flash body holds mma.sync (HMMA / IMMA) and no warpgroup MMA.
+    Whether a body's instructions changed between two checkouts is
+    tools/torch_sass_compare.py's to say."""
+    classes = sass_classes()
+    bad = []
+    for name, c in classes.items():
+        if any(k in name for k in WGMMA_KERNELS):
+            if not (c["HGMMA"] + c["IGMMA"]) or c["HMMA"] + c["IMMA"]:
+                bad.append(name)
+        elif any(k in name for k in MMA_SYNC_KERNELS):
+            if not (c["HMMA"] + c["IMMA"]) or c["HGMMA"] + c["IGMMA"]:
+                bad.append(name)
+    found = {k: sum(k in n for n in classes) for k in WGMMA_KERNELS + MMA_SYNC_KERNELS}
+    if bad or not all(found.values()):
+        raise SystemExit(f"SASS: unexpected tensor-core instructions in {bad} (kernels found "
+                         f"{found})")
+    return json.dumps({name[:72]: [c["instructions"], c["HGMMA"], c["IGMMA"], c["HMMA"],
+                                   c["IMMA"]] for name, c in sorted(classes.items())})
 
 
 def check_flash_int8(s_q: int, gen, entry: str):
@@ -1003,7 +1108,8 @@ def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=Fals
         qmm_kernel = "qmm_affine_fast16"
         others += ["qmm_s8", "qmm_nf4", "qmm_affine"]
     if not (counts[flash_kernel] > 0 and counts[qmm_kernel] > 0
-            and not any(counts[k] for k in others)):
+            and not any(counts[k] for k in others)
+            and counts["rope_qk"] == (counts["flash_rope"] if flash_kernel == "flash_rope" else 0)):
         raise SystemExit(f"tiny image ({label}) did not run its kernels: {counts}")
     return lat_err, psnr
 
@@ -1418,6 +1524,8 @@ def layout_image(config, encoders, prompts, steps: int, ref_latent, cfg):
     cfg = FluxConfig() if full_depth else cfg
     n = flux_launches(cfg)
     per_step = dict(zip(kernels, (n["grouped_fused_rest"], n["grouped"], n["attention"])))
+    if "flash_rope" in kernels:  # K7: the rotation pass before each attention call
+        per_step["rope_qk"] = n["attention"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2253,6 +2361,7 @@ def main() -> int:
           ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     for name in _cuda.SOURCES:
         _cuda.library(name)
+    print("SASS " + check_sass())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {
@@ -2266,6 +2375,7 @@ def main() -> int:
         "flash_fwd": [check_flash(4608, gen), check_flash(4112, gen)],
         "flash_sm": [check_flash_seqmajor(s_, gen, rope=False) for s_ in (4608, 4112)],
         "flash_rope": [check_flash_seqmajor(s_, gen, rope=True) for s_ in (4608, 4112)],
+        "rope_qk": [check_rope_qk(s_, gen) for s_ in (4608, 4112)],
         "qmm_grouped_s8": check_grouped("q8t", gen),
         "qmm_grouped_affine": check_grouped("q8_0", gen) + check_grouped("q4_0", gen),
         **{entry: [check_flash_int8(s_, gen, entry) for s_ in (4608, 4112)]
@@ -2289,9 +2399,13 @@ def main() -> int:
             line = (f"kernel {name} {r['shape']}: summed-rel {r['summed_rel']:.3e} "
                     f"max-abs {r['max_abs_err']:.3e}{extra}")
             if "ms" in r:
+                lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
                 line += (f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-                         f"{r['library_ms']:.4f} ms")
+                         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}")
+            if "rope_ms" in r:
+                line += f"; the rotation pass alone {r['rope_ms']:.4f} ms"
+            if "device_ms" in r:
+                line += f"; device time {r['device_ms']:.4f} ms (profiler)"
             if "library_note" in r:
                 line += f" ({r['library_note']})"
             if "with_prepass_ms" in r:
@@ -2413,7 +2527,7 @@ def main() -> int:
     for config in LAYOUT_CONFIGS:
         layout_counts, t5_fused, _ = layout_image(config, encoders, prompts, args.steps,
                                                   refs[config[1]], earlier)
-        for name in config[6]:
+        for name in config[6] + (("rope_qk",) if "flash_rope" in config[6] else ()):
             if name not in ("qmm_s8", "qmm_affine"):
                 counts[name] = layout_counts[name]
         # config B shares config A's fused T5
@@ -2457,6 +2571,7 @@ def main() -> int:
         "flash_fwd": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
         "flash_sm": ("flash_fwd.cu", f"{flash_pallas}:636", 0),
         "flash_rope": ("flash_fwd.cu", f"{flash_pallas}:523", 0),
+        "rope_qk": ("flash_fwd.cu", f"{flash_pallas}:523", 0),
         "qmm_grouped_s8": ("qmm_s8.cu", f"{qmm_pallas}:630", -1),
         "qmm_grouped_affine": ("qmm_affine.cu", f"{qmm_pallas}:630", -1),
         "flash_s8": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
@@ -2481,7 +2596,10 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
             **{key: r[key] for key in ("library_note", "with_prepass_ms", "pass1_ms",
-                                       "pass2_ms", "int8_gemm_ms") if key in r},
+                                       "pass2_ms", "int8_gemm_ms", "rope_ms") if key in r},
+            **({"m1_rows": [{k: x[k] for k in ("shape", "ms", "device_ms", "bound_ms",
+                                               "library_ms")} for x in rows
+                            if "device_ms" in x]} if name == "qmm_affine" else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,6 +1,7 @@
 // Flash attention forward, head_dim 128, output head-merged [B, Sq, H * 128].
-// Two kernel bodies: the bf16 one below with three entry points, and the
-// int8 one further down with three more:
+// Two kernel bodies: the bf16 one below (a Hopper design: TMA, mbarrier
+// ring, warp-specialised wgmma) with five entry points and the half-split
+// RoPE pass, and the int8 one further down (mma.sync, cp.async) with six:
 //
 // K3 flash_fwd: replaces diffusion_rs_tpu/ops/flash_pallas.py:_flash_kernel
 //   in bf16 mode with seq_out=True and no lse (:50-216), reached through
@@ -11,12 +12,14 @@
 //   head h is columns h*128 .. h*128+127 of each row, and rows may lie
 //   further apart than H * 128 (a column slice of a wider projection).
 // K7 flash_rope: replaces _flash_rope_kernel (:429), reached through
-//   _flash_rope_call -> pl.pallas_call (:523). K6 plus the half-split RoPE
-//   of q and k inside the kernel.
+//   _flash_rope_call -> pl.pallas_call (:523): the rotation pass rope_qk
+//   (below), which rotates q and k once into scratch tensors, then K6's
+//   body on them (the flash_rope entry point launches the same kernel as
+//   flash_sm; the two count apart).
 // K9 flash_s8, K10 flash_s8pv and flash_s8_s8pv (both): replace the int8
 //   modes of _flash_kernel, s8 (:67-99) and s8_pv (:123-176, :200-204),
 //   reached through _flash_call -> pl.pallas_call (:396). A second body,
-//   flash_int8_body, described at its definition; K3's body is untouched.
+//   flash_int8_body, described at its definition.
 // K14 flash_fwd_lse, flash_s8_lse, flash_s8pv_lse, flash_s8_s8pv_lse:
 //   replace _flash_kernel's save_lse output (_finalize, :213-216; sliced to
 //   one lane at :420), which ring attention merges chunks with: K3's and the
@@ -26,81 +29,365 @@
 //   127, m the running max, so lse is in JAX's units; under s8 the scores
 //   are those of the mean-centred k, as in JAX (the ring adds scale * q . km
 //   back). The lse is a template flag of both bodies (LSE), compiled out of
-//   K3 / K9 / K10, with thin kernels of its own; the output stays seq-major
-//   [B, Sq, H * 128]. Its bound is K3's: the lse is Sq * 4 bytes per head.
+//   K3 / K9 / K10; the output stays seq-major [B, Sq, H * 128]. Its bound is
+//   K3's: the lse is Sq * 4 bytes per head.
 //
-// Math (the Pallas kernels'): s = (q . k^T) * scale in f32; kv columns past
-// kv_len masked to -1e30; running max m (starts at -1e30) and sum l in f32;
-// p = exp(s - m_new); l = l * alpha + rowsum(p) over the f32 p, while P.V
-// uses p rounded to bf16; acc = acc * alpha + P.V; o = acc * (1 / l) with
-// l == 0 -> 1; each head's rows are written to its column slice of
-// out[B, Sq, H * 128]. The three entry points differ only in where a head's
-// rows are read from (element strides between batches, heads and rows).
+// Math of the bf16 body (the Pallas kernels'): s = (q . k^T) * scale in f32;
+// kv columns past kv_len masked to -1e30; running max m (starts at -1e30,
+// natural-log units) and sum l in f32, over kv tiles of 64 rows
+// (ops/flash.py BLOCK_K, which the plain versions use too, so the two take
+// the same block maxima); p = exp(s - m_new); l = l * alpha + rowsum(p) over
+// the f32 p, while P.V uses p rounded to bf16; acc = acc * alpha + P.V; o =
+// acc * (1 / l) with l == 0 -> 1; each head's rows are written to its column
+// slice of out[B, Sq, H * 128]. log2(e) is folded into the scale: p =
+// exp2(qk * (scale * log2 e) - m * log2 e) on MUFU.EX2 (and alpha likewise),
+// which differs from expf(s - m) by a few f32 ulps: inside the bands the
+// tests hold K3 / K6 / K14 to against their plain versions.
 //
-// RoPE (K7): rot(x)_j = ce_j x_j + se_j x_{(j+64) mod 128} with the expanded
-// tables ce = [cos | cos], se = [-sin | sin] (ops/rope.py
-// expand_rope_tables), so the kernel reads cos from ce[0:64] and sin from
+// Bound on the H100: at FLUX joint attention (B1 H24 S4608 D128) the bf16
+// tensor-core rate bounds K3, K6 and K14 (4*S*S*D operations per head
+// against S*D*8 bytes). Design, for Hopper (the pattern of qmm_s8.cu /
+// qmm_nf4.cu):
+// * a block owns 128 query rows of one (batch, head), 64 for each of two
+//   consumer warpgroups; a producer warp streams K and V tiles of 64 kv
+//   rows through a 4-stage TMA ring (128-byte swizzle, each 64 x 128 tile
+//   as two boxes of 64 columns), K and V on barriers of their own so that
+//   QK^T starts before V lands. 64-row kv tiles keep the plain versions'
+//   blocks (which the CPU tests hold to the JAX package);
+// * the tensor maps are rank 3: (128, S, B*H) for K3/K14 and (H*128, S, B)
+//   with the operand's row and batch strides for K6's seq-major column
+//   slices (a slice's column offset lies in its base pointer), so a box
+//   never reads into the next head and ragged rows come back zero-filled;
+// * each consumer warpgroup loads its 64 q rows from the TMA'd tile (once
+//   per block) into registers for each kv tile (32 a thread: the wgmma A
+//   fragments of 8 k16 slices, conflict-free 4-byte loads), so both
+//   products take A from registers: S = Q K^T (wgmma m64n64k16, B the K
+//   tile, K-major as stored) and O += P V (m64n128k16, A the bf16 P
+//   re-packed from S's accumulator, B the V tile, [kv][d] = MN-major: the
+//   transpose bit and wgmma_desc_mn); the softmax state m and l stays in f32
+//   registers, and O is rescaled only when a row's max moved;
+// * setmaxnreg gives the consumers the producer's registers; the two
+//   consumer warpgroups' softmax and MMAs interleave on the SM.
+// Ragged q rows are not written; ragged kv columns are masked.
+//
+// RoPE (K7's rope_qk): rot(x)_j = ce_j x_j + se_j x_{(j+64) mod 128} with
+// the expanded tables ce = [cos | cos], se = [-sin | sin] (ops/rope.py
+// expand_rope_tables), so the pass reads cos from ce[0:64] and sin from
 // se[64:128]: lo_j = cos_j x_j - sin_j x_{j+64} and hi_j = cos_j x_{j+64} +
 // sin_j x_j in f32, each product and the sum rounded on its own
 // (__fmul_rn / __fsub_rn / __fadd_rn, no FMA contraction), then rounded to
-// bf16. The rotated tile is apply_rope_halfsplit's output bit for bit, so K7
-// equals K6 run on plain-rotated q/k bit for bit. The q tile is rotated once
-// in shared memory when the block starts (the Pallas kernel's qrot_scratch);
-// each k tile is rotated in place after it lands, from cos/sin rows that a
-// cp.async prefetch brought into shared memory during the previous tile.
-//
-// Bound on the H100: at FLUX joint attention (B1 H24 S4608 D128) the bf16
-// tensor-core rate bounds all three (4*S*S*D operations per head against
-// S*D*8 bytes). K7 also reads table rows: every block re-reads the cos/sin
-// halves of the whole kv sequence (512 bytes per kv row, 32 KB per k tile),
-// which the 50 MB L2 serves after the first block of a batch (the tables of
-// S = 4608 are 2.4 MB each); the prefetch overlaps those reads with the
-// previous tile's MMAs, and the rotation adds one barrier per k tile.
-// Design, FlashAttention-2 style: a block owns 64 query rows of one
-// (batch, head), four warps own 16 rows each and keep their Q
-// fragments, the f32 output accumulator and the softmax state in
-// registers; K and V tiles of 64 rows stream through a two-stage cp.async
-// ring in shared memory. QK^T and P.V run on mma.sync m16n8k16; the S
-// accumulator is re-packed in registers as the A operand of P.V (no
-// shared-memory trip), and V reaches the MMA through ldmatrix.trans. Ragged
-// q rows are zero-filled and not written; ragged kv rows are zero-filled
-// and masked (and not rotated). wgmma/TMA and warp specialization are left
-// for later work.
+// bf16: apply_rope_halfsplit's output bit for bit, so K7 equals K6 run on
+// plain-rotated q/k bit for bit. One launch rotates q and k (8 threads per
+// row and head, 8 pairs each) into contiguous [B, S, H * 128] scratch; it
+// moves q and k in and out and reads the table halves (about 118 MB at B1
+// S4608 H24: bytes bound it).
 #include "common.cuh"
 
 namespace {
 
 constexpr int D = 128;
 constexpr int HALF = D / 2;
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 128;        // 4 warps x 16 query rows
-constexpr int STRIDE = D + 8;       // bf16: 272-byte rows, conflict-free ldmatrix
-constexpr int TILE = BKV * STRIDE;  // elements per K or V tile
 constexpr float NEG_INF = -1e30f;
-constexpr size_t SMEM_BYTES = (size_t)(BQ * STRIDE + 4 * TILE) * sizeof(__nv_bfloat16);
-// K7 prefetches the next k tile's cos and sin rows ([64][64] f32 each): the
-// cos half reuses the q tile's buffer (dead once the q fragments are in
-// registers), the sin half follows the V ring. Two blocks still fit an SM.
-constexpr int TABLE = BKV * HALF;  // floats per cos or sin tile
-constexpr size_t SMEM_ROPE_BYTES = SMEM_BYTES + TABLE * sizeof(float);
-static_assert(TABLE * sizeof(float) <= BQ * STRIDE * sizeof(__nv_bfloat16),
-              "the cos tile fits the q tile's buffer");
-static_assert(BQ == BKV, "rope_tile rotates q and k tiles alike");
+constexpr float LOG2E = 1.4426950408889634f;
 
+// 2^x on MUFU.EX2 (relative error ~2^-22; 0 for x below -126).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// Half-split RoPE of pairs (j..j+3, j+64..j+67) of one row at x in shared
-// memory, in place, with cos_j.. in c and sin_j.. in sn.
-__device__ __forceinline__ void rope4(__nv_bfloat16* x, const float4 c, const float4 sn) {
-  const uint2 lo_raw = *reinterpret_cast<const uint2*>(x);
-  const uint2 hi_raw = *reinterpret_cast<const uint2*>(x + HALF);
+// ---------------------------------------------------------------------------
+// The bf16 body (K3, K6, K14-bf16; K7's attention)
+// ---------------------------------------------------------------------------
+
+constexpr int WQ = 128;                 // q rows per block: 64 per consumer warpgroup
+constexpr int WKV = 64;                 // kv rows per ring stage
+constexpr int WTHREADS = 384;           // producer warpgroup + two consumer warpgroups
+constexpr int WSTAGES = 4;
+constexpr int CONSUMER_WARPS = 8;       // each releases a stage once its P.V is done
+constexpr int QBOX = WQ * 128;          // bytes of one q box: 128 rows x 64 bf16 columns
+constexpr int KVBOX = WKV * 128;        // bytes of one k or v box: 64 rows x 64 columns
+constexpr int KV_TILE = 2 * KVBOX;      // a 64 x 128 k or v tile as two column halves
+constexpr int K_OFF = 2 * QBOX;         // after the q tile
+constexpr int V_OFF = K_OFF + WSTAGES * KV_TILE;
+constexpr int BAR_OFF = V_OFF + WSTAGES * KV_TILE;
+constexpr size_t WSMEM_BYTES = 1024 + BAR_OFF + (1 + 3 * WSTAGES) * sizeof(uint64_t);
+
+// Rank-3 maps of q, k and v (boxes of 128 q rows or 64 kv rows by 64
+// columns, 128-byte swizzle).
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+// DENSE (K3, K14): the maps are over (128, S, B*H) and a head is plane bh;
+// otherwise (K6, K7) over (H*128, S, B), a head is columns h*128.. of plane b.
+template <bool DENSE, bool LSE>
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_wg_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ lse, int H, int Sq, int Skv, float scale) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + BAR_OFF);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + WSTAGES;
+  uint64_t* empty = full_v + WSTAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * WQ;
+  const int c0 = DENSE ? 0 : h * D;  // the head's first column in its map
+  const int z = DENSE ? bh : b;      // and its plane
+  const int nkv = (Skv + WKV - 1) / WKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread loads q once and keeps the ring full.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, 2 * QBOX);
+      tma_load_3d(sm, &maps.q, c0, q0, z, bar_q);
+      tma_load_3d(sm + QBOX, &maps.q, c0 + HALF, q0, z, bar_q);
+      for (int j = 0; j < nkv; ++j) {
+        const int buf = j % WSTAGES;
+        if (j >= WSTAGES) mbar_wait(&empty[buf], ((j / WSTAGES) + 1) & 1);
+        uint8_t* kt = sm + K_OFF + buf * KV_TILE;
+        uint8_t* vt = sm + V_OFF + buf * KV_TILE;
+        mbar_expect_tx(&full_k[buf], KV_TILE);
+        tma_load_3d(kt, &maps.k, c0, j * WKV, z, &full_k[buf]);
+        tma_load_3d(kt + KVBOX, &maps.k, c0 + HALF, j * WKV, z, &full_k[buf]);
+        mbar_expect_tx(&full_v[buf], KV_TILE);
+        tma_load_3d(vt, &maps.v, c0, j * WKV, z, &full_v[buf]);
+        tma_load_3d(vt + KVBOX, &maps.v, c0 + HALF, j * WKV, z, &full_v[buf]);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: rows 64 cw .. 64 cw + 63 of the block.
+  setmaxnreg_inc<232>();
+  const int ct = threadIdx.x - 128;
+  const int cw = ct >> 7;
+  const int w = (ct >> 5) & 3;
+  const int lane = ct & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 64 * cw + 16 * w + g;  // block row of the fragments' first row; + 8 the second
+
+  // Q fragments of the 8 k16 slices: a0 / a2 row r0, a1 / a3 row r0 + 8,
+  // columns 16kk + 2t (+ 8 for a2 / a3); under the 128-byte swizzle the
+  // 16-byte chunk c of row r lies at chunk c ^ (r & 7), and the eight g of
+  // a warp hit eight chunks. They are loaded again for every kv tile: A
+  // registers that a wgmma read are not kept across the loop (ptxas
+  // reallocated them to the softmax when they were, and QK^T of the second
+  // tile read P).
+  auto load_q = [&](uint32_t (&qa)[D / 16][4]) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint8_t* box = sm + (kk >> 2) * QBOX;
+      const int c = 2 * (kk & 3);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + 8 * (i & 1);
+        qa[kk][i] = *reinterpret_cast<const uint32_t*>(
+            box + r * 128 + (((c + (i >> 1)) ^ (r & 7)) << 4) + 4 * t);
+      }
+    }
+  };
+  mbar_wait(bar_q, 0);
+
+  // o[4j + 2h + e]: row r0 + 8h, column 8j + 2t + e (wgmma's D layout).
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};
+  const float scale_log2 = __fmul_rn(scale, LOG2E);
+
+  for (int j = 0; j < nkv; ++j) {
+    const int buf = j % WSTAGES;
+    const uint32_t parity = (j / WSTAGES) & 1;
+    const uint8_t* kt = sm + K_OFF + buf * KV_TILE;
+    const uint8_t* vt = sm + V_OFF + buf * KV_TILE;
+
+    // S = Q K^T for this warpgroup's 64 rows x 64 kv columns.
+    uint32_t qa[D / 16][4];
+    load_q(qa);
+    float s[WKV / 2];
+#pragma unroll
+    for (int i = 0; i < WKV / 2; ++i) s[i] = 0.f;
+    mbar_wait(&full_k[buf], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      WgmmaBf16<WKV, 0>::run(s, qa[kk], wgmma_desc(kt + (kk >> 2) * KVBOX + 32 * (kk & 3), 1024, 1),
+                             1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < WKV / 2; ++i) reg_fence(s[i]);
+
+    // Mask the ragged kv tail (the last tile only), online softmax over rows
+    // r0 and r0 + 8. The row max is taken on the raw scores (scale > 0),
+    // then scaled: m stays in natural-log units, as the lse needs.
+    if ((j + 1) * WKV > Skv) {
+#pragma unroll
+      for (int i = 0; i < WKV / 2; ++i)
+        if (j * WKV + (i >> 2) * 8 + 2 * t + (i & 1) >= Skv) s[i] = NEG_INF;
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < WKV / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], mb[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r] == NEG_INF ? NEG_INF : __fmul_rn(mx[r], scale));
+      alpha[r] = ex2(__fmul_rn(m_run[r] - m_new, LOG2E));
+      mb[r] = __fmul_rn(m_new, LOG2E);
+      m_run[r] = m_new;
+    }
+    // p = exp(s * scale - m) as 2^(s * (scale * log2 e) - m * log2 e): one
+    // FFMA and one MUFU.EX2 per score (masked scores give 2^-inf = 0).
+#pragma unroll
+    for (int i = 0; i < WKV / 2; ++i) {
+      const float p = ex2(fmaf(s[i], scale_log2, -mb[(i >> 1) & 1]));
+      s[i] = p;
+      ls[(i >> 1) & 1] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
+      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + ls[r];
+    }
+    // alpha is 1 for every row once the running max stops moving
+    if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    }
+
+    // O += P V, with P re-packed from the S accumulator as bf16 A fragments:
+    // kv slice kk is S columns 16kk.. (s[8kk..8kk+3]) and 16kk + 8..
+    // (s[8kk+4..8kk+7]).
+    uint32_t pa[WKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < WKV / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16x2(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    mbar_wait(&full_v[buf], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WKV / 16; ++kk)
+      WgmmaBf16<D, 1>::run(o, pa[kk], wgmma_desc_mn(vt + kk * 16 * 128, KVBOX, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) reg_fence(o[i]);
+    if (lane == 0) mbar_arrive(&empty[buf]);
+  }
+
+  const int HD = H * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= Sq) continue;
+    const float l = l_run[r] == 0.f ? 1.f : l_run[r];
+    const float inv = __frcp_rn(l);
+    __nv_bfloat16* orow = out + ((size_t)b * Sq + row) * HD + (size_t)h * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<uint32_t*>(orow + i * 8 + 2 * t) =
+          pack_bf16x2(__fmul_rn(o[4 * i + 2 * r], inv), __fmul_rn(o[4 * i + 2 * r + 1], inv));
+    }
+    if constexpr (LSE) {
+      if (t == 0) lse[(size_t)bh * Sq + row] = __fadd_rn(m_run[r], logf(l));
+    }
+  }
+}
+
+// Encodes the three maps and launches the body. Strides in elements (the
+// seq-major forms'; DENSE takes q/k/v [B, H, S, 128] contiguous).
+template <bool DENSE, bool LSE>
+int launch_wg(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
+              int Sq, int Skv, long long q_sb, long long q_sr, long long k_sb, long long k_sr,
+              long long v_sb, long long v_sr, float scale, void* stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wg_kernel<DENSE, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WSMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  Maps maps;
+  const void* base[3] = {q, k, v};
+  const long long sb[3] = {q_sb, k_sb, v_sb}, sr[3] = {q_sr, k_sr, v_sr};
+  CUtensorMap* dst[3] = {&maps.q, &maps.k, &maps.v};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t S = i == 0 ? Sq : Skv;
+    const uint64_t dims[3] = {DENSE ? (uint64_t)D : (uint64_t)H * D, S,
+                              DENSE ? (uint64_t)B * H : (uint64_t)B};
+    const uint64_t row = DENSE ? D * 2 : (uint64_t)sr[i] * 2;
+    const uint64_t plane = DENSE ? S * D * 2 : B > 1 ? (uint64_t)sb[i] * 2 : S * row;
+    const int err = encode_tensor_map_3d(dst[i], base[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims,
+                                         row, plane, i == 0 ? WQ : WKV, HALF,
+                                         CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != 0) return err;
+  }
+  dim3 grid((Sq + WQ - 1) / WQ, B * H);
+  flash_wg_kernel<DENSE, LSE><<<grid, WTHREADS, WSMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      maps, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, Sq, Skv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's rotation pass: one thread per 8 pairs (j..j+7, j+64..j+71) of one row
+// and head, 16-byte loads and stores; threads 0..nq-1 rotate q, the rest k.
+// Sources strided as K6's operands, destinations contiguous [B, S, H * 128].
+__global__ void __launch_bounds__(256)
+rope_qk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const float* __restrict__ ce_q, const float* __restrict__ se_q,
+               const float* __restrict__ ce_k, const float* __restrict__ se_k,
+               __nv_bfloat16* __restrict__ qr, __nv_bfloat16* __restrict__ kr, int B, int H,
+               int Sq, int Skv, long long q_sb, long long q_sr, long long k_sb, long long k_sr) {
+  const int nq = B * Sq * H * 8;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq + B * Skv * H * 8) return;
+  const bool is_q = i < nq;
+  if (!is_q) i -= nq;
+  const int S = is_q ? Sq : Skv;
+  const int j = (i & 7) * 8;
+  const int hh = (i >> 3) % H;
+  const int bs = (i >> 3) / H;  // b * S + s
+  const int b = bs / S, s = bs % S;
+  const __nv_bfloat16* x = (is_q ? q + b * q_sb + s * q_sr : k + b * k_sb + s * k_sr) + hh * D + j;
+  const float* c = (is_q ? ce_q : ce_k) + (size_t)bs * D + j;
+  const float* sn = (is_q ? se_q : se_k) + (size_t)bs * D + HALF + j;
+  __nv_bfloat16* y = (is_q ? qr : kr) + ((size_t)bs * H + hh) * D + j;
+  const uint4 lo_raw = *reinterpret_cast<const uint4*>(x);
+  const uint4 hi_raw = *reinterpret_cast<const uint4*>(x + HALF);
+  const float4 c0 = *reinterpret_cast<const float4*>(c);
+  const float4 c1 = *reinterpret_cast<const float4*>(c + 4);
+  const float4 s0 = *reinterpret_cast<const float4*>(sn);
+  const float4 s1 = *reinterpret_cast<const float4*>(sn + 4);
   const __nv_bfloat162* lo2 = reinterpret_cast<const __nv_bfloat162*>(&lo_raw);
   const __nv_bfloat162* hi2 = reinterpret_cast<const __nv_bfloat162*>(&hi_raw);
-  const float cv[4] = {c.x, c.y, c.z, c.w};
-  const float sv[4] = {sn.x, sn.y, sn.z, sn.w};
-  uint32_t lo_out[2], hi_out[2];
+  const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  uint32_t lo_out[4], hi_out[4];
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
+  for (int e = 0; e < 4; ++e) {
     const float2 xl = __bfloat1622float2(lo2[e]);
     const float2 xh = __bfloat1622float2(hi2[e]);
     const float ca = cv[2 * e], cb = cv[2 * e + 1];
@@ -110,299 +397,22 @@ __device__ __forceinline__ void rope4(__nv_bfloat16* x, const float4 c, const fl
     hi_out[e] = pack_bf16x2(__fadd_rn(__fmul_rn(ca, xh.x), __fmul_rn(sa, xl.x)),
                             __fadd_rn(__fmul_rn(cb, xh.y), __fmul_rn(sb, xl.y)));
   }
-  *reinterpret_cast<uint2*>(x) = make_uint2(lo_out[0], lo_out[1]);
-  *reinterpret_cast<uint2*>(x + HALF) = make_uint2(hi_out[0], hi_out[1]);
-}
-
-// Half-split RoPE of a [64][STRIDE] tile in shared memory, in place. Row r
-// holds sequence position s0 + r; rows at or past S are padding and stay as
-// they are. cos(r) and sin(r) point at the row's 64 cosines and sines
-// (global or shared memory). Sixteen threads per row, four pairs each.
-template <class CosRow, class SinRow>
-__device__ __forceinline__ void rope_tile(__nv_bfloat16* tile, int s0, int S, CosRow cos_row,
-                                          SinRow sin_row) {
-  const int j = (threadIdx.x & 15) * 4;
-#pragma unroll
-  for (int pass = 0; pass < BQ / (THREADS / 16); ++pass) {
-    const int r = pass * (THREADS / 16) + (threadIdx.x >> 4);
-    if (s0 + r < S) {
-      rope4(tile + r * STRIDE + j, *reinterpret_cast<const float4*>(cos_row(r) + j),
-            *reinterpret_cast<const float4*>(sin_row(r) + j));
-    }
-  }
-}
-
-// Seq-major operands (K6, K7): a head's rows start at p + b * sb + h * D
-// and lie sr elements apart (row offsets fit in 32 bits: the wrappers check
-// it).
-struct Rows {
-  const __nv_bfloat16* p;
-  long long sb, sr;
-};
-
-// The kernel body. DENSE (K3): q/k/v [B, H, S, 128] contiguous, row stride a
-// compile-time D; q/k/v point at the tensors. Otherwise (K6, K7) the rows
-// are described by qs/ks/vs. ce/se (K7 only): the expanded tables
-// [B, Sq, 128] for q and [B, Skv, 128] for k.
-template <bool ROPE, bool DENSE, bool LSE = false>
-__device__ __forceinline__ void flash_body(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const Rows qs, const Rows ks, const Rows vs,
-    __nv_bfloat16* __restrict__ out, const float* __restrict__ ce_q,
-    const float* __restrict__ se_q, const float* __restrict__ ce_k,
-    const float* __restrict__ se_k, int H, int Sq, int Skv, float scale,
-    float* __restrict__ lse = nullptr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][STRIDE]
-  __nv_bfloat16* Ks = Qs + BQ * STRIDE;                        // [2][BKV][STRIDE]
-  __nv_bfloat16* Vs = Ks + 2 * TILE;                           // [2][BKV][STRIDE]
-  float* Tc = reinterpret_cast<float*>(smem);                  // K7: [BKV][HALF] cos
-  float* Ts = reinterpret_cast<float*>(Vs + 2 * TILE);         // K7: [BKV][HALF] sin
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const __nv_bfloat16* qb = DENSE ? q + (size_t)bh * Sq * D : qs.p + b * qs.sb + h * D;
-  const __nv_bfloat16* kb = DENSE ? k + (size_t)bh * Skv * D : ks.p + b * ks.sb + h * D;
-  const __nv_bfloat16* vb = DENSE ? v + (size_t)bh * Skv * D : vs.p + b * vs.sb + h * D;
-  const int q_sr = DENSE ? D : static_cast<int>(qs.sr);
-  const int k_sr = DENSE ? D : static_cast<int>(ks.sr);
-  const int v_sr = DENSE ? D : static_cast<int>(vs.sr);
-  const int nkv = (Skv + BKV - 1) / BKV;
-
-  // Q tile: 64 rows x 16 chunks of 16 bytes.
-  for (int c = tid; c < BQ * (D / 8); c += THREADS) {
-    const int r = c >> 4;
-    const int ch = c & 15;
-    const int gr = q0 + r;
-    cp_async16(Qs + r * STRIDE + ch * 8, qb + (size_t)(gr < Sq ? gr : 0) * q_sr + ch * 8,
-               gr < Sq ? 16 : 0);
-  }
-  cp_async_commit();
-
-  auto load_kv = [&](int j, int buf) {
-    __nv_bfloat16* kd = Ks + buf * TILE;
-    __nv_bfloat16* vd = Vs + buf * TILE;
-    for (int c = tid; c < BKV * (D / 8); c += THREADS) {
-      const int r = c >> 4;
-      const int ch = c & 15;
-      const int gr = j * BKV + r;
-      const size_t row = gr < Skv ? gr : 0;
-      const int bytes = gr < Skv ? 16 : 0;
-      cp_async16(kd + r * STRIDE + ch * 8, kb + row * k_sr + ch * 8, bytes);
-      cp_async16(vd + r * STRIDE + ch * 8, vb + row * v_sr + ch * 8, bytes);
-    }
-    cp_async_commit();
-  };
-
-  // K7: the cos and sin rows of k tile j into Tc / Ts.
-  auto load_tables = [&](int j) {
-    for (int c = tid; c < BKV * 2 * (HALF / 4); c += THREADS) {
-      const int r = c >> 5;
-      const int sin_half = (c >> 4) & 1;
-      const int ch = c & 15;
-      const int gr = j * BKV + r;
-      const size_t row = ((size_t)b * Skv + (gr < Skv ? gr : 0)) * D;
-      cp_async16((sin_half ? Ts : Tc) + r * HALF + ch * 4,
-                 sin_half ? se_k + row + HALF + ch * 4 : ce_k + row + ch * 4,
-                 gr < Skv ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  load_kv(0, 0);
-  cp_async_wait<1>();  // Q has landed
-  __syncthreads();
-  if (ROPE) {
-    const size_t row0 = (size_t)b * Sq + q0;
-    rope_tile(
-        Qs, q0, Sq, [&](int r) { return ce_q + (row0 + r) * D; },
-        [&](int r) { return se_q + (row0 + r) * D + HALF; });
-    __syncthreads();
-  }
-
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
-  }
-  if (ROPE) {
-    __syncthreads();  // every warp has its q fragments: Qs becomes Tc
-    load_tables(0);
-  }
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int j = 0; j < nkv; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nkv) {
-      load_kv(j + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (ROPE) {
-      rope_tile(
-          Ks + buf * TILE, j * BKV, Skv, [&](int r) { return Tc + r * HALF; },
-          [&](int r) { return Ts + r * HALF; });
-      __syncthreads();
-      if (j + 1 < nkv) load_tables(j + 1);  // lands while this tile's MMAs run
-    }
-    const __nv_bfloat16* ks = Ks + buf * TILE;
-    const __nv_bfloat16* vs = Vs + buf * TILE;
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns.
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int jj = 0; jj < BKV / 16; ++jj) {
-        uint32_t r4[4];
-        ldmatrix_x4(r4, ks + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        const uint32_t b0[2] = {r4[0], r4[1]};
-        const uint32_t b1[2] = {r4[2], r4[3]};
-        mma_bf16_16816(s[2 * jj], qf[kk], b0);
-        mma_bf16_16816(s[2 * jj + 1], qf[kk], b1);
-      }
-    }
-
-    // Scale, mask the ragged kv tail, online softmax over rows g and g + 8.
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * BKV + i * 8 + 2 * t + (e & 1);
-        const float val = col < Skv ? __fmul_rn(s[i][e], scale) : NEG_INF;
-        s[i][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    float alpha[2], ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[i][e] - m_run[e >> 1]);
-        s[i][e] = p;
-        ls[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
-      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + ls[r];
-    }
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e >> 1];
-
-    // O += P V, with P re-packed from the S accumulator as bf16 A fragments.
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t r4[4];
-        ldmatrix_x4_trans(r4, vs + (kc * 16 + (lane & 15)) * STRIDE + dn * 16 + (lane >> 4) * 8);
-        const uint32_t b0[2] = {r4[0], r4[1]};
-        const uint32_t b1[2] = {r4[2], r4[3]};
-        mma_bf16_16816(o[2 * dn], pa, b0);
-        mma_bf16_16816(o[2 * dn + 1], pa, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int HD = H * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    if (row >= Sq) continue;
-    const float l = l_run[r] == 0.f ? 1.f : l_run[r];
-    const float inv = __frcp_rn(l);
-    __nv_bfloat16* orow = out + ((size_t)b * Sq + row) * HD + (size_t)h * D;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<uint32_t*>(orow + i * 8 + 2 * t) =
-          pack_bf16x2(__fmul_rn(o[i][2 * r], inv), __fmul_rn(o[i][2 * r + 1], inv));
-    }
-    if constexpr (LSE) {
-      if (t == 0) lse[(size_t)bh * Sq + row] = __fadd_rn(m_run[r], logf(l));
-    }
-  }
-}
-
-// K3: q/k/v [B, H, S, 128] contiguous.
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 int H, int Sq, int Skv, float scale) {
-  const Rows none{};
-  flash_body<false, true>(q, k, v, none, none, none, out, nullptr, nullptr, nullptr, nullptr,
-                          H, Sq, Skv, scale);
-}
-
-// K14, bf16: K3 plus lse f32 [B, H, Sq].
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_lse_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ lse, int H, int Sq, int Skv, float scale) {
-  const Rows none{};
-  flash_body<false, true, true>(q, k, v, none, none, none, out, nullptr, nullptr, nullptr,
-                                nullptr, H, Sq, Skv, scale, lse);
-}
-
-// K6: seq-major q/k/v.
-__global__ void __launch_bounds__(THREADS)
-flash_sm_kernel(const Rows q, const Rows k, const Rows v, __nv_bfloat16* __restrict__ out,
-                int H, int Sq, int Skv, float scale) {
-  flash_body<false, false>(nullptr, nullptr, nullptr, q, k, v, out, nullptr, nullptr, nullptr,
-                           nullptr, H, Sq, Skv, scale);
-}
-
-// K7: seq-major q/k/v and the expanded tables.
-__global__ void __launch_bounds__(THREADS)
-flash_rope_kernel(const Rows q, const Rows k, const Rows v, __nv_bfloat16* __restrict__ out,
-                  const float* __restrict__ ce_q, const float* __restrict__ se_q,
-                  const float* __restrict__ ce_k, const float* __restrict__ se_k, int H,
-                  int Sq, int Skv, float scale) {
-  flash_body<true, false>(nullptr, nullptr, nullptr, q, k, v, out, ce_q, se_q, ce_k, se_k, H,
-                          Sq, Skv, scale);
+  *reinterpret_cast<uint4*>(y) = make_uint4(lo_out[0], lo_out[1], lo_out[2], lo_out[3]);
+  *reinterpret_cast<uint4*>(y + HALF) = make_uint4(hi_out[0], hi_out[1], hi_out[2], hi_out[3]);
 }
 
 // ---------------------------------------------------------------------------
-// The int8 modes (K9, K10, both). q bf16 [B, H, Sq, 128]; the prepasses
+// The int8 modes (K9, K10, both), mma.sync + cp.async: 64 q rows per block
+// of four warps, kv tiles of 64 rows.
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;
+constexpr int BKV = 64;
+constexpr int THREADS = 128;        // 4 warps x 16 query rows
+constexpr int STRIDE = D + 8;       // bf16: 272-byte rows, conflict-free ldmatrix
+constexpr int TILE = BKV * STRIDE;  // elements per K or V tile
+
+// q bf16 [B, H, Sq, 128]; the prepasses
 // (ops/flash.py quantize_k / quantize_v, plain PyTorch) give k and v int8
 // with one f32 scale per quantization block of QB kv rows (QB = JAX's kv
 // block, a multiple of 128; Skv_p = Skv rounded up to QB, zero rows).
@@ -858,62 +868,66 @@ int launch(Kernel kernel, size_t smem, bool& attr_set, int B, int H, int Sq, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-Rows rows(const void* p, long long sb, long long sr) {
-  return {static_cast<const __nv_bfloat16*>(p), sb, sr};
-}
-
 }  // namespace
 
-// K3. q, k, v bf16 [B, H, S, 128] contiguous; out bf16 [B, Sq, H * 128].
-// Returns cudaGetLastError().
+// K3. q, k, v bf16 [B, H, S, 128] contiguous, 16-byte aligned; out bf16
+// [B, Sq, H * 128]. Returns cudaGetLastError() or the tensor-map encoder's
+// refusal.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, int B,
                          int H, int Sq, int Skv, float scale, void* stream) {
-  static bool attr_set = false;
-  using bf16 = __nv_bfloat16;
-  return launch(flash_fwd_kernel, SMEM_BYTES, attr_set, B, H, Sq, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(out), H, Sq, Skv, scale);
+  return launch_wg<true, false>(q, k, v, out, nullptr, B, H, Sq, Skv, 0, 0, 0, 0, 0, 0, scale,
+                                stream);
 }
 
 // K14, bf16: as flash_fwd, plus lse f32 [B, H, Sq] contiguous.
 extern "C" int flash_fwd_lse(const void* q, const void* k, const void* v, void* out, void* lse,
                              int B, int H, int Sq, int Skv, float scale, void* stream) {
-  static bool attr_set = false;
-  using bf16 = __nv_bfloat16;
-  return launch(flash_fwd_lse_kernel, SMEM_BYTES, attr_set, B, H, Sq, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse),
-                H, Sq, Skv, scale);
+  return launch_wg<true, true>(q, k, v, out, lse, B, H, Sq, Skv, 0, 0, 0, 0, 0, 0, scale,
+                               stream);
 }
 
 // K6. q bf16 [B, Sq, H * 128], k and v bf16 [B, Skv, H * 128], each with
 // unit column stride and the given batch and row strides (elements, each a
-// multiple of 8; 16-byte aligned base; (S - 1) * row stride + H * 128 below
-// 2^31); out bf16 [B, Sq, H * 128] contiguous. Returns cudaGetLastError().
+// multiple of 8, the batch stride unused at B = 1; 16-byte aligned base:
+// ops/flash.py flash_plan); out bf16
+// [B, Sq, H * 128] contiguous. Returns as flash_fwd.
 extern "C" int flash_sm(const void* q, const void* k, const void* v, void* out, int B, int H,
                         int Sq, int Skv, long long q_sb, long long q_sr, long long k_sb,
                         long long k_sr, long long v_sb, long long v_sr, float scale,
                         void* stream) {
-  static bool attr_set = false;
-  return launch(flash_sm_kernel, SMEM_BYTES, attr_set, B, H, Sq, stream,
-                rows(q, q_sb, q_sr), rows(k, k_sb, k_sr), rows(v, v_sb, v_sr),
-                static_cast<__nv_bfloat16*>(out), H, Sq, Skv, scale);
+  return launch_wg<false, false>(q, k, v, out, nullptr, B, H, Sq, Skv, q_sb, q_sr, k_sb, k_sr,
+                                 v_sb, v_sr, scale, stream);
 }
 
-// K7. As flash_sm, plus the expanded RoPE tables ce/se f32 [B, Sq, 128] for
-// q and [B, Skv, 128] for k, contiguous. Returns cudaGetLastError().
-extern "C" int flash_rope(const void* q, const void* k, const void* v, const void* ce_q,
-                          const void* se_q, const void* ce_k, const void* se_k, void* out,
-                          int B, int H, int Sq, int Skv, long long q_sb, long long q_sr,
-                          long long k_sb, long long k_sr, long long v_sb, long long v_sr,
-                          float scale, void* stream) {
-  static bool attr_set = false;
-  return launch(flash_rope_kernel, SMEM_ROPE_BYTES, attr_set, B, H, Sq, stream,
-                rows(q, q_sb, q_sr), rows(k, k_sb, k_sr), rows(v, v_sb, v_sr),
-                static_cast<__nv_bfloat16*>(out),
-                static_cast<const float*>(ce_q), static_cast<const float*>(se_q),
-                static_cast<const float*>(ce_k), static_cast<const float*>(se_k), H, Sq, Skv,
-                scale);
+// K7's attention: K6's kernel on the rotated q and k that rope_qk wrote;
+// the same arguments as flash_sm.
+extern "C" int flash_rope(const void* q, const void* k, const void* v, void* out, int B, int H,
+                          int Sq, int Skv, long long q_sb, long long q_sr, long long k_sb,
+                          long long k_sr, long long v_sb, long long v_sr, float scale,
+                          void* stream) {
+  return launch_wg<false, false>(q, k, v, out, nullptr, B, H, Sq, Skv, q_sb, q_sr, k_sb, k_sr,
+                                 v_sb, v_sr, scale, stream);
+}
+
+// K7's rotation pass. q [B, Sq, H * 128] and k [B, Skv, H * 128] bf16 with
+// unit column stride and the given batch and row strides (elements, each a
+// multiple of 8, 16-byte aligned base); the expanded tables ce/se f32 [B,
+// Sq, 128] (q) and [B, Skv, 128] (k), contiguous; qr / kr bf16 [B, S,
+// H * 128] contiguous. Needs B * (Sq + Skv) * H * 8 < 2^31. Returns
+// cudaGetLastError().
+extern "C" int rope_qk(const void* q, const void* k, const void* ce_q, const void* se_q,
+                       const void* ce_k, const void* se_k, void* qr, void* kr, int B, int H,
+                       int Sq, int Skv, long long q_sb, long long q_sr, long long k_sb,
+                       long long k_sr, void* stream) {
+  const long long threads = (long long)B * (Sq + Skv) * H * 8;
+  if (threads >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  rope_qk_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const float*>(ce_q),
+      static_cast<const float*>(se_q), static_cast<const float*>(ce_k),
+      static_cast<const float*>(se_k), static_cast<bf16*>(qr), static_cast<bf16*>(kr), B, H, Sq,
+      Skv, q_sb, q_sr, k_sb, k_sr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K9 / K10 / both. q bf16 [B, H, Sq, 128] contiguous. k: int8 [B, H, Skv_p,

@@ -11,114 +11,104 @@
 // K8 qmm_grouped_affine: replaces the dequantizing branch of
 // _qmm_grouped_kernel (:515) for these formats, reached through
 // _qmm_grouped_call -> pl.pallas_call (:630): up to eight products of one
-// [K, N] format in one launch. The kernel takes a group table by value
-// {x, packed, scale, bias, out, m, tile0}; the grid runs over the sum of the
-// groups' m-tiles, a block finds its group from the tile prefix sums, and
-// each group's m-tiles start at its own row 0, so a group's output is K4's
-// output for that group bit for bit. K4 is the table of one group. Nothing
-// is stacked or copied per call.
+// [K, N] format in one launch. As K11 in qmm_nf4.cu, the kernel takes a
+// group table by value; the output tiles run over the sum of the groups'
+// m-tiles, and each group's m-tiles start at its own row 0, so a group's
+// output is K4's output for that group bit for bit (a row's sums do not
+// depend on the tile height: see the CUDA tests). K4 is the table of one
+// group. Nothing is stacked or copied per call.
 // K13 qmm_affine_fast16: replaces the affine branches with fast16=True, the
 // opt-in 16-bit decode of _dequant_tile (:80-120): the code in bf16 (exact),
-// then, with a bias plane, the centred form w = ((q + off) * s) + b' with
-// off = b / s and b' = 0 where s != 0, off = 0 and b' = b where s == 0
-// (K-quant groups whose f16 d underflowed), each op rounded to bf16;
-// without one, w = q * s in bf16. It is K4's kernel with FAST16 = true:
-// the scale and bias rows of the stage's four 16-row chunks (every group
-// spans whole chunks: group % 16 == 0) ride in the stage's cp.async group,
-// and before the stage's decode the threads that copied them turn them into
-// bf16 s, off and b' in shared memory, off by __fdiv_rn in f32, inside the
-// kernel (no extra launch); the decode then runs on fma.rn.bf16x2 pairs. The
-// decoded weight equals the plain version's (ops/qmatmul.dequantize_fast16)
-// bit for bit; only the f32 summation order of the product differs.
-// FAST16 = false is K4's code as it was.
+// then the centred form w = ((q + off) * s) + b' with off = b / s and b' = 0
+// where s != 0, off = 0 and b' = b where s == 0 (K-quant groups whose f16 d
+// underflowed), each op rounded to bf16 (fma.rn.bf16x2). Without a bias
+// plane off = b' = -0, so the same three ops give q * s exactly. off comes
+// from __fdiv_rn in f32, computed once per plane row and column of a stage
+// by the warpgroup that owns the column, into shared memory; the decoded
+// weight equals the plain version's (ops/qmatmul.dequantize_fast16) bit for
+// bit. It is K4's kernel with FAST16 = true: only the decode changes.
 //
 // Math, bit for bit the plain version's decoded weight: w = q * s in f32
-// (__fmul_rn), then w + b (__fadd_rn; the two stay separate roundings, as in
-// _dequant_tile's `w * scale; w + bias`, and nvcc may not contract them into
-// an FMA), rounded to bf16 (RNE); bf16 x bf16 products with f32 accumulation
-// and one cast to bf16 at the end. Only the f32 summation order differs from
-// the plain version.
+// (__fmul_rn), then w + b (__fadd_rn; two roundings, as in _dequant_tile's
+// `w * scale; w + bias`; without a bias plane b = -0, which adds nothing),
+// rounded to bf16 (RNE); bf16 x bf16 products with f32 accumulation and one
+// cast to bf16 at the end. Only the f32 summation order differs from the
+// plain version.
 //
 // Bound on the H100: operations at M >= 512 (2*M*K*N bf16 tensor-core work
 // against ~K*N/2 or K*N weight bytes), bytes at M = 1 (the codes plus the
 // f32 scale and bias planes: for Q4_0 at K3072 N18432, 28.3 MB of codes and
-// 2 x 7.1 MB of planes). Design, kept simple (a later PR brings wgmma/TMA
-// and a small-M path): 128x128 output tiles, eight warps of 64x32, a K-stage
-// of 64 k-rows. cp.async double-buffers the packed bytes (32 rows of byte
-// pairs for 4-bit, 64 int8 rows) and the matching 64 columns of x; the block
-// decodes the stage once into a bf16 shared tile, reading each k-row's scale
-// and bias row k / group straight from the planes (so groups of 16 or 32
-// inside a stage and group = K all work), and the warps run mma.sync
-// m16n8k16 on it through ldmatrix (.trans for the K-major weight). Ragged M
-// is zero-filled on load and masked on store.
+// 2 x 7.1 MB of planes). The design is K2's (qmm_nf4.cu) with the codebook
+// lookup replaced by the affine decode. The kernel computes the tile of
+// y^T = W^T x^T, so the decoded weight never goes through shared memory and
+// the planes keep their [K, N] layout:
+// * a producer warp feeds an mbarrier ring with TMA: per stage a box of 64
+//   code rows x 128 columns (128-byte swizzle; 4-bit: 64 packed rows, 128 k
+//   in K2's split-block pairing, each half of 32 rows inside one run; int8:
+//   64 k rows), the BM x 32 slices of x they pair with (wgmma's K-major B,
+//   64-byte swizzle: four for 4-bit, two for int8) and, for each slice, the
+//   scale (and bias) row of its group as 512-byte bulk copies on the same
+//   mbarrier: one row per slice, or one per 16 k where the group is not a
+//   multiple of 32 (Q2_K, Q3_K, Q6_K: groups of 16);
+// * two consumer warpgroups (setmaxnreg gives them the producer's
+//   registers), 64 output columns each over all BM rows: per 16 code rows a
+//   thread loads two bytes (its two columns) of four rows, decodes them into
+//   the A fragments of one (int8) or two (4-bit: one packed byte feeds k and
+//   k + split/2) wgmma.m64nBMk16 products, and issues them while it decodes
+//   the next;
+// * the tile height BM is the plan's (ops/qmatmul.py qmm_plan "affine"):
+//   where the grid still fills the card twice over, 256 for int8 codes and
+//   192 for 4-bit ones (at 256 their four x slices leave room for two
+//   stages, which exposes the TMA latency; 192 keeps three), else 128, and
+//   at M <= 64 the M rows rounded up to 8, so that the M1 modulation
+//   products issue m64n8k16 and are bound by their bytes; the ring holds as
+//   many stages as 192 KB allow (3 to 4 at the large tiles, up to 8 at
+//   small BM);
+// * the kernel is persistent (at most one block per SM walks the output
+//   tiles through one ring).
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int KS = 64;              // k-rows per stage
-constexpr int THREADS = 256;
-constexpr int A_STRIDE = KS + 8;    // bf16: 144-byte rows, conflict-free ldmatrix
-constexpr int W_STRIDE = BN + 8;    // bf16: 272-byte rows, conflict-free ldmatrix
-constexpr int A_ELEMS = BM * A_STRIDE;
-constexpr int W_ELEMS = KS * W_STRIDE;
+constexpr int BN = 128;                     // output columns per tile: 64 per consumer warpgroup
+constexpr int PK = 64;                      // code rows per ring stage
+constexpr int P_BOX = PK * BN;              // codes [64][128 columns], 128-byte swizzle
+constexpr int S_ROW = BN * 4;               // one f32 plane row of the block's columns
+constexpr int SLOTS = 8;                    // plane rows per stage: at most one per k16 block
+constexpr int PLANE_BYTES = 2 * SLOTS * S_ROW;  // scale rows, then bias rows
+constexpr int THREADS = 384;                // producer warpgroup + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;           // each releases a stage once its wgmmas are done
+constexpr int MAX_GROUPS = 8;
+constexpr int HALF_N = BN / 2;              // columns of one consumer warpgroup
+// FAST16: bf16 s, off and b' [3][SLOTS][64] per warpgroup, two buffers each
+constexpr int P16_ELEMS = 3 * SLOTS * HALF_N;
+constexpr int P16_BYTES = 2 * 2 * P16_ELEMS * 2;
+constexpr uint16_t BF16_NEG_ZERO = 0x8000u;
 
-constexpr int CHUNKS = KS / 16;  // 16-row plane chunks per stage (K13)
-
-constexpr int PLANE_ELEMS = 2 * CHUNKS * BN;  // K13: f32 scale and bias rows of a stage
-constexpr int PLANE_THREADS = CHUNKS * BN / 4;  // K13: threads that copy and convert them
-
-template <int BITS, bool FAST16>
-struct Layout {
-  static constexpr int P_ROWS = BITS == 4 ? KS / 2 : KS;  // packed rows per stage
-  static constexpr int P_BYTES = P_ROWS * BN;
-  // K13: the stage's f32 plane rows, double-buffered, and their bf16 s, off
-  // and b' of each chunk and column
-  static constexpr size_t PLANE16_BYTES =
-      FAST16 ? 2 * PLANE_ELEMS * sizeof(float) + 3 * CHUNKS * BN * sizeof(uint16_t) : 0;
-  static constexpr size_t SMEM_BYTES = 2 * A_ELEMS * sizeof(__nv_bfloat16) + 2 * P_BYTES +
-                                       W_ELEMS * sizeof(__nv_bfloat16) + PLANE16_BYTES;
+// A ring stage for BITS-bit codes and tiles of BM rows (a multiple of 8):
+// NX slices [BM m][32 k] bf16 (64-byte swizzle), the code box, the plane
+// rows. Every part is a multiple of 1024 bytes.
+template <int BITS, int BM, bool FAST16>
+struct Ring {
+  static constexpr int NX = BITS == 4 ? 4 : 2;
+  static constexpr int X_BOX = BM * 32 * 2;
+  static constexpr int P_OFF = NX * X_BOX;
+  static constexpr int PL_OFF = P_OFF + P_BOX;
+  static constexpr int STAGE_BYTES = PL_OFF + PLANE_BYTES;
+  static constexpr int FIT = 196608 / STAGE_BYTES;
+  static constexpr int STAGES = FIT > 8 ? 8 : FIT;
+  static constexpr size_t SMEM_BYTES =
+      1024 + (size_t)STAGES * STAGE_BYTES + (FAST16 ? P16_BYTES : 0) + 2 * STAGES * sizeof(uint64_t);
+  static_assert(STAGES >= 2 && P_OFF % 1024 == 0, "ring layout");
 };
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// Decode four weights of one k-row: codes q[0..3], the row's scale and bias.
-template <bool HAS_BIAS>
-__device__ __forceinline__ uint2 decode4(const float* q, const float4 s, const float4 b) {
-  float w[4] = {__fmul_rn(q[0], s.x), __fmul_rn(q[1], s.y), __fmul_rn(q[2], s.z),
-                __fmul_rn(q[3], s.w)};
-  if (HAS_BIAS) {
-    w[0] = __fadd_rn(w[0], b.x);
-    w[1] = __fadd_rn(w[1], b.y);
-    w[2] = __fadd_rn(w[2], b.z);
-    w[3] = __fadd_rn(w[3], b.w);
-  }
-  return make_uint2(pack_bf16x2(w[0], w[1]), pack_bf16x2(w[2], w[3]));
-}
-
-// K13: four weights of one k-row, codes as bf16 pairs (q01, q23), against
-// chunk j of the stage's bf16 planes [3][CHUNKS][BN] (s, off, b').
-template <bool HAS_BIAS>
-__device__ __forceinline__ uint2 decode4_fast16(uint32_t q01, uint32_t q23,
-                                                const uint16_t* planes, int j, int c4) {
-  const uint2 s = *reinterpret_cast<const uint2*>(planes + j * BN + c4);
-  if (!HAS_BIAS) return make_uint2(bf16x2_mul(q01, s.x), bf16x2_mul(q23, s.y));
-  const uint2 o = *reinterpret_cast<const uint2*>(planes + (CHUNKS + j) * BN + c4);
-  const uint2 b = *reinterpret_cast<const uint2*>(planes + (2 * CHUNKS + j) * BN + c4);
-  return make_uint2(bf16x2_add(bf16x2_mul(bf16x2_add(q01, o.x), s.x), b.x),
-                    bf16x2_add(bf16x2_mul(bf16x2_add(q23, o.y), s.y), b.y));
-}
-
-constexpr int MAX_GROUPS = 8;
-
-// One product of a call: x [m, K], the planes of its [K, N] weight, output
-// [m, N]; tile0 is where its m-tiles start in the call's grid.
+// One product of a call: maps of x [m, K] (box BM x 32 bf16) and of the
+// codes [K/2 or K, N] (box 64 x 128 u8), the f32 planes [K/group, N] (bias
+// null when no group has one), the output [m, N]; tile0 is where its
+// m-tiles start among the call's.
 struct Group {
-  const __nv_bfloat16* x;
-  const uint8_t* packed;
+  CUtensorMap xmap;
+  CUtensorMap pmap;
   const float* scale;
   const float* bias;
   __nv_bfloat16* out;
@@ -130,315 +120,399 @@ struct Table {
   int count;
 };
 
-template <int BITS, bool HAS_BIAS, bool FAST16>
-__global__ void __launch_bounds__(THREADS)
-qmm_affine_kernel(const Table tab, int K, int N, int split, int group) {
-  using L = Layout<BITS, FAST16>;
-  // This block's group: the last one whose m-tiles start at or before it.
-  const int tile = blockIdx.y;
-  Group G = tab.g[0];
+// First k of x slice sl (0..NX-1) of stage sp. 4-bit: slices 2hs and
+// 2hs + 1 hold the low and high nibbles of packed rows 64sp + 32hs.. (one
+// split-block run since split % 64 == 0); int8: k rows 64sp + 32sl..
+template <int BITS>
+__device__ __forceinline__ int slice_k(int sp, int sl, int split) {
+  if constexpr (BITS == 4) {
+    const int half = split / 2;
+    const int p = sp * PK + 32 * (sl >> 1);
+    return (p / half) * split + p % half + (sl & 1) * half;
+  } else {
+    return sp * PK + 32 * sl;
+  }
+}
+
+// Exact f32 of a 4-bit code (0..15) and of an int8 code held as a byte.
+__device__ __forceinline__ float u4f(uint32_t c) {
+  return __int_as_float(0x4B000000 | c) - 8388608.f;
+}
+__device__ __forceinline__ float s8f(uint32_t byte) {
+  return __int_as_float(0x4B000000 | (byte ^ 0x80u)) - 8388736.f;
+}
+
+// K4's decode of one weight: q * s, then + b (b = -0 without a bias plane).
+__device__ __forceinline__ float affine(float q, float s, float b) {
+  return __fadd_rn(__fmul_rn(q, s), b);
+}
+
+// K13's decode of a pair of one column: ((q + off) * s) + b', bf16 pairs.
+__device__ __forceinline__ uint32_t affine16(float q0, float q1, uint32_t s2, uint32_t o2,
+                                             uint32_t b2) {
+  return bf16x2_add(bf16x2_mul(bf16x2_add(pack_bf16x2(q0, q1), o2), s2), b2);
+}
+
+// Output tile t of a call: m-tile t / n_tiles (of the groups' m-tiles, in
+// order), n-tile t % n_tiles; consecutive tiles share their x rows.
+struct TileAt {
+  int gi, m0, n0;
+};
+
+template <int BM>
+__device__ __forceinline__ TileAt tile_at(const Table& tab, int t, int n_tiles) {
+  const int mt = t / n_tiles;
+  int gi = 0;
 #pragma unroll
   for (int i = 1; i < MAX_GROUPS; ++i)
-    if (i < tab.count && tile >= tab.g[i].tile0) G = tab.g[i];
-  const __nv_bfloat16* __restrict__ x = G.x;
-  const uint8_t* __restrict__ packed = G.packed;
-  const float* __restrict__ scale = G.scale;
-  const float* __restrict__ bias = G.bias;
-  __nv_bfloat16* __restrict__ out = G.out;
-  const int M = G.m;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);               // [2][BM][A_STRIDE]
-  uint8_t* Ps = smem + 2 * A_ELEMS * sizeof(__nv_bfloat16);                   // [2][P_ROWS][BN]
-  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(Ps + 2 * L::P_BYTES);  // [KS][W_STRIDE]
-  float* Pf = reinterpret_cast<float*>(Ws + W_ELEMS);             // K13: [2][2][CHUNKS][BN]
-  uint16_t* P16 = reinterpret_cast<uint16_t*>(Pf + 2 * PLANE_ELEMS);  // K13: [3][CHUNKS][BN]
-  // K13: the chunk and four columns this thread copies and converts
-  const int pj = threadIdx.x / (BN / 4);
-  const int pc4 = (threadIdx.x % (BN / 4)) * 4;
+    if (i < tab.count && mt >= tab.g[i].tile0) gi = i;
+  return {gi, (mt - tab.g[gi].tile0) * BM, (t % n_tiles) * BN};
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
+// Persistent: each block walks tiles blockIdx.x, + gridDim.x, ... through
+// one ring, so the producer loads the next tile while the consumers store
+// the last one.
+template <int BITS, int BM, bool FAST16>
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_affine_kernel(const __grid_constant__ Table tab, int tiles, int K, int N, int split,
+                  int group, int has_bias) {
+  using R = Ring<BITS, BM, FAST16>;
+  constexpr int STAGES = R::STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* stages = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint16_t* p16 = reinterpret_cast<uint16_t*>(stages + STAGES * R::STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * R::STAGE_BYTES +
+                                               (FAST16 ? P16_BYTES : 0));
+  uint64_t* empty = full + STAGES;
+
+  const int n_tiles = N / BN;
+  const int crows = BITS == 4 ? K / 2 : K;
+  const int nstages = (crows + PK - 1) / PK;  // per tile
+  const bool two = group % 32 != 0;            // a plane row per 16 k, not per 32
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: its first warp keeps the ring full. Lane 0 waits
+    // for a free stage and arms its barrier; then each lane issues one of
+    // the stage's copies (the code box, the x slices, the plane rows), so
+    // that up to 1 + 4 + 16 copies leave at once.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const int rows = two ? 2 : 1;
+      const int planes = has_bias ? 2 : 1;
+      int s = 0;  // stages issued so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const TileAt T = tile_at<BM>(tab, t, n_tiles);
+        const Group& G = tab.g[T.gi];
+        for (int sp = 0; sp < nstages; ++sp, ++s) {
+          const int buf = s % STAGES;
+          uint8_t* st = stages + buf * R::STAGE_BYTES;
+          // a last 4-bit stage of 32 packed rows (K/2 % 64 == 32) has two slices
+          const int nsl = BITS == 4 && crows - sp * PK <= 32 ? 2 : R::NX;
+          if (lane == 0) {
+            if (s >= STAGES) mbar_wait(&empty[buf], ((s / STAGES) + 1) & 1);
+            mbar_expect_tx(&full[buf], P_BOX + nsl * (R::X_BOX + rows * planes * S_ROW));
+          }
+          __syncwarp();
+          if (lane == 0) {
+            tma_load_2d(st + R::P_OFF, &G.pmap, T.n0, sp * PK, &full[buf]);
+          } else if (lane <= nsl) {
+            const int sl = lane - 1;
+            tma_load_2d(st + sl * R::X_BOX, &G.xmap, slice_k<BITS>(sp, sl, split), T.m0,
+                        &full[buf]);
+          } else if (lane <= nsl + nsl * rows * planes) {
+            // plane row h of slice sl, scale (pl 0) or bias (pl 1)
+            const int i = lane - 1 - nsl;
+            const int pl = i / (nsl * rows), sl = (i % (nsl * rows)) / rows, h = i % rows;
+            const int k = slice_k<BITS>(sp, sl, split) + 16 * h;
+            const size_t row = (size_t)(k / group) * N + T.n0;
+            bulk_load(st + R::PL_OFF + (pl * SLOTS + 2 * sl + h) * S_ROW,
+                      (pl ? G.bias : G.scale) + row, S_ROW, &full[buf]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups.
+  setmaxnreg_inc<232>();
+  const int ct = threadIdx.x - 128;
+  const int cw = ct >> 7;
+  const int w = (ct >> 5) & 3;
+  const int lane = ct & 31;
   const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = (tile - G.tile0) * BM;
-  const int n0 = blockIdx.x * BN;
-  // 4-bit: a stage is 32 packed rows = k-rows k_lo..k_lo+31 (low nibbles)
-  // and k_lo+half..k_lo+half+31 (high nibbles) of one split-block run.
-  const int half = split / 2;
-  const int stages_per_run = BITS == 4 ? half / (KS / 2) : 1;
-  const int nstages = K / KS;
+  const int t4 = lane & 3;
+  // A rows 16w + g and 16w + g + 8 of the warpgroup hold block columns nb
+  // and nb + 1: one 16-bit load per code row gives both. Its code rows
+  // 2t + {0, 1, 8, 9} of a 16-row block: k 2t, 2t + 1 (a0, a1) and 2t + 8,
+  // 2t + 9 (a2, a3); the swizzle puts the four t on four 16-byte chunks.
+  const int nb = HALF_N * cw + 16 * w + 2 * g;
+  uint32_t p_off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = 2 * t4 + (j & 1) + 8 * (j >> 1);
+    p_off[j] = r * BN + (((nb >> 4) ^ (r & 7)) << 4) + (nb & 15);
+  }
+  // plane slot of the k16 block at 16 * hh into x slice sl
+  auto slot = [&](int sl, int hh) { return 2 * sl + (two ? hh : 0); };
 
-  float acc[4][4][4];
+  int s = 0;  // stages consumed so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TileAt T = tile_at<BM>(tab, t, n_tiles);
+    float acc[BM / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int r = 0; r < BM / 2; ++r) acc[r] = 0.f;
 
-  // First k-row of stage s (the low-nibble rows for 4-bit).
-  auto k_lo_of = [&](int s) {
-    return BITS == 4 ? (s / stages_per_run) * split + (s % stages_per_run) * (KS / 2)
-                     : s * KS;
-  };
-  // k of column c (0..63) of the stage's x tile and row c of its weight tile.
-  auto k_of = [&](int k_lo, int c) {
-    return BITS == 4 ? (c < KS / 2 ? k_lo + c : k_lo + half + c - KS / 2) : k_lo + c;
-  };
-
-  auto load_stage = [&](int s, int buf) {
-    const int k_lo = k_lo_of(s);
-    __nv_bfloat16* a = As + buf * A_ELEMS;
-    // x: BM rows x 64 bf16 = 8 chunks of 16 bytes per row
-#pragma unroll
-    for (int c = tid; c < BM * 8; c += THREADS) {
-      const int r = c >> 3;
-      const int ch = c & 7;
-      const int gr = m0 + r;
-      cp_async16(a + r * A_STRIDE + ch * 8,
-                 x + (size_t)(gr < M ? gr : 0) * K + k_of(k_lo, ch * 8), gr < M ? 16 : 0);
-    }
-    const int prow = BITS == 4 ? (s / stages_per_run) * half + (s % stages_per_run) * (KS / 2)
-                               : k_lo;
-    uint8_t* p = Ps + buf * L::P_BYTES;
-#pragma unroll
-    for (int c = tid; c < L::P_ROWS * BN / 16; c += THREADS) {
-      const int r = c >> 3;
-      const int ch = c & 7;
-      cp_async16(p + r * BN + ch * 16, packed + (size_t)(prow + r) * N + n0 + ch * 16, 16);
-    }
-    if constexpr (FAST16) {
-      if (tid < PLANE_THREADS) {
-        const size_t o = (size_t)(k_of(k_lo, 16 * pj) / group) * N + n0 + pc4;
-        float* pf = Pf + buf * PLANE_ELEMS;
-        cp_async16(pf + pj * BN + pc4, scale + o, 16);
-        if (HAS_BIAS) cp_async16(pf + (CHUNKS + pj) * BN + pc4, bias + o, 16);
-      }
-    }
-    cp_async_commit();
-  };
-
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  load_stage(0, 0);
-  for (int s = 0; s < nstages; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < nstages) {
-      load_stage(s + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if constexpr (FAST16) {
-      // the plane rows this thread copied for the stage (its own cp.async
-      // group is complete) in bf16; the previous stage's decode is done, the
-      // loop's last barrier came after it
-      if (tid < PLANE_THREADS) {
-        const float* pf = Pf + buf * PLANE_ELEMS;
-        const float4 sv = *reinterpret_cast<const float4*>(pf + pj * BN + pc4);
-        const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
-        uint16_t sb[4], ob[4], bb[4];
-        float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (HAS_BIAS) bv = *reinterpret_cast<const float4*>(pf + (CHUNKS + pj) * BN + pc4);
-        const float ba[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool z = sa[e] == 0.f;
-          sb[e] = bf16_bits(sa[e]);
-          ob[e] = bf16_bits(z ? 0.f : __fdiv_rn(ba[e], sa[e]));
-          bb[e] = bf16_bits(z ? ba[e] : 0.f);
-        }
-        auto pack = [](const uint16_t* v) {
-          return make_uint2(v[0] | (static_cast<uint32_t>(v[1]) << 16),
-                            v[2] | (static_cast<uint32_t>(v[3]) << 16));
-        };
-        *reinterpret_cast<uint2*>(P16 + pj * BN + pc4) = pack(sb);
-        if (HAS_BIAS) {
-          *reinterpret_cast<uint2*>(P16 + (CHUNKS + pj) * BN + pc4) = pack(ob);
-          *reinterpret_cast<uint2*>(P16 + (2 * CHUNKS + pj) * BN + pc4) = pack(bb);
-        }
-      }
-    }
-    __syncthreads();
-
-    // Decode the stage into Ws [64 k-rows][128 columns] (f32 math, then bf16;
-    // K13: bf16 math).
-    {
-      const int k_lo = k_lo_of(s);
-      const uint8_t* p = Ps + buf * L::P_BYTES;
-#pragma unroll
-      for (int q4 = 0; q4 < (L::P_ROWS * BN / 4) / THREADS; ++q4) {
-        const int wi = tid + q4 * THREADS;
-        const int r = wi / (BN / 4);
-        const int c4 = (wi % (BN / 4)) * 4;
-        const uint32_t word = *reinterpret_cast<const uint32_t*>(p + r * BN + c4);
-        if constexpr (FAST16) {
-          // codes -> exact bf16 pairs; chunk of row r (and of its high-nibble
-          // partner KS / 2 + r)
-          if (BITS == 4) {
-            const float l0 = word & 0xFu, h0 = (word >> 4) & 0xFu;
-            const float l1 = (word >> 8) & 0xFu, h1 = (word >> 12) & 0xFu;
-            const float l2 = (word >> 16) & 0xFu, h2 = (word >> 20) & 0xFu;
-            const float l3 = (word >> 24) & 0xFu, h3 = word >> 28;
-            *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) = decode4_fast16<HAS_BIAS>(
-                pack_bf16x2(l0, l1), pack_bf16x2(l2, l3), P16, r / 16, c4);
-            *reinterpret_cast<uint2*>(Ws + (KS / 2 + r) * W_STRIDE + c4) =
-                decode4_fast16<HAS_BIAS>(pack_bf16x2(h0, h1), pack_bf16x2(h2, h3), P16,
-                                         CHUNKS / 2 + r / 16, c4);
-          } else {
-            float q[4];
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              q[b] = static_cast<float>(static_cast<int8_t>((word >> (8 * b)) & 0xFFu));
+    // A stage is released once its wgmmas are done: one stage's group stays
+    // in flight while the next stage decodes.
+    int pending = -1;
+    for (int sp = 0; sp < nstages; ++sp, ++s) {
+      const int buf = s % STAGES;
+      mbar_wait(&full[buf], (s / STAGES) & 1);
+      const uint8_t* st = stages + buf * R::STAGE_BYTES;
+      const int nsl = BITS == 4 && crows - sp * PK <= 32 ? 2 : R::NX;
+      uint16_t* cv = p16 + (2 * cw + (s & 1)) * P16_ELEMS;  // FAST16: [3][SLOTS][64]
+      if constexpr (FAST16) {
+        // this warpgroup's columns of the stage's plane rows in bf16: s, off
+        // and b' (off = b' = -0 without a bias plane); the buffer's last
+        // readers passed the barrier of the stage before
+        for (int i = ct & 127; i < SLOTS * HALF_N; i += 128) {
+          const int sl = i / HALF_N, c = i % HALF_N;
+          if ((sl >> 1) < nsl && (two || (sl & 1) == 0)) {
+            const float sv = *reinterpret_cast<const float*>(st + R::PL_OFF + sl * S_ROW +
+                                                             (HALF_N * cw + c) * 4);
+            uint16_t ob = BF16_NEG_ZERO, bb = BF16_NEG_ZERO;
+            if (has_bias) {
+              const float bv = *reinterpret_cast<const float*>(
+                  st + R::PL_OFF + (SLOTS + sl) * S_ROW + (HALF_N * cw + c) * 4);
+              const bool z = sv == 0.f;
+              ob = bf16_bits(z ? 0.f : __fdiv_rn(bv, sv));
+              bb = bf16_bits(z ? bv : 0.f);
             }
-            *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) = decode4_fast16<HAS_BIAS>(
-                pack_bf16x2(q[0], q[1]), pack_bf16x2(q[2], q[3]), P16, r / 16, c4);
+            cv[sl * HALF_N + c] = bf16_bits(sv);
+            cv[(SLOTS + sl) * HALF_N + c] = ob;
+            cv[(2 * SLOTS + sl) * HALF_N + c] = bb;
           }
-          continue;
         }
-        if (BITS == 4) {
-          const size_t o_lo = (size_t)((k_lo + r) / group) * N + n0 + c4;
-          const size_t o_hi = (size_t)((k_lo + half + r) / group) * N + n0 + c4;
-          float lo[4], hi[4];
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const uint32_t byte = (word >> (8 * b)) & 0xFFu;
-            lo[b] = static_cast<float>(byte & 0xFu);
-            hi[b] = static_cast<float>(byte >> 4);
-          }
-          *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) = decode4<HAS_BIAS>(
-              lo, ldg4(scale + o_lo), HAS_BIAS ? ldg4(bias + o_lo) : zero4);
-          *reinterpret_cast<uint2*>(Ws + (KS / 2 + r) * W_STRIDE + c4) = decode4<HAS_BIAS>(
-              hi, ldg4(scale + o_hi), HAS_BIAS ? ldg4(bias + o_hi) : zero4);
-        } else {
-          const size_t o = (size_t)((k_lo + r) / group) * N + n0 + c4;
-          float q[4];
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            q[b] = static_cast<float>(static_cast<int8_t>((word >> (8 * b)) & 0xFFu));
-          }
-          *reinterpret_cast<uint2*>(Ws + r * W_STRIDE + c4) = decode4<HAS_BIAS>(
-              q, ldg4(scale + o), HAS_BIAS ? ldg4(bias + o) : zero4);
-        }
+        named_barrier(1 + cw, 128);
       }
-    }
-    __syncthreads();
-
-    const __nv_bfloat16* a_s = As + buf * A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      uint32_t a[4][4];
+      const int blocks = BITS == 4 ? nsl : 4;  // 16-row code blocks in the stage
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        ldmatrix_x4(a[i], a_s + (wm * 64 + i * 16 + (lane & 15)) * A_STRIDE + kk + (lane >> 4) * 8);
+        if (i < blocks) {
+          uint32_t v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = *reinterpret_cast<const uint16_t*>(st + R::P_OFF + 16 * i * BN + p_off[j]);
+          const int hh = i & 1;
+          // BITS 4: low nibbles in slice 2(i/2), high in 2(i/2) + 1; int8:
+          // slice i/2. 16 k (32 bytes) into the slice for odd i.
+          constexpr int PARTS = BITS == 4 ? 2 : 1;
+#pragma unroll
+          for (int part = 0; part < PARTS; ++part) {
+            const int sl = BITS == 4 ? 2 * (i >> 1) + part : i >> 1;
+            const int q = slot(sl, hh);
+            // codes of column nb (byte 0) and nb + 1 (byte 1) of rows
+            // 2t, 2t + 1, 2t + 8, 2t + 9
+            float c[4][2];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const uint32_t byte = (v[j] >> (8 * e)) & 0xFFu;
+                c[j][e] = BITS == 4 ? u4f(part ? byte >> 4 : byte & 15u) : s8f(byte);
+              }
+            uint32_t a[4];
+            if constexpr (FAST16) {
+              // bf16 (s, off, b') of columns nb, nb + 1, each duplicated into a pair
+              auto pair = [&](int plane) {
+                return *reinterpret_cast<const uint32_t*>(cv + (plane * SLOTS + q) * HALF_N +
+                                                          nb - HALF_N * cw);
+              };
+              const uint32_t sp2 = pair(0), op2 = pair(1), bp2 = pair(2);
+              const uint32_t s_lo = __byte_perm(sp2, 0, 0x1010), s_hi = __byte_perm(sp2, 0, 0x3232);
+              const uint32_t o_lo = __byte_perm(op2, 0, 0x1010), o_hi = __byte_perm(op2, 0, 0x3232);
+              const uint32_t b_lo = __byte_perm(bp2, 0, 0x1010), b_hi = __byte_perm(bp2, 0, 0x3232);
+              a[0] = affine16(c[0][0], c[1][0], s_lo, o_lo, b_lo);
+              a[1] = affine16(c[0][1], c[1][1], s_hi, o_hi, b_hi);
+              a[2] = affine16(c[2][0], c[3][0], s_lo, o_lo, b_lo);
+              a[3] = affine16(c[2][1], c[3][1], s_hi, o_hi, b_hi);
+            } else {
+              // f32 (s, b) of columns nb, nb + 1 (b = -0 without a bias plane)
+              const float2 sv =
+                  *reinterpret_cast<const float2*>(st + R::PL_OFF + q * S_ROW + nb * 4);
+              const float2 bv =
+                  has_bias ? *reinterpret_cast<const float2*>(st + R::PL_OFF +
+                                                               (SLOTS + q) * S_ROW + nb * 4)
+                           : make_float2(-0.f, -0.f);
+              a[0] = pack_bf16x2(affine(c[0][0], sv.x, bv.x), affine(c[1][0], sv.x, bv.x));
+              a[1] = pack_bf16x2(affine(c[0][1], sv.y, bv.y), affine(c[1][1], sv.y, bv.y));
+              a[2] = pack_bf16x2(affine(c[2][0], sv.x, bv.x), affine(c[3][0], sv.x, bv.x));
+              a[3] = pack_bf16x2(affine(c[2][1], sv.y, bv.y), affine(c[3][1], sv.y, bv.y));
+            }
+            wgmma_fence();
+            WgmmaBf16<BM, 0>::run(acc, a, wgmma_desc(st + sl * R::X_BOX + 32 * hh, 512, 2), 1);
+          }
+        }
       }
-      uint32_t b[4][2];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        uint32_t r4[4];
-        ldmatrix_x4_trans(r4, Ws + (kk + (lane & 15)) * W_STRIDE + wn * 32 + jj * 16 + (lane >> 4) * 8);
-        b[2 * jj][0] = r4[0];
-        b[2 * jj][1] = r4[1];
-        b[2 * jj + 1][0] = r4[2];
-        b[2 * jj + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (pending >= 0 && lane == 0) mbar_arrive(&empty[pending]);
+      pending = buf;
     }
-    __syncthreads();
-  }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[pending]);
+#pragma unroll
+    for (int r = 0; r < BM / 2; ++r) reg_fence(acc[r]);
 
+    // acc[4j + 2h + e]: row m0 + 8j + 2t + e, block column nb + h.
+    const Group& G = tab.g[T.gi];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = m0 + wm * 64 + i * 16 + g + hr * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
-            pack_bf16x2(acc[i][j][hr * 2], acc[i][j][hr * 2 + 1]);
+      for (int e = 0; e < 2; ++e) {
+        const int row = T.m0 + 8 * j + 2 * t4 + e;
+        if (row < G.m)
+          *reinterpret_cast<uint32_t*>(G.out + (size_t)row * N + T.n0 + nb) =
+              pack_bf16x2(acc[4 * j + e], acc[4 * j + 2 + e]);
       }
-    }
   }
 }
 
-template <int BITS, bool HAS_BIAS, bool FAST16>
-int launch(const Table& tab, int tiles, int K, int N, int split, int group,
-           cudaStream_t stream) {
-  constexpr size_t smem = Layout<BITS, FAST16>::SMEM_BYTES;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(qmm_affine_kernel<BITS, HAS_BIAS, FAST16>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+// One product's arguments, as the entry points take them.
+struct Args {
+  const void* x;
+  const void* packed;
+  const void* scale;
+  const void* bias;
+  void* out;
+  int m;
+};
+
+// The kernel over m_tiles x N/128 output tiles, one block per SM at most.
+template <int BITS, int BM, bool FAST16>
+cudaError_t launch(const Table& tab, int m_tiles, int K, int N, int split, int group,
+                   int has_bias, cudaStream_t stream) {
+  static int sms = 0;
+  const size_t smem = Ring<BITS, BM, FAST16>::SMEM_BYTES;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(qmm_affine_kernel<BITS, BM, FAST16>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return err;
+    }
   }
-  dim3 grid(N / BN, tiles);
-  qmm_affine_kernel<BITS, HAS_BIAS, FAST16><<<grid, THREADS, smem, stream>>>(tab, K, N, split,
-                                                                             group);
-  return static_cast<int>(cudaGetLastError());
+  const int tiles = m_tiles * (N / BN);
+  qmm_affine_kernel<BITS, BM, FAST16><<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
+      tab, tiles, K, N, split, group, has_bias);
+  return cudaGetLastError();
 }
 
-// Fills the tile offsets and launches the instantiation for (bits, bias).
+// The instantiation for a tile height of bm rows.
+template <int BITS, bool FAST16>
+cudaError_t launch_bm(int bm, const Table& tab, int m_tiles, int K, int N, int split,
+                      int group, int has_bias, cudaStream_t st) {
+#define QMM_AFFINE_BM(B) \
+  case B:                \
+    return launch<BITS, B, FAST16>(tab, m_tiles, K, N, split, group, has_bias, st);
+  switch (bm) {
+    QMM_AFFINE_BM(8)
+    QMM_AFFINE_BM(16)
+    QMM_AFFINE_BM(24)
+    QMM_AFFINE_BM(32)
+    QMM_AFFINE_BM(40)
+    QMM_AFFINE_BM(48)
+    QMM_AFFINE_BM(56)
+    QMM_AFFINE_BM(64)
+    QMM_AFFINE_BM(128)
+    QMM_AFFINE_BM(192)
+    QMM_AFFINE_BM(256)
+  }
+#undef QMM_AFFINE_BM
+  return cudaErrorInvalidValue;
+}
+
+bool valid_bm(int bm) {
+  return (bm >= 8 && bm <= 64 && bm % 8 == 0) || bm == 128 || bm == 192 || bm == 256;
+}
+
+// Encodes the groups' maps and launches the kernel with tiles of bm rows.
+// Returns a cudaError_t.
 template <bool FAST16>
-int run(Table& tab, int K, int N, int bits, int split, int group, bool has_bias,
-        cudaStream_t st) {
+int run(const Args* args, int count, int K, int N, int bits, int split, int group,
+        bool has_bias, int bm, cudaStream_t stream) {
+  if ((bits != 4 && bits != 8) || K % 64 != 0 || N % BN != 0 || group % 16 != 0 ||
+      K % group != 0 || (bits == 4 && (split % 64 != 0 || K % split != 0)) || !valid_bm(bm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Table tab{};
+  tab.count = count;
   int tiles = 0;
-  for (int i = 0; i < tab.count; ++i) {
-    tab.g[i].tile0 = tiles;
-    tiles += (tab.g[i].m + BM - 1) / BM;
+  for (int i = 0; i < count; ++i) {
+    const Args& a = args[i];
+    Group& g = tab.g[i];
+    g.scale = static_cast<const float*>(a.scale);
+    g.bias = has_bias ? static_cast<const float*>(a.bias) : nullptr;
+    g.out = static_cast<__nv_bfloat16*>(a.out);
+    g.m = a.m;
+    g.tile0 = tiles;
+    if (has_bias && a.bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (a.m > 0) {
+      int err = encode_tensor_map_2d(&g.xmap, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.m, K,
+                                     bm, 32, CU_TENSOR_MAP_SWIZZLE_64B);
+      if (err == 0)
+        err = encode_tensor_map_2d(&g.pmap, a.packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                                   bits == 4 ? K / 2 : K, N, PK, BN, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err != 0) return err;
+    }
+    tiles += (a.m + bm - 1) / bm;
   }
   if (tiles == 0) return 0;
-  if (bits == 4) {
-    return has_bias ? launch<4, true, FAST16>(tab, tiles, K, N, split, group, st)
-                    : launch<4, false, FAST16>(tab, tiles, K, N, split, group, st);
-  }
-  if (bits == 8) {
-    return has_bias ? launch<8, true, FAST16>(tab, tiles, K, N, split, group, st)
-                    : launch<8, false, FAST16>(tab, tiles, K, N, split, group, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int hb = has_bias ? 1 : 0;
+  const cudaError_t err =
+      bits == 4 ? launch_bm<4, FAST16>(bm, tab, tiles, K, N, split, group, hb, stream)
+                : launch_bm<8, FAST16>(bm, tab, tiles, K, N, split, group, hb, stream);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // K4. x bf16 [M, K]; packed u8 [K/2, N] (bits 4, split-block nibbles) or
 // int8 [K, N] (bits 8); scale f32 [K/group, N]; bias f32 [K/group, N] or
-// null; out bf16 [M, N]. Needs K % 64 == 0, N % 128 == 0, K % group == 0
-// and, for bits 4, split % 64 == 0 and K % split == 0. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a bits value other than
-// 4 or 8.
+// null; out bf16 [M, N]; tiles of block_m rows (ops/qmatmul.py qmm_plan
+// "affine": 8..64 in steps of 8, 128, 192 or 256). Needs K % 64 == 0,
+// N % 128 == 0, group % 16 == 0, K % group == 0, for bits 4 split % 64 == 0
+// and K % split == 0, and 16-byte aligned x, packed, scale and bias.
+// Returns cudaGetLastError(), the tensor-map encoder's refusal, or
+// cudaErrorInvalidValue for arguments outside these.
 extern "C" int qmm_affine(const void* x, const void* packed, const void* scale,
                           const void* bias, void* out, int M, int K, int N, int bits,
-                          int split, int group, void* stream) {
-  Table tab{};
-  tab.count = 1;
-  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-              static_cast<const float*>(scale), static_cast<const float*>(bias),
-              static_cast<__nv_bfloat16*>(out), M, 0};
-  return run<false>(tab, K, N, bits, split, group, bias != nullptr,
+                          int split, int group, int block_m, void* stream) {
+  const Args a{x, packed, scale, bias, out, M};
+  return run<false>(&a, 1, K, N, bits, split, group, bias != nullptr, block_m,
                     static_cast<cudaStream_t>(stream));
 }
 
-// K13: K4 with the fast16 decode; the same arguments, and group % 16 == 0.
-// Returns cudaErrorInvalidValue for another group.
+// K13: K4 with the fast16 decode; the same arguments.
 extern "C" int qmm_affine_fast16(const void* x, const void* packed, const void* scale,
                                  const void* bias, void* out, int M, int K, int N, int bits,
-                                 int split, int group, void* stream) {
-  if (group % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Table tab{};
-  tab.count = 1;
-  tab.g[0] = {static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-              static_cast<const float*>(scale), static_cast<const float*>(bias),
-              static_cast<__nv_bfloat16*>(out), M, 0};
-  return run<true>(tab, K, N, bits, split, group, bias != nullptr,
+                                 int split, int group, int block_m, void* stream) {
+  const Args a{x, packed, scale, bias, out, M};
+  return run<true>(&a, 1, K, N, bits, split, group, bias != nullptr, block_m,
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -446,19 +520,18 @@ extern "C" int qmm_affine_fast16(const void* x, const void* packed, const void* 
 // m}, each group as K4's arguments, all of one K, N, bits, split and group,
 // with a bias plane in every group (has_bias 1) or in none (0; bias 0).
 // 1 <= G <= 8. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// bad G or bits value.
+// bad G or argument.
 extern "C" int qmm_grouped_affine(const long long* table, int G, int K, int N, int bits,
-                                  int split, int group, int has_bias, void* stream) {
+                                  int split, int group, int has_bias, int block_m,
+                                  void* stream) {
   if (G < 1 || G > MAX_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
-  Table tab{};
-  tab.count = G;
+  Args args[MAX_GROUPS];
   for (int i = 0; i < G; ++i) {
     const long long* r = table + 6 * i;
-    tab.g[i] = {reinterpret_cast<const __nv_bfloat16*>(r[0]),
-                reinterpret_cast<const uint8_t*>(r[1]), reinterpret_cast<const float*>(r[2]),
-                reinterpret_cast<const float*>(r[3]), reinterpret_cast<__nv_bfloat16*>(r[4]),
-                static_cast<int>(r[5]), 0};
+    args[i] = {reinterpret_cast<const void*>(r[0]), reinterpret_cast<const void*>(r[1]),
+               reinterpret_cast<const void*>(r[2]), reinterpret_cast<const void*>(r[3]),
+               reinterpret_cast<void*>(r[4]), static_cast<int>(r[5])};
   }
-  return run<false>(tab, K, N, bits, split, group, has_bias != 0,
+  return run<false>(args, G, K, N, bits, split, group, has_bias != 0, block_m,
                     static_cast<cudaStream_t>(stream));
 }

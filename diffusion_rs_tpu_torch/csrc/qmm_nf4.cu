@@ -103,15 +103,6 @@ __device__ __forceinline__ int slice_k(int p, int split) {
   return (p / half) * split + p % half;
 }
 
-template <int BM>
-__device__ __forceinline__ void wgmma_bf16(float* acc, const uint32_t* a, uint64_t desc) {
-  if constexpr (BM == 256) {
-    wgmma_bf16_m64n256k16(acc, a, desc, 1);
-  } else {
-    wgmma_bf16_m64n128k16(acc, a, desc, 1);
-  }
-}
-
 // Output tile t of a call: m-tile t / n_tiles (of the groups' m-tiles, in
 // order), n-tile t % n_tiles; consecutive tiles share their x rows.
 struct TileAt {
@@ -271,8 +262,8 @@ qmm_nf4_kernel(const __grid_constant__ Table tab, int tiles, int K, int N, int s
           a_hi[2] = decode2((v[2] >> 4) & 15u, (v[3] >> 4) & 15u, s_hi.x);
           a_hi[3] = decode2(v[2] >> 12, v[3] >> 12, s_hi.y);
           wgmma_fence();
-          wgmma_bf16<BM>(acc, a_lo, wgmma_desc(st + b_lo * R::X_BOX + k_off, 512, 2));
-          wgmma_bf16<BM>(acc, a_hi, wgmma_desc(st + b_hi * R::X_BOX + k_off, 512, 2));
+          WgmmaBf16<BM, 0>::run(acc, a_lo, wgmma_desc(st + b_lo * R::X_BOX + k_off, 512, 2), 1);
+          WgmmaBf16<BM, 0>::run(acc, a_hi, wgmma_desc(st + b_hi * R::X_BOX + k_off, 512, 2), 1);
         }
       }
       wgmma_commit();

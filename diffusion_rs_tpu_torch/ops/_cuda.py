@@ -13,7 +13,8 @@ as ``jnp.round(x / sx)`` does, and fast math would change both.
 A source may export several entry points (:data:`KERNELS`: the q8t, nf4 and
 affine sources also export their grouped forms, the nf4 and affine sources
 their fast16 forms, the flash source its seq-major, fused-RoPE and int8
-forms, and the bf16 and int8 forms that also write the log-sum-exp, K14).
+forms, the bf16 and int8 forms that also write the log-sum-exp, K14, and
+the RoPE pass ``rope_qk`` that K7 launches before its attention).
 Every kernel wrapper adds one to its entry point's count in
 :data:`LAUNCHES` when it launches it, and nowhere else.
 """
@@ -52,12 +53,13 @@ KERNELS = {
     "qmm_nf4": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "qmm_grouped_nf4": ("qmm_nf4", [_P, _I, _I, _I, _I, _I, _I, _P]),
     "qmm_nf4_fast16": ("qmm_nf4", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "qmm_affine": ("qmm_affine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "qmm_grouped_affine": ("qmm_affine", [_P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "qmm_affine_fast16": ("qmm_affine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "qmm_affine": ("qmm_affine", [_P] * 5 + [_I] * 7 + [_P]),
+    "qmm_grouped_affine": ("qmm_affine", [_P] + [_I] * 8 + [_P]),
+    "qmm_affine_fast16": ("qmm_affine", [_P] * 5 + [_I] * 7 + [_P]),
     "flash_fwd": ("flash_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "flash_sm": ("flash_fwd", [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P]),
-    "flash_rope": ("flash_fwd", [_P] * 8 + [_I] * 4 + [_L] * 6 + [_F, _P]),
+    "flash_rope": ("flash_fwd", [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P]),
+    "rope_qk": ("flash_fwd", [_P] * 8 + [_I] * 4 + [_L] * 4 + [_P]),
     "flash_s8": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
     "flash_s8pv": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
     "flash_s8_s8pv": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),

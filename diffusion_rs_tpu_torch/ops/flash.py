@@ -1,22 +1,27 @@
 """Blockwise flash attention (forward), port of ``ops/flash_pallas.py``.
 
 Three Pallas kernels are replaced by entry points of the hand-written Hopper
-kernel ``csrc/flash_fwd.cu`` (one body: online softmax with f32 running
-max/sum/accumulator, QK^T and P.V on bf16 tensor cores, ragged kv masked to
--1e30, each head's output written straight into its column slice of
-``[B, S, H*D]``):
+kernel ``csrc/flash_fwd.cu`` (one bf16 body: TMA into an mbarrier ring, a
+producer warp and two consumer warpgroups on ``wgmma``; online softmax with
+f32 running max/sum/accumulator, ragged kv masked to -1e30, each head's
+output written straight into its column slice of ``[B, S, H*D]``):
 
 * K3 ``flash_fwd`` (``_flash_kernel``, bf16, ``seq_out``): q/k/v [B, H, S, D];
 * K6 ``flash_sm`` (``_flash_sm_kernel``): seq-major q/k/v [B, S, H*D], each
   head a column slice;
-* K7 ``flash_rope`` (``_flash_rope_kernel``): K6 with the half-split RoPE of
-  q and k done inside the kernel from the expanded tables.
+* K7 ``flash_rope`` (``_flash_rope_kernel``): the pass ``rope_qk`` rotates q
+  and k (half-split RoPE from the expanded tables) once into scratch
+  tensors, then K6's body runs on them.
+
+:func:`flash_plan` is the bf16 body's launch plan (blocks, kv tile, ring,
+tensor maps) and raises on operands it does not take; every operand also
+passes :func:`~.qmatmul.check_tma_operand`.
 
 The int8 modes of ``_flash_kernel`` (``s8`` and ``s8_pv``) are a second
-kernel body in the same source, with three entry points: K9 ``flash_s8``
-(s8 x s8 QK^T), K10 ``flash_s8pv`` (s8 x s8 P.V) and ``flash_s8_s8pv`` (both).
-Their prepasses, :func:`quantize_k` and :func:`quantize_v`, are plain
-PyTorch, as JAX leaves them to XLA.
+kernel body in the same source (``mma.sync``, 64-row kv tiles), with three
+entry points: K9 ``flash_s8`` (s8 x s8 QK^T), K10 ``flash_s8pv`` (s8 x s8
+P.V) and ``flash_s8_s8pv`` (both). Their prepasses, :func:`quantize_k` and
+:func:`quantize_v`, are plain PyTorch, as JAX leaves them to XLA.
 
 K14 is ``_flash_kernel``'s ``save_lse`` output, which ring attention
 (ops/partitioned.py) merges chunks with: both bodies take it as a template
@@ -26,27 +31,31 @@ flag, compiled out of K3 / K9 / K10, behind four more entry points
 [B, H, Sq] (``flash_attention(..., save_lse=True)``).
 
 Beside the kernels are the plain PyTorch versions, which follow the same
-per-kv-block online softmax: ``l`` sums the f32 ``p`` while P.V uses ``p``
-cast to the value dtype. A CPU tensor takes the plain version; a CUDA tensor
-takes the kernel or raises. The TPU tiling machinery (``DEFAULT_BLOCK_Q/K``,
-VMEM planning) and the diagnostic ablation knobs are not ported.
+per-kv-block online softmax (blocks of the kernels' kv tiles): ``l`` sums
+the f32 ``p`` while P.V uses ``p`` cast to the value dtype. A CPU tensor
+takes the plain version; a CUDA tensor takes the kernel or raises. The TPU
+tiling machinery (``DEFAULT_BLOCK_Q/K``, VMEM planning) and the diagnostic
+ablation knobs are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .qmatmul import check_tma_operand
 from .rope import apply_rope_halfsplit
 
 _NEG_INF = -1e30
-# kv rows per block of the CUDA kernel; the plain version uses the same
-# blocking by default so the two accumulate in the same order of blocks.
+# kv rows per block of the CUDA kernels (both bodies); the plain versions use
+# the same blocking by default so the two accumulate in the same order of
+# blocks (the same block maxima, so the same bf16 p).
 BLOCK_K = 64
 HEAD_DIM = 128
 # The int8 modes' quantization block is JAX's kv block, min(1536,
@@ -93,6 +102,98 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_next
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc * (1.0 / l_safe)).to(q.dtype), (m + torch.log(l_safe))[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# The bf16 body's launch plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TmaMap:
+    """One operand's rank-3 tensor map as ``csrc/flash_fwd.cu`` encodes it:
+    ``dims`` innermost first (columns, rows, planes), the byte strides of a
+    row and of a plane, and the box (rows, columns: 64 bf16 columns, the
+    128-byte swizzle span). Reads outside ``dims`` come back zero, so a box
+    never reads into the next head or batch."""
+
+    dims: Tuple[int, int, int]
+    strides: Tuple[int, int]
+    box: Tuple[int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How the bf16 body tiles one call: blocks of ``block_q`` q rows of one
+    (batch, head), ``threads`` threads (a producer warpgroup and two consumer
+    warpgroups of 64 rows), kv tiles of ``block_kv`` rows through a ring of
+    ``stages``; the numbers mirror the source's constants. ``maps`` holds
+    the q, k and v tensor maps: over (128, S, B*H) for ``bhsd`` (K3, K14),
+    over (H*128, S, B) with the operand's strides for ``seqmajor`` (K6, K7;
+    a column slice's offset lies in its base pointer)."""
+
+    layout: str
+    b: int
+    h: int
+    s_q: int
+    s_kv: int
+    maps: Dict[str, TmaMap]
+    block_q: int = 128
+    block_kv: int = BLOCK_K
+    stages: int = 4
+    threads: int = 384
+    smem_bytes: int = 1024 + 2 * 128 * 128 + 4 * 2 * 2 * 64 * 128 + 13 * 8
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """(q blocks, batch * heads)."""
+        return -(-self.s_q // self.block_q), self.b * self.h
+
+    @property
+    def kv_tiles(self) -> int:
+        return -(-self.s_kv // self.block_kv)
+
+    def box_origin(self, name: str, b: int, h: int) -> Tuple[int, int]:
+        """(first column, plane) of head ``h`` of batch ``b`` in ``name``'s map."""
+        if self.layout == "bhsd":
+            return 0, b * self.h + h
+        return h * HEAD_DIM, b
+
+
+def flash_plan(b: int, h: int, s_q: int, s_kv: int, layout: str = "bhsd", *,
+               d: int = HEAD_DIM, strides: Optional[Dict[str, Sequence[int]]] = None,
+               bases: Optional[Dict[str, int]] = None) -> FlashPlan:
+    """The bf16 body's plan for ``b`` x ``h`` heads of ``s_q`` q rows over
+    ``s_kv`` kv rows. ``layout`` is ``"bhsd"`` (contiguous [B, H, S, 128]) or
+    ``"seqmajor"`` ([B, S, H*128] rows with ``strides[name] = (batch, row)``
+    in elements and ``bases[name]`` the data pointer, for q, k and v).
+    Raises NotImplementedError for a head dim other than 128 and ValueError
+    for what TMA cannot read: a row or batch stride that is not a multiple
+    of 16 bytes, rows narrower than the heads, a base (a column slice) off
+    16-byte alignment, or no kv row."""
+    if d != HEAD_DIM:
+        raise NotImplementedError(f"flash kernel takes head_dim {HEAD_DIM}, got {d}")
+    if s_kv <= 0 or s_q <= 0 or b <= 0 or h <= 0:
+        raise ValueError(f"flash kernel needs rows and heads (B={b}, H={h}, Sq={s_q}, "
+                         f"Skv={s_kv})")
+    maps = {}
+    for name, s in (("q", s_q), ("k", s_kv), ("v", s_kv)):
+        box = (128 if name == "q" else BLOCK_K, 64)
+        if layout == "bhsd":
+            row = HEAD_DIM * 2
+            maps[name] = TmaMap((HEAD_DIM, s, b * h), (row, s * row), box)
+            continue
+        if layout != "seqmajor":
+            raise ValueError(f"flash_plan: unknown layout {layout!r}")
+        sb, sr = strides[name]
+        base = 0 if bases is None else bases[name]
+        if sr < h * HEAD_DIM or (sr * 2) % 16 or (b > 1 and (sb * 2) % 16) or base % 16:
+            raise ValueError(
+                f"{name}: TMA needs 16-byte aligned rows at least {h * HEAD_DIM} wide "
+                f"(row stride {sr}, batch stride {sb} elements, base {base % 16} bytes "
+                f"past alignment)")
+        row = sr * 2
+        maps[name] = TmaMap((h * HEAD_DIM, s, b), (row, sb * 2 if b > 1 else s * row), box)
+    return FlashPlan(layout, b, h, s_q, s_kv, maps)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -145,7 +246,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What K3, K9 and K10 take: bf16 q [B, H, Sq, 128] and k/v [B, H, Skv,
-    128], contiguous, on one CUDA device, Skv > 0."""
+    128], contiguous, 16-byte aligned, on one CUDA device, Skv > 0."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d != HEAD_DIM:
@@ -159,6 +260,7 @@ def _check_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        check_tma_operand(name, t)
     if skv == 0:
         raise ValueError("flash kernel needs at least one kv row")
 
@@ -171,6 +273,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     log-sum-exp there."""
     _check_bhsd(q, k, v)
     b, h, sq, d = q.shape
+    flash_plan(b, h, sq, k.shape[2], "bhsd")
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
     if lse is None:
         _cuda.launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -445,14 +548,15 @@ def flash_rope_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _seqmajor_args(q, k, v):
-    """Shape, device and layout checks of K6/K7's q/k/v; returns (b, h, sq,
-    skv) and the batch/row strides the kernel takes."""
+    """Shape, device and layout checks of K6/K7's q/k/v (:func:`flash_plan`
+    with their strides and pointers, :func:`check_tma_operand`); returns (b,
+    h, sq, skv) and the batch/row strides the kernel takes."""
     b, sq, n = q.shape
     if n % HEAD_DIM != 0:
         raise NotImplementedError(f"seq-major flash kernel takes heads of {HEAD_DIM} "
                                   f"columns, got a width of {n}")
     skv = k.shape[1]
-    strides = []
+    strides = {}
     for name, t, shape in (("q", q, (b, sq, n)), ("k", k, (b, skv, n)),
                            ("v", v, (b, skv, n))):
         if t.device != q.device or t.device.type != "cuda":
@@ -460,16 +564,11 @@ def _seqmajor_args(q, k, v):
         if t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected bf16 {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        sb, sr, sc = t.stride()
-        if sc != 1 or sr % 8 or sb % 8 or t.data_ptr() % 16:
-            raise ValueError(f"{name} rows must be 16-byte aligned with unit column "
-                             f"stride, got strides {t.stride()}")
-        if (shape[1] - 1) * sr + n >= 2 ** 31:
-            raise ValueError(f"{name}: row offsets exceed 32 bits (strides {t.stride()})")
-        strides += [sb, sr]
-    if skv == 0:
-        raise ValueError("flash kernel needs at least one kv row")
-    return (b, n // HEAD_DIM, sq, skv), strides
+        check_tma_operand(name, t)
+        strides[name] = t.stride()[:2]
+    flash_plan(b, n // HEAD_DIM, sq, skv, "seqmajor", strides=strides,
+               bases={"q": q.data_ptr(), "k": k.data_ptr(), "v": v.data_ptr()})
+    return (b, n // HEAD_DIM, sq, skv), [x for name in "qkv" for x in strides[name]]
 
 
 def _check_table(name: str, t: torch.Tensor, shape, device) -> None:
@@ -492,20 +591,52 @@ def flash_sm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_tables(ce_q, se_q, ce_k, se_k, b: int, sq: int, skv: int, device) -> None:
+    _check_table("ce_q", ce_q, (b, sq, HEAD_DIM), device)
+    _check_table("se_q", se_q, (b, sq, HEAD_DIM), device)
+    _check_table("ce_k", ce_k, (b, skv, HEAD_DIM), device)
+    _check_table("se_k", se_k, (b, skv, HEAD_DIM), device)
+
+
+def _rope_launch(q, k, ce_q, se_q, ce_k, se_k, b: int, h: int, sq: int, skv: int,
+                 strides) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``rope_qk`` on checked operands (``strides``: q's and
+    k's batch and row strides) into new contiguous q and k."""
+    qr = torch.empty((b, sq, h * HEAD_DIM), dtype=torch.bfloat16, device=q.device)
+    kr = torch.empty((b, skv, h * HEAD_DIM), dtype=torch.bfloat16, device=q.device)
+    _cuda.launch("rope_qk", q.data_ptr(), k.data_ptr(), ce_q.data_ptr(), se_q.data_ptr(),
+                 ce_k.data_ptr(), se_k.data_ptr(), qr.data_ptr(), kr.data_ptr(),
+                 b, h, sq, skv, *strides[:4], device=q.device)
+    return qr, kr
+
+
+def rope_qk(q: torch.Tensor, k: torch.Tensor, ce_q: torch.Tensor, se_q: torch.Tensor,
+            ce_k: torch.Tensor, se_k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K7's rotation pass (``rope_qk`` of ``csrc/flash_fwd.cu``): the
+    half-split RoPE of seq-major q [B, Sq, H*128] and k [B, Skv, H*128]
+    (column slices allowed) from the expanded tables f32 [B, Sq, 128] and
+    [B, Skv, 128], into new contiguous bf16 tensors, bit for bit
+    :func:`rope_halfsplit_seqmajor`'s. One launch for both."""
+    (b, h, sq, skv), strides = _seqmajor_args(q, k, k)
+    _check_tables(ce_q, se_q, ce_k, se_k, b, sq, skv, q.device)
+    return _rope_launch(q, k, ce_q, se_q, ce_k, se_k, b, h, sq, skv, strides)
+
+
 def flash_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                ce_q: torch.Tensor, se_q: torch.Tensor, ce_k: torch.Tensor,
                se_k: torch.Tensor, scale: float) -> torch.Tensor:
-    """Launch K7 (``flash_rope`` of ``csrc/flash_fwd.cu``): K6's operands
-    plus the expanded RoPE tables f32 [B, Sq, 128] (q) and [B, Skv, 128] (k)."""
+    """K7: K6's operands plus the expanded RoPE tables f32 [B, Sq, 128] (q)
+    and [B, Skv, 128] (k). The rotation pass (:func:`rope_qk`) rotates q and
+    k, then the ``flash_rope`` entry point of ``csrc/flash_fwd.cu`` (K6's
+    kernel, counted apart) attends over them."""
     (b, h, sq, skv), strides = _seqmajor_args(q, k, v)
-    _check_table("ce_q", ce_q, (b, sq, HEAD_DIM), q.device)
-    _check_table("se_q", se_q, (b, sq, HEAD_DIM), q.device)
-    _check_table("ce_k", ce_k, (b, skv, HEAD_DIM), q.device)
-    _check_table("se_k", se_k, (b, skv, HEAD_DIM), q.device)
-    out = torch.empty((b, sq, h * HEAD_DIM), dtype=torch.bfloat16, device=q.device)
-    _cuda.launch("flash_rope", q.data_ptr(), k.data_ptr(), v.data_ptr(), ce_q.data_ptr(),
-                 se_q.data_ptr(), ce_k.data_ptr(), se_k.data_ptr(), out.data_ptr(),
-                 b, h, sq, skv, *strides, float(scale), device=q.device)
+    _check_tables(ce_q, se_q, ce_k, se_k, b, sq, skv, q.device)
+    qr, kr = _rope_launch(q, k, ce_q, se_q, ce_k, se_k, b, h, sq, skv, strides)
+    n = h * HEAD_DIM
+    out = torch.empty((b, sq, n), dtype=torch.bfloat16, device=q.device)
+    _cuda.launch("flash_rope", qr.data_ptr(), kr.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, h, sq, skv, sq * n, n, skv * n, n, *strides[4:], float(scale),
+                 device=q.device)
     return out
 
 

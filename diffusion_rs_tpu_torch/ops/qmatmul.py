@@ -17,10 +17,10 @@ Port of ``diffusion_rs_tpu/ops/qmatmul_pallas.py``. The dispatch mirrors
 Three hand-written Hopper kernel sources (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``,
 ``csrc/qmm_affine.cu``) serve the CUDA path. Beside each is its plain PyTorch version, which follows
 the Pallas math tile for tile. A wrapper given a CPU tensor runs the plain
-version; given a CUDA tensor it launches the kernel or raises. The q8t and
-nf4 kernels are fed by TMA: :func:`qmm_plan` is their launch plan (tiles,
-ring, scratch layout) and :func:`check_tma_operand` the alignment their
-operands need.
+version; given a CUDA tensor it launches the kernel or raises. All three
+are fed by TMA: :func:`qmm_plan` is their launch plan (tiles, ring,
+scratch layout) and :func:`check_tma_operand` the alignment their operands
+need.
 
 :func:`quantized_matmul_grouped` (``quantized_matmul_grouped`` at
 qmatmul_pallas.py:664) runs several same-format ``[K, N]`` products in one
@@ -79,7 +79,8 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Launch plans of the TMA-fed kernels: K1 / K8-s8 and K2 / K11 / K12
+# Launch plans of the TMA-fed kernels: K1 / K8-s8, K2 / K11 / K12 and
+# K4 / K8-affine / K13
 # ---------------------------------------------------------------------------
 
 
@@ -88,9 +89,10 @@ SMS = 132  # streaming multiprocessors of the H100 SXM the plans are made for
 
 @dataclasses.dataclass(frozen=True)
 class QmmPlan:
-    """How ``csrc/qmm_s8.cu`` (``kind="s8"``: K1, K8-s8) or
-    ``csrc/qmm_nf4.cu`` (``"nf4"``: K2, K11, K12) tiles one ``[M, K] x
-    [K, N]`` product; the numbers mirror the sources' constants. An output
+    """How ``csrc/qmm_s8.cu`` (``kind="s8"``: K1, K8-s8),
+    ``csrc/qmm_nf4.cu`` (``"nf4"``: K2, K11, K12) or ``csrc/qmm_affine.cu``
+    (``"affine"``: K4, K8-affine, K13) tiles one ``[M, K] x [K, N]``
+    product; the numbers mirror the sources' constants. An output
     tile is ``block_m`` rows x ``block_n`` columns, computed by two consumer
     warpgroups that walk K through a ring of ``stages`` TMA stages of
     ``stage_k`` k values each; the kernels are persistent, min(tiles, SMs)
@@ -124,9 +126,10 @@ class QmmPlan:
 
 def qmm_plan(kind: str, m: int, k: int, n: int, *, bk: Optional[int] = None,
              split: Optional[int] = None, group: Optional[int] = None,
-             group_ms: Optional[Sequence[int]] = None) -> QmmPlan:
-    """The launch plan of the q8t kernel (``kind="s8"``, K-tile ``bk``) or
-    the 4-bit codebook kernel (``"nf4"``, ``split``, ``group``) for an
+             group_ms: Optional[Sequence[int]] = None, bits: Optional[int] = None) -> QmmPlan:
+    """The launch plan of the q8t kernel (``kind="s8"``, K-tile ``bk``), the
+    4-bit codebook kernel (``"nf4"``, ``split``, ``group``) or the affine
+    kernel (``"affine"``, ``bits`` 4 or 8, ``split``, ``group``) for an
     ``[m, k] x [k, n]`` product, or for a grouped call whose groups have
     ``group_ms`` rows. Raises ValueError for a shape the kernel does not
     take.
@@ -135,7 +138,23 @@ def qmm_plan(kind: str, m: int, k: int, n: int, *, bk: Optional[int] = None,
     for img_in's K = 64): at M4096 K3072 N3072, 768 tiles, 5.8 per SM of
     the card's 132. nf4 tiles are 128 columns by 256 rows where that still
     leaves four tiles per SM (M4608 N12288: 1728 tiles), else 128 rows (the
-    T5 shapes, M512 N4096: 128 tiles)."""
+    T5 shapes, M512 N4096: 128 tiles).
+
+    Affine tiles are 128 columns by 256 rows (int8 codes: four stages fit)
+    or 192 (4-bit codes, whose stage carries four x slices: 192 rows keep
+    three stages where 256 would leave two) where that still leaves two
+    tiles per SM (every M4096 / M4608 product of FLUX: M4608 N3072 takes
+    576 tiles of 192 rows, M4608 N21504 4032), else 128 rows (M512); where
+    every group has at most 64 rows, by M rounded up to 8 (the wgmma N): the M1 modulation
+    products issue m64n8k16 and are bound by their bytes, not their MMAs.
+    There the column tiles fill the card: at M1 N18432 (the double blocks'
+    modulation) 144 tiles meet 132 SMs, so 12 SMs stream a second tile; at
+    N9216 (the single blocks') 72 blocks stream 128 columns each. A stage
+    moves 64 code rows (128 k for 4-bit, 64 for int8) with their plane
+    rows; the ring holds as many stages as 192 KB allow (3 at 192 rows, 4
+    at 128 and at int8's 256, 6 to 8 at small M), so a small-M block keeps
+    up to eight stages of codes in flight. ``stage_k`` is the k of one
+    stage."""
     if kind == "s8":
         _require(k % 64 == 0 and bk % 64 == 0 and k % bk == 0 and n % 128 == 0,
                  f"qmm_s8 needs K, K-tile % 64 == 0 and N % 128 == 0 (K={k}, "
@@ -143,16 +162,35 @@ def qmm_plan(kind: str, m: int, k: int, n: int, *, bk: Optional[int] = None,
         stage_k = 128 if bk % 128 == 0 else 64
         return QmmPlan("s8", m, k, n, block_m=128, block_n=128, stage_k=stage_k,
                        stages=6 if stage_k == 128 else 8, sx_rows=-(-m // 128) * 128)
+    ms = [m] if group_ms is None else group_ms
+    wide = sum(-(-mi // 256) for mi in ms) * (n // 128) >= 4 * SMS
     if kind == "nf4":
         _require(split % 64 == 0 and k % split == 0 and group % 32 == 0
                  and k % group == 0 and n % 128 == 0,
                  f"qmm_nf4 needs split % 64 == 0, group % 32 == 0 and N % 128 == 0 "
                  f"(split={split}, group={group}, N={n})")
-        ms = [m] if group_ms is None else group_ms
-        wide = sum(-(-mi // 256) for mi in ms) * (n // 128) >= 4 * SMS
         block_m = 256 if wide else 128
         return QmmPlan("nf4", m, k, n, block_m=block_m, block_n=128, stage_k=128,
                        stages=3 if wide else 4, sx_rows=0)
+    if kind == "affine":
+        _require(bits in (4, 8) and k % 64 == 0 and n % 128 == 0 and group % 16 == 0
+                 and k % group == 0 and (bits == 8 or (split % 64 == 0 and k % split == 0)),
+                 f"qmm_affine needs 4- or 8-bit codes, K % 64 == 0, N % 128 == 0, "
+                 f"group % 16 == 0, K % group == 0 and a 4-bit split % 64 == 0 "
+                 f"(bits={bits}, K={k}, N={n}, group={group}, split={split})")
+        top = max(ms)
+        big = 192 if bits == 4 else 256  # 4-bit: 192 rows, so that three stages fit
+        if top <= 64:
+            block_m = max(8, -(-top // 8) * 8)
+        elif sum(-(-mi // big) for mi in ms) * (n // 128) >= 2 * SMS:
+            block_m = big
+        else:
+            block_m = 128
+        slices = 4 if bits == 4 else 2  # x slices of 32 k per stage
+        stage_bytes = slices * block_m * 64 + 64 * 128 + 2 * 8 * 512
+        return QmmPlan("affine", m, k, n, block_m=block_m, block_n=128,
+                       stage_k=128 if bits == 4 else 64,
+                       stages=min(8, 196608 // stage_bytes), sx_rows=0)
     raise ValueError(f"qmm_plan: no TMA-fed kernel of kind {kind!r}")
 
 
@@ -162,14 +200,16 @@ TMA_ALIGN = 16  # bytes
 def check_tma_operand(name: str, t: torch.Tensor) -> None:
     """Raise unless ``t`` can be read by TMA (and by K1's quantize pass,
     which loads 16 bytes per lane): a 16-byte aligned base and, for a
-    matrix, a 16-byte aligned row stride with unit column stride."""
+    matrix or a stack of them, 16-byte aligned strides over every dimension
+    but the last, which has unit stride."""
     base = t.data_ptr() % TMA_ALIGN
-    row = t.stride(0) * t.element_size() if t.dim() >= 2 else 0
+    outer = [s * t.element_size() for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
     unit = t.dim() < 2 or t.stride(-1) == 1
-    if base or row % TMA_ALIGN or not unit:
+    if base or any(s % TMA_ALIGN for s in outer) or not unit:
         raise ValueError(f"{name}: TMA needs a {TMA_ALIGN}-byte aligned base and row "
-                         f"stride (base {base} bytes past alignment, row stride "
-                         f"{row} bytes, column stride {t.stride(-1)})")
+                         f"stride (base {base} bytes past alignment, strides "
+                         f"{[s * t.element_size() for s in t.stride()]} bytes, column "
+                         f"stride {t.stride(-1)})")
 
 
 # ---------------------------------------------------------------------------
@@ -303,28 +343,30 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
 
 
 def _check_affine(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
-                  device=None) -> None:
+                  device=None) -> QmmPlan:
     """What K4 takes (K8-affine checks each group with it): bf16 x [M, K] on
-    ``device`` (any CUDA device when None), the affine planes beside it."""
+    ``device`` (any CUDA device when None), the affine planes beside it,
+    each aligned for TMA. Returns the launch plan."""
     m, k = x2.shape
     n = qt.n
     _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
              f"{name} takes bf16 activations and produces bf16")
     _require(qt.codebook is None and qt.bits in (4, 8),
              f"{name} takes 4- or 8-bit codes without a codebook ({qt.kind})")
-    _require(k % 64 == 0 and n % 128 == 0 and k % qt.group == 0
-             and (qt.bits == 8 or (qt.split % 64 == 0 and k % qt.split == 0)),
-             f"{name} needs K % 64 == 0, N % 128 == 0, K % group == 0 and a "
-             f"4-bit split % 64 == 0 (K={k}, N={n}, group={qt.group}, "
-             f"split={qt.split})")
+    plan = qmm_plan("affine", m, k, n, bits=qt.bits, split=qt.split, group=qt.group)
     _check_cuda(x2, (m, k), torch.bfloat16, "x", device)
     if qt.bits == 4:
         _check_cuda(qt.packed, (k // 2, n), torch.uint8, "packed", x2.device)
     else:
         _check_cuda(qt.packed, (k, n), torch.int8, "packed", x2.device)
     _check_cuda(qt.scale, (k // qt.group, n), torch.float32, "scale", x2.device)
+    operands = [("x", x2), ("packed", qt.packed), ("scale", qt.scale)]
     if qt.bias is not None:
         _check_cuda(qt.bias, (k // qt.group, n), torch.float32, "bias", x2.device)
+        operands.append(("bias", qt.bias))
+    for nm, t in operands:
+        check_tma_operand(nm, t)
+    return plan
 
 
 def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
@@ -332,7 +374,7 @@ def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
     """``x2 [M, K] @ deq(affine W) [K, N]`` through ``csrc/qmm_affine.cu``."""
     if x2.device.type == "cpu":
         return qmm_dequant_plain(x2, qt, out_dtype)
-    _check_affine("qmm_affine", x2, qt, out_dtype)
+    plan = _check_affine("qmm_affine", x2, qt, out_dtype)
     m, k = x2.shape
     n = qt.n
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
@@ -341,7 +383,8 @@ def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
     _cuda.launch("qmm_affine", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(),
                  None if qt.bias is None else qt.bias.data_ptr(),
-                 out.data_ptr(), m, k, n, qt.bits, qt.split, qt.group, device=x2.device)
+                 out.data_ptr(), m, k, n, qt.bits, qt.split, qt.group, plan.block_m,
+                 device=x2.device)
     return out
 
 
@@ -421,11 +464,10 @@ def qmm_affine_fast16(x2: torch.Tensor, qt: QuantizedTensor,
                       out_dtype: torch.dtype) -> torch.Tensor:
     """K13: ``x2 [M, K] @ deq16(affine W) [K, N]`` through
     ``csrc/qmm_affine.cu`` (``qmm_affine_fast16``), K4 with the fast16
-    decode; it needs the scale groups to be multiples of 16 rows."""
+    decode and K4's plan (scale groups of a multiple of 16 rows)."""
     if x2.device.type == "cpu":
         return qmm_dequant_fast16_plain(x2, qt, out_dtype)
-    _check_affine("qmm_affine_fast16", x2, qt, out_dtype)
-    _require(qt.group % 16 == 0, f"qmm_affine_fast16 needs group % 16 == 0 (group={qt.group})")
+    plan = _check_affine("qmm_affine_fast16", x2, qt, out_dtype)
     m, k = x2.shape
     out = torch.empty((m, qt.n), dtype=torch.bfloat16, device=x2.device)
     if m == 0:
@@ -433,7 +475,7 @@ def qmm_affine_fast16(x2: torch.Tensor, qt: QuantizedTensor,
     _cuda.launch("qmm_affine_fast16", x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(),
                  None if qt.bias is None else qt.bias.data_ptr(),
-                 out.data_ptr(), m, k, qt.n, qt.bits, qt.split, qt.group,
+                 out.data_ptr(), m, k, qt.n, qt.bits, qt.split, qt.group, plan.block_m,
                  device=x2.device)
     return out
 
@@ -560,8 +602,11 @@ def qmm_grouped_affine(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTenso
         rows.append((x2.data_ptr(), qt.packed.data_ptr(), qt.scale.data_ptr(),
                      0 if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(), m))
     table = _table(rows)
+    plan = qmm_plan("affine", rows[0][5], k, n, bits=q0.bits, split=q0.split,
+                    group=q0.group, group_ms=[r[5] for r in rows])
     _cuda.launch("qmm_grouped_affine", ctypes.addressof(table), len(rows), k, n, q0.bits,
-                 q0.split, q0.group, int(q0.bias is not None), device=x2s[0].device)
+                 q0.split, q0.group, int(q0.bias is not None), plan.block_m,
+                 device=x2s[0].device)
     return outs
 
 

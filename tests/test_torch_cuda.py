@@ -15,7 +15,14 @@ quantization blocks with a ragged last block, and the fast16 decodes (K12
 for nf4 / fp4, K13 for every affine format and Q4_K with s == 0 groups:
 decoded weights bit for bit through the identity) with their dispatch,
 K14's four entries (the output and per-row log-sum-exp of K3 and of the
-int8 modes) and a two-rank ring on one card over gloo.
+int8 modes) and a two-rank ring on one card over gloo. The Hopper bodies
+(TMA + wgmma) of the bf16 flash kernels and of the affine kernels are also
+held at FLUX's lengths (S4608, the ragged S4112, below one tile), with K7's
+rotation pass ``rope_qk`` bit for bit, the affine decoded weights bit for
+bit for every format under K4 and K13, the M1 modulation shapes, and K8's
+groups against K4 on both sides of the small-M plan.
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -k "k3 or k4 or k6 or k7 or k8 or k13 or k14 or bf16_flash or rope or affine or dispatch"
 """
 
 import dataclasses
@@ -511,3 +518,146 @@ def test_ring_nccl_one_card_per_rank(dev, tmp_path):
     spawn(cuda_ring_rank, 2, "nccl", args=(str(tmp_path),))
     parts = _check_cuda_ring(dev, tmp_path, 2, q, k, v, modes)
     assert [int(p["device"]) for p in parts] == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# The Hopper bodies of the bf16 flash kernels (K3, K6, K7, K14) and of the
+# affine kernels (K4, K8-affine, K13) at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sq,skv", [(4608, 4608), (4112, 4112), (100, 100), (1, 1),
+                                    (64, 4112), (4608, 300)])
+def test_bf16_flash_entries_at_flux_lengths(dev, sq, skv):
+    """K3, K14 (output and lse), K6 and, at equal lengths, K7 against their
+    plain versions at FLUX's joint length (24 heads), a ragged length and
+    lengths below one 128-row tile: o within 5e-4, lse within 1e-3; K7
+    equal to K6 on rope_qk's q/k, and rope_qk's q/k equal to
+    rope_halfsplit_seqmajor's (torch.equal)."""
+    b, h, scale = 1, 24, 128 ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = torch.randn((b, h, sq, 128), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, h, skv, 128), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    y3 = flash.flash_fwd(q, k, v, scale)
+    y14 = flash.flash_fwd(q, k, v, scale, lse=lse)
+    ref, lse_ref = flash.flash_attention_lse_plain(q, k, v, scale)
+    ref = ref.transpose(1, 2).reshape(b, sq, h * 128)
+    assert torch.equal(y3, y14) and torch.isfinite(y3).all()
+    assert _summed_rel(y3, ref) <= 5e-4
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+    def seq(t):
+        return t.transpose(1, 2).reshape(b, t.shape[2], h * 128)
+
+    y6 = flash.flash_sm(seq(q), seq(k), seq(v), scale)
+    assert _summed_rel(y6, ref) <= 5e-4
+    if sq != skv:
+        return
+    ce, se = _tables(b, sq, dev)
+    before = _cuda.launch_counts()
+    y7 = flash.flash_rope(seq(q), seq(k), seq(v), ce, se, ce, se, scale)
+    after = _cuda.launch_counts()
+    assert (after["rope_qk"] - before["rope_qk"], after["flash_rope"] - before["flash_rope"],
+            after["flash_sm"] - before["flash_sm"]) == (1, 1, 0)
+    qr, kr = flash.rope_qk(seq(q), seq(k), ce, se, ce, se)
+    assert torch.equal(qr, flash.rope_halfsplit_seqmajor(seq(q), ce, se, 128))
+    assert torch.equal(kr, flash.rope_halfsplit_seqmajor(seq(k), ce, se, 128))
+    assert torch.equal(y7, flash.flash_sm(qr, kr, seq(v), scale))
+    ref7 = flash.flash_rope_plain(seq(q), seq(k), seq(v), ce, se, ce, se, 128, scale)
+    assert _summed_rel(y7, ref7) <= 5e-4
+
+
+@pytest.mark.parametrize("offset", [0, 3072, 6144])
+@pytest.mark.parametrize("width", [9216, 21504])
+def test_rope_qk_on_fused_projection_slices(dev, offset, width):
+    """rope_qk reads q and k as column slices of a fused qkv (9216) or
+    qkv_mlp (21504) row and writes contiguous rotated copies equal to the
+    plain rotation; K6 takes the slices as they are."""
+    s, n = 300, 3072
+    gen = torch.Generator(device=dev).manual_seed(width + offset)
+    proj = torch.randn((1, s, width), generator=gen, device=dev).bfloat16()
+    x = proj[..., offset:offset + n]
+    ce, se = _tables(1, s, dev)
+    xr, xr2 = flash.rope_qk(x, x, ce, se, ce, se)
+    assert xr.is_contiguous() and torch.equal(xr, xr2)
+    assert torch.equal(xr, flash.rope_halfsplit_seqmajor(x, ce, se, 128))
+    y = flash.flash_sm(x, x, x, 128 ** -0.5)
+    assert _summed_rel(y, flash.flash_sm_plain(x, x, x, 128, 128 ** -0.5)) <= 5e-4
+
+
+def test_flash_refuses_misaligned_slices_on_card(dev):
+    """A column slice off 16-byte alignment, or rows whose stride is not a
+    multiple of 16 bytes, raise before any launch."""
+    x = torch.zeros((1, 64, 3 * 256 + 8), dtype=torch.bfloat16, device=dev)
+    bad = x[..., 3:3 + 256]
+    ok = x[..., 256:512]
+    before = _cuda.launch_counts()
+    with pytest.raises(ValueError, match="TMA"):
+        flash.flash_sm(bad, ok, ok, 0.1)
+    rows = torch.zeros((1, 64, 3 * 256 + 4), dtype=torch.bfloat16, device=dev)[..., :256]
+    with pytest.raises(ValueError, match="TMA"):
+        flash.flash_sm(ok, rows, ok, 0.1)
+    assert _cuda.launch_counts() == before
+
+
+@pytest.mark.parametrize("fmt", K4_FORMATS + ["q4_k_zero_scales"])
+@pytest.mark.parametrize("fast16", [False, True])
+def test_affine_decoded_weight_bit_for_bit(dev, fmt, fast16):
+    """K4 / K13 through the identity give the plain decode (dequantize to
+    bf16, or dequantize_fast16) bit for bit for every affine format, at a
+    small-M plan (M 16) and a large one (M 768); a product of random x is
+    within the summation-order bound."""
+    k, n = 768, 384
+    qt = (_q4_k_with_zero_scales(k, n, seed=7) if fmt == "q4_k_zero_scales"
+          else _affine_qtensor(fmt, k, n, seed=7)).map(lambda t: t.to(dev))
+    kern = qmatmul.qmm_affine_fast16 if fast16 else qmatmul.qmm_affine
+    w = (qmatmul.dequantize_fast16(qt, torch.bfloat16) if fast16
+         else dequantize(qt, torch.float32).to(torch.bfloat16))
+    eye = torch.eye(k, device=dev, dtype=torch.bfloat16)
+    assert float((kern(eye, qt, torch.bfloat16).float() - w.float()).abs().max()) == 0.0
+    assert float((kern(eye[:16], qt, torch.bfloat16).float() - w[:16].float()).abs().max()) == 0.0
+    gen = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn((33, k), generator=gen, device=dev).bfloat16()
+    y = kern(x, qt, torch.bfloat16)
+    ref = (x.float() @ w.float()).bfloat16()
+    assert _within_summation_order(y, ref, x, qt)
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("n", [18432, 9216])
+@pytest.mark.parametrize("fast16", [False, True])
+def test_affine_m1_modulation_shapes(dev, kind, n, fast16):
+    """The M1 modulation products (K3072, N18432 and N9216): the m64n8k16
+    plan, within the summation-order bound of the plain version, and one
+    row equal to that row of an M 4608 product (192- or 256-row tiles)."""
+    k = 3072
+    gen = torch.Generator(device=dev).manual_seed(n)
+    qt = random_qtensor(gen, k, n, kind=kind, device=dev)
+    x = torch.randn((4608, k), generator=gen, device=dev).bfloat16()
+    kern = qmatmul.qmm_affine_fast16 if fast16 else qmatmul.qmm_affine
+    plain = qmatmul.qmm_dequant_fast16_plain if fast16 else qmatmul.qmm_dequant_plain
+    assert qmatmul.qmm_plan("affine", 1, k, n, bits=qt.bits, split=qt.split,
+                            group=qt.group).block_m == 8
+    y1 = kern(x[:1], qt, torch.bfloat16)
+    ref = plain(x[:1], qt, torch.bfloat16)
+    assert _within_summation_order(y1, ref, x[:1], qt) if not fast16 else (
+        _summed_rel(y1, ref) <= 1e-4)
+    assert torch.equal(y1, kern(x, qt, torch.bfloat16)[:1])
+
+
+@pytest.mark.parametrize("ms", [(17, 1, 64), (3, 40), (4096, 512), (300, 65, 1, 0)])
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+def test_k8_affine_plans_match_per_group_k4(dev, ms, kind):
+    """K8-affine with groups all under the small-M plan, at the double
+    blocks' shape (img 4096 + txt 512, K3072 N3072) and with groups on both
+    sides of it: each group's output equals K4 on that group alone (max-abs
+    0), whatever tile height each of the two launches took."""
+    k, n = 3072, 3072
+    gen = torch.Generator(device=dev).manual_seed(sum(ms))
+    qts = [random_qtensor(gen, k, n, kind=kind, device=dev) for _ in ms]
+    xs = [torch.randn((m, k), generator=gen, device=dev).bfloat16() for m in ms]
+    ys = qmatmul.qmm_grouped_affine(xs, qts, torch.bfloat16)
+    for x, qt, y in zip(xs, qts, ys):
+        assert torch.equal(y, qmatmul.qmm_affine(x, qt, torch.bfloat16))

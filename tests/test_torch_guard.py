@@ -163,7 +163,8 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "                              'qmm_grouped_affine', 'qmm_affine_fast16',\n"
         "                              'flash_fwd', 'flash_sm', 'flash_rope', 'flash_s8',\n"
         "                              'flash_s8pv', 'flash_s8_s8pv', 'flash_fwd_lse',\n"
-        "                              'flash_s8_lse', 'flash_s8pv_lse', 'flash_s8_s8pv_lse'}\n"
+        "                              'flash_s8_lse', 'flash_s8pv_lse', 'flash_s8_s8pv_lse',\n"
+        "                              'rope_qk'}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"

@@ -1,7 +1,8 @@
-"""The launch plan and operand checks of the TMA-fed q8t and nf4 kernels.
+"""The launch plan and operand checks of the TMA-fed q8t, nf4 and affine kernels.
 
-``ops/qmatmul.qmm_plan`` is what the K1 / K8-s8 and K2 / K11 / K12 wrappers
-launch with (tiles, ring, the s8 path's scale scratch), and
+``ops/qmatmul.qmm_plan`` is what the K1 / K8-s8, K2 / K11 / K12 and K4 /
+K8-affine / K13 wrappers launch with (tiles, ring, the s8 path's scale
+scratch), and
 ``check_tma_operand`` what they demand of each operand TMA reads. Host
 code only: these run on the CPU, with no card and no kernel build.
 """
@@ -76,6 +77,78 @@ def test_nf4_rows_per_tile_follow_the_grid(ms, n, block_m):
     assert p.stages == (3 if block_m == 256 else 4)
 
 
+# the affine formats' (bits, split, group): Q4_0 / Q4_1 / Q4_K (4-bit, groups
+# of 32), Q2_K / Q3_K (4-bit, groups of 16), Q8_0 / Q5_x (int8, 32), Q6_K
+# (int8, 16), Q8_K (int8, 256), bnb int8 (group = K)
+AFFINE_FORMATS = [(4, 256, 32), (4, 256, 16), (4, 64, 32), (8, 0, 32), (8, 0, 16),
+                  (8, 0, 256), (8, 0, None)]
+
+
+@pytest.mark.parametrize("m", MS + [33, 64, 65])
+@pytest.mark.parametrize("bits,split,group", AFFINE_FORMATS)
+def test_affine_plan_covers_output_once(m, bits, split, group):
+    k, n = 3072, 3072
+    plan = qmatmul.qmm_plan("affine", m, k, n, bits=bits, split=split, group=group or k)
+    assert _covered_once(plan)
+    assert plan.stage_k == (128 if bits == 4 else 64) and k % plan.stage_k == 0
+    # a stage's x slices, code box and 8 plane rows fit 192 KB at every height
+    slices = 4 if bits == 4 else 2
+    assert 2 <= plan.stages <= 8
+    assert plan.stages * (slices * plan.block_m * 64 + 8192 + 8192) <= 196608
+
+
+@pytest.mark.parametrize("m,n,block_m", [(1, 18432, 8), (8, 3072, 8), (9, 3072, 16),
+                                         (33, 3072, 40), (63, 3072, 64), (64, 3072, 64),
+                                         (65, 3072, 128), (512, 3072, 128), (512, 9216, 128),
+                                         (4096, 3072, 192), (4608, 3072, 192),
+                                         (4608, 21504, 192)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_affine_rows_per_tile(m, n, block_m, bits):
+    """At M <= 64 the tile height (wgmma's N) is M rounded up to 8; above,
+    large tiles where two tiles per SM remain (every FLUX product at M4096
+    and M4608, N3072 included), 192 rows for 4-bit codes (three stages fit)
+    and 256 for int8; 128 at M512."""
+    want = 256 if bits == 8 and block_m == 192 else block_m
+    plan = qmatmul.qmm_plan("affine", m, 3072, n, bits=bits, split=256, group=32)
+    assert plan.block_m == want and plan.stages >= 3
+
+
+def test_affine_plans_at_the_main_path_shapes():
+    """M1: the double blocks' (N18432) and single blocks' (N9216) modulation;
+    M512: the text stream and T5 under ISQ; M4608: the single blocks'
+    qkv_mlp (N21504)."""
+    p = qmatmul.qmm_plan("affine", 1, 3072, 18432, bits=8, group=32)
+    assert p.grid == (144, 1) and (p.block_m, p.stages) == (8, 8)
+    p = qmatmul.qmm_plan("affine", 1, 3072, 9216, bits=4, split=256, group=32)
+    assert p.grid == (72, 1) and p.block_m == 8
+    p = qmatmul.qmm_plan("affine", 512, 4096, 4096, bits=4, split=256, group=32)
+    assert p.grid == (32, 4) and (p.block_m, p.stages) == (128, 4)
+    p = qmatmul.qmm_plan("affine", 4608, 3072, 21504, bits=4, split=256, group=32)
+    assert p.grid == (168, 24) and (p.block_m, p.stages) == (192, 3)
+    p = qmatmul.qmm_plan("affine", 4608, 3072, 21504, bits=8, group=32)
+    assert (p.block_m, p.stages, p.stage_k) == (256, 4, 64)
+
+
+@pytest.mark.parametrize("ms,block_m", [((4096, 512), 192), ((130, 17), 128), ((17, 1), 24),
+                                        ((64, 0, 1, 200, 3, 128, 5, 33), 192),
+                                        ((0, 0), 8), ((1, 64, 2), 64), ((512, 512), 192)])
+def test_affine_group_tables(ms, block_m):
+    """A grouped call (K8-affine) takes one tile height for all its groups,
+    from the largest; each group's m-tiles start at its own row 0, and the
+    tiles cover every group's rows once."""
+    n = 12288
+    p = qmatmul.qmm_plan("affine", ms[0], 3072, n, bits=4, split=256, group=32, group_ms=ms)
+    assert p.block_m == block_m
+    tile0 = np.cumsum([0] + [-(-m // p.block_m) for m in ms])
+    for i, m in enumerate(ms):
+        rows = np.zeros(m, dtype=np.int32)
+        for t in range(tile0[i], tile0[i + 1]):
+            m0 = (t - tile0[i]) * p.block_m
+            rows[m0:m0 + p.block_m] += 1
+        assert (rows == 1).all()
+    assert len(ms) <= qmatmul.MAX_GROUPS
+
+
 @pytest.mark.parametrize("kind,kw,k,n", [
     ("s8", dict(bk=256), 3072, 3000),      # N % 128
     ("s8", dict(bk=96), 3072, 3072),       # K-tile % 64
@@ -84,6 +157,12 @@ def test_nf4_rows_per_tile_follow_the_grid(ms, n, block_m):
     ("nf4", dict(split=256, group=48), 4096, 4096),
     ("nf4", dict(split=256, group=64), 4096, 4000),
     ("q4", dict(), 4096, 4096),
+    ("affine", dict(bits=4, split=32, group=32), 4096, 4096),   # split % 64
+    ("affine", dict(bits=4, split=256, group=8), 4096, 4096),   # group % 16
+    ("affine", dict(bits=8, split=0, group=32), 4096, 4000),    # N % 128
+    ("affine", dict(bits=8, split=0, group=32), 4000, 4096),    # K % 64
+    ("affine", dict(bits=2, split=256, group=32), 4096, 4096),  # bits
+    ("affine", dict(bits=8, split=0, group=48), 4096, 4096),    # K % group
 ])
 def test_plan_refuses_untiled_shapes(kind, kw, k, n):
     with pytest.raises(ValueError):

@@ -27,7 +27,14 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("diffusion_rs_tpu_torch") / "csrc"
 # the port's flags (ops/_cuda.py NVCC_FLAGS) for device code only
 FLAGS = ["-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
-_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+# the anonymous namespace's mangled name: _ZN<length>_GLOBAL__N__<file hash>...
+_ANON = re.compile(r"(\d+)(_GLOBAL__N__\w+)")
+
+
+def _strip_anon(name: str) -> str:
+    """``name`` with the anonymous namespace's length-prefixed mangled name,
+    which carries a hash of the file, replaced by ``<anon>``."""
+    return _ANON.sub(lambda m: "<anon>" + m.group(2)[int(m.group(1)):], name)
 
 
 def _tool(name: str) -> str:
@@ -46,12 +53,12 @@ def kernels(checkout: Path, source: str, out: Path) -> dict:
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = _ANON.sub("<anon>", m.group(1))
+            name = _strip_anon(m.group(1))
             funcs[name] = []
         elif name is not None:
             ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
             if ins:
-                funcs[name].append(_ANON.sub("<anon>", ins.group(1)))
+                funcs[name].append(_strip_anon(ins.group(1)))
     return funcs
 
 
