@@ -10,8 +10,9 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    versions; build every CUDA kernel from ``diffusion_rs_tpu_torch/csrc``;
    the SASS line: per kernel function its instruction count and its
    HGMMA / IGMMA / HMMA / IMMA instructions (cuobjdump), failing unless
-   every wgmma body (K1, K2, the bf16 flash body, the affine body) holds
-   warpgroup MMAs and no mma.sync, and the int8 flash body the reverse;
+   every wgmma body (K1, K2, the bf16 and int8 flash bodies, the affine
+   body) holds warpgroup MMAs (the int8 flash body IGMMA) and no kernel
+   holds mma.sync;
 2. hold each kernel against its plain PyTorch version on the card at its
    main-path shapes (error, kernel ms, plain ms, bound ms, library ms): K1
    and K8-s8 bit for bit (max-abs 0), K1 also timed per pass (quantize,
@@ -52,10 +53,11 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    ``seqmajor`` (K4, K8-affine, K6; config A's fused T5), run likewise; its
    latent is held against phase 7's Q4_0 latent;
 10. config C (between phases 6 and 7, on phase 4's q8t weights): int8
-   attention, DIFFUSION_RS_TPU_ATTN_S8=1 and ATTN_S8PV=1 (the combined K9+K10
-   entry point), run as phase 7 runs its images, its latent held against
-   phase 4's; then one 1-step image with each knob alone (K9, K10) with
-   exact launches, and ``s8pv_dropped_mass`` of the first attention's q/k;
+   attention, DIFFUSION_RS_TPU_ATTN_S8=1 and ATTN_S8PV=1 (the prepass kernel
+   ``flash_quant`` and the combined K9+K10 entry point), run as phase 7 runs
+   its images, its latent held against phase 4's; then one 1-step image with
+   each knob alone (K9, K10, each after the prepass) with exact launches,
+   and ``s8pv_dropped_mass`` of the first attention's q/k;
 11. configs D0 and D: FLUX.1-dev in nf4 (the JAX bench's exec format for its
    nf4 presets) made on the card, D0 in the default layout (K2), D the same
    weights after ``fuse="grouped"`` (K11 for the img/txt pairs), each run as
@@ -98,7 +100,10 @@ Phase 2 also holds K7's rotation pass (``rope_qk``) to
 S4608 and S4112 and times it (K7's rows also time it alone), gives the K4
 M1 rows (the modulation products) their device time from torch.profiler
 beside the events' time, and holds K9, K10 and the combined entry point at
-S4608 and S4112,
+S4608, S4112 and S2304 (each also timed with its prepass kernel, and
+beside the design bound that counts the second QK^T pass), the prepass
+kernel ``flash_quant`` (k and v in one launch) against quantize_k /
+quantize_v / v_kernel_layout at the same lengths,
 K14's four entry points (K3's and the int8 modes' output with the per-row
 log-sum-exp) at S2304 (config S's rows per rank), S4608 and S4112,
 K11 at the grouped double-block shapes (against per-group K2 launches, max-abs
@@ -697,28 +702,24 @@ def sass_classes() -> dict:
 
 
 # kernel functions on Hopper's warpgroup MMA (no mma.sync), by name: K1 /
-# K8-s8 (PR 7), K2 / K11 / K12 (PR 7), the bf16 flash body and the affine
-# body (PR 8); the int8 flash body stays on mma.sync
-WGMMA_KERNELS = ("qmm_s8_kernel", "qmm_nf4_kernel", "flash_wg_kernel", "qmm_affine_kernel")
-MMA_SYNC_KERNELS = ("flash_int8_kernel", "flash_int8_lse_kernel")
+# K8-s8, K2 / K11 / K12, the bf16 flash body, the affine body and the int8
+# flash body
+WGMMA_KERNELS = ("qmm_s8_kernel", "qmm_nf4_kernel", "flash_wg_kernel", "qmm_affine_kernel",
+                 "flash_int8_kernel", "flash_int8_lse_kernel")
 
 
 def check_sass() -> str:
     """The SASS line, per kernel function [instructions, HGMMA, IGMMA, HMMA,
-    IMMA]: every wgmma body holds HGMMA or IGMMA and no HMMA or IMMA; the
-    int8 flash body holds mma.sync (HMMA / IMMA) and no warpgroup MMA.
-    Whether a body's instructions changed between two checkouts is
-    tools/torch_sass_compare.py's to say."""
+    IMMA]: every wgmma body holds HGMMA or IGMMA and no HMMA or IMMA (the
+    int8 flash body IGMMA, with HGMMA for its bf16 halves), and no kernel
+    holds mma.sync. Whether a body's instructions changed between two
+    checkouts is tools/torch_sass_compare.py's to say."""
     classes = sass_classes()
-    bad = []
-    for name, c in classes.items():
-        if any(k in name for k in WGMMA_KERNELS):
-            if not (c["HGMMA"] + c["IGMMA"]) or c["HMMA"] + c["IMMA"]:
-                bad.append(name)
-        elif any(k in name for k in MMA_SYNC_KERNELS):
-            if not (c["HMMA"] + c["IMMA"]) or c["HGMMA"] + c["IGMMA"]:
-                bad.append(name)
-    found = {k: sum(k in n for n in classes) for k in WGMMA_KERNELS + MMA_SYNC_KERNELS}
+    bad = [name for name, c in classes.items()
+           if c["HMMA"] + c["IMMA"]
+           or (any(k in name for k in WGMMA_KERNELS) and not c["HGMMA"] + c["IGMMA"])
+           or ("flash_int8" in name and not c["IGMMA"])]
+    found = {k: sum(k in n for n in classes) for k in WGMMA_KERNELS}
     if bad or not all(found.values()):
         raise SystemExit(f"SASS: unexpected tensor-core instructions in {bad} (kernels found "
                          f"{found})")
@@ -729,13 +730,13 @@ def check_sass() -> str:
 def check_flash_int8(s_q: int, gen, entry: str):
     """K9 (``flash_s8``), K10 (``flash_s8pv``) or both (``flash_s8_s8pv``)
     against the plain version at B1 H24 S ``s_q``. ``ms`` times the kernel
-    alone on inputs the prepasses made once; ``with_prepass_ms`` times the
-    wrapper, whose plain PyTorch prepasses quantize k and v on every call.
-    Bound: the reference function's 4 B H S^2 D operations, the int8 halves
-    at the int8 rate and the others at the bf16 rate (K10's second QK^T pass
-    is its own cost, not the function's). No PyTorch call computes int8
-    attention: the library time is bf16 scaled_dot_product_attention, a
-    different function."""
+    alone on inputs the prepass kernel made once (and the body on them must
+    equal the wrapper's output); ``with_prepass_ms`` times the wrapper,
+    prepass kernel and body. Bound: the reference function's 4 B H S^2 D
+    operations, the int8 halves at the int8 rate and the others at the bf16
+    rate; ``design_bound_ms`` adds the body's second QK^T pass under s8_pv.
+    No PyTorch call computes int8 attention: the library time is bf16
+    scaled_dot_product_attention, a different function."""
     import torch
     import torch.nn.functional as F
 
@@ -758,6 +759,11 @@ def check_flash_int8(s_q: int, gen, entry: str):
     out = torch.empty_like(y)
     keep, args = int8_launch_args(q, k, v, scale, s8, s8_pv, out)
     row = dict(shape=f"B{b} H{h} S{s_q} D{d}", summed_rel=err, max_abs_err=max_abs)
+    plan = flash.int8_flash_plan(b, h, s_q, s_q, flash.quant_block(s_q), s8, s8_pv)
+    row["kv_tile_stages_smem"] = [plan.block_kv, plan.stages, plan.smem_bytes]
+    if tuple(row["kv_tile_stages_smem"]) != _cuda.int8_layout(s8, s8_pv):
+        raise SystemExit(f"{entry}: int8_flash_plan {row['kv_tile_stages_smem']} is not the "
+                         f"compiled body's {_cuda.int8_layout(s8, s8_pv)}")
     row["ms"] = cuda_ms(lambda i: _cuda.launch(entry, *args, device=q.device), 1)
     if not torch.equal(out, y):
         raise SystemExit(f"{entry} on pre-quantized inputs differs from its wrapper")
@@ -768,29 +774,27 @@ def check_flash_int8(s_q: int, gen, entry: str):
     row["library_ms"] = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v), 1)
     row["library_note"] = "bf16 scaled_dot_product_attention, a different function"
     row["bound_ms"], row["bound_by"] = attention_bound(b, h, s_q, d, s8, s8_pv, lse=False)
+    row["design_bound_ms"] = attention_bound(b, h, s_q, d, s8, s8_pv, lse=False, design=True)[0]
     return row
 
 
 LSE_ENTRIES = {"flash_fwd_lse": (False, False),
                **{f"{e}_lse": mode for e, mode in INT8_MODES.items()}}
-# K14's lse against its plain version: f32 summation orders and expf against
-# torch.exp, on log-sum-exps of magnitude ~10 (tests/test_torch_cuda.py)
+# K14's lse against its plain version: f32 summation orders and MUFU.EX2 (K3)
+# or expf (the int8 body) against torch.exp, on log-sum-exps of magnitude ~10 (tests/test_torch_cuda.py)
 LSE_TOL = 1e-3
 
 
 def int8_launch_args(q, k, v, scale: float, s8: bool, s8_pv: bool, out, lse=None):
-    """The int8 entry points' arguments for inputs the prepasses quantize
-    here, once: timing them times the kernel alone."""
+    """The int8 entry points' arguments for inputs the prepass kernel
+    quantizes here, once: timing them times the body alone."""
     from diffusion_rs_tpu_torch.ops import flash
 
     b, h, s_q, _ = q.shape
     qb = flash.quant_block(k.shape[2])
-    kk, sk, _ = flash.quantize_k(k, qb) if s8 else (k, None, None)
-    if s8_pv:
-        vq, sv, vm = flash.quantize_v(v, qb)
-        vv = flash.v_kernel_layout(vq)
-    else:
-        vv, sv, vm = v, None, None
+    (kq, sk, _), (vt, sv, vm) = flash.quantize_kv(k if s8 else None, v if s8_pv else None, qb)
+    kk = kq if s8 else k
+    vv = vt if s8_pv else v
     keep = (kk, sk, vv, sv, vm)  # alive as long as the pointers are used
     ptrs = [q.data_ptr(), kk.data_ptr(), None if sk is None else sk.data_ptr(), vv.data_ptr(),
             None if sv is None else sv.data_ptr(), None if vm is None else vm.data_ptr(),
@@ -798,11 +802,14 @@ def int8_launch_args(q, k, v, scale: float, s8: bool, s8_pv: bool, out, lse=None
     return keep, (*ptrs, b, h, s_q, k.shape[2], qb, float(scale))
 
 
-def attention_bound(b: int, h: int, s: int, d: int, s8: bool, s8_pv: bool, lse: bool):
+def attention_bound(b: int, h: int, s: int, d: int, s8: bool, s8_pv: bool, lse: bool,
+                    design: bool = False):
     """The reference function's 4 B H S^2 D operations, the int8 halves at
     the int8 rate and the others at the bf16 rate, or the bytes: q in, k and
     v in (int8 where quantized, padded to the quantization block), the
-    output, and the f32 lse."""
+    output, and the f32 lse. With ``design``, the int8 body's own bound:
+    under s8_pv its first pass computes QK^T once more (int8 under s8, else
+    bf16)."""
     from diffusion_rs_tpu_torch.ops import flash
 
     half = 2.0 * b * h * s * s * d
@@ -811,17 +818,77 @@ def attention_bound(b: int, h: int, s: int, d: int, s8: bool, s8_pv: bool, lse: 
               + b * h * (skv_p if s8 else s) * d * (1 if s8 else 2)
               + b * h * (skv_p if s8_pv else s) * d * (1 if s8_pv else 2)
               + (b * h * s * 4 if lse else 0))
-    return bound(half * (s8 + s8_pv), PEAK_INT8_OPS, nbytes,
-                 half * (2 - s8 - s8_pv) / PEAK_BF16_FLOPS * 1e3)
+    again = design and s8_pv
+    return bound(half * (s8 + s8_pv + (again and s8)), PEAK_INT8_OPS, nbytes,
+                 half * (2 - s8 - s8_pv + (again and not s8)) / PEAK_BF16_FLOPS * 1e3)
+
+
+def check_flash_quant(s: int, gen):
+    """The prepass kernel (``flash_quant``: k and v of B1 H24 S ``s`` in one
+    launch) against the plain versions (quantize_k, quantize_v,
+    v_kernel_layout) on the same inputs: means within rtol 1e-6, scales
+    within one f32 ulp, codes off by one on at most 1e-3 of the entries
+    (the kernel sums the mean in f64 in another order), padding zero. ``ms``
+    times the kernel alone, ``wrapper_ms`` quantize_kv (checks and
+    allocations too). Bound: the bytes (k and v read once, codes, scales and
+    means written); no PyTorch call computes it."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import _cuda, flash
+
+    b, h, d = 1, 24, 128
+    k, v = ((torch.randn((b, h, s, d), generator=gen, device="cuda") * 0.5 + shift).to(
+        torch.bfloat16) for shift in (0.1, 1.0))
+    qb = flash.quant_block(s)
+    got = flash.quantize_kv(k, v, qb)
+
+    def plain():
+        vq, sv, vm = flash.quantize_v(v, qb)
+        return flash.quantize_k(k, qb), (flash.v_kernel_layout(vq), sv, vm)
+
+    ref = plain()
+    torch.cuda.synchronize()
+    row = dict(shape=f"B{b} H{h} S{s} D{d} (k and v)")
+    worst = {"mean_max_abs": 0.0, "scale_ulps": 0, "codes_off": 0.0, "max_abs_err": 0}
+    for which, (codes, scales, mean), (rc, rs, rm) in zip("kv", got, ref):
+        src = torch.arange(codes.shape[2 if which == "k" else 3], device=codes.device)
+        if which == "v":  # the source row of each position of v_kernel_layout
+            src = flash.v_kernel_layout(src[None, None, :, None])[0, 0, 0]
+        pad = codes[:, :, src >= s] if which == "k" else codes[..., src >= s]
+        diff = (codes.int() - rc.int()).abs()
+        worst["mean_max_abs"] = max(worst["mean_max_abs"], float((mean - rm).abs().max()))
+        worst["scale_ulps"] = max(worst["scale_ulps"], int(
+            (scales.view(torch.int32) - rs.view(torch.int32)).abs().max()))
+        worst["codes_off"] = max(worst["codes_off"], float((diff > 0).float().mean()))
+        worst["max_abs_err"] = max(worst["max_abs_err"], int(diff.max()))
+        if not (torch.allclose(mean, rm, rtol=1e-6, atol=1e-7) and worst["scale_ulps"] <= 1
+                and worst["max_abs_err"] <= 1 and worst["codes_off"] <= 1e-3
+                and not pad.any()):
+            raise SystemExit(f"flash_quant disagrees with the plain prepass ({which}) at S={s}: "
+                             f"{worst}, padding zero {not pad.any()}")
+    row.update(worst)
+    # the kernel alone on the wrapper's outputs, then the wrapper (checks and
+    # allocations included)
+    ptrs = [t.data_ptr() for t in (k, *got[0], v, *got[1])]
+    row["ms"] = cuda_ms(lambda i: _cuda.launch("flash_quant", *ptrs, b, h, s, qb,
+                                               device=k.device), 1)
+    row["wrapper_ms"] = cuda_ms(lambda i: flash.quantize_kv(k, v, qb), 1)
+    row["plain_ms"] = cuda_ms(lambda i: plain(), 1)
+    row["library_ms"] = None
+    skv_p = -(-s // qb) * qb
+    nbytes = 2 * (b * h * s * d * 2 + b * h * skv_p * d + b * h * (skv_p // qb) * 4 + b * h * d * 4)
+    row["bound_ms"], row["bound_by"] = bound(0.0, PEAK_F32_FLOPS, nbytes)
+    return row
 
 
 def check_flash_lse(s_q: int, gen, entry: str):
     """K14's ``entry`` (the output and per-row log-sum-exp of K3 or of an
     int8 mode) against its plain version at B1 H24 S ``s_q``: the output
     within K3's / the int8 modes' band, the lse within LSE_TOL. ``ms`` times
-    the kernel alone (the int8 prepasses ran once); library: PyTorch's
-    flash attention with its logsumexp, bf16 (for the int8 entries a
-    different function)."""
+    the kernel alone (the int8 prepass ran once); for the int8 entries
+    ``with_prepass_ms`` times the wrapper and ``design_bound_ms`` is
+    check_flash_int8's; library: PyTorch's flash attention with its
+    logsumexp, bf16 (for the int8 entries a different function)."""
     import torch
 
     from diffusion_rs_tpu_torch.ops import _cuda, flash
@@ -866,6 +933,11 @@ def check_flash_lse(s_q: int, gen, entry: str):
     if not (torch.equal(out, y) and torch.equal(lse_out, lse)):
         raise SystemExit(f"{entry} on pre-quantized inputs differs from its wrapper")
     del keep
+    if s8 or s8_pv:
+        row["with_prepass_ms"] = cuda_ms(
+            lambda i: flash.flash_int8(q, k, v, scale, s8, s8_pv, lse=lse), 1)
+        row["design_bound_ms"] = attention_bound(b, h, s_q, d, s8, s8_pv, lse=True,
+                                                 design=True)[0]
     row["plain_ms"] = cuda_ms(lambda i: plain(), 1, iters=2, warmup=1)
     row["library_ms"] = cuda_ms(lambda i: torch.ops.aten._scaled_dot_product_flash_attention(
         q, k, v, 0.0, False, False, scale=scale), 1)
@@ -1103,13 +1175,14 @@ def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=Fals
     if fuse is not None and "grouped" in fuse:
         qmm_kernel = {"q8t": "qmm_grouped_s8", "nf4": "qmm_grouped_nf4"}[flux_kind]
     others = [k for k in ("flash_fwd", "flash_sm", "flash_rope", "flash_s8_s8pv")
-              if k != flash_kernel]
+              if k != flash_kernel] + ([] if int8 else ["flash_quant"])
     if isq:  # every quantized FLUX and T5 linear is q4_k: K13 alone
         qmm_kernel = "qmm_affine_fast16"
         others += ["qmm_s8", "qmm_nf4", "qmm_affine"]
     if not (counts[flash_kernel] > 0 and counts[qmm_kernel] > 0
             and not any(counts[k] for k in others)
-            and counts["rope_qk"] == (counts["flash_rope"] if flash_kernel == "flash_rope" else 0)):
+            and counts["rope_qk"] == (counts["flash_rope"] if flash_kernel == "flash_rope" else 0)
+            and (not int8 or counts["flash_quant"] == counts["flash_s8_s8pv"])):
         raise SystemExit(f"tiny image ({label}) did not run its kernels: {counts}")
     return lat_err, psnr
 
@@ -1580,13 +1653,14 @@ def int8_attention_images(pipe, prompts, steps: int, ref_latent):
     torch.cuda.reset_peak_memory_stats()
     with attention_knobs(True, True):
         counts, lat, _ = timed_image(name, pipe, prompts, steps, {
-            "qmm_s8": 503 * steps, "qmm_nf4": 168, "flash_s8_s8pv": 57 * steps})
+            "qmm_s8": 503 * steps, "qmm_nf4": 168, "flash_s8_s8pv": 57 * steps,
+            "flash_quant": 57 * steps})
     dist = summed_rel(lat, ref_latent)
     print(f"{name} latent vs phase 4's (bf16 attention): summed-rel {dist:.3e} "
           f"(band {INT8_LATENT_TOL:g})")
     if not dist <= INT8_LATENT_TOL:
         raise SystemExit(f"{name} latent is {dist:.3e} from phase 4's")
-    out = {"flash_s8_s8pv": counts["flash_s8_s8pv"]}
+    out = {"flash_s8_s8pv": counts["flash_s8_s8pv"], "flash_quant": counts["flash_quant"]}
     seen = {}
     sdpa_merged = flux_model.sdpa_merged
 
@@ -1606,7 +1680,8 @@ def int8_attention_images(pipe, prompts, steps: int, ref_latent):
             finally:
                 flux_model.sdpa_merged = sdpa_merged
             c = _cuda.launch_counts()
-        want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503, "qmm_nf4": 168, entry: 57}
+        want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503, "qmm_nf4": 168, entry: 57,
+                "flash_quant": 57}
         print(f"config C, {ATTN_KNOBS[s8_pv]}=1 alone, 1-step image: launches "
               f"{ {k: v for k, v in c.items() if v} } (expected "
               f"{ {k: v for k, v in want.items() if v} })")
@@ -2275,7 +2350,7 @@ def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent) -> dict:
         if r["image"] != [[1, 1024, 1024, 3], "uint8"]:
             raise SystemExit(f"config S rank {r['rank']}: bad image {r['image']}")
         for entry in SP_INT8_ENTRIES:
-            w = {"qmm_s8": 503, "qmm_nf4": 168, entry: 57 * SP}
+            w = {"qmm_s8": 503, "qmm_nf4": 168, entry: 57 * SP, "flash_quant": 57 * SP}
             got, dist = r[f"{entry}_launches"], r[f"{entry}_vs_bf16"]
             print(f"config S rank {r['rank']}, {entry} (1-step image): launches {got}, latent "
                   f"vs the bf16 1-step latent summed-rel {dist:.3e} (band {INT8_LATENT_TOL:g})")
@@ -2378,8 +2453,9 @@ def main() -> int:
         "rope_qk": [check_rope_qk(s_, gen) for s_ in (4608, 4112)],
         "qmm_grouped_s8": check_grouped("q8t", gen),
         "qmm_grouped_affine": check_grouped("q8_0", gen) + check_grouped("q4_0", gen),
-        **{entry: [check_flash_int8(s_, gen, entry) for s_ in (4608, 4112)]
+        **{entry: [check_flash_int8(s_, gen, entry) for s_ in (4608, 4112, 2304)]
            for entry in INT8_MODES},
+        "flash_quant": [check_flash_quant(s_, gen) for s_ in (4608, 4112, 2304)],
         # K14 at config S's shape (each rank's 2304 rows), the main path's and
         # a ragged one
         **{entry: [check_flash_lse(s_, gen, entry) for s_ in (2304, 4608, 4112)]
@@ -2395,9 +2471,9 @@ def main() -> int:
         for r in rows:
             extra = "".join(f", {key} {r[key]:.3e}" for key in (
                 "vs_k6_max_abs", "vs_single_max_abs", "decoded_max_abs", "vs_f32_decode",
-                "lse_max_abs") if key in r)
-            line = (f"kernel {name} {r['shape']}: summed-rel {r['summed_rel']:.3e} "
-                    f"max-abs {r['max_abs_err']:.3e}{extra}")
+                "lse_max_abs", "mean_max_abs", "scale_ulps", "codes_off") if key in r)
+            err = f"summed-rel {r['summed_rel']:.3e} " if "summed_rel" in r else ""
+            line = f"kernel {name} {r['shape']}: {err}max-abs {r['max_abs_err']:.3e}{extra}"
             if "ms" in r:
                 lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
                 line += (f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -2408,8 +2484,12 @@ def main() -> int:
                 line += f"; device time {r['device_ms']:.4f} ms (profiler)"
             if "library_note" in r:
                 line += f" ({r['library_note']})"
+            if "wrapper_ms" in r:
+                line += f"; through quantize_kv {r['wrapper_ms']:.4f} ms"
+            if "design_bound_ms" in r:
+                line += f"; design bound {r['design_bound_ms']:.4f} ms"
             if "with_prepass_ms" in r:
-                line += f"; with the PyTorch prepasses {r['with_prepass_ms']:.4f} ms"
+                line += f"; with the prepass kernel {r['with_prepass_ms']:.4f} ms"
             if "per_group_ms" in r:
                 line += f" (two calls), per-group launches {r['per_group_ms']:.4f} ms"
             if "f32_decode_ms" in r:
@@ -2577,6 +2657,7 @@ def main() -> int:
         "flash_s8": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
         "flash_s8pv": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
         "flash_s8_s8pv": ("flash_fwd.cu", f"{flash_pallas}:396", 0),
+        "flash_quant": ("flash_quant.cu", f"{flash_pallas}:223", 0),
         "qmm_grouped_nf4": ("qmm_nf4.cu", f"{qmm_pallas}:630", -1),
         "qmm_nf4_fast16": ("qmm_nf4.cu", f"{qmm_pallas}:378", -1),
         "qmm_affine_fast16": ("qmm_affine.cu", f"{qmm_pallas}:378", -1),
@@ -2595,7 +2676,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **{key: r[key] for key in ("library_note", "with_prepass_ms", "pass1_ms",
+            **{key: r[key] for key in ("library_note", "with_prepass_ms", "design_bound_ms",
+                                       "wrapper_ms", "pass1_ms",
                                        "pass2_ms", "int8_gemm_ms", "rope_ms") if key in r},
             **({"m1_rows": [{k: x[k] for k in ("shape", "ms", "device_ms", "bound_ms",
                                                "library_ms")} for x in rows

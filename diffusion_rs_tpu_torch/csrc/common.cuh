@@ -1,9 +1,8 @@
-// Shared helpers for the port's Hopper kernels (sm_90a): cp.async copies,
-// ldmatrix fragment loads and mma.sync tensor-core ops (the int8 flash
-// body); and, for the q8t (qmm_s8.cu), 4-bit codebook (qmm_nf4.cu), affine
-// (qmm_affine.cu) and bf16 flash (flash_fwd.cu) kernels, the Hopper pieces:
-// TMA tensor maps and loads, mbarriers, named barriers, setmaxnreg and
-// warpgroup MMA (wgmma) with A from registers.
+// Shared helpers for the port's Hopper kernels (sm_90a): the q8t
+// (qmm_s8.cu), 4-bit codebook (qmm_nf4.cu), affine (qmm_affine.cu) and flash
+// (flash_fwd.cu: the bf16 and the int8 body) kernels' TMA tensor maps and
+// loads, mbarriers, named barriers, setmaxnreg and warpgroup MMA (wgmma) with
+// A from registers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -13,53 +12,6 @@
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global->shared async copy. src_bytes = 0 zero-fills the
-// destination (ragged tile edges); src must still be a valid address.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// D = A(16x32 s8, row) * B(32x8 s8, col) + D, s32 accumulate.
-__device__ __forceinline__ void mma_s8_16832(int32_t* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// D = A(16x16 bf16, row) * B(16x8 bf16, col) + D, f32 accumulate.
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -87,6 +39,37 @@ __device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
 
 __device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
   return bf16x2_fma(a, BF16X2_ONE, b);
+}
+
+// The low bytes of a, b, c, d as one word (a lowest).
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// A divisor b > 0 shared by many quotients: b and rb = 1 / b rounded to
+// nearest (__frcp_rn), both scaled by s = 2^100 where b < 2^-64 (exact:
+// a power of two), where q * b could underflow and, below ~2^-126, 1 / b
+// overflows.
+struct Divisor {
+  float b, rb, s;
+};
+__device__ __forceinline__ Divisor divisor(float b) {
+  const float s = b < 0x1p-64f ? 0x1p100f : 1.f;
+  const float bs = __fmul_rn(b, s);
+  return {bs, __frcp_rn(bs), s};
+}
+
+// a / d.b rounded to nearest (IEEE) for |a| <= 128 b: a is scaled as b was,
+// then Markstein's correction of q = a * rb by the exact residual a - q * b
+// is the correctly rounded quotient (tests/test_torch_flash_int8_plan.py
+// checks it against exact rationals); for |a s| < 2^-100 the residual may
+// round, and the result, below 2^-36, lies within an ulp of it. Four
+// FMA-pipe operations where many values share a divisor, against the
+// division's reciprocal, refinement and range check per value.
+__device__ __forceinline__ float quotient(float a, const Divisor& d) {
+  const float as = __fmul_rn(a, d.s);
+  const float q = __fmul_rn(as, d.rb);
+  return __fmaf_rn(__fmaf_rn(-q, d.b, as), d.rb, q);
 }
 
 // Bits of the bf16 nearest to v (ties to even).
@@ -160,6 +143,22 @@ inline int encode_tensor_map_3d(CUtensorMap* map, const void* base, CUtensorMapD
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Raises kernel `fn`'s dynamic shared-memory limit to `bytes` on the
+// current device. A function's attributes are per device and launches run
+// on their operands' card, so `raised` (one per kernel, zero-initialised)
+// keeps what each device was set to. Returns 0 or the cudaError_t value.
+constexpr int MAX_DEVICES = 64;
+inline int raise_smem_limit(const void* fn, size_t bytes, size_t (&raised)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < MAX_DEVICES && raised[dev] >= bytes) return 0;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < MAX_DEVICES) raised[dev] = bytes;
+  return 0;
 }
 
 // One box of `map` at (column c0, row c1) into shared memory; its bytes
@@ -244,6 +243,12 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
+// Arrive on barrier `id` without waiting: the threads that bar.sync on it
+// wait for these arrivals too (one warpgroup handing a turn to another).
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // Register budget of the calling warpgroup (all 128 threads execute it): the
 // producer gives registers back, the consumers take them.
 template <int R>
@@ -295,11 +300,29 @@ __device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo, u
          (uint64_t{1} << 62);
 }
 
-// D(64 x N) += A(64 x K, registers) * B(K x N, shared memory, K-major), one
-// warpgroup; scale_d = 0 overwrites D instead. A fragments: warp w holds rows
-// 16w..16w+15 as mma.sync's m16 A fragment (a0: row g, a1: row g + 8, a2 / a3
-// the same rows K/2 further on; g = lane / 4, t = lane % 4, k = 4t.. (s8) or
-// 2t.. (bf16)). D: d[4j + 2h + e] is row 16w + g + 8h, column 8j + 2t + e.
+// D(64 x N) += A(64 x 32 s8, registers) * B(32 x N s8, shared memory,
+// K-major: int8 wgmma has no transpose), s32 accumulate, one warpgroup, for
+// N = 64 (the int8 flash body's QK^T over 64-row kv tiles) and N = 128 (K1's
+// tiles, the int8 flash body's 128-row kv tiles and its P.V); scale_d = 0
+// overwrites D instead. A
+// fragments: warp w holds rows 16w..16w+15 as mma.sync's m16 A fragment (a0:
+// row g, a1: row g + 8, a2 / a3 the same rows K/2 further on; g = lane / 4,
+// t = lane % 4, k = 4t.. (s8) or 2t.. (bf16)). D: d[4j + 2h + e] is row
+// 16w + g + 8h, column 8j + 2t + e.
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int32_t* d, const uint32_t* a, uint64_t b_desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_s8_m64n128k32(int32_t* d, const uint32_t* a, uint64_t b_desc,
                                           int scale_d) {
   asm volatile(

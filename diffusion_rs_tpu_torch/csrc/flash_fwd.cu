@@ -1,7 +1,7 @@
 // Flash attention forward, head_dim 128, output head-merged [B, Sq, H * 128].
-// Two kernel bodies: the bf16 one below (a Hopper design: TMA, mbarrier
-// ring, warp-specialised wgmma) with five entry points and the half-split
-// RoPE pass, and the int8 one further down (mma.sync, cp.async) with six:
+// Two kernel bodies of one Hopper design (TMA, mbarrier ring, warp-
+// specialised wgmma): the bf16 one below with five entry points and the
+// half-split RoPE pass, and the int8 one further down with six:
 //
 // K3 flash_fwd: replaces diffusion_rs_tpu/ops/flash_pallas.py:_flash_kernel
 //   in bf16 mode with seq_out=True and no lse (:50-216), reached through
@@ -81,6 +81,9 @@
 // row and head, 8 pairs each) into contiguous [B, S, H * 128] scratch; it
 // moves q and k in and out and reads the table halves (about 118 MB at B1
 // S4608 H24: bytes bound it).
+#include <climits>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -324,13 +327,10 @@ template <bool DENSE, bool LSE>
 int launch_wg(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
               int Sq, int Skv, long long q_sb, long long q_sr, long long k_sb, long long k_sr,
               long long v_sb, long long v_sr, float scale, void* stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_wg_kernel<DENSE, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WSMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
+  static size_t raised[MAX_DEVICES] = {};
+  const int attr_err = raise_smem_limit(reinterpret_cast<const void*>(flash_wg_kernel<DENSE, LSE>),
+                                        WSMEM_BYTES, raised);
+  if (attr_err != 0) return attr_err;
   Maps maps;
   const void* base[3] = {q, k, v};
   const long long sb[3] = {q_sb, k_sb, v_sb}, sr[3] = {q_sr, k_sr, v_sr};
@@ -402,416 +402,670 @@ rope_qk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 }
 
 // ---------------------------------------------------------------------------
-// The int8 modes (K9, K10, both), mma.sync + cp.async: 64 q rows per block
-// of four warps, kv tiles of 64 rows.
+// The int8 body (K9, K10, both; K14's int8 entries)
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 128;        // 4 warps x 16 query rows
-constexpr int STRIDE = D + 8;       // bf16: 272-byte rows, conflict-free ldmatrix
-constexpr int TILE = BKV * STRIDE;  // elements per K or V tile
-
-// q bf16 [B, H, Sq, 128]; the prepasses
-// (ops/flash.py quantize_k / quantize_v, plain PyTorch) give k and v int8
-// with one f32 scale per quantization block of QB kv rows (QB = JAX's kv
-// block, a multiple of 128; Skv_p = Skv rounded up to QB, zero rows).
+// q bf16 [B, H, Sq, 128]; the prepass (csrc/flash_quant.cu, or the plain
+// ops/flash.py quantize_k / quantize_v on the CPU) gives k and v int8 with
+// one f32 scale per quantization block of QB kv rows (QB = JAX's kv block, a
+// multiple of 128; Skv_p = Skv rounded up to QB, zero rows).
 //
-// S8_QK (K9): k int8 [B, H, Skv_p, 128], sk f32 [B, H, Skv_p / QB]. The q
-//   tile is quantized once per block, per row: sq = max|q| / 127 (IEEE
-//   quotient; 1 for a zero row), qq = round-half-even(q / sq). QK^T runs on
-//   mma.sync m16n8k32 s8 -> s32 (exact), and s = f32(s_i) * (sq * (sk *
-//   scale)), each product rounded on its own, as the Pallas kernel orders
-//   it. Without S8_PV the softmax and the bf16 P.V are K3's.
+// S8_QK (K9): k int8 [B, H, Skv_p, 128], sk f32 [B, H, Skv_p / QB]. Each
+//   consumer warpgroup quantizes its 64 q rows once per block, per row: sq =
+//   max|q| / 127 (IEEE quotient; 1 for a zero row), qq = round-half-even(q /
+//   sq). QK^T runs on wgmma s8 -> s32 (exact), and s = f32(s_i) * (sq * (sk
+//   * scale)), each product rounded on its own, as the Pallas kernel orders
+//   it (s_i converts exactly by the 2^23 trick: |s_i| <= 127 * 127 * 128 <
+//   2^22). Row maxima are taken on the raw s_i: f32 conversion and products
+//   by positive factors are monotone, so max(f(x)) = f(max x) bit for bit.
+//   Without S8_PV the online softmax and the bf16 P.V run over K3's
+//   64-column blocks, the exps as expf (below).
 // S8_PV (K10): v int8, centred on its per-(b, h) channel mean vm f32
 //   [B, H, 128], scale sv f32 [B, H, Skv_p / QB], laid out [B, H, 128,
-//   Skv_p] (kv contiguous, the int8 MMA's B operand) with the rows of each
-//   32-row chunk permuted (ops/flash.py v_kernel_layout) so that a thread's
-//   p values, held in the QK^T accumulator's layout, are its int8 A
-//   fragment as they stand. p is referenced to the row max of the whole
-//   quantization block, as in JAX, so each block takes two passes over its
-//   64-row k tiles: the first computes QK^T for the block's row max m_blk;
-//   the second computes QK^T again, p = exp(s - (m_blk - ln 127)) in
-//   [0, 127], pq = trunc(p + 0.5), and accumulates P.V and sum(pq) in int32
-//   across the block's tiles (1536 * 127 * 127 < 2^31), which is JAX's one
-//   int32 dot per block. Once per block: m_next = max(m, m_blk), alpha =
-//   exp(m - m_next), beta = exp(m_blk - m_next), acc = acc * alpha +
-//   f32(pv) * (beta * (sv / 127)), l = l * alpha + (f32(sum pq) * (1/127)) *
-//   beta. The output is acc * (1 / l) + vm. The second QK^T pass is this
-//   design's own cost (the Pallas kernel holds a whole block in VMEM).
-// Ragged kv: columns at or past Skv are masked to -1e30 (p = 0; the padded
-// k and v rows are zero); tiles past the last real row are not visited.
+//   Skv_p] (kv contiguous: int8 wgmma takes only K-major operands) with the
+//   rows of each 32-row chunk permuted (ops/flash.py v_kernel_layout) so
+//   that a thread's p values, held in the QK^T accumulator's layout, are its
+//   int8 A fragment as they stand. p is referenced to the row max of the
+//   whole quantization block, as in JAX, so each block takes two passes over
+//   its k tiles: the first computes QK^T for the block's row max m_blk (on
+//   the raw scores: under S8_QK integer wgmma and IMNMX alone); the second
+//   computes QK^T again, p = exp(s - (m_blk - ln 127)) in [0, 127], pq =
+//   trunc(p + 0.5), and accumulates P.V and sum(pq) in int32 across the
+//   block's tiles (1536 * 127 * 127 < 2^31), which is JAX's one int32 dot per
+//   block. Once per block: m_next = max(m, m_blk), alpha = exp(m - m_next),
+//   beta = exp(m_blk - m_next), acc = acc * alpha + f32(pv) * (beta * (sv /
+//   127)), l = l * alpha + (f32(sum pq) * (1/127)) * beta. The output is acc
+//   * (1 / l) + vm. The second QK^T pass is this design's own cost (the
+//   Pallas kernel holds a whole block in VMEM; a 64 x 1536 f32 score block
+//   per warpgroup does not fit in shared memory).
+// Every exp is expf of a difference rounded on its own (s - ref, m - m_next,
+// s - m_new), each score s = f32(s_i) * fac rounded before it, so that pq =
+// trunc(p + 0.5) is the plain version's bit for bit (no log2(e) folded into
+// an FFMA and MUFU.EX2, as K3 does: that moves p by a few ulps, and pq
+// where p lies that close to k + 0.5). trunc(p + 0.5) is taken on the FMA
+// pipe: for t in [0, 2^23), t + 2^23 rounded toward zero is 2^23 + trunc(t)
+// exactly, and its low byte is the code; sum(pq) takes four codes per
+// IDP4A.
+// Ragged kv: columns at or past Skv are masked (p = 0, pq = 0; the padded k
+// and v rows are zero); tiles past the last real row are not visited.
 // Padded q rows are zero (sq = 1) and not written.
-constexpr int I8_STRIDE = D + 16;    // int8 q / k rows: 144 bytes, conflict-free ldmatrix
-constexpr int VT_STRIDE = BKV + 16;  // int8 v^T rows, one per channel: 80 bytes
+//
+// Bound on the H100: the tensor-core rate (4 B H S^2 D operations, the int8
+// halves at the int8 rate), plus under S8_PV the second QK^T; under S8_PV
+// pass 1's expf (one MUFU.EX2 at 16 a clock per SM, and its range reduction
+// on the FMA pipe, per score) takes longer than the products. Design, the bf16 body's: a block owns 128 q rows of one (batch,
+// head), 64 for each of two consumer warpgroups (setmaxnreg 24 / 240 gives
+// them the producer's registers); one producer thread streams k tiles (int8:
+// one box of KV rows x 128 bytes; bf16: two 64-column boxes) and v tiles
+// (int8 v^T: one box of 128 channels x 128 kv bytes; bf16: two boxes)
+// through a TMA ring, k and v on barriers of their own (pass 0 loads no v:
+// the producer arrives on its barrier without bytes, so both barriers keep
+// one phase per step). QK^T is wgmma m64nKVk32 s8 (q's int8 fragments
+// reloaded from shared memory as 16-byte loads in fragment order) or
+// m64nKVk16 bf16 (the TMA'd q tile); P.V is m64n128k32 s8 (pq packed from
+// S's accumulator, B the v^T tile) or m64n128k16 bf16 (B MN-major). The two
+// warpgroups take turns on the tensor cores (see the loop), so one's
+// softmax runs under the other's products; the k scale of the next tile is
+// loaded a turn ahead.
 constexpr float LOG127 = 4.844187086458591f;
 constexpr float INV127 = static_cast<float>(1.0 / 127.0);
 
+// One block's tiles and shared memory. kv tiles of KV rows: 128 under S8_PV
+// (any tile that divides the quantization block gives the block the same
+// int32 sums and row max), else the 64-column softmax blocks of K3 and the
+// plain versions. After the bf16 q tile (2 * QBOX): the int8 q in fragment
+// order (S8_QK), the k and v rings of STAGES stages, each thread's f32 O
+// (S8_PV: it is touched twice per block, scaled by alpha after pass 0 and
+// folded after pass 1, so it waits in shared memory and its registers hold
+// the block's int32 P.V sums), the q row scales (S8_QK) and the barriers.
 template <bool S8_QK, bool S8_PV>
-struct Int8Smem {
-  static constexpr int Q = BQ * STRIDE * 2;                       // bf16 q tile
-  static constexpr int QQ = S8_QK ? BQ * I8_STRIDE : 0;           // int8 q tile
-  static constexpr int SQ = S8_QK ? BQ * 4 : 0;                   // q row scales
-  static constexpr int KT = S8_QK ? BKV * I8_STRIDE : TILE * 2;   // one k tile
-  static constexpr int VT = S8_PV ? D * VT_STRIDE : TILE * 2;     // one v tile
-  static constexpr size_t BYTES = (size_t)Q + QQ + SQ + 2 * KT + 2 * VT;
+struct Int8Layout {
+  static constexpr int KV = S8_PV ? 128 : 64;
+  static constexpr int STAGES = !S8_PV ? 6 : S8_QK ? 3 : 2;
+  static constexpr int KBOX = KV * 128;                   // an int8 k tile or a 64-column bf16 box
+  static constexpr int KT = S8_QK ? KBOX : 2 * KBOX;      // one k tile
+  static constexpr int VT = S8_PV ? D * KV : 2 * KBOX;    // one v tile (v^T when int8)
+  static constexpr int QQ_OFF = 2 * QBOX;
+  static constexpr int K_OFF = QQ_OFF + (S8_QK ? WQ * D : 0);
+  static constexpr int V_OFF = K_OFF + STAGES * KT;
+  static constexpr int O_OFF = V_OFF + STAGES * VT;
+  static constexpr int SQ_OFF = O_OFF + (S8_PV ? WQ * D * 4 : 0);
+  static constexpr int BAR_OFF = SQ_OFF + (S8_QK ? WQ * 4 : 0);
+  static constexpr size_t BYTES = 1024 + BAR_OFF + (1 + 3 * STAGES) * sizeof(uint64_t);
 };
 
-__device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xFF) | ((uint32_t)(b & 0xFF) << 8) | ((uint32_t)(c & 0xFF) << 16) |
-         ((uint32_t)(d & 0xFF) << 24);
+__device__ __forceinline__ float absmax8(uint4 raw) {
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  float ax = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ax = fmaxf(ax, fabsf(__bfloat162float(x[e])));
+  return ax;
 }
 
-template <bool S8_QK, bool S8_PV, bool LSE = false>
-__device__ __forceinline__ void flash_int8_body(
-    const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_,
-    const float* __restrict__ sk, const void* __restrict__ v_, const float* __restrict__ sv,
-    const float* __restrict__ vm, __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv,
-    int QB, float scale, float* __restrict__ lse = nullptr) {
-  using L = Int8Smem<S8_QK, S8_PV>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);        // [BQ][STRIDE]
-  int8_t* Qq = reinterpret_cast<int8_t*>(smem + L::Q);               // [BQ][I8_STRIDE]
-  float* Sqs = reinterpret_cast<float*>(smem + L::Q + L::QQ);        // [BQ]
-  unsigned char* Kb = smem + L::Q + L::QQ + L::SQ;                   // [2][k tile]
-  unsigned char* Vb = Kb + 2 * L::KT;                                // [2][v tile]
+// Exact float of an s32 with |v| < 2^22: v + 1.5 * 2^23 lies in [2^23,
+// 2^24), where every integer is a float (qmm_s8.cu's fold).
+__device__ __forceinline__ float small_int_to_float(int32_t v) {
+  return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+template <bool S8_QK, bool S8_PV, bool LSE>
+__device__ __forceinline__ void flash_int8_body(const Maps& maps, const float* __restrict__ sk,
+                                                const float* __restrict__ sv,
+                                                const float* __restrict__ vm,
+                                                __nv_bfloat16* __restrict__ out,
+                                                float* __restrict__ lse, int H, int Sq, int Skv,
+                                                int QB, float scale) {
+  using L = Int8Layout<S8_QK, S8_PV>;
+  constexpr int KV = L::KV;
+  constexpr int STAGES = L::STAGES;
+  using Acc = std::conditional_t<S8_QK, int32_t, float>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+  float* sq_s = reinterpret_cast<float*>(sm + L::SQ_OFF);
+
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * WQ;
   const int nblk = (Skv + QB - 1) / QB;
-  const int skv_p = nblk * QB;
-  const int nkv = (Skv + BKV - 1) / BKV;  // k tiles with a real row
-  const int tpb = QB / BKV;               // k tiles per quantization block
-  const int nsteps = S8_PV ? 2 * nkv : nkv;
-  const __nv_bfloat16* qg = q + (size_t)bh * Sq * D;
-  const int8_t* kq = static_cast<const int8_t*>(k_) + (size_t)bh * skv_p * D;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(k_) + (size_t)bh * Skv * D;
-  const int8_t* vt = static_cast<const int8_t*>(v_) + (size_t)bh * D * skv_p;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(v_) + (size_t)bh * Skv * D;
+  const int nkv = (Skv + KV - 1) / KV;  // k tiles with a real row
+  const int tpb = QB / KV;               // k tiles per quantization block
 
-  // Step s -> (k tile j, pass, last tile of j's quantization block). With
-  // S8_PV each block's tiles come twice: pass 0 (row max), then pass 1.
-  auto step = [&](int s, int& j, int& pass, int& last) {
-    if constexpr (S8_PV) {
-      const int base = (s / (2 * tpb)) * tpb;
-      const int c = min(tpb, nkv - base);
-      const int local = s - 2 * base;
-      pass = local >= c;
-      j = base + (pass ? local - c : local);
-      last = base + c - 1;
-    } else {
-      j = last = s;
-      pass = 1;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
-  };
-
-  // Q tile: 64 rows x 16 chunks of 16 bytes.
-  for (int c = tid; c < BQ * (D / 8); c += THREADS) {
-    const int r = c >> 4;
-    const int ch = c & 15;
-    const int gr = q0 + r;
-    cp_async16(Qs + r * STRIDE + ch * 8, qg + (size_t)(gr < Sq ? gr : 0) * D + ch * 8,
-               gr < Sq ? 16 : 0);
+    mbar_fence_init();
   }
-  cp_async_commit();
-
-  auto load_step = [&](int s, int buf) {
-    int j, pass, last;
-    step(s, j, pass, last);
-    unsigned char* kd = Kb + buf * L::KT;
-    for (int c = tid; c < BKV * (D / 16 * (S8_QK ? 1 : 2)); c += THREADS) {
-      if constexpr (S8_QK) {  // rows < Skv_p always: padded rows are zero
-        const int r = c >> 3;
-        const int ch = c & 7;
-        cp_async16(kd + r * I8_STRIDE + ch * 16, kq + (size_t)(j * BKV + r) * D + ch * 16, 16);
-      } else {
-        const int r = c >> 4;
-        const int ch = c & 15;
-        const int gr = j * BKV + r;
-        cp_async16(kd + (r * STRIDE + ch * 8) * 2, kg + (size_t)(gr < Skv ? gr : 0) * D + ch * 8,
-                   gr < Skv ? 16 : 0);
-      }
-    }
-    if (pass) {
-      unsigned char* vd = Vb + buf * L::VT;
-      if constexpr (S8_PV) {  // 128 channel rows x 64 kv bytes of v^T
-        for (int c = tid; c < D * (BKV / 16); c += THREADS) {
-          const int r = c >> 2;
-          const int ch = c & 3;
-          cp_async16(vd + r * VT_STRIDE + ch * 16, vt + (size_t)r * skv_p + j * BKV + ch * 16, 16);
-        }
-      } else {
-        for (int c = tid; c < BKV * (D / 8); c += THREADS) {
-          const int r = c >> 4;
-          const int ch = c & 15;
-          const int gr = j * BKV + r;
-          cp_async16(vd + (r * STRIDE + ch * 8) * 2, vg + (size_t)(gr < Skv ? gr : 0) * D + ch * 8,
-                     gr < Skv ? 16 : 0);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  load_step(0, 0);
-  cp_async_wait<1>();  // Q has landed
   __syncthreads();
-  if constexpr (S8_QK) {  // quantize the q tile: two threads per row, 64 columns each
-    const int r = tid >> 1;
-    const int c0 = (tid & 1) * 64;
-    const __nv_bfloat16* row = Qs + r * STRIDE + c0;
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread loads q once and keeps the ring full.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, 2 * QBOX);
+      tma_load_3d(sm, &maps.q, 0, q0, bh, bar_q);
+      tma_load_3d(sm + QBOX, &maps.q, HALF, q0, bh, bar_q);
+      // ring steps in the consumers' order: with S8_PV each quantization
+      // block's tiles twice, k alone (pass 0: the row max) then k and v
+      int s = 0;
+      auto load = [&](int j, bool with_v) {
+        const int buf = s % STAGES;
+        if (s >= STAGES) mbar_wait(&empty[buf], ((s / STAGES) + 1) & 1);
+        ++s;
+        uint8_t* kt = sm + L::K_OFF + buf * L::KT;
+        mbar_expect_tx(&full_k[buf], L::KT);
+        tma_load_3d(kt, &maps.k, 0, j * KV, bh, &full_k[buf]);
+        if constexpr (!S8_QK) tma_load_3d(kt + L::KBOX, &maps.k, HALF, j * KV, bh, &full_k[buf]);
+        if (!with_v) {  // complete the v barrier's phase without bytes
+          mbar_arrive(&full_v[buf]);
+          return;
+        }
+        uint8_t* vt = sm + L::V_OFF + buf * L::VT;
+        mbar_expect_tx(&full_v[buf], L::VT);
+        if constexpr (S8_PV) {
+          tma_load_3d(vt, &maps.v, j * KV, 0, bh, &full_v[buf]);
+        } else {
+          tma_load_3d(vt, &maps.v, 0, j * KV, bh, &full_v[buf]);
+          tma_load_3d(vt + L::KBOX, &maps.v, HALF, j * KV, bh, &full_v[buf]);
+        }
+      };
+      if constexpr (S8_PV) {
+        for (int base = 0; base < nkv; base += tpb) {
+          const int c = min(tpb, nkv - base);
+          for (int jj = 0; jj < c; ++jj) load(base + jj, false);
+          for (int jj = 0; jj < c; ++jj) load(base + jj, true);
+        }
+      } else {
+        for (int j = 0; j < nkv; ++j) load(j, true);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: rows 64 cw .. 64 cw + 63 of the block.
+  setmaxnreg_inc<240>();
+  const int ct = threadIdx.x - 128;
+  const int cw = ct >> 7;
+  const int w = (ct >> 5) & 3;
+  const int lane = ct & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 64 * cw + 16 * w + g;  // block row of the fragments' first row; + 8 the second
+  mbar_wait(bar_q, 0);
+
+  // int8 q in fragment order: word i of lane l of warp w's k32 slice kk
+  // (rows 16w + g + 8 (i & 1), bytes 32kk + 16 (i >> 1) + 4t..) at word
+  // (((4 cw + w) * 4 + kk) * 32 + l) * 4 + i, so a thread's 16 words are four
+  // 16-byte loads.
+  uint8_t* qq_s = sm + L::QQ_OFF;
+  if constexpr (S8_QK) {
+    // two threads per row, one 64-column box each (128-byte swizzle: chunk
+    // c of row r at chunk c ^ (r & 7))
+    const int lt = ct & 127;
+    const int r = 64 * cw + (lt >> 1);
+    const int half = lt & 1;
+    const uint8_t* row = sm + half * QBOX + r * 128;
+    uint4 raw[8];
     float amax = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < 64; ++c) amax = fmaxf(amax, fabsf(__bfloat162float(row[c])));
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      raw[c] = *reinterpret_cast<const uint4*>(row + ((c ^ (r & 7)) << 4));
+      amax = fmaxf(amax, absmax8(raw[c]));
+    }
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
     const float sqr = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
-#pragma unroll 4
-    for (int c = 0; c < 64; c += 4) {
-      int qi[4];
+    const Divisor dq = divisor(sqr);
+    const int rw = (r >> 4) & 3, rg = r & 7, rh = (r >> 3) & 1;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) qi[e] = __float2int_rn(__fdiv_rn(__bfloat162float(row[c + e]), sqr));
-      *reinterpret_cast<uint32_t*>(Qq + r * I8_STRIDE + c0 + c) = pack_s8x4(qi[0], qi[1], qi[2], qi[3]);
+    for (int c = 0; c < 8; ++c) {
+      const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw[c]);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int col = 64 * half + 8 * c + 4 * u;  // four columns col..col+3
+        int qi[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          qi[e] = __float2int_rn(quotient(__bfloat162float(x[4 * u + e]), dq));
+        const int word = ((((4 * cw + rw) * 4 + (col >> 5)) * 32 + 4 * rg + ((col >> 2) & 3)) * 4 +
+                          2 * ((col >> 4) & 1) + rh);
+        reinterpret_cast<uint32_t*>(qq_s)[word] =
+            low_bytes((uint32_t)qi[0], (uint32_t)qi[1], (uint32_t)qi[2], (uint32_t)qi[3]);
+      }
     }
-    if ((tid & 1) == 0) Sqs[r] = sqr;
-    __syncthreads();
+    if (half == 0) sq_s[r] = sqr;
+    named_barrier(1 + cw, 128);
   }
 
-  // q fragments: int8 (4 k-chunks of 32) or bf16 (8 k-chunks of 16).
-  uint32_t qf[S8_QK ? D / 32 : D / 16][4];
-  if constexpr (S8_QK) {
+  // bf16 q fragments of the 8 k16 slices (the bf16 body's load_q); int8 q
+  // fragments of the 4 k32 slices. Both are loaded again for every kv tile:
+  // wgmma A registers are not kept across the loop (see load_q in the bf16
+  // body).
+  auto load_q16 = [&](uint32_t (&qa)[D / 16][4]) {
 #pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk)
-      ldmatrix_x4(qf[kk], Qq + (warp * 16 + (lane & 15)) * I8_STRIDE + kk * 32 + (lane >> 4) * 16);
-  } else {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint8_t* box = sm + (kk >> 2) * QBOX;
+      const int c = 2 * (kk & 3);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * STRIDE + kk * 16 + (lane >> 4) * 8);
-  }
-  const float sq_row[2] = {S8_QK ? Sqs[warp * 16 + g] : 1.f, S8_QK ? Sqs[warp * 16 + g + 8] : 1.f};
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + 8 * (i & 1);
+        qa[kk][i] = *reinterpret_cast<const uint32_t*>(
+            box + r * 128 + (((c + (i >> 1)) ^ (r & 7)) << 4) + 4 * t);
+      }
+    }
+  };
+  auto load_q8 = [&](uint32_t (&qa)[D / 32][4]) {
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk) {
+      const uint4 v4 = *reinterpret_cast<const uint4*>(
+          qq_s + (((4 * cw + w) * 4 + kk) * 32 + lane) * 16);
+      qa[kk][0] = v4.x;
+      qa[kk][1] = v4.y;
+      qa[kk][2] = v4.z;
+      qa[kk][3] = v4.w;
+    }
+  };
 
-  float o[D / 8][4];
-  int32_t pvi[S8_PV ? D / 8 : 1][4];
+  // o[4j + 2h + e]: row r0 + 8h, column 8j + 2t + e (wgmma's D layout); the
+  // same for S (sc, columns of the kv tile) and P.V's int32 sums (pv).
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // S8_PV: O in shared memory, o[4q..4q+3] of this thread at o_s()[32q]
+  auto o_s = [&]() {
+    return reinterpret_cast<float4*>(sm + L::O_OFF) + (4 * cw + w) * (D / 8) * 32 + lane;
+  };
+  if constexpr (S8_PV) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+    for (int q4 = 0; q4 < D / 8; ++q4) o_s()[32 * q4] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  Acc sc[KV / 2];
 #pragma unroll
-  for (int i = 0; i < (S8_PV ? D / 8 : 1); ++i)
+  for (int i = 0; i < KV / 2; ++i) sc[i] = 0;
+  int32_t pv[S8_PV ? D / 2 : 1];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) pvi[i][e] = 0;
+  for (int i = 0; i < (S8_PV ? D / 2 : 1); ++i) pv[i] = 0;
   float m_run[2] = {NEG_INF, NEG_INF};
   float l_run[2] = {0.f, 0.f};
-  float mx[2] = {NEG_INF, NEG_INF};          // S8_PV: the block's row max so far
-  float alpha[2], beta[2], ref[2];           // S8_PV: this block's factors
-  int lq[2] = {0, 0};                        // S8_PV: sum of pq over the block
+  // S8_PV: the block's raw row max so far (int32 under S8_QK), its factors,
+  // and this thread's part of the block's sum(pq)
+  int32_t mxi[2] = {INT_MIN, INT_MIN};
+  float mxf[2] = {NEG_INF, NEG_INF};
+  float beta[2] = {1.f, 1.f}, ref[2] = {0.f, 0.f};
+  uint32_t lq[2] = {0u, 0u};
+  // P of the step whose P.V is issued in the next turn (int8 codes or bf16)
+  uint32_t pa[S8_PV ? KV / 32 : KV / 16][4];
 
-  for (int s_ = 0; s_ < nsteps; ++s_) {
-    const int buf = s_ & 1;
-    if (s_ + 1 < nsteps) {
-      load_step(s_ + 1, buf ^ 1);
-      cp_async_wait<1>();
+  // The two consumer warpgroups take turns on the tensor cores (named
+  // barriers 3 and 4, warpgroup 0 first): in its turn a warpgroup issues the
+  // previous step's P.V and this step's QK^T and hands the turn over; it
+  // then waits for them and runs its softmax while the other warpgroup's
+  // products run. Every turn is straight-line code (no wgmma under a
+  // branch, which ptxas would serialize): the first turn of a run of tiles
+  // issues QK^T alone, the last P.V alone. Both warpgroups take the same
+  // turns; warpgroup 1 hands over the last one to nobody.
+  const int my_turn = 3 + cw, other_turn = 4 - cw;
+  if (cw == 1) named_barrier_arrive(3, 256);
+  int s_ = 0;  // ring steps consumed, in the producer's order
+  auto turn_end = [&](bool final) {
+    wgmma_commit();
+    if (cw == 0 || !final) named_barrier_arrive(other_turn, 256);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < KV / 2; ++i) reg_fence(sc[i]);
+    if constexpr (S8_PV) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) reg_fence(pv[i]);
     } else {
-      cp_async_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) reg_fence(o[i]);
     }
-    __syncthreads();
-    int j, pass, last;
-    step(s_, j, pass, last);
-    const unsigned char* kt = Kb + buf * L::KT;
-    const unsigned char* vtile = Vb + buf * L::VT;
-
-    // s = scaled QK^T for this warp's 16 rows x 64 kv columns, masked.
-    float s[BKV / 8][4];
+  };
+  // S = Q K^T of the ring's next step
+  auto issue_qk = [&]() {
+    const int buf = s_ % STAGES;
+    const uint32_t parity = (s_ / STAGES) & 1;
+    const uint8_t* kt = sm + L::K_OFF + buf * L::KT;
     if constexpr (S8_QK) {
-      int32_t si[BKV / 8][4];
-#pragma unroll
-      for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) si[i][e] = 0;
+      uint32_t qa[D / 32][4];
+      load_q8(qa);
+      mbar_wait(&full_k[buf], parity);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 32; ++kk) {
-#pragma unroll
-        for (int jj = 0; jj < BKV / 16; ++jj) {
-          uint32_t r4[4];
-          ldmatrix_x4(r4, kt + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * I8_STRIDE + kk * 32 +
-                              ((lane >> 3) & 1) * 16);
-          const uint32_t b0[2] = {r4[0], r4[1]};
-          const uint32_t b1[2] = {r4[2], r4[3]};
-          mma_s8_16832(si[2 * jj], qf[kk], b0);
-          mma_s8_16832(si[2 * jj + 1], qf[kk], b1);
+        if constexpr (KV == 128) {
+          wgmma_s8_m64n128k32(sc, qa[kk], wgmma_desc(kt + 32 * kk, 1024, 1), kk > 0);
+        } else {
+          wgmma_s8_m64n64k32(sc, qa[kk], wgmma_desc(kt + 32 * kk, 1024, 1), kk > 0);
         }
       }
-      const float skj = __fmul_rn(sk[(size_t)bh * nblk + (j * BKV) / QB], scale);
-      const float fac[2] = {__fmul_rn(sq_row[0], skj), __fmul_rn(sq_row[1], skj)};
-#pragma unroll
-      for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j * BKV + i * 8 + 2 * t + (e & 1);
-          s[i][e] = col < Skv ? __fmul_rn(__int2float_rn(si[i][e]), fac[e >> 1]) : NEG_INF;
-        }
     } else {
-      const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(kt);
+      uint32_t qa[D / 16][4];
+      load_q16(qa);
+      mbar_wait(&full_k[buf], parity);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int jj = 0; jj < BKV / 16; ++jj) {
-          uint32_t r4[4];
-          ldmatrix_x4(r4, ks + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE + kk * 16 +
-                              ((lane >> 3) & 1) * 8);
-          const uint32_t b0[2] = {r4[0], r4[1]};
-          const uint32_t b1[2] = {r4[2], r4[3]};
-          mma_bf16_16816(s[2 * jj], qf[kk], b0);
-          mma_bf16_16816(s[2 * jj + 1], qf[kk], b1);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j * BKV + i * 8 + 2 * t + (e & 1);
-          s[i][e] = col < Skv ? __fmul_rn(s[i][e], scale) : NEG_INF;
-        }
+      for (int kk = 0; kk < D / 16; ++kk)
+        WgmmaBf16<KV, 0>::run(
+            sc, qa[kk], wgmma_desc(kt + (kk >> 2) * L::KBOX + 32 * (kk & 3), 1024, 1), kk > 0);
     }
-
+  };
+  // O (or the block's int32 sums, restarted when `first`) += P V of the
+  // step `ps` whose P is in pa
+  auto issue_pv = [&](int ps, bool first) {
+    const int buf = ps % STAGES;
+    const uint8_t* vt = sm + L::V_OFF + buf * L::VT;
+    mbar_wait(&full_v[buf], (ps / STAGES) & 1);
+    wgmma_fence();
     if constexpr (S8_PV) {
-      if (!pass) {  // pass 0: the block's row max
 #pragma unroll
-        for (int i = 0; i < BKV / 8; ++i)
+      for (int kc = 0; kc < KV / 32; ++kc)
+        wgmma_s8_m64n128k32(pv, pa[kc], wgmma_desc(vt + 32 * kc, 1024, 1),
+                            (kc > 0 || !first) ? 1 : 0);
+    } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
-        if (j == last) {
+      for (int kk = 0; kk < KV / 16; ++kk)
+        WgmmaBf16<D, 1>::run(o, pa[kk], wgmma_desc_mn(vt + kk * 16 * 128, L::KBOX, 1024), 1);
+    }
+  };
+  auto release = [&](int ps) {
+    if (lane == 0) mbar_arrive(&empty[ps % STAGES]);
+  };
+
+  // Entry i of kv tile j's sc lies at or past Skv; the max of raw scores;
+  // the factors fac[row] that scale them (s = raw * fac, natural-log units).
+  auto masked = [&](int j, int i) { return j * KV + (i >> 2) * 8 + 2 * t + (i & 1) >= Skv; };
+  Acc lowest;
+  if constexpr (S8_QK) lowest = INT_MIN;
+  else lowest = NEG_INF;
+  auto amax = [](Acc a, Acc b) {
+    if constexpr (S8_QK) return max(a, b);
+    else return fmaxf(a, b);
+  };
+  auto factors = [&](float skb, float (&fac)[2]) {  // skb: the tile's block's k scale
+    fac[0] = fac[1] = scale;
+    if constexpr (S8_QK) {
+      const float skj = __fmul_rn(skb, scale);
+      fac[0] = __fmul_rn(sq_s[r0], skj);  // the rows' q scales, kept in shared memory
+      fac[1] = __fmul_rn(sq_s[r0 + 8], skj);
+    }
+  };
+  // The k scale of tile j's block, loaded a turn before it is needed: the
+  // load's latency then lies under the turn (named_barrier's "memory"
+  // clobber keeps it in place).
+  auto k_scale = [&](int j) { return S8_QK ? sk[(size_t)bh * nblk + (j * KV) / QB] : 0.f; };
+
+  if constexpr (S8_PV) {
+    for (int base = 0; base < nkv; base += tpb) {
+      const int c = min(tpb, nkv - base);
+      const int blk = base / tpb;
+      const float sk_blk = k_scale(base);
+      // pass 0: the block's row max on the raw scores
+      for (int jj = 0; jj < c; ++jj) {
+        named_barrier(my_turn, 256);
+        issue_qk();
+        turn_end(false);
+        release(s_++);
+        const int j = base + jj;
+        // eight partial maxima: entries i & 7 in {0, 1, 4, 5} are row r0,
+        // {2, 3, 6, 7} row r0 + 8
+        Acc pm[8];
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            const float m_next = fmaxf(m_run[r], mx[r]);
-            alpha[r] = expf(__fsub_rn(m_run[r], m_next));
-            beta[r] = expf(__fsub_rn(mx[r], m_next));
-            ref[r] = __fsub_rn(mx[r], LOG127);
-            m_run[r] = m_next;
-            mx[r] = NEG_INF;
-          }
+        for (int u = 0; u < 8; ++u) pm[u] = lowest;
+        if ((j + 1) * KV > Skv) {
+#pragma unroll
+          for (int i = 0; i < KV / 2; ++i)
+            if (!masked(j, i)) pm[i & 7] = amax(pm[i & 7], sc[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < KV / 2; ++i) pm[i & 7] = amax(pm[i & 7], sc[i]);
         }
-      } else {  // pass 1: int8 p, P.V and sum(pq) in int32
-        int pq[BKV / 8][4];
-#pragma unroll
-        for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            pq[i][e] = __float2int_rz(__fadd_rn(expf(__fsub_rn(s[i][e], ref[e >> 1])), 0.5f));
-            lq[e >> 1] += pq[i][e];
-          }
-#pragma unroll
-        for (int kc = 0; kc < BKV / 32; ++kc) {
-          const int i0 = 4 * kc;
-          const uint32_t pa[4] = {
-              pack_s8x4(pq[i0][0], pq[i0][1], pq[i0 + 1][0], pq[i0 + 1][1]),
-              pack_s8x4(pq[i0][2], pq[i0][3], pq[i0 + 1][2], pq[i0 + 1][3]),
-              pack_s8x4(pq[i0 + 2][0], pq[i0 + 2][1], pq[i0 + 3][0], pq[i0 + 3][1]),
-              pack_s8x4(pq[i0 + 2][2], pq[i0 + 2][3], pq[i0 + 3][2], pq[i0 + 3][3])};
-#pragma unroll
-          for (int dn = 0; dn < D / 16; ++dn) {
-            uint32_t r4[4];
-            ldmatrix_x4(r4, vtile + (dn * 16 + (lane & 7) + ((lane >> 4) << 3)) * VT_STRIDE +
-                                kc * 32 + ((lane >> 3) & 1) * 16);
-            const uint32_t b0[2] = {r4[0], r4[1]};
-            const uint32_t b1[2] = {r4[2], r4[3]};
-            mma_s8_16832(pvi[2 * dn], pa, b0);
-            mma_s8_16832(pvi[2 * dn + 1], pa, b1);
-          }
-        }
-        if (j == last) {  // fold the block into acc and l
-          const float svq = __fdiv_rn(sv[(size_t)bh * nblk + (j * BKV) / QB], 127.f);
-          float svs[2];
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            lq[r] += __shfl_xor_sync(0xffffffffu, lq[r], 1);
-            lq[r] += __shfl_xor_sync(0xffffffffu, lq[r], 2);
-            const float l_q = __fmul_rn(__int2float_rn(lq[r]), INV127);
-            l_run[r] = __fadd_rn(__fmul_rn(l_run[r], alpha[r]), __fmul_rn(l_q, beta[r]));
-            svs[r] = __fmul_rn(beta[r], svq);
-            lq[r] = 0;
-          }
-#pragma unroll
-          for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              o[i][e] = __fadd_rn(__fmul_rn(o[i][e], alpha[e >> 1]),
-                                  __fmul_rn(__int2float_rn(pvi[i][e]), svs[e >> 1]));
-              pvi[i][e] = 0;
-            }
+        if constexpr (S8_QK) {
+          mxi[0] = max(mxi[0], max(max(pm[0], pm[1]), max(pm[4], pm[5])));
+          mxi[1] = max(mxi[1], max(max(pm[2], pm[3]), max(pm[6], pm[7])));
+        } else {
+          mxf[0] = fmaxf(mxf[0], fmaxf(fmaxf(pm[0], pm[1]), fmaxf(pm[4], pm[5])));
+          mxf[1] = fmaxf(mxf[1], fmaxf(fmaxf(pm[2], pm[3]), fmaxf(pm[6], pm[7])));
         }
       }
-    } else {  // K3's online softmax over the tile, bf16 P.V
-      float mt[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[i][e]);
-      float al[2], ls[2] = {0.f, 0.f};
+      float fac[2], alpha[2];
+      factors(sk_blk, fac);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-        const float m_new = fmaxf(m_run[r], mt[r]);
-        al[r] = expf(m_run[r] - m_new);
+        float m_blk;
+        if constexpr (S8_QK) {
+          mxi[r] = max(mxi[r], __shfl_xor_sync(0xffffffffu, mxi[r], 1));
+          mxi[r] = max(mxi[r], __shfl_xor_sync(0xffffffffu, mxi[r], 2));
+          m_blk = __fmul_rn(__int2float_rn(mxi[r]), fac[r]);
+        } else {
+          mxf[r] = fmaxf(mxf[r], __shfl_xor_sync(0xffffffffu, mxf[r], 1));
+          mxf[r] = fmaxf(mxf[r], __shfl_xor_sync(0xffffffffu, mxf[r], 2));
+          m_blk = __fmul_rn(mxf[r], scale);
+        }
+        const float m_next = fmaxf(m_run[r], m_blk);
+        alpha[r] = expf(__fsub_rn(m_run[r], m_next));
+        beta[r] = expf(__fsub_rn(m_blk, m_next));
+        ref[r] = __fsub_rn(m_blk, LOG127);
+        m_run[r] = m_next;
+        mxi[r] = INT_MIN;
+        mxf[r] = NEG_INF;
+        l_run[r] = __fmul_rn(l_run[r], alpha[r]);  // the fold adds the block's share
+      }
+      // acc * alpha now (the same product the fold would take), so alpha is
+      // not kept through pass 1
+#pragma unroll
+      for (int q4 = 0; q4 < D / 8; ++q4) {
+        float4 v4 = o_s()[32 * q4];
+        v4.x = __fmul_rn(v4.x, alpha[0]);
+        v4.y = __fmul_rn(v4.y, alpha[0]);
+        v4.z = __fmul_rn(v4.z, alpha[1]);
+        v4.w = __fmul_rn(v4.w, alpha[1]);
+        o_s()[32 * q4] = v4;
+      }
+      // pass 1: s = f32(s_i) * fac, pq = trunc(expf(s - (m_blk - ln 127)) +
+      // 0.5) as its bits' low byte; P.V (in the next turn) and sum(pq) in
+      // int32 over the block
+      auto quantize_p = [&](int j) {
+        const bool ragged = (j + 1) * KV > Skv;
+        // kv slice kc is S columns 32kc.. : accumulator entries 16kc.. (rows
+        // g: +0, +1, +4, +5; g + 8: +2, +3, +6, +7; then the same + 8 for
+        // columns 32kc + 16..), v_kernel_layout's order of the v^T columns
+#pragma unroll
+        for (int kc = 0; kc < KV / 32; ++kc) {
+          uint32_t code[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u) {
+            const int i = 16 * kc + u;
+            float raw;
+            if constexpr (S8_QK) {
+              raw = small_int_to_float(sc[i]);
+            } else {
+              raw = sc[i];
+            }
+            const float sf = __fmul_rn(raw, fac[(u >> 1) & 1]);
+            const float p = expf(__fsub_rn(sf, ref[(u >> 1) & 1]));
+            code[u] = __float_as_uint(__fadd_rz(__fadd_rn(p, 0.5f), 8388608.f));
+          }
+          if (ragged) {  // the padded columns' codes are 0 (their p is not)
+#pragma unroll
+            for (int u = 0; u < 16; ++u)
+              if (masked(j, 16 * kc + u)) code[u] = 0u;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c0 = 8 * (i >> 1) + 2 * (i & 1);
+            pa[kc][i] = low_bytes(code[c0], code[c0 + 1], code[c0 + 4], code[c0 + 5]);
+            lq[i & 1] = __dp4a(pa[kc][i], 0x01010101u, lq[i & 1]);  // sum(pq), four at a time
+          }
+        }
+      };
+      named_barrier(my_turn, 256);
+      issue_qk();
+      turn_end(false);
+      quantize_p(base);
+      ++s_;
+      for (int jj = 1; jj < c; ++jj, ++s_) {
+        named_barrier(my_turn, 256);
+        issue_pv(s_ - 1, jj == 1);
+        issue_qk();
+        turn_end(false);
+        release(s_ - 1);
+        quantize_p(base + jj);
+      }
+      const float sv_blk = sv[(size_t)bh * nblk + blk];  // for the fold, under the turn
+      named_barrier(my_turn, 256);
+      issue_pv(s_ - 1, c == 1);
+      turn_end(base + tpb >= nkv);
+      release(s_ - 1);
+      // fold the block into acc and l
+      const float svq = __fdiv_rn(sv_blk, 127.f);
+      float svs[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int lsum = static_cast<int>(lq[r]);
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+        const float l_q = __fmul_rn(__int2float_rn(lsum), INV127);
+        l_run[r] = __fadd_rn(l_run[r], __fmul_rn(l_q, beta[r]));
+        svs[r] = __fmul_rn(beta[r], svq);
+        lq[r] = 0u;
+      }
+      auto fold1 = [&](float acc, int32_t sum, int r) {
+        return __fadd_rn(acc, __fmul_rn(__int2float_rn(sum), svs[r]));
+      };
+#pragma unroll
+      for (int q4 = 0; q4 < D / 8; ++q4) {
+        float4 v4 = o_s()[32 * q4];
+        v4.x = fold1(v4.x, pv[4 * q4], 0);
+        v4.y = fold1(v4.y, pv[4 * q4 + 1], 0);
+        v4.z = fold1(v4.z, pv[4 * q4 + 2], 1);
+        v4.w = fold1(v4.w, pv[4 * q4 + 3], 1);
+        o_s()[32 * q4] = v4;
+      }
+    }
+#pragma unroll
+    for (int q4 = 0; q4 < D / 8; ++q4) {
+      const float4 v4 = o_s()[32 * q4];
+      o[4 * q4] = v4.x;
+      o[4 * q4 + 1] = v4.y;
+      o[4 * q4 + 2] = v4.z;
+      o[4 * q4 + 3] = v4.w;
+    }
+  } else {
+    // The online softmax over each 64-column tile, bf16 P.V (the bf16
+    // body's). The tile's row max is taken on the raw int32 scores (monotone,
+    // as in pass 0); s = f32(s_i) * fac, alpha = expf(m - m_new), p =
+    // expf(s - m_new). softmax() leaves p in s and alpha in al; O is rescaled
+    // and P packed only once the previous tile's P.V, which runs under
+    // softmax(), has finished (rescale_pack()).
+    float s[KV / 2], al[2];
+    auto softmax = [&](int j, float skj) {
+      float fac[2];
+      factors(skj, fac);
+      const bool ragged = (j + 1) * KV > Skv;
+      // partial maxima and sums of entries i & 7: {0, 1, 4, 5} row r0,
+      // {2, 3, 6, 7} row r0 + 8
+      Acc pm[8];
+      float ps[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        pm[u] = lowest;
+        ps[u] = 0.f;
+      }
+      if (ragged) {
+#pragma unroll
+        for (int i = 0; i < KV / 2; ++i)
+          if (!masked(j, i)) pm[i & 7] = amax(pm[i & 7], sc[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < KV / 2; ++i) pm[i & 7] = amax(pm[i & 7], sc[i]);
+      }
+      Acc mr[2] = {amax(amax(pm[0], pm[1]), amax(pm[4], pm[5])),
+                   amax(amax(pm[2], pm[3]), amax(pm[6], pm[7]))};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mr[r] = amax(mr[r], __shfl_xor_sync(0xffffffffu, mr[r], 1));
+        mr[r] = amax(mr[r], __shfl_xor_sync(0xffffffffu, mr[r], 2));
+        const float m_new = fmaxf(m_run[r], __fmul_rn(__int2float_rn(mr[r]), fac[r]));
+        al[r] = expf(__fsub_rn(m_run[r], m_new));
         m_run[r] = m_new;
       }
 #pragma unroll
-      for (int i = 0; i < BKV / 8; ++i)
+      for (int i = 0; i < KV / 2; ++i)
+        s[i] = __fmul_rn(small_int_to_float(sc[i]), fac[(i >> 1) & 1]);
+      if (ragged) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[i][e] - m_run[e >> 1]);
-          s[i][e] = p;
-          ls[e >> 1] += p;
-        }
+        for (int i = 0; i < KV / 2; ++i)
+          if (masked(j, i)) s[i] = NEG_INF;
+      }
+#pragma unroll
+      for (int i = 0; i < KV / 2; ++i) {
+        const float p = expf(__fsub_rn(s[i], m_run[(i >> 1) & 1]));
+        s[i] = p;
+        ps[i & 7] += p;
+      }
+      float ls[2] = {(ps[0] + ps[1]) + (ps[4] + ps[5]), (ps[2] + ps[3]) + (ps[6] + ps[7])};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
         ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
         l_run[r] = l_run[r] * al[r] + ls[r];
       }
+    };
+    auto rescale_pack = [&]() {
+      if (!__all_sync(0xffffffffu, al[0] == 1.f && al[1] == 1.f)) {
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][e] *= al[e >> 1];
-      const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(vtile);
-#pragma unroll
-      for (int kc = 0; kc < BKV / 16; ++kc) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
-        pa[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
-        pa[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-        pa[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-        for (int dn = 0; dn < D / 16; ++dn) {
-          uint32_t r4[4];
-          ldmatrix_x4_trans(r4, vs + (kc * 16 + (lane & 15)) * STRIDE + dn * 16 + (lane >> 4) * 8);
-          const uint32_t b0[2] = {r4[0], r4[1]};
-          const uint32_t b1[2] = {r4[2], r4[3]};
-          mma_bf16_16816(o[2 * dn], pa, b0);
-          mma_bf16_16816(o[2 * dn + 1], pa, b1);
-        }
+        for (int i = 0; i < D / 2; ++i) o[i] *= al[(i >> 1) & 1];
       }
+#pragma unroll
+      for (int kk = 0; kk < KV / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = pack_bf16x2(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    };
+    float skj = k_scale(0);
+    named_barrier(my_turn, 256);
+    issue_qk();
+    turn_end(false);
+    softmax(0, skj);
+    rescale_pack();
+    for (s_ = 1; s_ < nkv; ++s_) {
+      skj = k_scale(s_);
+      // the turn: this tile's QK^T, then the previous tile's P.V, as two
+      // groups, so that the softmax starts when QK^T is done
+      named_barrier(my_turn, 256);
+      issue_qk();
+      wgmma_commit();
+      issue_pv(s_ - 1, false);
+      wgmma_commit();
+      named_barrier_arrive(other_turn, 256);
+      wgmma_wait<1>();
+#pragma unroll
+      for (int i = 0; i < KV / 2; ++i) reg_fence(sc[i]);
+      softmax(s_, skj);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) reg_fence(o[i]);
+      release(s_ - 1);
+      rescale_pack();
     }
-    __syncthreads();
+    named_barrier(my_turn, 256);
+    issue_pv(s_ - 1, false);
+    turn_end(true);
+    release(s_ - 1);
   }
 
   const int HD = H * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
+    const int row = q0 + r0 + 8 * r;
     if (row >= Sq) continue;
     const float l = l_run[r] == 0.f ? 1.f : l_run[r];
     const float inv = __frcp_rn(l);
@@ -819,8 +1073,8 @@ __device__ __forceinline__ void flash_int8_body(
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       const int col = i * 8 + 2 * t;
-      float v0 = __fmul_rn(o[i][2 * r], inv);
-      float v1 = __fmul_rn(o[i][2 * r + 1], inv);
+      float v0 = __fmul_rn(o[4 * i + 2 * r], inv);
+      float v1 = __fmul_rn(o[4 * i + 2 * r + 1], inv);
       if constexpr (S8_PV) {
         v0 = __fadd_rn(v0, vm[(size_t)bh * D + col]);
         v1 = __fadd_rn(v1, vm[(size_t)bh * D + col + 1]);
@@ -834,40 +1088,22 @@ __device__ __forceinline__ void flash_int8_body(
 }
 
 template <bool S8_QK, bool S8_PV>
-__global__ void __launch_bounds__(THREADS)
-flash_int8_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
-                  const float* __restrict__ sk, const void* __restrict__ v,
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_int8_kernel(const __grid_constant__ Maps maps, const float* __restrict__ sk,
                   const float* __restrict__ sv, const float* __restrict__ vm,
                   __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv, int QB, float scale) {
-  flash_int8_body<S8_QK, S8_PV>(q, k, sk, v, sv, vm, out, H, Sq, Skv, QB, scale);
+  flash_int8_body<S8_QK, S8_PV, false>(maps, sk, sv, vm, out, nullptr, H, Sq, Skv, QB, scale);
 }
 
 // K14, int8 modes: K9 / K10 / both plus lse f32 [B, H, Sq].
 template <bool S8_QK, bool S8_PV>
-__global__ void __launch_bounds__(THREADS)
-flash_int8_lse_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
-                      const float* __restrict__ sk, const void* __restrict__ v,
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_int8_lse_kernel(const __grid_constant__ Maps maps, const float* __restrict__ sk,
                       const float* __restrict__ sv, const float* __restrict__ vm,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int Sq,
                       int Skv, int QB, float scale) {
-  flash_int8_body<S8_QK, S8_PV, true>(q, k, sk, v, sv, vm, out, H, Sq, Skv, QB, scale, lse);
+  flash_int8_body<S8_QK, S8_PV, true>(maps, sk, sv, vm, out, lse, H, Sq, Skv, QB, scale);
 }
-
-// Sets the kernel's shared-memory limit once, then launches it.
-template <class Kernel, class... Args>
-int launch(Kernel kernel, size_t smem, bool& attr_set, int B, int H, int Sq, void* stream,
-           Args... args) {
-  if (!attr_set) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // K3. q, k, v bf16 [B, H, S, 128] contiguous, 16-byte aligned; out bf16
@@ -934,51 +1170,89 @@ extern "C" int rope_qk(const void* q, const void* k, const void* ce_q, const voi
 // 128] with sk f32 [B, H, Skv_p / QB] (S8_QK), else bf16 [B, H, Skv, 128]
 // and sk unused. v: int8 [B, H, 128, Skv_p] in v_kernel_layout order with sv
 // f32 [B, H, Skv_p / QB] and vm f32 [B, H, 128] (S8_PV), else bf16 [B, H,
-// Skv, 128]. Skv_p = Skv rounded up to QB, a multiple of 128. out bf16
-// [B, Sq, H * 128]; the K14 forms also lse f32 [B, H, Sq]. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a bad QB.
+// Skv, 128]. Skv_p = Skv rounded up to QB, a multiple of 128. Every operand
+// 16-byte aligned (ops/flash.py int8_flash_plan). out bf16 [B, Sq, H * 128];
+// the K14 forms also lse f32 [B, H, Sq]. Returns cudaGetLastError(), the
+// tensor-map encoder's refusal, or cudaErrorInvalidValue for a bad QB.
 template <bool S8_QK, bool S8_PV, bool LSE>
-int launch_int8(bool& attr_set, const void* q, const void* k, const void* sk, const void* v,
+int launch_int8(const void* q, const void* k, const void* sk, const void* v,
                 const void* sv, const void* vm, void* out, void* lse, int B, int H, int Sq,
                 int Skv, int QB, float scale, void* stream) {
   if (QB <= 0 || QB % 128) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  constexpr size_t smem = Int8Layout<S8_QK, S8_PV>::BYTES;
+  constexpr int KV = Int8Layout<S8_QK, S8_PV>::KV;
+  {
+    static size_t raised[MAX_DEVICES] = {};  // one per instance of the template
+    const void* fn = LSE ? reinterpret_cast<const void*>(flash_int8_lse_kernel<S8_QK, S8_PV>)
+                         : reinterpret_cast<const void*>(flash_int8_kernel<S8_QK, S8_PV>);
+    const int err = raise_smem_limit(fn, smem, raised);
+    if (err != 0) return err;
+  }
+  const uint64_t bh = (uint64_t)B * H;
+  const uint64_t skv_p = (uint64_t)(Skv + QB - 1) / QB * QB;
+  Maps maps;
+  // q: (128, Sq, B*H), boxes of 128 rows x 64 columns
+  const uint64_t qd[3] = {D, (uint64_t)Sq, bh};
+  int err = encode_tensor_map_3d(&maps.q, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qd, D * 2,
+                                 (uint64_t)Sq * D * 2, WQ, HALF, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0) {
+    if (S8_QK) {  // int8 k: (128, Skv_p, B*H), one box of 64 rows x 128 bytes
+      const uint64_t kd[3] = {D, skv_p, bh};
+      err = encode_tensor_map_3d(&maps.k, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, kd, D, skv_p * D, KV, D,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
+    } else {  // bf16 k: (128, Skv, B*H), boxes of 64 rows x 64 columns
+      const uint64_t kd[3] = {D, (uint64_t)Skv, bh};
+      err = encode_tensor_map_3d(&maps.k, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kd, D * 2,
+                                 (uint64_t)Skv * D * 2, KV, HALF, CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+  }
+  if (err == 0) {
+    if (S8_PV) {  // int8 v^T: (Skv_p, 128, B*H), one box of 128 rows x 128 bytes
+      const uint64_t vd[3] = {skv_p, D, bh};
+      err = encode_tensor_map_3d(&maps.v, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, vd, skv_p, D * skv_p,
+                                 D, KV, CU_TENSOR_MAP_SWIZZLE_128B);
+    } else {
+      const uint64_t vd[3] = {D, (uint64_t)Skv, bh};
+      err = encode_tensor_map_3d(&maps.v, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, vd, D * 2,
+                                 (uint64_t)Skv * D * 2, KV, HALF, CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+  }
+  if (err != 0) return err;
+  const dim3 grid((Sq + WQ - 1) / WQ, B * H);
+  const auto st = static_cast<cudaStream_t>(stream);
   const auto* skf = static_cast<const float*>(sk);
   const auto* svf = static_cast<const float*>(sv);
   const auto* vmf = static_cast<const float*>(vm);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  constexpr size_t smem = Int8Smem<S8_QK, S8_PV>::BYTES;
   if constexpr (LSE) {
-    return launch(flash_int8_lse_kernel<S8_QK, S8_PV>, smem, attr_set, B, H, Sq, stream, qb, k,
-                  skf, v, svf, vmf, o, static_cast<float*>(lse), H, Sq, Skv, QB, scale);
+    flash_int8_lse_kernel<S8_QK, S8_PV><<<grid, WTHREADS, smem, st>>>(
+        maps, skf, svf, vmf, o, static_cast<float*>(lse), H, Sq, Skv, QB, scale);
   } else {
-    return launch(flash_int8_kernel<S8_QK, S8_PV>, smem, attr_set, B, H, Sq, stream, qb, k, skf,
-                  v, svf, vmf, o, H, Sq, Skv, QB, scale);
+    flash_int8_kernel<S8_QK, S8_PV><<<grid, WTHREADS, smem, st>>>(maps, skf, svf, vmf, o, H, Sq,
+                                                                  Skv, QB, scale);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int flash_s8(const void* q, const void* k, const void* sk, const void* v,
                         const void* sv, const void* vm, void* out, int B, int H, int Sq,
                         int Skv, int QB, float scale, void* stream) {
-  static bool attr_set = false;
-  return launch_int8<true, false, false>(attr_set, q, k, sk, v, sv, vm, out, nullptr, B, H, Sq,
-                                         Skv, QB, scale, stream);
+  return launch_int8<true, false, false>(q, k, sk, v, sv, vm, out, nullptr, B, H, Sq, Skv,
+                                         QB, scale, stream);
 }
 
 extern "C" int flash_s8pv(const void* q, const void* k, const void* sk, const void* v,
                           const void* sv, const void* vm, void* out, int B, int H, int Sq,
                           int Skv, int QB, float scale, void* stream) {
-  static bool attr_set = false;
-  return launch_int8<false, true, false>(attr_set, q, k, sk, v, sv, vm, out, nullptr, B, H, Sq,
-                                         Skv, QB, scale, stream);
+  return launch_int8<false, true, false>(q, k, sk, v, sv, vm, out, nullptr, B, H, Sq, Skv,
+                                         QB, scale, stream);
 }
 
 extern "C" int flash_s8_s8pv(const void* q, const void* k, const void* sk, const void* v,
                              const void* sv, const void* vm, void* out, int B, int H, int Sq,
                              int Skv, int QB, float scale, void* stream) {
-  static bool attr_set = false;
-  return launch_int8<true, true, false>(attr_set, q, k, sk, v, sv, vm, out, nullptr, B, H, Sq,
-                                        Skv, QB, scale, stream);
+  return launch_int8<true, true, false>(q, k, sk, v, sv, vm, out, nullptr, B, H, Sq, Skv,
+                                        QB, scale, stream);
 }
 
 // K14, int8 modes: as flash_s8 / flash_s8pv / flash_s8_s8pv, plus lse f32
@@ -987,11 +1261,28 @@ extern "C" int flash_s8_s8pv(const void* q, const void* k, const void* sk, const
   extern "C" int NAME(const void* q, const void* k, const void* sk, const void* v,            \
                       const void* sv, const void* vm, void* out, void* lse, int B, int H,     \
                       int Sq, int Skv, int QB, float scale, void* stream) {                   \
-    static bool attr_set = false;                                                              \
-    return launch_int8<S8_QK, S8_PV, true>(attr_set, q, k, sk, v, sv, vm, out, lse, B, H, Sq, \
-                                           Skv, QB, scale, stream);                            \
+    return launch_int8<S8_QK, S8_PV, true>(q, k, sk, v, sv, vm, out, lse, B, H, Sq, Skv, QB, \
+                                           scale, stream);                                     \
   }
 FLASH_INT8_LSE(flash_s8_lse, true, false)
 FLASH_INT8_LSE(flash_s8pv_lse, false, true)
 FLASH_INT8_LSE(flash_s8_s8pv_lse, true, true)
 #undef FLASH_INT8_LSE
+
+// The int8 body's tiling for a mode, as compiled: kv rows per tile, ring
+// stages and dynamic shared-memory bytes (ops/flash.py int8_flash_plan holds
+// the same numbers and its wrapper checks them against these). Launches
+// nothing. Returns 0, or cudaErrorInvalidValue for no int8 mode.
+extern "C" int flash_int8_layout(int s8_qk, int s8_pv, int* kv, int* stages, long long* smem) {
+  auto get = [&](auto layout) {
+    using L = decltype(layout);
+    *kv = L::KV;
+    *stages = L::STAGES;
+    *smem = static_cast<long long>(L::BYTES);
+    return 0;
+  };
+  if (s8_qk && s8_pv) return get(Int8Layout<true, true>{});
+  if (s8_qk) return get(Int8Layout<true, false>{});
+  if (s8_pv) return get(Int8Layout<false, true>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}

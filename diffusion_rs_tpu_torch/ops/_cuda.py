@@ -14,7 +14,8 @@ A source may export several entry points (:data:`KERNELS`: the q8t, nf4 and
 affine sources also export their grouped forms, the nf4 and affine sources
 their fast16 forms, the flash source its seq-major, fused-RoPE and int8
 forms, the bf16 and int8 forms that also write the log-sum-exp, K14, and
-the RoPE pass ``rope_qk`` that K7 launches before its attention).
+the RoPE pass ``rope_qk`` that K7 launches before its attention; the
+quantize source ``flash_quant`` is the int8 forms' prepass).
 Every kernel wrapper adds one to its entry point's count in
 :data:`LAUNCHES` when it launches it, and nowhere else.
 """
@@ -28,7 +29,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(
@@ -42,7 +43,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-lineinfo", "-Xptxas", "-v",
 ]
-SOURCES = ("qmm_s8", "qmm_nf4", "qmm_affine", "flash_fwd")
+SOURCES = ("qmm_s8", "qmm_nf4", "qmm_affine", "flash_fwd", "flash_quant")
 
 # Entry point -> (source, C signature): pointers, host tables and the stream
 # as c_void_p, sizes as c_int, strides as c_int64.
@@ -67,6 +68,7 @@ KERNELS = {
     "flash_s8_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "flash_s8pv_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "flash_s8_s8pv_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "flash_quant": ("flash_quant", [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -156,6 +158,19 @@ def _entry(name: str):
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
+
+
+def int8_layout(s8: bool, s8_pv: bool) -> Tuple[int, int, int]:
+    """The int8 flash body's (kv rows per tile, ring stages, shared-memory
+    bytes) for a mode, as ``csrc/flash_fwd.cu`` compiled them (its
+    ``flash_int8_layout``, which launches nothing and counts no launch)."""
+    fn = library("flash_fwd").flash_int8_layout
+    kv, stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    err = fn(ctypes.c_int(int(s8)), ctypes.c_int(int(s8_pv)), ctypes.byref(kv),
+             ctypes.byref(stages), ctypes.byref(smem))
+    if err != 0:
+        raise ValueError(f"flash_int8_layout: no int8 mode (error {err})")
+    return kv.value, stages.value, smem.value
 
 
 def launch(name: str, *args, device) -> None:

@@ -18,10 +18,14 @@ tensor maps) and raises on operands it does not take; every operand also
 passes :func:`~.qmatmul.check_tma_operand`.
 
 The int8 modes of ``_flash_kernel`` (``s8`` and ``s8_pv``) are a second
-kernel body in the same source (``mma.sync``, 64-row kv tiles), with three
-entry points: K9 ``flash_s8`` (s8 x s8 QK^T), K10 ``flash_s8pv`` (s8 x s8
-P.V) and ``flash_s8_s8pv`` (both). Their prepasses, :func:`quantize_k` and
-:func:`quantize_v`, are plain PyTorch, as JAX leaves them to XLA.
+kernel body of the same design in the same source (int8 ``wgmma``; kv tiles
+of 128 rows under ``s8_pv``, with two QK^T passes per quantization block,
+else 64), with three entry points: K9 ``flash_s8`` (s8 x s8 QK^T), K10
+``flash_s8pv`` (s8 x s8 P.V) and ``flash_s8_s8pv`` (both);
+:func:`int8_flash_plan` is its launch plan. Their prepass is the kernel ``flash_quant`` (``csrc/flash_quant.cu``,
+one launch for k and v, :func:`quantize_kv`); its plain versions,
+:func:`quantize_k`, :func:`quantize_v` and :func:`v_kernel_layout`, run on
+the CPU, as JAX leaves the prepass to XLA.
 
 K14 is ``_flash_kernel``'s ``save_lse`` output, which ring attention
 (ops/partitioned.py) merges chunks with: both bodies take it as a template
@@ -41,6 +45,7 @@ ablation knobs are not ported.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Dict, Optional, Sequence, Tuple
@@ -112,9 +117,9 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class TmaMap:
     """One operand's rank-3 tensor map as ``csrc/flash_fwd.cu`` encodes it:
     ``dims`` innermost first (columns, rows, planes), the byte strides of a
-    row and of a plane, and the box (rows, columns: 64 bf16 columns, the
-    128-byte swizzle span). Reads outside ``dims`` come back zero, so a box
-    never reads into the next head or batch."""
+    row and of a plane, and the box (rows, columns, in elements: 64 bf16 or
+    128 int8 columns, the 128-byte swizzle span). Reads outside ``dims``
+    come back zero, so a box never reads into the next head or batch."""
 
     dims: Tuple[int, int, int]
     strides: Tuple[int, int]
@@ -196,6 +201,115 @@ def flash_plan(b: int, h: int, s_q: int, s_kv: int, layout: str = "bhsd", *,
     return FlashPlan(layout, b, h, s_q, s_kv, maps)
 
 
+SMEM_LIMIT = 232448  # shared memory one block can have on the H100
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8FlashPlan:
+    """How the int8 body tiles one call: blocks of ``block_q`` q rows of
+    one (batch, head), ``threads`` threads (a producer warpgroup and two
+    consumer warpgroups), kv tiles of ``block_kv`` rows (128 under
+    ``s8_pv``, else the 64-column softmax block) through a ring of
+    ``stages``; under ``s8_pv`` every quantization block's tiles come twice
+    (``steps``), the first pass for the block's row max, and each thread's
+    f32 output waits in shared memory between the blocks' folds.
+    ``maps``: q bf16 over (128, Sq, B*H); k int8 over (128, Skv_p, B*H)
+    under ``s8``, else bf16 over (128, Skv, B*H); v int8 transposed over
+    (Skv_p, 128, B*H) under ``s8_pv`` (one box of 128 channels x 128 kv
+    rows), else bf16. The numbers are the source's Int8Layout's, which the
+    wrapper checks against the compiled body (:func:`_checked_int8_plan`)."""
+
+    b: int
+    h: int
+    s_q: int
+    s_kv: int
+    qb: int
+    s8: bool
+    s8_pv: bool
+    maps: Dict[str, TmaMap]
+    block_q: int = 128
+    threads: int = 384
+
+    @property
+    def block_kv(self) -> int:
+        return 128 if self.s8_pv else BLOCK_K
+
+    @property
+    def stages(self) -> int:
+        return (3 if self.s8 else 2) if self.s8_pv else 6
+
+    @property
+    def skv_p(self) -> int:
+        """kv rows of the int8 operands: Skv rounded up to the block."""
+        return -(-self.s_kv // self.qb) * self.qb
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """(q blocks, batch * heads)."""
+        return -(-self.s_q // self.block_q), self.b * self.h
+
+    @property
+    def kv_tiles(self) -> int:
+        return -(-self.s_kv // self.block_kv)
+
+    @property
+    def steps(self) -> int:
+        """Ring stages a block consumes: each tile twice under ``s8_pv``."""
+        return self.kv_tiles * (2 if self.s8_pv else 1)
+
+    @property
+    def smem_bytes(self) -> int:
+        """The alignment slack, the bf16 q tile, the int8 q and its row
+        scales (``s8``), the k and v rings, the f32 output (``s8_pv``) and
+        the barriers."""
+        kt = self.block_kv * HEAD_DIM * (1 if self.s8 else 2)
+        vt = self.block_kv * HEAD_DIM * (1 if self.s8_pv else 2)
+        qq = self.block_q * HEAD_DIM + self.block_q * 4 if self.s8 else 0
+        o = self.block_q * HEAD_DIM * 4 if self.s8_pv else 0
+        return (1024 + self.block_q * HEAD_DIM * 2 + qq + self.stages * (kt + vt) + o
+                + (1 + 3 * self.stages) * 8)
+
+
+def int8_flash_plan(b: int, h: int, s_q: int, s_kv: int, qb: int, s8: bool, s8_pv: bool, *,
+                    d: int = HEAD_DIM, bases: Optional[Dict[str, int]] = None) -> Int8FlashPlan:
+    """The int8 body's plan for ``b`` x ``h`` heads of ``s_q`` q rows over
+    ``s_kv`` kv rows with quantization block ``qb``, for K9 (``s8``), K10
+    (``s8_pv``) or both. Under ``s8_pv`` the kv tile (128) divides ``qb``,
+    so a quantization block's int32 sums and row max are the same whatever
+    the tile; without it the tile is the plain versions' 64-column softmax
+    block. ``bases[name]``: the data pointers of q, k and v as the body reads them
+    (int8 where quantized). Raises NotImplementedError for a head dim other
+    than 128 and ValueError for no int8 mode, a block that is not a positive
+    multiple of 128, no rows, or a base off 16-byte alignment."""
+    if d != HEAD_DIM:
+        raise NotImplementedError(f"flash kernel takes head_dim {HEAD_DIM}, got {d}")
+    if not (s8 or s8_pv):
+        raise ValueError("the int8 body needs s8 or s8_pv")
+    if qb <= 0 or qb % 128:
+        raise ValueError(f"the quantization block must be a multiple of 128, got {qb}")
+    if s_kv <= 0 or s_q <= 0 or b <= 0 or h <= 0:
+        raise ValueError(f"flash kernel needs rows and heads (B={b}, H={h}, Sq={s_q}, "
+                         f"Skv={s_kv})")
+    for name, base in (bases or {}).items():
+        if base % 16:
+            raise ValueError(f"{name}: TMA needs a 16-byte aligned base ({base % 16} bytes "
+                             "past alignment)")
+    skv_p = -(-s_kv // qb) * qb
+    bh = b * h
+    tile = 128 if s8_pv else BLOCK_K
+    maps = {
+        "q": TmaMap((HEAD_DIM, s_q, bh), (256, s_q * 256), (128, 64)),
+        "k": (TmaMap((HEAD_DIM, skv_p, bh), (HEAD_DIM, skv_p * HEAD_DIM), (tile, HEAD_DIM))
+              if s8 else TmaMap((HEAD_DIM, s_kv, bh), (256, s_kv * 256), (tile, 64))),
+        "v": (TmaMap((skv_p, HEAD_DIM, bh), (skv_p, HEAD_DIM * skv_p), (HEAD_DIM, tile))
+              if s8_pv else TmaMap((HEAD_DIM, s_kv, bh), (256, s_kv * 256), (tile, 64))),
+    }
+    plan = Int8FlashPlan(b, h, s_q, s_kv, qb, bool(s8), bool(s8_pv), maps)
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"int8 flash plan needs {plan.smem_bytes} bytes of shared memory")
+    return plan
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None, out_seqmajor: bool = False,
                     s8: bool = False, s8_pv: bool = False, save_lse: bool = False):
@@ -253,16 +367,21 @@ def _check_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise NotImplementedError(f"flash kernel takes head_dim {HEAD_DIM}, got {d}")
     for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, h, skv, d)),
                            ("v", v, (b, h, skv, d))):
-        if t.device != q.device or t.device.type != "cuda":
-            raise ValueError(f"{name} must be on the CUDA device of q, got {t.device}")
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected bf16 {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        check_tma_operand(name, t)
+        _check_operand(name, t, shape, q.device)
     if skv == 0:
         raise ValueError("flash kernel needs at least one kv row")
+
+
+def _check_operand(name: str, t: torch.Tensor, shape, device) -> None:
+    """A contiguous bf16 tensor of ``shape`` on the CUDA ``device`` that TMA
+    can read."""
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name} must be on the CUDA device of q, got {t.device}")
+    if t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected bf16 {shape}, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    check_tma_operand(name, t)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -447,27 +566,82 @@ def flash_int8_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     return o.to(q.dtype), (m + torch.log(l_safe))[..., 0], km
 
 
+def quantize_kv(k: Optional[torch.Tensor], v: Optional[torch.Tensor], block: int):
+    """The int8 modes' prepass: k for ``s8``, v for ``s8_pv`` (either may be
+    None), [B, H, Skv, D]. Returns ``(kq, sk, km)``: int8 [B, H, Skv_p, D],
+    f32 [B, H, Skv_p / block], f32 [B, H, D], and ``(vt, sv, vm)``: v's codes
+    in :func:`v_kernel_layout`'s order [B, H, D, Skv_p] and likewise; a
+    missing tensor gives three Nones. A CPU tensor takes the plain versions
+    (:func:`quantize_k`, :func:`quantize_v`, :func:`v_kernel_layout`); a CUDA
+    tensor the kernel ``flash_quant`` (``csrc/flash_quant.cu``), one launch
+    for both, which sums the mean in another order (the same codes but where
+    that order moves a value across a rounding boundary)."""
+    x = k if k is not None else v
+    if x.device.type == "cpu":
+        kres = quantize_k(k, block) if k is not None else (None, None, None)
+        if v is None:
+            return kres, (None, None, None)
+        vq, sv, vm = quantize_v(v, block)
+        return kres, (v_kernel_layout(vq), sv, vm)
+    b, h, skv, d = x.shape
+    if d != HEAD_DIM:
+        raise NotImplementedError(f"flash_quant takes head_dim {HEAD_DIM}, got {d}")
+    if block <= 0 or block % 128 or skv == 0:
+        raise ValueError(f"flash_quant needs kv rows and a block that is a multiple of 128 "
+                         f"(Skv={skv}, block={block})")
+    skv_p = -(-skv // block) * block
+    outs = {}
+    for name, t, codes in (("k", k, (b, h, skv_p, d)), ("v", v, (b, h, d, skv_p))):
+        if t is None:
+            outs[name] = (None, None, None)
+            continue
+        _check_operand(name, t, (b, h, skv, d), x.device)
+        outs[name] = (torch.empty(codes, dtype=torch.int8, device=x.device),
+                      torch.empty((b, h, skv_p // block), dtype=torch.float32, device=x.device),
+                      torch.empty((b, h, d), dtype=torch.float32, device=x.device))
+        check_tma_operand(f"{name} codes", outs[name][0])  # the body reads them by TMA
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _cuda.launch("flash_quant", ptr(k), *(ptr(t) for t in outs["k"]), ptr(v),
+                 *(ptr(t) for t in outs["v"]), b, h, skv, block, device=x.device)
+    return outs["k"], outs["v"]
+
+
+@functools.lru_cache(maxsize=64)
+def _checked_int8_plan(b: int, h: int, sq: int, skv: int, qb: int, s8: bool,
+                       s8_pv: bool) -> Int8FlashPlan:
+    """:func:`int8_flash_plan` for one call's shapes, once per shape, its
+    kv tile, stages and shared-memory bytes checked against the compiled
+    body's (``_cuda.int8_layout``). The operands' alignment is checked on
+    every call (:func:`_check_bhsd`, :func:`quantize_kv`)."""
+    plan = int8_flash_plan(b, h, sq, skv, qb, s8, s8_pv)
+    mine = (plan.block_kv, plan.stages, plan.smem_bytes)
+    if mine != _cuda.int8_layout(s8, s8_pv):
+        raise RuntimeError(f"int8_flash_plan {mine} disagrees with the compiled body "
+                           f"{_cuda.int8_layout(s8, s8_pv)} (s8={s8}, s8_pv={s8_pv})")
+    return plan
+
+
 def _int8_launch(q, k, v, scale: float, s8: bool, s8_pv: bool, qblock: Optional[int],
                  lse: Optional[torch.Tensor] = None):
-    """The prepasses, then one launch of the mode's int8 entry point (its
-    K14 form when ``lse`` is given); returns the bf16 [B, Sq, H*128] output
-    and the k mean the s8 prepass removed."""
+    """The prepass kernel (:func:`quantize_kv`), then one launch of the
+    mode's int8 entry point (its K14 form when ``lse`` is given) on its
+    plan (:func:`_checked_int8_plan`); returns the bf16 [B, Sq, H*128] output
+    and the k mean the prepass removed."""
     _check_bhsd(q, k, v)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     qb = qblock or quant_block(skv)
-    if qb % 128:
-        raise ValueError(f"the quantization block must be a multiple of 128, got {qb}")
     mode = (bool(s8), bool(s8_pv))
     if lse is not None:
         _check_lse(lse, q)
     entry = INT8_ENTRIES[mode] if lse is None else INT8_LSE_ENTRIES[mode]
-    kk, sk, km = quantize_k(k, qb) if s8 else (k, None, None)
-    if s8_pv:
-        vq, sv, vm = quantize_v(v, qb)
-        vv = v_kernel_layout(vq)
-    else:
-        vv, sv, vm = v, None, None
+    (kq, sk, km), (vt, sv, vm) = quantize_kv(k if s8 else None, v if s8_pv else None, qb)
+    kk = kq if s8 else k
+    vv = vt if s8_pv else v
+    _checked_int8_plan(b, h, sq, skv, qb, *mode)
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
     ptrs = [q.data_ptr(), kk.data_ptr(), None if sk is None else sk.data_ptr(), vv.data_ptr(),
             None if sv is None else sv.data_ptr(), None if vm is None else vm.data_ptr(),
@@ -480,7 +654,7 @@ def flash_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                s8: bool, s8_pv: bool, qblock: Optional[int] = None,
                lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K9 (``s8``), K10 (``s8_pv``) or the combined entry point of
-    ``csrc/flash_fwd.cu`` after the prepasses: bf16 [B, H, S, 128] -> bf16
+    ``csrc/flash_fwd.cu`` after the prepass kernel: bf16 [B, H, S, 128] -> bf16
     [B, Sq, H*128]. Given ``lse`` (f32 [B, H, Sq]), the mode's K14 entry
     (``flash_s8_lse``, ``flash_s8pv_lse``, ``flash_s8_s8pv_lse``) also
     writes each q row's log-sum-exp there."""

@@ -10,8 +10,9 @@ Shapes cover what chip_smoke.py does not: ragged M, K-tiles of 64, split
 128, ragged and unequal q/kv lengths, batch 2, every affine (GGUF, bnb int8)
 format through K4, seq-major operands that are column slices of wider rows
 (K6, K7), grouped calls of 2 to 8 groups with ragged and empty groups
-(K8, K11), the int8 attention modes (K9, K10, both) over one or several
-quantization blocks with a ragged last block, and the fast16 decodes (K12
+(K8, K11), the int8 attention modes (K9, K10, both) and their prepass
+kernel over one or several quantization blocks with a ragged last block,
+and the fast16 decodes (K12
 for nf4 / fp4, K13 for every affine format and Q4_K with s == 0 groups:
 decoded weights bit for bit through the identity) with their dispatch,
 K14's four entries (the output and per-row log-sum-exp of K3 and of the
@@ -311,14 +312,17 @@ INT8_MODES = {"flash_s8": (True, False), "flash_s8pv": (False, True),
 @pytest.mark.parametrize("entry", list(INT8_MODES))
 @pytest.mark.parametrize("b,h,sq,skv,qblock", [
     (1, 3, 64, 64, None), (2, 2, 300, 300, None), (1, 2, 1, 130, None),
-    (1, 1, 200, 65, None), (1, 2, 300, 300, 128), (1, 2, 130, 1600, None)])
+    (1, 1, 200, 65, None), (1, 2, 300, 300, 128), (1, 2, 130, 1600, None),
+    (1, 4, 256, 3000, None)])
 def test_k9_k10_match_plain(dev, entry, b, h, sq, skv, qblock):
     """K9 / K10 / both against their plain version: the quantized codes and
     integer dots are exact in both, so only f32 summation orders (K9's bf16
-    P.V, K10's bf16-mode QK^T) and expf against torch.exp of the same
-    arguments differ: K3's band, 5e-4. One launch of the mode's entry point
-    and none of K3's. (S1600: two quantization blocks of 1536, the second
-    ragged; qblock 128 at S300: three, the last ragged.)"""
+    P.V, K10's bf16-mode QK^T, the prepass kernel's mean), expf against
+    torch.exp of the same arguments, and the codes that order moves by one
+    differ: K3's band, 5e-4. One launch of the prepass kernel, one of the
+    mode's entry point and none of K3's. (S1600: two quantization blocks of
+    1536, the second ragged; S3000: two blocks, the second ragged inside a
+    64-row tile; qblock 128 at S300: three, the last ragged.)"""
     s8, s8_pv = INT8_MODES[entry]
     gen = torch.Generator(device=dev).manual_seed(sq + skv)
     q = torch.randn((b, h, sq, 128), generator=gen, device=dev).bfloat16()
@@ -327,10 +331,66 @@ def test_k9_k10_match_plain(dev, entry, b, h, sq, skv, qblock):
     before = _cuda.launch_counts()
     y = flash.flash_int8(q, k, v, 128 ** -0.5, s8, s8_pv, qblock=qblock)
     after = _cuda.launch_counts()
-    assert (after[entry] - before[entry], after["flash_fwd"] - before["flash_fwd"]) == (1, 0)
+    assert [after[n] - before[n] for n in (entry, "flash_quant", "flash_fwd")] == [1, 1, 0]
     ref = flash.flash_int8_plain(q, k, v, 128 ** -0.5, s8, s8_pv, qblock=qblock)
     assert torch.isfinite(y).all()
     assert _summed_rel(y, ref.transpose(1, 2).reshape(b, sq, h * 128)) <= 5e-4
+
+
+@pytest.mark.parametrize("entry", list(INT8_MODES))
+def test_int8_plan_is_the_compiled_layout(dev, entry):
+    """int8_flash_plan's kv tile, ring stages and shared-memory bytes are
+    the compiled body's (``flash_int8_layout``), which launches nothing."""
+    s8, s8_pv = INT8_MODES[entry]
+    plan = flash.int8_flash_plan(1, 24, 4608, 4608, flash.quant_block(4608), s8, s8_pv)
+    before = _cuda.launch_counts()
+    assert (plan.block_kv, plan.stages, plan.smem_bytes) == _cuda.int8_layout(s8, s8_pv)
+    assert _cuda.launch_counts() == before
+
+
+def _quant_planes_match(got, ref, s_real: int, transposed: bool) -> None:
+    """The prepass kernel's (codes, scales, mean) against the plain
+    versions' in test_quantize_prepasses_match_jax's bands: mean within rtol
+    1e-6 (the kernel sums in f64 in another order), scales within one f32
+    ulp, codes off by one on at most 1e-3 of the entries; the padding rows
+    zero."""
+    codes, scales, mean = got
+    rc, rs, rm = ref
+    assert codes.shape == rc.shape and codes.dtype == torch.int8 and scales.shape == rs.shape
+    assert torch.allclose(mean, rm, rtol=1e-6, atol=1e-7)
+    assert int((scales.view(torch.int32) - rs.view(torch.int32)).abs().max()) <= 1
+    diff = (codes.int() - rc.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+    rows = torch.arange(codes.shape[-1 if transposed else 2], device=codes.device)
+    if transposed:  # the source row of each position of v_kernel_layout
+        rows = flash.v_kernel_layout(rows[None, None, :, None])[0, 0, 0]
+        assert not codes[..., rows >= s_real].any()
+    else:
+        assert not codes[:, :, rows >= s_real].any()
+
+
+@pytest.mark.parametrize("b,h,skv,qblock", [(1, 24, 4608, None), (1, 24, 4112, None),
+                                            (2, 2, 300, 128), (1, 3, 130, None),
+                                            (1, 2, 1600, None)])
+def test_flash_quant_matches_plain(dev, b, h, skv, qblock):
+    """The prepass kernel (``flash_quant``: k and v in one launch) against
+    quantize_k / quantize_v + v_kernel_layout on the same card, at FLUX's
+    joint length, a ragged one, several blocks of 128, a ragged chunk and two
+    blocks of 1536; k alone and v alone give the same planes (torch.equal)."""
+    gen = torch.Generator(device=dev).manual_seed(skv)
+    k = (torch.randn((b, h, skv, 128), generator=gen, device=dev) * 0.3 + 0.1).bfloat16()
+    v = (torch.randn((b, h, skv, 128), generator=gen, device=dev) + 1.0).bfloat16()
+    qb = qblock or flash.quant_block(skv)
+    before = _cuda.launch_counts()["flash_quant"]
+    kres, vres = flash.quantize_kv(k, v, qb)
+    assert _cuda.launch_counts()["flash_quant"] == before + 1
+    vq, sv, vm = flash.quantize_v(v, qb)
+    _quant_planes_match(kres, flash.quantize_k(k, qb), skv, transposed=False)
+    _quant_planes_match(vres, (flash.v_kernel_layout(vq), sv, vm), skv, transposed=True)
+    k_alone, none = flash.quantize_kv(k, None, qb)
+    none2, v_alone = flash.quantize_kv(None, v, qb)
+    assert none == none2 == (None, None, None)
+    assert all(torch.equal(a, c) for a, c in zip(kres + vres, k_alone + v_alone))
 
 
 def _q4_k_with_zero_scales(k: int, n: int, seed: int):
@@ -436,9 +496,11 @@ LSE_ENTRIES = {"flash_fwd_lse": (False, False), **{f"{e}_lse": m for e, m in INT
                                         (1, 1, 200, 65), (1, 2, 130, 1600)])
 def test_k14_matches_plain(dev, entry, b, h, sq, skv):
     """K14 against the plain versions: o within K3's band (5e-4), lse within
-    1e-3 max-abs (f32 summation orders and expf against torch.exp, on
-    log-sum-exps of magnitude ~5); one launch of the entry and none of K3,
-    K9 or K10; the s8 entry returns the k mean its prepass removed."""
+    1e-3 max-abs (f32 summation orders, and K3's MUFU.EX2 or the int8 body's
+    expf against torch.exp, on log-sum-exps of magnitude ~5); one launch of the entry (and of the
+    prepass kernel for the int8 modes) and none of K3, K9 or K10; the s8
+    entry returns the k mean its prepass removed, within the prepass's mean
+    band of the plain one."""
     s8, s8_pv = LSE_ENTRIES[entry]
     gen = torch.Generator(device=dev).manual_seed(sq + skv)
     q = torch.randn((b, h, sq, 128), generator=gen, device=dev).bfloat16()
@@ -447,10 +509,12 @@ def test_k14_matches_plain(dev, entry, b, h, sq, skv):
     _cuda.reset_launch_counts()
     o, lse, km = flash.flash_attention(q, k, v, 128 ** -0.5, out_seqmajor=True, s8=s8,
                                        s8_pv=s8_pv, save_lse=True)
-    assert _cuda.launch_counts() == {**dict.fromkeys(_cuda.KERNELS, 0), entry: 1}
+    assert _cuda.launch_counts() == {**dict.fromkeys(_cuda.KERNELS, 0), entry: 1,
+                                     **({"flash_quant": 1} if s8 or s8_pv else {})}
     if s8 or s8_pv:
         ref, lse_ref, km_ref = flash.flash_int8_lse_plain(q, k, v, 128 ** -0.5, s8, s8_pv)
-        assert (km is None) == (not s8) and (km is None or torch.equal(km, km_ref))
+        assert (km is None) == (not s8)
+        assert km is None or torch.allclose(km, km_ref, rtol=1e-6, atol=1e-7)
     else:
         ref, lse_ref = flash.flash_attention_lse_plain(q, k, v, 128 ** -0.5)
         assert km is None
@@ -483,7 +547,7 @@ def test_ring_two_ranks_on_one_card(dev, tmp_path):
 def _check_cuda_ring(dev, tmp_path, world, q, k, v, modes):
     """The ranks' ring outputs (``cuda_ring_rank``) against the plain
     attention of the whole sequence, and each rank's launches: K14 once per
-    chunk, no other kernel."""
+    chunk (the int8 modes' prepass kernel too), no other kernel."""
     parts = [np.load(tmp_path / f"cuda_ring_{r}.npz", allow_pickle=True) for r in range(world)]
     qt, kt, vt = (torch.from_numpy(a).to(dev).bfloat16() for a in (q, k, v + 1.0))
     for mode in modes:
@@ -495,9 +559,10 @@ def _check_cuda_ring(dev, tmp_path, world, q, k, v, modes):
             ref = flash.flash_attention_plain(qt, kt, vt, 128 ** -0.5)
         ref = ref.transpose(1, 2).reshape(1, 512, 512).float().cpu()
         assert _summed_rel(got, ref) <= (4e-3 if mode == "bf16" else 2e-2)
-        entry = "flash_fwd_lse" if mode == "bf16" else "flash_s8pv_lse"
+        want = [("flash_fwd_lse", world)] if mode == "bf16" else [
+            ("flash_quant", world), ("flash_s8pv_lse", world)]
         for p in parts:
-            assert [tuple(x) for x in p[f"{mode}_launches"]] == [(entry, world)]
+            assert [tuple(x) for x in p[f"{mode}_launches"]] == want
     return parts
 
 

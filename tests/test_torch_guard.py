@@ -152,6 +152,7 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "    flash.flash_attention(q, q, q, out_seqmajor=True, s8=s8, s8_pv=s8_pv)\n"
         "    flash.flash_attention(q, q, q, s8=s8, s8_pv=s8_pv, save_lse=True)\n"
         "flash.flash_attention(q, q, q, save_lse=True)\n"
+        "flash.quantize_kv(q, q, 128)\n"
         "qs = torch.randn(1, 5, 256, generator=g)\n"
         "ce = torch.ones(1, 5, 128)\n"
         "for inkernel in (False, True):\n"
@@ -164,7 +165,7 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "                              'flash_fwd', 'flash_sm', 'flash_rope', 'flash_s8',\n"
         "                              'flash_s8pv', 'flash_s8_s8pv', 'flash_fwd_lse',\n"
         "                              'flash_s8_lse', 'flash_s8pv_lse', 'flash_s8_s8pv_lse',\n"
-        "                              'rope_qk'}\n"
+        "                              'rope_qk', 'flash_quant'}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"
@@ -205,6 +206,10 @@ def test_cuda_path_has_no_fallback():
     for s8, s8_pv in ((False, False), (True, False), (False, True), (True, True)):
         with pytest.raises(ValueError, match="CUDA"):
             flash.flash_attention(q, q, q, s8=s8, s8_pv=s8_pv, save_lse=True)
+    # the int8 modes' prepass kernel, for k, v or both
+    for k, v in ((q, None), (None, q), (q, q)):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash.quantize_kv(k, v, 128)
     # the seq-major kernels (K6, K7) under both RoPE placements
     qs = torch.zeros((1, 8, 256), dtype=torch.bfloat16, device="meta")
     ce = torch.zeros((1, 8, 128), device="meta")
