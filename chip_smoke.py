@@ -27,14 +27,21 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    versions on the CPU (same weights, same noise): the default layout, and
    every stream fused and grouped (``fuse="img,txt,single,t5,grouped"``)
    with DIFFUSION_RS_TPU_FUSED_ROPE=1, under each of the ``inkernel`` and
-   ``seqmajor`` attention layouts;
+   ``seqmajor`` attention layouts; and an img2img and an inpaint image
+   through ``forward_arrays`` (same init image, noise and encoder sample);
 4. the full-width FLUX.1-dev q8t path (19+38 blocks, hidden 3072) with
    T5-XXL nf4, CLIP-L bf16 and the VAE: one 1024x1024 image, batch 1,
    ``--steps`` denoise steps (default 4; the shapes are the 28-step run's),
    through ``FluxPipeline.forward_arrays`` on synthetic weights from a seed;
    the kernels' launch counters must match the path exactly;
 5. one more 1-step image under torch.profiler: device time by kernel and
-   the device's busy share;
+   the device's busy share; then img2img and inpainting on the same
+   pipeline, phase 4's image as the init image (a 1-step warm-up, then
+   img2img at strength 0.6, inpaint at 1.0 with a centre-square mask and
+   img2img at 1.0, each ``--steps`` steps truncated to ``round(steps *
+   strength)``, with exact K1 / K2 / K3 launch counts and the image-encode,
+   step and decode times): the inpaint's unmasked latent must equal the
+   packed init latent, and the strength-1.0 latent phase 4's;
 6. a GGUF round trip at full width: the port's writer makes a BFL-named
    Q4_0 FLUX file with 1 double + 1 single block (random codes, f16
    scales), ``load_flux_transformer`` loads it onto the card (config and
@@ -1053,7 +1060,8 @@ def make_params(cfgs, seed: int, device: str, flux_kind: str = "q8t") -> dict:
         t5_params=syn.init_t5_params_quantized(seed + 1, cfgs["t5_cfg"], kind="nf4",
                                                device=device),
         clip_params=syn.init_clip_params(seed + 2, cfgs["clip_cfg"], device=device),
-        vae_params=syn.init_vae_decoder_params(seed + 3, cfgs["vae_cfg"], device=device),
+        vae_params={**syn.init_vae_decoder_params(seed + 3, cfgs["vae_cfg"], device=device),
+                    **syn.init_vae_encoder_params(seed + 4, cfgs["vae_cfg"], device=device)},
     )
 
 
@@ -1185,6 +1193,72 @@ def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=Fals
             and (not int8 or counts["flash_quant"] == counts["flash_s8_s8pv"])):
         raise SystemExit(f"tiny image ({label}) did not run its kernels: {counts}")
     return lat_err, psnr
+
+
+@contextlib.contextmanager
+def fixed_draws(noise, eps):
+    """The pipeline's denoise noise and encoder sample replaced by these host
+    tensors (moved to the pipeline's device), so a card and a CPU pipeline
+    start from the same draws through ``forward_arrays`` itself."""
+    from diffusion_rs_tpu_torch.pipelines import flux_pipeline
+
+    real = flux_pipeline.get_noise, flux_pipeline.get_encode_noise
+    flux_pipeline.get_noise = lambda seed, n, h, w, device: noise.to(device)
+    flux_pipeline.get_encode_noise = lambda seed, shape, dtype, device: eps.to(device, dtype)
+    try:
+        yield
+    finally:
+        flux_pipeline.get_noise, flux_pipeline.get_encode_noise = real
+
+
+def tiny_edit_check(mode: str):
+    """img2img (strength 0.5) or inpaint (0.75, a centre square at the latent
+    size) through ``FluxPipeline.forward_arrays`` on the tiny config, 4 steps
+    at 64x64: the card's kernels against the plain versions on the CPU, same
+    weights, init image, noise and encoder sample. The card run must launch
+    K1, K2 and K3 and no other kernel."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.util.tree import tree_map
+
+    cfgs = tiny_configs()
+    params = make_params(cfgs, seed=11, device="cpu")
+    cpu = make_pipeline(cfgs, params, device="cpu")
+    gpu = make_pipeline(cfgs, tree_map(lambda t: t.cuda(), params), device="cuda")
+    gen = torch.Generator().manual_seed(6)
+    init = (torch.rand((64, 64, 3), generator=gen) * 255).to(torch.uint8).numpy()
+    noise = torch.randn((1, 16, 8, 8), generator=gen)
+    eps = torch.randn((1, 8, 8, 16), generator=gen)
+    mask = np.zeros((8, 8), np.uint8)
+    mask[2:6, 2:6] = 255
+    extra = dict(strength=0.5) if mode == "img2img" else dict(strength=0.75, mask_image=mask)
+    gp = DiffusionGenerationParams(height=64, width=64, num_steps=4, guidance_scale=3.5, seed=5)
+    outs = {}
+    with fixed_draws(noise, eps):
+        for name, pipe in (("cpu", cpu), ("gpu", gpu)):
+            captured = {}
+            denoise_stage = pipe._denoise
+
+            def capture(*a, _stage=denoise_stage, _into=captured):
+                _into["latent"] = _stage(*a)
+                return _into["latent"]
+
+            pipe._denoise = capture
+            _cuda.reset_launch_counts()
+            img = pipe.forward_arrays(["a photo of a small cat"], gp, init_image=init, **extra)
+            outs[name] = (captured["latent"].float().cpu(), img[0])
+    counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+    lat_err, psnr = image_match(outs["gpu"], outs["cpu"])
+    print(f"tiny reference ({mode}): latent summed-rel {lat_err:.3e}, image PSNR {psnr:.1f} dB "
+          f"(card kernels vs CPU plain versions, bf16); card launches {counts}")
+    if not (lat_err <= 2e-2 and psnr >= 30.0):
+        raise SystemExit(f"tiny {mode} check failed: the card's image does not agree with "
+                         "the plain versions on the CPU")
+    if sorted(counts) != ["flash_fwd", "qmm_nf4", "qmm_s8"]:
+        raise SystemExit(f"tiny {mode} image did not run K1, K2 and K3 alone: {counts}")
 
 
 def flux_linear_names(params) -> dict:
@@ -1342,6 +1416,102 @@ def profile_image(pipe, prompts) -> None:
           f"({100 * busy_ms / wall_ms:.1f}%), timings {pipe.timings}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:20]:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  x{n:<5d} {key[:90]}")
+
+
+def image_edit_phase(pipe, prompts, steps: int, init_img, ref_latent) -> None:
+    """Phase 4b, on phase 4's q8t pipeline and its 1024x1024 image as the init
+    image: a 1-step warm-up, then img2img at strength 0.6 (``round(0.6 *
+    steps)`` steps run), inpaint at strength 1.0 with a centre-square mask
+    (at 1024x1024 through PIL's BILINEAR where Pillow is installed, else
+    at the 128x128 latent size), and img2img at strength 1.0, each through
+    ``forward_arrays`` with exact K1 / K2 / K3 launch counts (reset just
+    before each image, read just after). Fails unless the inpaint's final
+    latent equals the packed init latent wherever the mask is 0, and the
+    strength-1.0 latent equals phase 4's (``ref_latent``, same seed)."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.ops import _cuda
+
+    n = flux_launches(pipe.flux_cfg)
+    captured = {}
+    denoise_stage = pipe._denoise
+
+    def capture_denoise(txt, y, sigmas, guidance, noise, inpaint=None):
+        captured["inpaint"] = inpaint
+        captured["latent"] = denoise_stage(txt, y, sigmas, guidance, noise, inpaint)
+        return captured["latent"]
+
+    pipe._denoise = capture_denoise
+    try:
+        import PIL  # noqa: F401
+
+        mask = np.zeros((1024, 1024), np.uint8)
+        mask[256:768, 256:768] = 255
+        mask_note = "1024x1024 mask through PIL"
+    except ImportError:
+        mask = np.zeros((128, 128), np.uint8)
+        mask[32:96, 32:96] = 255
+        mask_note = "no Pillow on this host: 128x128 mask at the latent size"
+
+    def params(num_steps):
+        return DiffusionGenerationParams(height=1024, width=1024, num_steps=num_steps,
+                                         guidance_scale=3.5, seed=7)
+
+    t0 = time.perf_counter()
+    pipe.forward_arrays(prompts, params(1), init_image=init_img, strength=1.0)
+    print(f"img2img warm-up (1 step) in {time.perf_counter() - t0:.1f} s")
+    results = {}
+    for name, strength, m in (("img2img 0.6", 0.6, None), ("inpaint 1.0", 1.0, mask),
+                              ("img2img 1.0", 1.0, None)):
+        run = max(1, min(int(round(steps * strength)), steps))
+        want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": n["diffusers"] * run,
+                "qmm_nf4": 168, "flash_fwd": n["attention"] * run}
+        torch.cuda.reset_peak_memory_stats()
+        before = card_state()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = pipe.forward_arrays(prompts, params(steps), init_image=init_img,
+                                  strength=strength, mask_image=m)
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        tm = pipe.timings
+        steps_ms = [x * 1e3 for x in tm["steps_s"]]
+        print(f"{name}{' (' + mask_note + ')' if m is not None else ''}: {run} of {steps} "
+              f"steps, image {wall:.3f} s: text encode {tm['encode_s'] * 1e3:.1f} ms, image "
+              f"encode {tm['image_encode_s'] * 1e3:.1f} ms, step median "
+              f"{statistics.median(steps_ms):.2f} ms ({min(steps_ms):.1f}-{max(steps_ms):.1f}), "
+              f"decode {tm['decode_s'] * 1e3:.1f} ms, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card before: {before}; "
+              f"after: {card_state()}")
+        print(f"{name} launches { {k: v for k, v in counts.items() if v} } (expected "
+              f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
+        lat = captured["latent"]
+        if counts != want:
+            raise SystemExit(f"{name} launch counts {counts} differ from its path's {want}")
+        if img.shape != (1, 1024, 1024, 3) or img.dtype.name != "uint8":
+            raise SystemExit(f"bad {name} image: {img.dtype} {img.shape}")
+        if tuple(lat.shape) != (1, 4096, 64) or not torch.isfinite(lat).all():
+            raise SystemExit(f"bad {name} latent: {tuple(lat.shape)}")
+        results[name] = (lat, captured["inpaint"])
+    pipe._denoise = denoise_stage
+
+    lat, (mask_plane, init_plane, _) = results["inpaint 1.0"]
+    keep = mask_plane == 0
+    pinned = bool(torch.equal(lat[keep], init_plane[keep]))
+    moved = summed_rel(lat[~keep], init_plane[~keep])
+    print(f"inpaint: {int(keep.sum())} of {keep.numel()} latent entries unmasked, equal to the "
+          f"packed init latent: {pinned}; masked entries {moved:.3e} (summed-rel) from it")
+    if not (pinned and keep.any() and (~keep).any() and moved > 1e-2):
+        raise SystemExit("inpaint: the unmasked latent is not the init latent, or the mask "
+                         "repainted nothing")
+    lat = results["img2img 1.0"][0]
+    same = bool(torch.equal(lat, ref_latent))
+    print(f"img2img at strength 1.0 vs phase 4's latent (same seed): equal {same}, "
+          f"summed-rel {summed_rel(lat, ref_latent):.3e}")
+    if not same:
+        raise SystemExit("img2img at strength 1.0 does not reproduce the txt2img latent")
 
 
 def write_bfl_q4_0_file(path, cfg, seed: int) -> dict:
@@ -2520,6 +2690,8 @@ def main() -> int:
     tiny_reference_check(int8=True)
     tiny_reference_check(flux_kind="nf4", fuse="grouped")
     tiny_reference_check(isq=True)
+    tiny_edit_check("img2img")
+    tiny_edit_check("inpaint")
     mark("tiny references")
 
     # -- the full-width main path ---------------------------------------------
@@ -2582,6 +2754,8 @@ def main() -> int:
 
     profile_image(pipe, prompts)
     mark("main path")
+    image_edit_phase(pipe, prompts, args.steps, img[0], lat)
+    mark("img2img / inpaint")
 
     # -- the GGUF paths: encoders shared with the q8t pipeline ----------------
     encoders = {"cfgs": {k: v for k, v in cfgs.items() if k != "flux_cfg"},

@@ -161,6 +161,22 @@ inline int raise_smem_limit(const void* fn, size_t bytes, size_t (&raised)[MAX_D
   return 0;
 }
 
+// The current device's SM count in `sms`, kept per device in `counts` (one
+// per launcher, zero-initialised). Returns 0 or the cudaError_t value.
+inline int device_sm_count(int* sms, int (&counts)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < MAX_DEVICES && counts[dev] > 0) {
+    *sms = counts[dev];
+    return 0;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < MAX_DEVICES) counts[dev] = *sms;
+  return 0;
+}
+
 // One box of `map` at (column c0, row c1) into shared memory; its bytes
 // complete a transaction of `bar`. `map` lies in parameter space (a
 // __grid_constant__ kernel argument).

@@ -403,20 +403,14 @@ struct Args {
 template <int BITS, int BM, bool FAST16>
 cudaError_t launch(const Table& tab, int m_tiles, int K, int N, int split, int group,
                    int has_bias, cudaStream_t stream) {
-  static int sms = 0;
+  static size_t raised[MAX_DEVICES] = {};
+  static int sm_counts[MAX_DEVICES] = {};
   const size_t smem = Ring<BITS, BM, FAST16>::SMEM_BYTES;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(qmm_affine_kernel<BITS, BM, FAST16>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) {
-      sms = 0;
-      return err;
-    }
-  }
+  int sms = 0;
+  int err = raise_smem_limit(reinterpret_cast<const void*>(qmm_affine_kernel<BITS, BM, FAST16>),
+                             smem, raised);
+  if (err == 0) err = device_sm_count(&sms, sm_counts);
+  if (err != 0) return static_cast<cudaError_t>(err);
   const int tiles = m_tiles * (N / BN);
   qmm_affine_kernel<BITS, BM, FAST16><<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
       tab, tiles, K, N, split, group, has_bias);

@@ -388,20 +388,13 @@ struct Args {
 // The product over m_tiles x N/128 output tiles, one block per SM at most.
 template <int BK>
 cudaError_t launch_product(const Table& tab, int m_tiles, int K, int N, int bk, cudaStream_t st) {
-  static int sms = 0;
+  static size_t raised[MAX_DEVICES] = {};
+  static int sm_counts[MAX_DEVICES] = {};
   const size_t smem = Ring<BK>::SMEM_BYTES;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(qmm_s8_kernel<BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-    if (err != cudaSuccess) {
-      sms = 0;
-      return err;
-    }
-  }
+  int sms = 0;
+  int err = raise_smem_limit(reinterpret_cast<const void*>(qmm_s8_kernel<BK>), smem, raised);
+  if (err == 0) err = device_sm_count(&sms, sm_counts);
+  if (err != 0) return static_cast<cudaError_t>(err);
   const int tiles = m_tiles * (N / BN);
   qmm_s8_kernel<BK><<<tiles < sms ? tiles : sms, THREADS, smem, st>>>(tab, tiles, K, N, bk);
   return cudaGetLastError();

@@ -283,9 +283,8 @@ def build_clip_params(store: VarStore, cfg: ClipTextConfig, dtype=torch.bfloat16
 
 
 def build_vae_params(store: VarStore, cfg: VAEConfig, dtype=torch.bfloat16):
-    """diffusers AutoencoderKL paths, decode half: the decoder tower and
-    ``post_quant_conv``. The encoder's weights are not loaded (VAE encode
-    is not ported yet, ROADMAP Queue 1 item 1)."""
+    """diffusers AutoencoderKL paths: the encoder and decoder towers and
+    the optional ``quant_conv`` / ``post_quant_conv``."""
     v = store.pp("")
 
     def gn(p):
@@ -317,6 +316,13 @@ def build_vae_params(store: VarStore, cfg: VAEConfig, dtype=torch.bfloat16):
                 "res2": resnet(f"{p}.resnets.1")}
 
     n_levels = len(cfg.block_out_channels)
+    down = []
+    for i in range(n_levels):
+        p = f"encoder.down_blocks.{i}"
+        down.append({
+            "resnets": [resnet(f"{p}.resnets.{j}") for j in range(cfg.layers_per_block)],
+            "downsample": conv(f"{p}.downsamplers.0.conv") if i != n_levels - 1 else None,
+        })
     up = []
     for i in range(n_levels):
         p = f"decoder.up_blocks.{i}"
@@ -325,6 +331,13 @@ def build_vae_params(store: VarStore, cfg: VAEConfig, dtype=torch.bfloat16):
             "upsample": conv(f"{p}.upsamplers.0.conv") if i != n_levels - 1 else None,
         })
     return {
+        "encoder": {
+            "conv_in": conv("encoder.conv_in"),
+            "down": down,
+            "mid": mid("encoder.mid_block"),
+            "norm_out": gn("encoder.conv_norm_out"),
+            "conv_out": conv("encoder.conv_out"),
+        },
         "decoder": {
             "conv_in": conv("decoder.conv_in"),
             "mid": mid("decoder.mid_block"),
@@ -332,6 +345,7 @@ def build_vae_params(store: VarStore, cfg: VAEConfig, dtype=torch.bfloat16):
             "norm_out": gn("decoder.conv_norm_out"),
             "conv_out": conv("decoder.conv_out"),
         },
+        "quant_conv": conv("quant_conv") if "quant_conv.weight" in store else None,
         "post_quant_conv": conv("post_quant_conv")
         if "post_quant_conv.weight" in store else None,
     }

@@ -1,13 +1,18 @@
-"""AutoencoderKL decoder (port of the decode half of ``models/vae.py``):
-conv_in -> mid (resnet, spatial attention, resnet) -> up tower of resnets
-with nearest-2x upsampling -> GroupNorm/SiLU/conv_out, all channels-last
-(NHWC), and the spatially tiled decode with feathered seams. Scale/shift
-factors are applied by the caller. VAE encode is not ported yet."""
+"""AutoencoderKL (port of ``models/vae.py``), all channels-last (NHWC).
+
+Decoder: conv_in -> mid (resnet, spatial attention, resnet) -> up tower of
+resnets with nearest-2x upsampling -> GroupNorm/SiLU/conv_out, and the
+spatially tiled decode with feathered seams. Encoder: conv_in -> down tower
+of resnets with the stride-2 downsample padded right and bottom -> mid ->
+GroupNorm/SiLU/conv_out -> optional quant conv, giving the mean|logvar
+moments; the diagonal Gaussian's sample or mode; and the tiled encode,
+whose moments are feathered in latent space before one global sample.
+Scale/shift factors are applied by the caller."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -129,6 +134,23 @@ def _blend_h(a: torch.Tensor, b: torch.Tensor, blend: int) -> torch.Tensor:
     return torch.cat([mixed, b[:, :, blend:]], dim=2)
 
 
+def _stitch(rows, blend: int, limit: int) -> torch.Tensor:
+    """A grid of overlapping NHWC tiles (rows of columns) -> one map: each
+    tile feathered over ``blend`` pixels against the tile above, then the
+    tile to the left, cut to ``limit`` x ``limit`` and concatenated."""
+    out_rows = []
+    for i, row in enumerate(rows):
+        parts = []
+        for j, t in enumerate(row):
+            if i > 0:
+                t = _blend_v(rows[i - 1][j], t, blend)
+            if j > 0:
+                t = _blend_h(row[j - 1], t, blend)
+            parts.append(t[:, :limit, :limit, :])
+        out_rows.append(torch.cat(parts, dim=2))
+    return torch.cat(out_rows, dim=1)
+
+
 def _decode_tile(params: Params, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     """One tile's decode: the seam through which callers see the tiles."""
     return vae_decode(params, cfg, z)
@@ -153,14 +175,68 @@ def vae_decode_tiled(params: Params, cfg: VAEConfig, z_nhwc: torch.Tensor,
     limit = stride * f
     rows = [[_decode_tile(params, cfg, z_nhwc[:, i:i + tile, j:j + tile, :])
              for j in range(0, w, stride)] for i in range(0, h, stride)]
-    out_rows = []
-    for i, row in enumerate(rows):
-        parts = []
-        for j, t in enumerate(row):
-            if i > 0:
-                t = _blend_v(rows[i - 1][j], t, blend)
-            if j > 0:
-                t = _blend_h(row[j - 1], t, blend)
-            parts.append(t[:, :limit, :limit, :])
-        out_rows.append(torch.cat(parts, dim=2))
-    return torch.cat(out_rows, dim=1)[:, : h * f, : w * f, :]
+    return _stitch(rows, blend, limit)[:, : h * f, : w * f, :]
+
+
+def _encode_moments(params: Params, cfg: VAEConfig, x_nhwc: torch.Tensor) -> torch.Tensor:
+    """Encoder tower up to (and including) the quant conv: the
+    [B, h, w, 2 * latent_channels] mean|logvar moment plane."""
+    p = params["encoder"]
+    g = cfg.norm_num_groups
+    h = conv2d(x_nhwc, p["conv_in"], padding=_PAD1)
+    for down in p["down"]:
+        for res in down["resnets"]:
+            h = _resnet(res, h, g)
+        if down.get("downsample") is not None:
+            h = conv2d(h, down["downsample"], stride=2, padding=((0, 1), (0, 1)))
+    h = _mid(p["mid"], h, g)
+    h = group_norm(h, g, p["norm_out"]["w"], p["norm_out"]["b"])
+    h = conv2d(F.silu(h), p["conv_out"], padding=_PAD1)
+    if params.get("quant_conv") is not None:
+        h = conv2d(h, params["quant_conv"])
+    return h
+
+
+def _gaussian_sample(h: torch.Tensor, eps: Optional[torch.Tensor]) -> torch.Tensor:
+    """The diagonal Gaussian over the moments ``h``: ``mean + std * eps`` when
+    a standard-normal draw ``eps`` of the mean's shape is given (cast to the
+    mean's dtype, as JAX draws it), else the mode (the mean). std is
+    exp(0.5 * logvar) in f32, cast back."""
+    mean, logvar = torch.chunk(h, 2, dim=-1)
+    if eps is None:
+        return mean
+    std = torch.exp(0.5 * logvar.float()).to(mean.dtype)
+    return mean + std * eps.to(mean.dtype)
+
+
+def vae_encode(params: Params, cfg: VAEConfig, x_nhwc: torch.Tensor,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Image NHWC in [-1, 1] -> latent NHWC [B, H/f, W/f, latent_channels]:
+    a sample when the standard-normal draw ``eps`` is given, else the
+    distribution's mode."""
+    return _gaussian_sample(_encode_moments(params, cfg, x_nhwc), eps)
+
+
+def vae_encode_tiled(params: Params, cfg: VAEConfig, x_nhwc: torch.Tensor,
+                     eps: Optional[torch.Tensor] = None, tile: int = 1024,
+                     overlap: int = 128) -> torch.Tensor:
+    """Spatially tiled encode, the mirror of :func:`vae_decode_tiled`.
+    ``tile`` and ``overlap`` are pixel sizes, rounded down to the encoder's
+    stride f (overlap at least f, at most half a tile). Each tile's moments
+    are computed on their own (GroupNorm statistics per tile), feathered over
+    ``overlap / f`` latent pixels against the tile above, then the tile to
+    the left, cropped to H/f x W/f and sampled once with ``eps``, so a
+    tiling changes the moments and never the draw. An image that fits one
+    tile takes :func:`vae_encode` unchanged."""
+    b, h, w, _ = x_nhwc.shape
+    if h <= tile and w <= tile:
+        return vae_encode(params, cfg, x_nhwc, eps)
+    f = _vae_scale(cfg)
+    tile -= tile % f
+    overlap = max(f, min(overlap - overlap % f, tile // 2))
+    stride = tile - overlap
+    blend = overlap // f
+    limit = stride // f
+    rows = [[_encode_moments(params, cfg, x_nhwc[:, i:i + tile, j:j + tile, :])
+             for j in range(0, w, stride)] for i in range(0, h, stride)]
+    return _gaussian_sample(_stitch(rows, blend, limit)[:, : h // f, : w // f, :], eps)

@@ -6,8 +6,9 @@ single-file GGUF), or a DDUF zip.
 
 The port's own differences: ``device`` (CUDA by default; raises without
 it), PNG encoding with the standard library (no Pillow), and
-``forward_images`` returning u8 ``[H, W, 3]`` arrays instead of PIL images.
-img2img and inpaint are not ported yet (ROADMAP Queue 1 item 1).
+``forward_images`` / ``img2img_images`` / ``inpaint_images`` returning u8
+``[H, W, 3]`` arrays instead of PIL images. img2img and inpainting import
+Pillow only to resize an init image or mask that is not already at size.
 """
 
 from __future__ import annotations
@@ -93,9 +94,11 @@ class Pipeline:
     list) and ``lora_scale`` (loader.apply_weight_options). ``mesh`` (a
     parallel.make_mesh built on every rank after parallel.init_multihost)
     runs the pipeline data- and sequence-parallel, each rank holding the
-    whole weights; a mesh with tp > 1 raises. ``offloading``,
-    ``compile_cache`` and the ``t5_mask_pads`` / ``step_progress`` toggles
-    keep the JAX package's names but are not ported yet: setting one raises
+    whole weights; a mesh with tp > 1 raises. ``t5_mask_pads`` (mask T5's
+    pad keys; None: DIFFUSION_RS_TPU_T5_MASK_PADS=1) and ``step_progress``
+    (a line per denoise step; None: DIFFUSION_RS_TPU_PROGRESS) resolve once,
+    at construction. ``offloading`` and ``compile_cache`` keep the JAX
+    package's names but are not ported yet: setting one raises
     ``NotImplementedError`` naming its ROADMAP item."""
 
     def __init__(
@@ -142,3 +145,31 @@ class Pipeline:
                         params: DiffusionGenerationParams) -> np.ndarray:
         """Post-denoise packed latents ``[B, S, 64]`` as f32 (no VAE decode)."""
         return self._inner.forward_arrays(list(prompts), params, output_type="latent")
+
+    def img2img(self, prompts: Sequence[str], params: DiffusionGenerationParams, image,
+                strength: float = 0.6) -> List[bytes]:
+        """Image-to-image: start the flow-match schedule from a VAE-encoded
+        init image (PIL image or u8 array, or a list of them, one per prompt)
+        instead of pure noise; ``strength`` in (0, 1] is the share of the
+        schedule run (1.0 degenerates to text-to-image). Returns PNG bytes.
+        The reference has no img2img; the semantics are diffusers'
+        FluxImg2ImgPipeline's."""
+        return [encode_png(img) for img in self.img2img_images(prompts, params, image, strength)]
+
+    def img2img_images(self, prompts: Sequence[str], params: DiffusionGenerationParams,
+                       image, strength: float = 0.6) -> List[np.ndarray]:
+        """:meth:`img2img` as one u8 ``[H, W, 3]`` array per prompt."""
+        return self._inner.img2img(list(prompts), params, image, strength)
+
+    def inpaint(self, prompts: Sequence[str], params: DiffusionGenerationParams, image, mask,
+                strength: float = 1.0) -> List[bytes]:
+        """Repaint the white region of ``mask`` guided by the prompt; the
+        unmasked latent is pinned to the init image's (renoised every step,
+        diffusers FluxInpaintPipeline construction). Returns PNG bytes."""
+        return [encode_png(img)
+                for img in self.inpaint_images(prompts, params, image, mask, strength)]
+
+    def inpaint_images(self, prompts: Sequence[str], params: DiffusionGenerationParams,
+                       image, mask, strength: float = 1.0) -> List[np.ndarray]:
+        """:meth:`inpaint` as one u8 ``[H, W, 3]`` array per prompt."""
+        return self._inner.inpaint(list(prompts), params, image, mask, strength)

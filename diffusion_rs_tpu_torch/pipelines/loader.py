@@ -196,7 +196,7 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
     return flux_params, t5_params
 
 
-def _check_unported(offloading, mesh, t5_mask_pads, step_progress, compile_cache) -> None:
+def _check_unported(offloading, mesh, compile_cache) -> None:
     """The JAX loader's options that the port does not carry yet, resolved
     the way the JAX package resolves them (argument, else its environment
     variable)."""
@@ -206,14 +206,6 @@ def _check_unported(offloading, mesh, t5_mask_pads, step_progress, compile_cache
         _not_ported("compile_cache", "Queue 1 item 4")
     if mesh is not None and mesh.shape.get("tp", 1) > 1:
         _not_ported(f"a mesh with tp={mesh.shape['tp']}", "Queue 1 item 5")
-    mask = (t5_mask_pads if t5_mask_pads is not None
-            else os.environ.get("DIFFUSION_RS_TPU_T5_MASK_PADS") == "1")
-    if mask:
-        _not_ported("t5_mask_pads", "Queue 1 item 1")
-    progress = (step_progress if step_progress is not None
-                else os.environ.get("DIFFUSION_RS_TPU_PROGRESS"))
-    if progress:
-        _not_ported("step_progress", "Queue 1 item 1")
 
 
 def _component_store(loader: FileLoader, prefix: str, dtype, device) -> VarStore:
@@ -275,7 +267,7 @@ def load_pipeline(
     compile_cache: Optional[str] = None,
     device="cuda",
 ) -> FluxPipeline:
-    _check_unported(offloading, mesh, t5_mask_pads, step_progress, compile_cache)
+    _check_unported(offloading, mesh, compile_cache)
     device = resolve_device(device)
     if mesh is not None and device.type == "cuda":
         device = mesh.device  # every rank loads the whole (replicated) weights
@@ -341,4 +333,5 @@ def load_pipeline(
         clip_params=clip_params, clip_cfg=clip_cfg, vae_params=vae_params,
         vae_cfg=vae_cfg, scheduler=scheduler, t5_tokenizer=t5_tokenizer,
         clip_tokenizer=clip_tokenizer, dtype=dt, device=device, mesh=mesh,
+        t5_mask_pads=t5_mask_pads, step_progress=step_progress,
     )

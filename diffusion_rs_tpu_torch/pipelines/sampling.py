@@ -5,11 +5,13 @@ Noise contract: the JAX package draws its noise with ``jax.random``, which
 PyTorch cannot reproduce. The port draws ``torch.randn`` from a
 ``torch.Generator`` on the target device, seeded with the request's seed, so
 one seed gives one image on one device type; tests that compare the two
-packages inject the same noise array into both.
+packages inject the same noise array into both. The same holds for the VAE
+encoder's sample of img2img and inpainting (:func:`get_encode_noise`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -27,6 +29,18 @@ def get_noise(seed: int, num_samples: int, height: int, width: int,
     gen = torch.Generator(device=device).manual_seed(int(seed))
     return torch.randn((num_samples, 16, h, w), generator=gen,
                        dtype=torch.float32, device=device)
+
+
+def get_encode_noise(seed: int, shape: Tuple[int, ...], dtype: torch.dtype,
+                     device) -> torch.Tensor:
+    """The standard-normal draw of the VAE encoder's Gaussian sample for a
+    request's init images, ``shape`` the whole batch's NHWC latent, in the
+    latent's ``dtype``. It comes from a generator seeded with
+    ``seed + 1``, the port's stand-in for JAX's ``fold_in(key, 1)``, so it
+    differs from the seed's denoise noise."""
+    gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).to(dtype)
 
 
 def pack_latents(img: torch.Tensor) -> torch.Tensor:
@@ -60,17 +74,36 @@ def make_txt_ids(bs: int, txt_len: int, device) -> torch.Tensor:
 
 def denoise(step_fn: Callable[[torch.Tensor, float], torch.Tensor],
             img: torch.Tensor, sigmas: np.ndarray,
-            on_step: Optional[Callable[[int], None]] = None) -> torch.Tensor:
+            on_step: Optional[Callable[[int], None]] = None,
+            inpaint: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+            progress: Optional[bool] = None) -> torch.Tensor:
     """Euler flow-match loop: per window (t_curr, t_prev),
     img += pred(img, t_curr) * (t_prev - t_curr), with an f32 carry.
     ``sigmas`` holds num_steps+1 f32 values; ``on_step(i)`` runs after
-    each step."""
+    each step.
+
+    ``inpaint``: packed f32 ``(mask, init, noise)`` ([B, S, 1 or C], [B, S,
+    C], [B, S, C]). After every update the carry becomes
+    ``mask * x + (1 - mask) * (tp * noise + (1 - tp) * init)``: the unmasked
+    tokens follow the init latent renoised to t_prev, and equal it exactly
+    after the last step (t_prev = 0). ``progress`` prints ``denoise step
+    i/n (t=...)`` after each prediction; None reads DIFFUSION_RS_TPU_PROGRESS,
+    as in JAX."""
+    report = (progress if progress is not None
+              else bool(os.environ.get("DIFFUSION_RS_TPU_PROGRESS")))
     sig = np.asarray(sigmas, np.float32)
+    n = len(sig) - 1
     x = img.float()
-    for i in range(len(sig) - 1):
+    for i in range(n):
         tc, tp = sig[i], sig[i + 1]
         pred = step_fn(x, float(tc))
+        if report:
+            print(f"denoise step {i + 1}/{n} (t={float(tc):.3f})")
         x = x + pred.float() * float(tp - tc)  # f32 difference, as in JAX
+        if inpaint is not None:
+            mask, init, noise = inpaint
+            renoised = float(tp) * noise + float(1.0 - tp) * init  # f32 1 - tp
+            x = mask * x + (1.0 - mask) * renoised
         if on_step is not None:
             on_step(i)
     return x

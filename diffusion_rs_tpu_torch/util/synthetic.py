@@ -318,11 +318,9 @@ def init_clip_params(seed: int, cfg: ClipTextConfig, dtype=torch.bfloat16,
     }
 
 
-def init_vae_decoder_params(seed: int, cfg: VAEConfig, dtype=torch.bfloat16,
-                            device="cuda"):
-    """Dense VAE decoder params (HWIO filters, NHWC activations)."""
-    device = resolve_device(device)
-    gen = _gen(seed, device)
+def _vae_makers(gen, dtype, device):
+    """The VAE factories' layer makers, drawing from ``gen`` in call order:
+    conv, resnet and mid block (HWIO filters, zero biases, unit norms)."""
 
     def conv(kh, kw, cin, cout):
         return Conv(w=_normal(gen, (kh, kw, cin, cout), (kh * kw * cin) ** -0.5,
@@ -342,14 +340,25 @@ def init_vae_decoder_params(seed: int, cfg: VAEConfig, dtype=torch.bfloat16,
                 "norm2": gn(cout), "conv2": conv(3, 3, cout, cout),
                 "shortcut": None if cin == cout else conv(1, 1, cin, cout)}
 
+    def mid(c, attn: bool):
+        return {
+            "res1": res(c, c),
+            "attn": {"norm": gn(c), "q": lin(c, c), "k": lin(c, c), "v": lin(c, c),
+                     "out": lin(c, c)} if attn else None,
+            "res2": res(c, c),
+        }
+
+    return conv, gn, res, mid
+
+
+def init_vae_decoder_params(seed: int, cfg: VAEConfig, dtype=torch.bfloat16,
+                            device="cuda"):
+    """Dense VAE decoder params (HWIO filters, NHWC activations)."""
+    device = resolve_device(device)
+    conv, gn, res, mid_block = _vae_makers(_gen(seed, device), dtype, device)
     boc = cfg.block_out_channels
     c = boc[-1]
-    mid = {
-        "res1": res(c, c),
-        "attn": {"norm": gn(c), "q": lin(c, c), "k": lin(c, c), "v": lin(c, c),
-                 "out": lin(c, c)} if cfg.mid_block_add_attention else None,
-        "res2": res(c, c),
-    }
+    mid = mid_block(c, cfg.mid_block_add_attention)
     up = []
     for i, cout in enumerate(reversed(boc)):
         resnets = []
@@ -369,6 +378,39 @@ def init_vae_decoder_params(seed: int, cfg: VAEConfig, dtype=torch.bfloat16,
         "decoder": decoder,
         "post_quant_conv": conv(1, 1, cfg.latent_channels, cfg.latent_channels)
         if cfg.use_post_quant_conv else None,
+    }
+
+
+def init_vae_encoder_params(seed: int, cfg: VAEConfig, dtype=torch.bfloat16,
+                            device="cuda"):
+    """Dense VAE encoder params and ``quant_conv`` (HWIO filters, NHWC
+    activations), from a generator of their own: merged with
+    :func:`init_vae_decoder_params`'s, they leave the decoder's draws as
+    they were."""
+    device = resolve_device(device)
+    conv, gn, res, mid_block = _vae_makers(_gen(seed, device), dtype, device)
+    boc = cfg.block_out_channels
+    conv_in = conv(3, 3, cfg.in_channels, boc[0])
+    down = []
+    c = boc[0]
+    for i, cout in enumerate(boc):
+        resnets = []
+        for _ in range(cfg.layers_per_block):
+            resnets.append(res(c, cout))
+            c = cout
+        down.append({"resnets": resnets,
+                     "downsample": conv(3, 3, cout, cout) if i != len(boc) - 1 else None})
+    encoder = {
+        "conv_in": conv_in,
+        "down": down,
+        "mid": mid_block(c, cfg.mid_block_add_attention),
+        "norm_out": gn(c),
+        "conv_out": conv(3, 3, c, 2 * cfg.latent_channels),
+    }
+    return {
+        "encoder": encoder,
+        "quant_conv": conv(1, 1, 2 * cfg.latent_channels, 2 * cfg.latent_channels)
+        if cfg.use_quant_conv else None,
     }
 
 

@@ -16,7 +16,8 @@ and the fast16 decodes (K12
 for nf4 / fp4, K13 for every affine format and Q4_K with s == 0 groups:
 decoded weights bit for bit through the identity) with their dispatch,
 K14's four entries (the output and per-row log-sum-exp of K3 and of the
-int8 modes) and a two-rank ring on one card over gloo. The Hopper bodies
+int8 modes), a two-rank ring on one card over gloo, and K1, K2 and K4
+launched on two cards from one process (needs two). The Hopper bodies
 (TMA + wgmma) of the bf16 flash kernels and of the affine kernels are also
 held at FLUX's lengths (S4608, the ragged S4112, below one tile), with K7's
 rotation pass ``rope_qk`` bit for bit, the affine decoded weights bit for
@@ -583,6 +584,38 @@ def test_ring_nccl_one_card_per_rank(dev, tmp_path):
     spawn(cuda_ring_rank, 2, "nccl", args=(str(tmp_path),))
     parts = _check_cuda_ring(dev, tmp_path, 2, q, k, v, modes)
     assert [int(p["device"]) for p in parts] == [0, 1]
+
+
+@pytest.mark.parametrize("kind,fmt", [("q8t", None), ("nf4", None), ("affine", "q4_0")])
+def test_qmm_kernels_on_two_cards_in_one_process(dev, kind, fmt):
+    """K1, K2 and K4 launched on cuda:0 and then on cuda:1 from one process:
+    a function's shared-memory limit and the SM count are per device, so the
+    second card's first launch must raise its own limit (the launchers keep
+    both per device). Each card's product equals its plain version (K1 bit
+    for bit, K2 within 2e-3, K4 within the summation-order bound). Needs two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    name = {"q8t": "qmm_s8", "nf4": "qmm_nf4", "affine": "qmm_affine"}[kind]
+    for index in (0, 1):
+        card = torch.device("cuda", index)
+        gen = torch.Generator(device=card).manual_seed(3)
+        if kind == "affine":
+            qt = _affine_qtensor(fmt, 768, 384, seed=3).map(lambda t: t.to(card))
+        else:
+            qt = random_qtensor(gen, 768, 384, kind=kind, device=card)
+        x = torch.randn((130, 768), generator=gen, device=card).bfloat16()
+        before = _cuda.launch_counts()[name]
+        y = qmatmul.quantized_matmul(x, qt)
+        torch.cuda.synchronize(card)
+        assert _cuda.launch_counts()[name] == before + 1 and y.device == card
+        if kind == "q8t":
+            assert torch.equal(y, qmatmul.qmm_s8_plain(x, qt.packed, qt.scale, torch.bfloat16))
+        elif kind == "nf4":
+            assert _summed_rel(y, qmatmul.qmm_dequant_plain(x, qt, torch.bfloat16)) <= 2e-3
+        else:
+            ref = qmatmul.qmm_dequant_plain(x, qt, torch.bfloat16)
+            assert _within_summation_order(y, ref, x, qt)
 
 
 # ---------------------------------------------------------------------------

@@ -153,6 +153,7 @@ def pipeline_rank(rank: int, tmp: str) -> None:
     latents = pipe.forward_latents(prompts, params)
     grouped = Pipeline(ModelSource.from_model_id(str(tmp / "ckpt")), silent=True, mesh=mesh,
                        device="cpu", fuse="grouped")._inner
+    img2img_rank(rank, tmp, pipe, gen, prompts)
     np.savez(tmp / f"pipe_{rank}.npz", images=images, latents=latents, rings=np.array(rings),
              digest=_digest(pipe._inner.flux_params),
              fallback=np.array(any(WARN_TEXT in m for m in warned.messages)),
@@ -160,6 +161,24 @@ def pipeline_rank(rank: int, tmp: str) -> None:
              grouped_fused="qkv" in grouped.flux_params["double"]["img_attn"],
              grouped_warned=np.array(any("fuse='grouped' has no mesh partitioning rule" in m
                                          for m in warned.messages)))
+
+
+def img2img_rank(rank: int, tmp: Path, pipe, gen: dict, prompts) -> None:
+    """img2img (strength 0.5) and inpaint (0.75) through ``pipe`` (under the
+    mesh) on ``tmp/i2i.npz``'s init images and latent-size mask, with the
+    port's own encoder sample for the seed: saves the packed latents of both
+    to ``tmp/i2i_<rank>.npz``."""
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+
+    inp = np.load(tmp / "i2i.npz")
+    images = list(inp["images"])
+    params = DiffusionGenerationParams(**gen)
+    out = {"img2img": pipe._inner.forward_arrays(prompts, params, init_image=images,
+                                                 strength=0.5, output_type="latent"),
+           "inpaint": pipe._inner.forward_arrays(prompts, params, init_image=images,
+                                                 strength=0.75, mask_image=inp["mask"],
+                                                 output_type="latent")}
+    np.savez(tmp / f"i2i_{rank}.npz", **out)
 
 
 def mesh_rank(rank: int, tmp: str) -> None:
