@@ -7,7 +7,8 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
 ``[t s] <phase> done`` marks the time since the start after each group):
 
 1. print the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions; build every CUDA kernel from ``diffusion_rs_tpu_torch/csrc``;
+   versions, the host's memory (MemTotal, MemAvailable) and the PCIe
+   link; build every CUDA kernel from ``diffusion_rs_tpu_torch/csrc``;
    the SASS line: per kernel function its instruction count and its
    HGMMA / IGMMA / HMMA / IMMA instructions (cuobjdump), failing unless
    every wgmma body (K1, K2, the bf16 and int8 flash bodies, the affine
@@ -41,7 +42,21 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    img2img at 1.0, each ``--steps`` steps truncated to ``round(steps *
    strength)``, with exact K1 / K2 / K3 launch counts and the image-encode,
    step and decode times): the inpaint's unmasked latent must equal the
-   packed init latent, and the strength-1.0 latent phase 4's;
+   packed init latent, and the strength-1.0 latent phase 4's; then phase
+   4c (Offloading.Full): phase 4's four components registered in a
+   HostOffload (one exact-size pinned host buffer each; the process's
+   VmRSS and the host's MemAvailable around it), one ``--steps`` image through
+   ``forward_arrays`` with each on the card only around its stage, its
+   latent and launches equal to phase 4's, then per component its bytes,
+   its ``resident`` copy time and the allocated bytes around ``release``
+   (which must fall by the component's bytes); and phase 4d
+   (Offloading.Stream): phase 4's FLUX weights packed block by block into
+   pinned host buffers (pack time, pinned GiB, VmRSS and MemAvailable
+   around it), a 1-step warm-up, then the
+   ``--steps`` image at lookahead 2 and at lookahead 1, each latent and its
+   launches equal to phase 4's, with the step median, the peak device
+   memory and ``StreamedFlux.overlap_report``; 4c and 4d fail when the
+   host's MemAvailable is below their need;
 6. a GGUF round trip at full width: the port's writer makes a BFL-named
    Q4_0 FLUX file with 1 double + 1 single block (random codes, f16
    scales), ``load_flux_transformer`` loads it onto the card (config and
@@ -88,6 +103,11 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    whole, bf16) written by the port, ``Pipeline(isq="q4_k", imatrix=,
    lora=)`` onto the card, its planes equal to the in-memory weight options
    on the same weights, and one 1024x1024 step with exact K13 launches;
+   before that, the same directory through ``Pipeline(offloading=Full |
+   Stream, device="cuda")``: where each component lands (pinned host
+   copies; under Stream the encoders and the VAE on the card), the
+   process's resident memory around each load, and a 1-step image whose
+   latent, image and launches equal the resident load's;
 15. config S, last: phase 4's weights (made again from their seed) and
    image sequence-parallel over two ranks that share the card
    (``parallel.spawn``, gloo through pinned host memory; the ranks open the
@@ -99,8 +119,8 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    through the tiled VAE decode (two 128-pixel latent tiles).
 
 Phases 7, 9 and 11-13 run 5 double + 10 single blocks at FLUX.1-dev's
-widths (EARLIER_DEPTH; ``--full-depth`` restores 19 + 38); phases 4, 5, 8
-and 10 run the full depth.
+widths (EARLIER_DEPTH; ``--full-depth`` restores 19 + 38); phases 4, 4c,
+4d, 5, 8 and 10 run the full depth.
 
 Phase 2 also holds K7's rotation pass (``rope_qk``) to
 ``rope_halfsplit_seqmajor`` bit for bit on column slices of a fused qkv at
@@ -1065,7 +1085,7 @@ def make_params(cfgs, seed: int, device: str, flux_kind: str = "q8t") -> dict:
     )
 
 
-def make_pipeline(cfgs, params: dict, device: str, mesh=None):
+def make_pipeline(cfgs, params: dict, device: str, mesh=None, offload=None):
     import torch
 
     from diffusion_rs_tpu_torch import FluxPipeline
@@ -1076,7 +1096,7 @@ def make_pipeline(cfgs, params: dict, device: str, mesh=None):
         scheduler=SchedulerConfig(use_dynamic_shifting=True),
         t5_tokenizer=WordTokenizer(cfgs["t5_cfg"].vocab_size),
         clip_tokenizer=WordTokenizer(cfgs["clip_cfg"].vocab_size),
-        dtype=torch.bfloat16, device=device, mesh=mesh, **cfgs, **params,
+        dtype=torch.bfloat16, device=device, mesh=mesh, offload=offload, **cfgs, **params,
     )
 
 
@@ -1512,6 +1532,213 @@ def image_edit_phase(pipe, prompts, steps: int, init_img, ref_latent) -> None:
           f"summed-rel {summed_rel(lat, ref_latent):.3e}")
     if not same:
         raise SystemExit("img2img at strength 1.0 does not reproduce the txt2img latent")
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable of /proc/meminfo, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, rest = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(rest.split()[0]) * 1024
+    return out
+
+
+def process_rss() -> int:
+    """This process's resident host memory (VmRSS of /proc/self/status), in
+    bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise SystemExit("no VmRSS in /proc/self/status")
+
+
+def require_host_memory(need: int, what: str) -> None:
+    """Fail (no skip) when MemAvailable is below ``need`` bytes."""
+    avail = host_memory()["MemAvailable"]
+    print(f"{what}: needs up to {need / 2**30:.2f} GiB of host memory, MemAvailable "
+          f"{avail / 2**30:.2f} GiB")
+    if avail < need:
+        raise SystemExit(f"{what} needs {need / 2**30:.2f} GiB of host memory; MemAvailable "
+                         f"is {avail / 2**30:.2f} GiB")
+
+
+def full_offload_phase(cfgs, pipe, prompts, steps: int, want: dict, ref: dict) -> None:
+    """Phase 4c, Offloading.Full on phase 4's weights: the four components
+    registered in a HostOffload (pinned host copies; phase 4's device
+    weights stay allocated beside them), then one ``steps``-step 1024x1024
+    image through ``forward_arrays`` with each component on the card only
+    around its stage. Fails unless the latent equals phase 4's (``ref``)
+    bit for bit and the launch counts are phase 4's. Then per component its
+    bytes, the time of its ``resident`` copy, and the allocated bytes before
+    and after ``release``, which must fall by at least the component's
+    bytes."""
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.parallel import HostOffload
+    from diffusion_rs_tpu_torch.util.capacity import tree_device_bytes
+
+    names = ("t5", "clip", "vae", "flux")
+    comps = {n: getattr(pipe, f"{n}_params") for n in names}
+    sizes = {n: tree_device_bytes(p) for n, p in comps.items()}
+    # the pinned buffers take the components' bytes (exact size, 128-byte
+    # leaf offsets); a quarter more leaves the process room
+    require_host_memory(sum(sizes.values()) * 5 // 4, "phase 4c (Offloading.Full)")
+    off = HostOffload()
+    torch.cuda.synchronize()
+    avail, rss = host_memory()["MemAvailable"], process_rss()
+    t0 = time.perf_counter()
+    opipe = make_pipeline(cfgs, {f"{n}_params": p for n, p in comps.items()}, "cuda",
+                          offload=off)
+    pin_s = time.perf_counter() - t0
+    print(f"phase 4c: registered {sum(sizes.values()) / 2**30:.3f} GiB into pinned host "
+          f"memory in {pin_s:.2f} s (" + ", ".join(f"{n} {sizes[n] / 2**30:.3f} GiB"
+                                                    for n in names)
+          + f"); the process's VmRSS grew by {(process_rss() - rss) / 2**30:.3f} GiB, "
+          f"MemAvailable fell by {(avail - host_memory()['MemAvailable']) / 2**30:.3f} GiB")
+    captured = {}
+    denoise_stage = opipe._denoise
+
+    def capture_denoise(*a):
+        captured["latent"] = denoise_stage(*a)
+        return captured["latent"]
+
+    opipe._denoise = capture_denoise
+    params = DiffusionGenerationParams(height=1024, width=1024, num_steps=steps,
+                                       guidance_scale=3.5, seed=7)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = opipe.forward_arrays(prompts, params)
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    tm = opipe.timings
+    steps_ms = [x * 1e3 for x in tm["steps_s"]]
+    same = bool(torch.equal(captured["latent"], ref["latent"]))
+    print(f"phase 4c image {wall:.3f} s: encode {tm['encode_s'] * 1e3:.1f} ms (T5 and CLIP "
+          f"copied in), step median {statistics.median(steps_ms):.2f} ms (phase 4 "
+          f"{ref['step_ms']:.2f}), denoise {tm['denoise_s'] * 1e3:.1f} ms (FLUX copied in), "
+          f"decode {tm['decode_s'] * 1e3:.1f} ms (VAE copied in); peak allocated above the "
+          f"phase's start {peak:.2f} GiB (phase 4: peak {ref['peak']:.2f} GiB with "
+          f"{ref['weights']:.2f} GiB of weights resident); latent equal to phase 4's: {same}")
+    print(f"phase 4c launches { {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise SystemExit(f"phase 4c launch counts {counts} differ from phase 4's {want}")
+    if not same or img.shape != (1, 1024, 1024, 3):
+        raise SystemExit(f"phase 4c: latent equal {same}, image {img.shape}; "
+                         f"{summed_rel(captured['latent'], ref['latent']):.3e} from phase 4's")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for n in names:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        start.record()
+        tree = off.resident(n)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        held = torch.cuda.memory_allocated()
+        del tree
+        off.release(n)
+        after = torch.cuda.memory_allocated()
+        print(f"phase 4c {n}: {sizes[n]} bytes, resident copy {ms:.2f} ms "
+              f"({sizes[n] / ms / 1e6:.2f} GB/s), allocated {before} -> {held} on resident, "
+              f"{held} -> {after} on release (fell {held - after} bytes)")
+        if held - after < sizes[n]:
+            raise SystemExit(f"phase 4c: release of {n} freed {held - after} bytes of "
+                             f"{sizes[n]}")
+
+
+def stream_phase(cfgs, pipe, prompts, steps: int, want: dict, ref: dict) -> None:
+    """Phase 4d, Offloading.Stream on phase 4's FLUX weights: a StreamedFlux
+    packed block by block from the card into pinned host buffers, in a
+    pipeline with phase 4's encoders and VAE; a 1-step warm-up, then the
+    ``steps``-step image at lookahead 2 and again at lookahead 1 (two
+    slots: where a slot-reuse race would show). Fails unless each latent
+    equals phase 4's bit for bit and the launch counts are phase 4's;
+    prints the step medians, the peak device memory above the phase's start
+    and overlap_report's numbers."""
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch import FluxPipeline
+    from diffusion_rs_tpu_torch.models.flux_streaming import StreamedFlux
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.pipelines.sampling import pack_latents
+    from diffusion_rs_tpu_torch.util.capacity import tree_device_bytes
+
+    flux_bytes = tree_device_bytes(pipe.flux_params)
+    require_host_memory(flux_bytes * 5 // 4, "phase 4d (Offloading.Stream)")
+    torch.cuda.synchronize()
+    avail, rss = host_memory()["MemAvailable"], process_rss()
+    t0 = time.perf_counter()
+    sf = StreamedFlux(pipe.flux_params, cfgs["flux_cfg"], device="cuda")
+    pack_s = time.perf_counter() - t0
+    n_blocks = len(sf.dbl_bufs) + len(sf.sgl_bufs)
+    print(f"phase 4d: packed {n_blocks} blocks ({sf.dbl_bufs[0].numel()} bytes a double "
+          f"block, {sf.sgl_bufs[0].numel()} a single) into {sf.bytes_per_step / 2**30:.3f} "
+          f"GiB of pinned host memory in {pack_s:.2f} s (the transformer's weights "
+          f"{flux_bytes / 2**30:.3f} GiB); the process's VmRSS grew by "
+          f"{(process_rss() - rss) / 2**30:.3f} GiB, MemAvailable fell by "
+          f"{(avail - host_memory()['MemAvailable']) / 2**30:.3f} GiB")
+    spipe = FluxPipeline(
+        flux_params=None, t5_params=pipe.t5_params, clip_params=pipe.clip_params,
+        vae_params=pipe.vae_params, streamed=sf, scheduler=pipe.scheduler,
+        t5_tokenizer=pipe.t5_tokenizer, clip_tokenizer=pipe.clip_tokenizer,
+        dtype=pipe.dtype, device="cuda", **cfgs)
+    captured = {}
+    stage = spipe._denoise_streamed
+
+    def capture(*a):
+        captured["args"] = a
+        captured["latent"] = stage(*a)
+        return captured["latent"]
+
+    spipe._denoise_streamed = capture
+    t0 = time.perf_counter()
+    spipe.forward_arrays(prompts, DiffusionGenerationParams(
+        height=1024, width=1024, num_steps=1, guidance_scale=3.5, seed=7))
+    print(f"phase 4d warm-up image (1 step) in {time.perf_counter() - t0:.1f} s")
+    params = DiffusionGenerationParams(height=1024, width=1024, num_steps=steps,
+                                       guidance_scale=3.5, seed=7)
+    for look in ("2", "1"):
+        with env(DIFFUSION_RS_TPU_STREAM_LOOKAHEAD=look):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            img = spipe.forward_arrays(prompts, params)
+            wall = time.perf_counter() - t0
+            counts = _cuda.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        steps_ms = [x * 1e3 for x in spipe.timings["steps_s"]]
+        same = bool(torch.equal(captured["latent"], ref["latent"]))
+        print(f"phase 4d lookahead {look}: image {wall:.3f} s, step median "
+              f"{statistics.median(steps_ms):.2f} ms ({min(steps_ms):.1f}-{max(steps_ms):.1f}; "
+              f"phase 4 resident {ref['step_ms']:.2f}), peak allocated above the phase's "
+              f"start {peak:.2f} GiB (the ring {int(look) + 1} x "
+              f"{max(sf.dbl_bufs[0].numel(), sf.sgl_bufs[0].numel()) / 2**30:.3f} GiB; "
+              f"phase 4: peak {ref['peak']:.2f} GiB with {ref['weights']:.2f} GiB of weights); "
+              f"latent equal to phase 4's: {same}; card {card_state()}")
+        print(f"phase 4d lookahead {look} launches { {k: v for k, v in counts.items() if v} }")
+        if counts != want:
+            raise SystemExit(f"phase 4d lookahead {look}: launch counts {counts} differ "
+                             f"from phase 4's {want}")
+        if not same or img.shape != (1, 1024, 1024, 3):
+            raise SystemExit(f"phase 4d lookahead {look}: latent equal {same}, image "
+                             f"{img.shape}; {summed_rel(captured['latent'], ref['latent']):.3e}"
+                             " from phase 4's")
+    txt, y, _, guidance, noise = captured["args"]
+    img = pack_latents(noise.to(spipe.dtype))
+    rep = sf.overlap_report(img, txt, y, guidance, spipe._pe(txt, noise), iters=2)
+    print("phase 4d overlap_report " + json.dumps(rep))
 
 
 def write_bfl_q4_0_file(path, cfg, seed: int) -> dict:
@@ -2100,189 +2327,60 @@ def isq_images(encoders, prompts, steps: int, cfg):
     return counts
 
 
-def write_diffusers_dir(root, cfgs: dict, seed: int) -> None:
-    """A diffusers-layout FLUX.1-dev directory written by the port: random
-    bf16 weights (normal, std 1/sqrt(K) for linears) named as the published
-    checkpoint names them, with its configs (dev: guidance embedder, dynamic
-    shift) and small tokenizer files (a character BPE for CLIP, a word-level
-    T5 tokenizer; ids stay inside the vocabularies)."""
-    import json
-    from pathlib import Path
-
+def offloaded_loads(root, prompts, dense) -> None:
+    """The directory at ``root`` loaded again through ``Pipeline(offloading=
+    Offloading.Full | Stream, device="cuda")``, the user's entry point:
+    under Full every component's host copy must be pinned, under Stream the
+    transformer's blocks pinned and the encoders and the VAE on the card.
+    A 1-step 1024x1024 image of each (its latent, then the decoded image)
+    must equal ``dense``'s (the resident load of the same directory) bit
+    for bit, with the same launches. Prints each load's time and the
+    process's resident memory before and after it."""
+    import numpy as np
     import torch
-    from tokenizers import Tokenizer, models, pre_tokenizers
 
-    from diffusion_rs_tpu_torch.io.safetensors import save_safetensors
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams, ModelSource, Offloading
+    from diffusion_rs_tpu_torch import Pipeline
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.util.tree import tree_leaves
 
-    root = Path(root)
-    gen = torch.Generator().manual_seed(seed)
-    fc, tc, cc, vc = cfgs["flux_cfg"], cfgs["t5_cfg"], cfgs["clip_cfg"], cfgs["vae_cfg"]
-    for d in ("scheduler", "text_encoder", "text_encoder_2", "tokenizer", "tokenizer_2",
-              "transformer", "vae"):
-        (root / d).mkdir(parents=True, exist_ok=True)
+    params = DiffusionGenerationParams(height=1024, width=1024, num_steps=1,
+                                       guidance_scale=3.5, seed=7)
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen) * std).to(torch.bfloat16)
+    def run(pipe):
+        _cuda.reset_launch_counts()
+        lat = pipe.forward_arrays(prompts, params, output_type="latent")
+        return lat, pipe.forward_arrays(prompts, params), _cuda.launch_counts()
 
-    def ones(n):
-        return torch.ones(n, dtype=torch.bfloat16)
-
-    def zeros(n):
-        return torch.zeros(n, dtype=torch.bfloat16)
-
-    def lin(t, name, n_out, n_in, bias=True):
-        t[f"{name}.weight"] = normal((n_out, n_in), n_in ** -0.5)
-        if bias:
-            t[f"{name}.bias"] = zeros(n_out)
-
-    def save(path, t, config=None):
-        save_safetensors(str(root / path), t)
-        if config is not None:
-            (root / Path(path).parent / "config.json").write_text(json.dumps(config))
-
-    (root / "model_index.json").write_text(json.dumps({"_class_name": "FluxPipeline"}))
-    (root / "scheduler/scheduler_config.json").write_text(json.dumps({
-        "_class_name": "FlowMatchEulerDiscreteScheduler", "base_image_seq_len": 256,
-        "base_shift": 0.5, "max_image_seq_len": 4096, "max_shift": 1.15, "shift": 3.0,
-        "use_dynamic_shifting": True}))
-    d, L = cc.projection_dim, cc.num_hidden_layers
-    t = {"text_model.embeddings.token_embedding.weight": normal((cc.vocab_size, d), 0.02),
-         "text_model.embeddings.position_embedding.weight":
-             normal((cc.max_position_embeddings, d), 0.02),
-         "text_model.final_layer_norm.weight": ones(d),
-         "text_model.final_layer_norm.bias": zeros(d)}
-    for i in range(L):
-        p = f"text_model.encoder.layers.{i}"
-        for stub in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            lin(t, f"{p}.self_attn.{stub}", d, d)
-        lin(t, f"{p}.mlp.fc1", cc.intermediate_size, d)
-        lin(t, f"{p}.mlp.fc2", d, cc.intermediate_size)
-        for ln in ("layer_norm1", "layer_norm2"):
-            t[f"{p}.{ln}.weight"], t[f"{p}.{ln}.bias"] = ones(d), zeros(d)
-    save("text_encoder/model.safetensors", t, {
-        "vocab_size": cc.vocab_size, "hidden_size": d, "intermediate_size": cc.intermediate_size,
-        "max_position_embeddings": cc.max_position_embeddings, "num_hidden_layers": L,
-        "num_attention_heads": cc.num_attention_heads, "hidden_act": "quick_gelu"})
-    dm, inner = tc.d_model, tc.num_heads * tc.d_kv
-    t = {"shared.weight": normal((tc.vocab_size, dm), 1.0),
-         "encoder.final_layer_norm.weight": ones(dm),
-         "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
-             normal((tc.relative_attention_num_buckets, tc.num_heads), 1.0)}
-    for i in range(tc.num_layers):
-        p = f"encoder.block.{i}.layer"
-        for k in "qkv":
-            lin(t, f"{p}.0.SelfAttention.{k}", inner, dm, bias=False)
-        lin(t, f"{p}.0.SelfAttention.o", dm, inner, bias=False)
-        t[f"{p}.0.layer_norm.weight"] = ones(dm)
-        lin(t, f"{p}.1.DenseReluDense.wi_0", tc.d_ff, dm, bias=False)
-        lin(t, f"{p}.1.DenseReluDense.wi_1", tc.d_ff, dm, bias=False)
-        lin(t, f"{p}.1.DenseReluDense.wo", dm, tc.d_ff, bias=False)
-        t[f"{p}.1.layer_norm.weight"] = ones(dm)
-    save("text_encoder_2/model.safetensors", t, {
-        "vocab_size": tc.vocab_size, "d_model": dm, "d_kv": tc.d_kv, "d_ff": tc.d_ff,
-        "num_layers": tc.num_layers, "num_heads": tc.num_heads,
-        "relative_attention_num_buckets": tc.relative_attention_num_buckets,
-        "relative_attention_max_distance": tc.relative_attention_max_distance,
-        "layer_norm_epsilon": tc.layer_norm_epsilon, "feed_forward_proj": "gated-gelu"})
-    chars = {chr(c): i for i, c in enumerate(range(32, 127))}
-    (root / "tokenizer/vocab.json").write_text(json.dumps(chars))
-    (root / "tokenizer/merges.txt").write_text("#version: 0.2\n")
-    words = ["<pad>", "</s>", "<unk>", "a", "photo", "of", "cat", "on", "the", "table"]
-    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
-    tok.pre_tokenizer = pre_tokenizers.Whitespace()
-    (root / "tokenizer_2/tokenizer.json").write_text(tok.to_str())
-    h, m = fc.hidden_size, fc.mlp_size
-    t = {}
-    tops = {"x_embedder": (h, fc.in_channels), "context_embedder": (h, fc.joint_attention_dim),
-            "time_text_embed.timestep_embedder.linear_1": (h, 256),
-            "time_text_embed.timestep_embedder.linear_2": (h, h),
-            "time_text_embed.text_embedder.linear_1": (h, fc.pooled_projection_dim),
-            "time_text_embed.text_embedder.linear_2": (h, h),
-            "time_text_embed.guidance_embedder.linear_1": (h, 256),
-            "time_text_embed.guidance_embedder.linear_2": (h, h),
-            "norm_out.linear": (2 * h, h), "proj_out": (fc.in_channels, h)}
-    for name, (o, n) in tops.items():
-        lin(t, name, o, n)
-    for i in range(fc.num_layers):
-        p = f"transformer_blocks.{i}"
-        for name, (o, n) in {
-                "norm1.linear": (6 * h, h), "norm1_context.linear": (6 * h, h),
-                "attn.to_q": (h, h), "attn.to_k": (h, h), "attn.to_v": (h, h),
-                "attn.to_out.0": (h, h), "attn.add_q_proj": (h, h), "attn.add_k_proj": (h, h),
-                "attn.add_v_proj": (h, h), "attn.to_add_out": (h, h),
-                "ff.net.0.proj": (m, h), "ff.net.2": (h, m),
-                "ff_context.net.0.proj": (m, h), "ff_context.net.2": (h, m)}.items():
-            lin(t, f"{p}.{name}", o, n)
-        for k in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
-            t[f"{p}.attn.{k}.weight"] = ones(fc.head_dim)
-    for i in range(fc.num_single_layers):
-        p = f"single_transformer_blocks.{i}"
-        for name, (o, n) in {"attn.to_q": (h, h), "attn.to_k": (h, h), "attn.to_v": (h, h),
-                             "proj_mlp": (m, h), "proj_out": (h, h + m),
-                             "norm.linear": (3 * h, h)}.items():
-            lin(t, f"{p}.{name}", o, n)
-        for k in ("norm_q", "norm_k"):
-            t[f"{p}.attn.{k}.weight"] = ones(fc.head_dim)
-    save("transformer/diffusion_pytorch_model.safetensors", t, {
-        "in_channels": fc.in_channels, "pooled_projection_dim": fc.pooled_projection_dim,
-        "joint_attention_dim": fc.joint_attention_dim,
-        "num_attention_heads": fc.num_attention_heads, "attention_head_dim": fc.head_dim,
-        "axes_dims_rope": list(fc.axes_dim), "num_layers": fc.num_layers,
-        "num_single_layers": fc.num_single_layers, "guidance_embeds": fc.guidance_embeds})
-    t = {}
-
-    def conv(p, cout, cin, k):
-        t[f"{p}.weight"] = normal((cout, cin, k, k), (cin * k * k) ** -0.5)
-        t[f"{p}.bias"] = zeros(cout)
-
-    def gn(p, c):
-        t[f"{p}.weight"], t[f"{p}.bias"] = ones(c), zeros(c)
-
-    def resnet(p, cin, cout):
-        gn(f"{p}.norm1", cin)
-        conv(f"{p}.conv1", cout, cin, 3)
-        gn(f"{p}.norm2", cout)
-        conv(f"{p}.conv2", cout, cout, 3)
-        if cin != cout:
-            conv(f"{p}.conv_shortcut", cout, cin, 1)
-
-    def mid(p, c):
-        resnet(f"{p}.resnets.0", c, c)
-        resnet(f"{p}.resnets.1", c, c)
-        gn(f"{p}.attentions.0.group_norm", c)
-        for k in ("to_q", "to_k", "to_v", "to_out.0"):
-            lin(t, f"{p}.attentions.0.{k}", c, c)
-
-    boc, lpb = vc.block_out_channels, vc.layers_per_block
-    conv("encoder.conv_in", boc[0], vc.in_channels, 3)
-    c = boc[0]
-    for i, cout in enumerate(boc):
-        for j in range(lpb):
-            resnet(f"encoder.down_blocks.{i}.resnets.{j}", c, cout)
-            c = cout
-        if i != len(boc) - 1:
-            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", c, c, 3)
-    mid("encoder.mid_block", c)
-    gn("encoder.conv_norm_out", c)
-    conv("encoder.conv_out", 2 * vc.latent_channels, c, 3)
-    conv("decoder.conv_in", boc[-1], vc.latent_channels, 3)
-    mid("decoder.mid_block", boc[-1])
-    c = boc[-1]
-    for i, cout in enumerate(reversed(boc)):
-        for j in range(lpb + 1):
-            resnet(f"decoder.up_blocks.{i}.resnets.{j}", c, cout)
-            c = cout
-        if i != len(boc) - 1:
-            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", c, c, 3)
-    gn("decoder.conv_norm_out", boc[0])
-    conv("decoder.conv_out", vc.out_channels, boc[0], 3)
-    save("vae/diffusion_pytorch_model.safetensors", t, {
-        "_class_name": "AutoencoderKL", "in_channels": vc.in_channels,
-        "out_channels": vc.out_channels, "block_out_channels": list(boc),
-        "layers_per_block": lpb, "latent_channels": vc.latent_channels,
-        "norm_num_groups": vc.norm_num_groups, "scaling_factor": vc.scaling_factor,
-        "shift_factor": vc.shift_factor, "mid_block_add_attention": vc.mid_block_add_attention,
-        "use_quant_conv": vc.use_quant_conv, "use_post_quant_conv": vc.use_post_quant_conv})
+    ref_lat, ref_img, ref_counts = run(dense)
+    for mode in (Offloading.Full, Offloading.Stream):
+        gc.collect()
+        before = process_rss()
+        t0 = time.perf_counter()
+        pipe = Pipeline(ModelSource.from_model_id(str(root)), silent=True, offloading=mode,
+                        device="cuda")._inner
+        load_s = time.perf_counter() - t0
+        after = process_rss()
+        if mode is Offloading.Full:
+            pinned = all(t.is_pinned() for n in ("t5", "clip", "vae", "flux")
+                         for t in tree_leaves(getattr(pipe, f"{n}_params")))
+            on_card = True
+        else:
+            pinned = all(b.is_pinned() for b in pipe.streamed.dbl_bufs + pipe.streamed.sgl_bufs)
+            on_card = all(t.is_cuda for n in ("t5", "clip", "vae")
+                          for t in tree_leaves(getattr(pipe, f"{n}_params")))
+        lat, img, counts = run(pipe)
+        same = bool(np.array_equal(lat, ref_lat) and np.array_equal(img, ref_img))
+        print(f"loaded with offloading={mode.name} in {load_s:.1f} s: the process's VmRSS "
+              f"{before / 2**30:.2f} -> {after / 2**30:.2f} GiB; host copies pinned {pinned}, "
+              f"resident components on the card {on_card}; 1-step latent and image equal to "
+              f"the resident load's: {same}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if not (pinned and on_card and same) or counts != ref_counts:
+            raise SystemExit(f"offloading={mode.name} through the loader: pinned {pinned}, "
+                             f"on the card {on_card}, equal {same}, launches {counts} against "
+                             f"{ref_counts}")
+        del pipe
 
 
 def isq_file_round_trip(prompts) -> int:
@@ -2305,6 +2403,7 @@ def isq_file_round_trip(prompts) -> int:
     from diffusion_rs_tpu_torch.models.vae import VAEConfig
     from diffusion_rs_tpu_torch.ops import _cuda
     from diffusion_rs_tpu_torch.pipelines.loader import apply_weight_options, load_pipeline
+    from diffusion_rs_tpu_torch.util.synthetic import write_diffusers_dir
 
     cfgs = dict(flux_cfg=dataclasses.replace(FluxConfig(), num_layers=1, num_single_layers=1),
                 t5_cfg=dataclasses.replace(T5Config(), num_layers=1),
@@ -2319,6 +2418,7 @@ def isq_file_round_trip(prompts) -> int:
                               device="cuda")
         if dense.flux_cfg != cfgs["flux_cfg"]:
             raise SystemExit(f"the directory loads as {dense.flux_cfg}")
+        offloaded_loads(f"{tmp}/flux", prompts, dense)
         write_flux_imatrix(f"{tmp}/imatrix.dat", dense.flux_params, seed=ISQ_SEED + 5)
         write_flux_lora(f"{tmp}/lora.safetensors", cfgs["flux_cfg"], seed=ISQ_SEED + 6)
         opts = dict(isq=ISQ_TARGET, imatrix=f"{tmp}/imatrix.dat",
@@ -2594,6 +2694,14 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    mem = host_memory()
+    link = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current,"
+         "pcie.link.gen.max,pcie.link.width.max", "--format=csv,noheader"],
+        capture_output=True, text=True)
+    print(f"host memory: MemTotal {mem['MemTotal'] / 2**30:.2f} GiB, MemAvailable "
+          f"{mem['MemAvailable'] / 2**30:.2f} GiB; PCIe link (gen, width current; gen, width "
+          f"max): {link.stdout.strip() if link.returncode == 0 else 'not available'}")
 
     t_start = time.perf_counter()
 
@@ -2724,6 +2832,8 @@ def main() -> int:
 
     params = DiffusionGenerationParams(height=1024, width=1024, num_steps=args.steps,
                                        guidance_scale=3.5, seed=7)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     before = card_state()
     _cuda.reset_launch_counts()
@@ -2756,6 +2866,20 @@ def main() -> int:
     mark("main path")
     image_edit_phase(pipe, prompts, args.steps, img[0], lat)
     mark("img2img / inpaint")
+
+    # -- phases 4c / 4d: Offloading.Full and Offloading.Stream on phase 4's
+    # weights, each held to phase 4's latent and launches
+    ref = {"latent": lat, "peak": peak, "weights": weights,
+           "step_ms": statistics.median(s * 1e3 for s in tm["steps_s"])}
+    full_offload_phase(cfgs, pipe, prompts, args.steps, want, ref)
+    gc.collect()  # the registry's pinned pages go back before phase 4d
+    mark("Offloading.Full")
+    stream_phase(cfgs, pipe, prompts, args.steps, want, ref)
+    gc.collect()
+    print(f"host memory after phases 4c / 4d: MemAvailable "
+          f"{host_memory()['MemAvailable'] / 2**30:.2f} GiB, the process's VmRSS "
+          f"{process_rss() / 2**30:.2f} GiB")
+    mark("Offloading.Stream")
 
     # -- the GGUF paths: encoders shared with the q8t pipeline ----------------
     encoders = {"cfgs": {k: v for k, v in cfgs.items() if k != "flux_cfg"},

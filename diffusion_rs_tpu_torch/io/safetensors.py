@@ -58,6 +58,7 @@ class SafeTensors:
 
     def __init__(self, buf, base_offset: int = 0, length: Optional[int] = None):
         self._buf = buf
+        self._owned: Dict[str, np.ndarray] = {}
         header_len = struct.unpack_from("<Q", buf, base_offset)[0]
         header = bytes(memoryview(buf)[base_offset + 8: base_offset + 8 + header_len])
         meta = json.loads(header)
@@ -71,10 +72,22 @@ class SafeTensors:
                                             start=data_start + s, end=data_start + e)
 
     @classmethod
-    def from_file(cls, path: str) -> "SafeTensors":
+    def from_file(cls, path: str, parallel_read: bool = False) -> "SafeTensors":
+        """``parallel_read``: read every tensor's bytes into owned buffers
+        with the native threaded span reader (io/native.py) instead of
+        faulting the mmap's pages in on first touch; the mmap views stay
+        when the native library is unavailable, as in JAX."""
         with open(path, "rb") as f:
             buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
-        return cls(buf)
+        st = cls(buf)
+        if parallel_read and st.tensors:
+            from .native import read_spans
+
+            infos = sorted(st.tensors.values(), key=lambda t: t.start)
+            bufs = read_spans(path, [t.start for t in infos], [t.nbytes for t in infos])
+            if bufs is not None:
+                st._owned = {t.name: b for t, b in zip(infos, bufs)}
+        return st
 
     def keys(self):
         return self.tensors.keys()
@@ -87,9 +100,12 @@ class SafeTensors:
 
     def numpy(self, name: str) -> np.ndarray:
         """A zero-copy numpy view of the stored bytes (bf16 and fp8 as their
-        unsigned-integer bits)."""
+        unsigned-integer bits), or of the owned buffer of a parallel read."""
         ti = self.tensors[name]
         dt = np.dtype(_DTYPES[ti.dtype][0])
+        owned = self._owned.get(name)
+        if owned is not None:
+            return owned.view(dt).reshape(ti.shape)
         arr = np.frombuffer(self._buf, dtype=dt, count=ti.nbytes // dt.itemsize,
                             offset=ti.start)
         return arr.reshape(ti.shape)

@@ -21,6 +21,12 @@ def load_t5_tokenizer_from_bytes(data: bytes):
     return Tokenizer.from_str(data.decode("utf-8"))
 
 
+def load_t5_tokenizer(path: str):
+    from tokenizers import Tokenizer
+
+    return Tokenizer.from_file(path)
+
+
 def load_clip_bpe_tokenizer(vocab_json: bytes, merges_txt: bytes):
     """Bare BPE over vocab + merges; the first merges line (the "#version"
     header) is skipped."""

@@ -26,6 +26,7 @@ per sample and the same on every rank.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -328,14 +329,19 @@ def flux_forward(params: Params, cfg: FluxConfig, img: torch.Tensor,
                  guidance: Optional[torch.Tensor] = None,
                  txt_ids: Optional[torch.Tensor] = None,
                  img_ids: Optional[torch.Tensor] = None,
-                 pe=None, mesh=None) -> torch.Tensor:
+                 pe=None, mesh=None, blocks=None) -> torch.Tensor:
     """Full MMDiT forward. img [B, S_img, in_channels] packed patches,
     txt [B, S_txt, joint_attention_dim], t [B], y [B, pooled_dim].
 
     ``mesh`` (parallel.make_mesh) with sp > 1: ``img`` holds this rank's
     rows of the image tokens (parallel.sequence_sharding), ``txt`` and the
     position ids / ``pe`` the whole sequence; the result is this rank's
-    image rows."""
+    image rows.
+
+    ``blocks``: an iterator over the per-layer block params, the double
+    blocks then the single blocks, taken one at a time as each block runs
+    (models/flux_streaming.py streams them); None takes views of the
+    stacked ``params["double"]`` / ``params["single"]``."""
     dtype = img.dtype
     if pe is None:
         pe = compute_pe(cfg, txt_ids, img_ids)
@@ -349,13 +355,16 @@ def flux_forward(params: Params, cfg: FluxConfig, img: torch.Tensor,
     txt_h = linear(txt, params["txt_in"])
     img_h = linear(img, params["img_in"])
     vec = conditioning_vector(params, cfg, t, y, guidance, dtype)
+    if blocks is None:
+        blocks = itertools.chain(
+            (take_layer(params["double"], i) for i in range(cfg.num_layers)),
+            (take_layer(params["single"], i) for i in range(cfg.num_single_layers)))
     txt_len = txt_h.shape[1]
-    for i in range(cfg.num_layers):
-        img_h, txt_h = double_block(take_layer(params["double"], i), img_h,
-                                    txt_h, vec, cos, sin, cfg, seq)
+    for _ in range(cfg.num_layers):
+        img_h, txt_h = double_block(next(blocks), img_h, txt_h, vec, cos, sin, cfg, seq)
     x = torch.cat([txt_h, img_h], dim=1)
-    for i in range(cfg.num_single_layers):
-        x = single_block(take_layer(params["single"], i), x, vec, cos, sin, cfg, seq)
+    for _ in range(cfg.num_single_layers):
+        x = single_block(next(blocks), x, vec, cos, sin, cfg, seq)
     return final_layer(params["final"], x[:, txt_len:], vec)
 
 

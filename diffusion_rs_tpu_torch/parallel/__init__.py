@@ -1,6 +1,6 @@
 """Parallelism over ``torch.distributed`` (port of ``parallel/``): the
-(dp, sp, tp) mesh, the process-group start-up, and a launcher for N ranks on
-one host. Tensor parallelism and host offload are not ported yet."""
+(dp, sp, tp) mesh, the process-group start-up, a launcher for N ranks on
+one host, and host-memory offload. Tensor parallelism is not ported yet."""
 
 from .launch import spawn  # noqa: F401
 from .mesh import (  # noqa: F401
@@ -12,3 +12,4 @@ from .mesh import (  # noqa: F401
     sequence_sharding,
 )
 from .multihost import init_multihost, local_device  # noqa: F401
+from .offload import HostOffload  # noqa: F401

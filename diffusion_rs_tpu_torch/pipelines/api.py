@@ -25,9 +25,14 @@ from .flux_pipeline import DiffusionGenerationParams
 
 
 class Offloading(enum.Enum):
-    """Memory-capacity modes: ``Full`` swaps whole components between host
-    and device around their use, ``Stream`` streams transformer blocks. Not
-    ported yet (ROADMAP Queue 1 item 3): passing either raises."""
+    """Memory-capacity modes: ``Full`` keeps every component in pinned host
+    memory and copies each to the device around its use
+    (parallel.HostOffload); ``Stream`` keeps the transformer's blocks in
+    host memory and streams them to the device block by block during the
+    denoise (models/flux_streaming.StreamedFlux,
+    DIFFUSION_RS_TPU_STREAM_LOOKAHEAD blocks ahead, default 2), the
+    encoders and the VAE resident. ``Stream`` refuses a mesh and
+    inpainting."""
 
     Full = "full"
     Stream = "stream"
@@ -97,9 +102,10 @@ class Pipeline:
     whole weights; a mesh with tp > 1 raises. ``t5_mask_pads`` (mask T5's
     pad keys; None: DIFFUSION_RS_TPU_T5_MASK_PADS=1) and ``step_progress``
     (a line per denoise step; None: DIFFUSION_RS_TPU_PROGRESS) resolve once,
-    at construction. ``offloading`` and ``compile_cache`` keep the JAX
-    package's names but are not ported yet: setting one raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    at construction. ``offloading`` (an :class:`Offloading`) keeps the
+    weights in host memory. ``compile_cache`` keeps the JAX package's name
+    but is not ported yet: setting it raises ``NotImplementedError`` naming
+    its ROADMAP item."""
 
     def __init__(
         self,

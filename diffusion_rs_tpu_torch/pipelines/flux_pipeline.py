@@ -16,7 +16,14 @@ Pillow.
 
 The JAX stage seams stay methods (``_encode``, ``_encode_image``,
 ``_denoise``, ``_decode``), so tests can inject the same noise into both
-packages. Offload is not ported yet.
+packages. They are also the offload seams: with ``offload``
+(parallel.HostOffload, ``Offloading.Full``) each stage acquires its
+components' device copies and releases them when it ends (``_resident``,
+the JAX pipeline's ``_component`` / ``_release``); with
+``streamed`` (models/flux_streaming.StreamedFlux, ``Offloading.Stream``)
+the denoise streams the transformer's blocks from host memory
+(``_denoise_streamed``; img2img passes its start latent in as the noise,
+inpainting raises).
 
 Under a mesh (``parallel.make_mesh``; one process per rank, SPMD) every
 rank tokenizes the whole batch and encodes its dp rows, draws the whole
@@ -30,6 +37,7 @@ decode, so that ``forward_arrays`` returns the same images on every rank.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -95,13 +103,22 @@ class FluxPipeline:
     ``t5_mask_pads`` (masks T5's pad keys out of attention; the reference
     attends them) and ``step_progress`` (one line per denoise step) resolve
     once here, from DIFFUSION_RS_TPU_T5_MASK_PADS=1 / DIFFUSION_RS_TPU_PROGRESS
-    when None, and are read-only after, as in JAX."""
+    when None, and are read-only after, as in JAX.
+
+    ``offload`` (parallel.HostOffload) takes the host copies of ``t5``,
+    ``clip``, ``vae`` and, unless ``streamed`` (a StreamedFlux, with
+    ``flux_params`` None) holds the transformer, ``flux``; the pipeline
+    keeps the trees ``register`` returns. ``streamed`` with a ``mesh``
+    raises ``ValueError``."""
 
     def __init__(self, *, flux_params, flux_cfg: FluxConfig, t5_params,
                  t5_cfg: T5Config, clip_params, clip_cfg: ClipTextConfig,
                  vae_params, vae_cfg: VAEConfig, scheduler: SchedulerConfig,
                  t5_tokenizer, clip_tokenizer, dtype=torch.bfloat16,
-                 device="cuda", mesh=None, t5_mask_pads=None, step_progress=None):
+                 device="cuda", mesh=None, t5_mask_pads=None, step_progress=None,
+                 offload=None, streamed=None):
+        if mesh is not None and streamed is not None:
+            raise ValueError("mesh and Offloading.Stream are mutually exclusive")
         self.device = resolve_device(device)
         if mesh is not None and self.device.type == "cuda":
             self.device = mesh.device
@@ -124,6 +141,14 @@ class FluxPipeline:
         self._step_progress = bool(
             step_progress if step_progress is not None
             else os.environ.get("DIFFUSION_RS_TPU_PROGRESS"))
+        self.offload = offload
+        self.streamed = streamed
+        if offload is not None:
+            for name in ("t5", "clip", "flux", "vae"):
+                if name != "flux" or flux_params is not None:
+                    attr = f"{name}_params"
+                    setattr(self, attr, offload.register(name, getattr(self, attr),
+                                                         device=self.device))
         # Stage wall times of the last forward_arrays call, in seconds
         # (encode, init-image encode, per denoise step, decode), each ending
         # in a device sync.
@@ -144,13 +169,27 @@ class FluxPipeline:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
+    # -- component residency (offload seams) ------------------------------------
+
+    @contextlib.contextmanager
+    def _resident(self, name: str):
+        """The component's params on the device for the block's duration (the
+        JAX pipeline's ``_component`` / ``_release`` pair)."""
+        if self.offload is None or not self.offload.manages(name):
+            yield getattr(self, f"{name}_params")
+            return
+        try:
+            yield self.offload.resident(name)
+        finally:
+            self.offload.release(name)
+
     # -- stages ---------------------------------------------------------------
 
     @torch.no_grad()
     def _encode(self, t5_ids: torch.Tensor, clip_ids: torch.Tensor):
-        txt = t5_encode(self.t5_params, self.t5_cfg, t5_ids,
-                        mask_pads=self._t5_mask_pads).to(self.dtype)
-        _, y = clip_encode(self.clip_params, self.clip_cfg, clip_ids)
+        with self._resident("t5") as t5, self._resident("clip") as clip:
+            txt = t5_encode(t5, self.t5_cfg, t5_ids, mask_pads=self._t5_mask_pads).to(self.dtype)
+            _, y = clip_encode(clip, self.clip_cfg, clip_ids)
         return txt, y.to(self.dtype)
 
     @torch.no_grad()
@@ -166,15 +205,33 @@ class FluxPipeline:
             img = rows.local(img)
             if inpaint is not None:
                 inpaint = tuple(rows.local(p) for p in inpaint)
-        h2, w2 = noise.shape[2] // 2, noise.shape[3] // 2
-        pe = compute_pe(self.flux_cfg, make_txt_ids(bs, txt.shape[1], txt.device),
-                        make_img_ids(bs, h2, w2, txt.device))
+        pe = self._pe(txt, noise)
+        with self._resident("flux") as flux:
+            def step(x, t):
+                t_vec = torch.full((bs,), t, dtype=torch.float32, device=x.device)
+                return flux_forward(flux, self.flux_cfg, x.to(dt), txt, t_vec, y, guidance,
+                                    pe=pe, mesh=self.mesh)
 
-        def step(x, t):
-            t_vec = torch.full((bs,), t, dtype=torch.float32, device=x.device)
-            return flux_forward(self.flux_params, self.flux_cfg, x.to(dt), txt,
-                                t_vec, y, guidance, pe=pe, mesh=self.mesh)
+            return self._euler(step, img, sigmas, inpaint)
 
+    @torch.no_grad()
+    def _denoise_streamed(self, txt, y, sigmas: np.ndarray, guidance, noise):
+        """:meth:`_denoise` with the transformer's blocks streamed from host
+        memory (``Offloading.Stream``; models/flux_streaming.py)."""
+        dt = self.dtype
+        pe = self._pe(txt, noise)
+        return self._euler(lambda x, t: self.streamed.predict(x.to(dt), txt, t, y, guidance, pe),
+                           pack_latents(noise.to(dt)), sigmas, None)
+
+    def _pe(self, txt, noise):
+        """RoPE tables of the joint sequence for ``noise`` [B, 16, h, w]."""
+        bs, h2, w2 = txt.shape[0], noise.shape[2] // 2, noise.shape[3] // 2
+        return compute_pe(self.flux_cfg, make_txt_ids(bs, txt.shape[1], txt.device),
+                          make_img_ids(bs, h2, w2, txt.device))
+
+    def _euler(self, step, img, sigmas: np.ndarray, inpaint):
+        """pipelines/sampling.denoise with the per-step wall times in
+        ``timings["steps_s"]``."""
         steps = []
         last = [self._sync()]
 
@@ -202,7 +259,8 @@ class FluxPipeline:
     @torch.no_grad()
     def _decode(self, latent, height: int, width: int):
         z = self._pre_decode(latent, height, width)
-        return self._to_u8(vae_decode(self.vae_params, self.vae_cfg, z))
+        with self._resident("vae") as vae:
+            return self._to_u8(vae_decode(vae, self.vae_cfg, z))
 
     # Above this latent side the decode runs in tiles (the JAX package's
     # threshold, where its one-shot decode outgrew a 16 GB TPU); tile size
@@ -217,12 +275,14 @@ class FluxPipeline:
         if tile <= 0 or max(latent_hw(height, width)) <= self._TILE_DECODE_ABOVE:
             return self._decode(latent, height, width)
         z = self._pre_decode(latent, height, width)
-        return self._to_u8(vae_decode_tiled(self.vae_params, self.vae_cfg, z, tile=tile))
+        with self._resident("vae") as vae:
+            return self._to_u8(vae_decode_tiled(vae, self.vae_cfg, z, tile=tile))
 
     @torch.no_grad()
     def _encode_image(self, x_nhwc, eps):
         """Image [-1, 1] NHWC -> scaled NCHW latent (the img2img init)."""
-        return self._scale_latent(vae_encode(self.vae_params, self.vae_cfg, x_nhwc, eps))
+        with self._resident("vae") as vae:
+            return self._scale_latent(vae_encode(vae, self.vae_cfg, x_nhwc, eps))
 
     def _scale_latent(self, lat):
         z = (lat - self.vae_cfg.shift_factor) * self.vae_cfg.scaling_factor
@@ -237,8 +297,9 @@ class FluxPipeline:
         f = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
         if tile <= 0 or max(x_nhwc.shape[1:3]) <= self._TILE_DECODE_ABOVE * f:
             return self._encode_image(x_nhwc, eps)
-        return self._scale_latent(vae_encode_tiled(self.vae_params, self.vae_cfg, x_nhwc,
-                                                   eps, tile=tile * f))
+        with self._resident("vae") as vae:
+            return self._scale_latent(vae_encode_tiled(vae, self.vae_cfg, x_nhwc, eps,
+                                                       tile=tile * f))
 
     def _prepare_image_batch(self, image, b: int, params) -> torch.Tensor:
         """Init image(s) (PIL images or u8 arrays; one, or one per prompt) ->
@@ -304,11 +365,12 @@ class FluxPipeline:
             params.num_steps, mu=mu if self.scheduler.use_dynamic_shifting else None)
 
     def _check_capacity(self, params, batch: int, txt_tokens: int) -> None:
-        """The JAX pipeline's static check before the denoise
+        """The JAX pipeline's static check before the resident denoise
         (util/capacity.py): raises when the transformer's weights alone
         exceed the device's memory, warns once when the activation estimate
         takes them over it. On a CPU device it runs only where
-        DIFFUSION_RS_TPU_HBM_BYTES sets a budget."""
+        DIFFUSION_RS_TPU_HBM_BYTES sets a budget; a streamed denoise skips
+        it, as in JAX."""
         if self.device.type != "cuda" and not os.environ.get("DIFFUSION_RS_TPU_HBM_BYTES"):
             return
         img_tokens = ((params.height + 15) // 16) * ((params.width + 15) // 16)
@@ -389,6 +451,9 @@ class FluxPipeline:
             pure_noise = noise
             noise = sig0 * noise + (1.0 - sig0) * lat.float()
             if mask is not None:
+                if self.streamed is not None:
+                    raise NotImplementedError(
+                        "inpainting with Offloading.Stream is not supported")
                 inpaint = (mask.to(dev), pack_latents(lat.float()),
                            pack_latents(pure_noise.float()))
         guidance = (
@@ -396,8 +461,11 @@ class FluxPipeline:
                        device=dev)
             if self.flux_cfg.guidance_embeds else None
         )
-        self._check_capacity(params, n, txt.shape[1])
-        latent = self._denoise(txt, y, sigmas, guidance, noise, inpaint)
+        if self.streamed is not None:
+            latent = self._denoise_streamed(txt, y, sigmas, guidance, noise)
+        else:
+            self._check_capacity(params, n, txt.shape[1])
+            latent = self._denoise(txt, y, sigmas, guidance, noise, inpaint)
         if self.mesh is not None:  # the whole latent on every rank
             h2, w2 = noise.shape[2] // 2, noise.shape[3] // 2
             latent = sequence_sharding(self.mesh).gather(latent, (n, h2 * w2, latent.shape[2]))

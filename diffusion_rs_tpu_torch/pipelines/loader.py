@@ -14,9 +14,15 @@ options (``fuse=`` / ``DIFFUSION_RS_TPU_FUSE``, with ``grouped``, and
 ``DIFFUSION_RS_TPU_FUSED_ROPE=1``) in :func:`apply_layout_options`, with the
 JAX package's names, defaults and order. ``mesh=`` (parallel.make_mesh,
 built on every rank) replicates the weights on every rank and turns
-``grouped`` off, as in JAX. Options of the JAX loader that the port does not
-carry yet raise ``NotImplementedError`` naming their ROADMAP item; none is
-silently ignored.
+``grouped`` off, as in JAX. ``offloading`` keeps weights in host memory:
+``Offloading.Full`` builds every component on the CPU and hands the
+pipeline a parallel.HostOffload (pinned host copies, each component on the
+device around its use); ``Offloading.Stream`` builds the transformer on the
+CPU and packs its blocks into a models/flux_streaming.StreamedFlux, the
+encoders and the VAE built on the device (a mesh with it raises
+``ValueError``).
+Options of the JAX loader that the port does not carry yet raise
+``NotImplementedError`` naming their ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -44,8 +50,10 @@ from ..io.tokenizer import load_clip_bpe_tokenizer, load_t5_tokenizer_from_bytes
 from ..io.varstore import VarStore
 from ..models.clip import ClipTextConfig
 from ..models.flux import FluxConfig
+from ..models.flux_streaming import StreamedFlux
 from ..models.t5 import T5Config
 from ..models.vae import VAEConfig
+from ..parallel.offload import HostOffload
 from ..util.device import resolve_device
 from ..util.tree import tree_leaves
 from .api import ModelDType, ModelSource, Offloading
@@ -138,7 +146,8 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
                          imatrix: Optional[str] = None,
                          lora: Union[str, Sequence[str], None] = None,
                          lora_scale: Union[float, Sequence[float]] = 1.0,
-                         dtype=torch.bfloat16, silent: bool = True) -> Tuple[dict, dict]:
+                         dtype=torch.bfloat16, silent: bool = True,
+                         offloading: Optional[Offloading] = None) -> Tuple[dict, dict]:
     """The JAX loader's load-time weight transforms, in its order, on
     in-memory trees and on their own device: ISQ of FLUX (``isq``, weighted
     by the ``imatrix`` file when given), the T5 capacity guard, ISQ of T5,
@@ -148,10 +157,11 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
     keeps T5 in its present format when following ``isq`` would put FLUX
     and T5 together over 92% of the device budget (util/capacity.py) and
     its present format is the smaller; it runs on a CUDA device, or where
-    DIFFUSION_RS_TPU_HBM_BYTES sets a budget. ``imatrix`` and ``isq_t5``
-    do nothing without ``isq``. LoRA factors fuse into dense bases and
-    become runtime terms on quantized ones (io/lora.py), so an ISQ'd base
-    keeps its adapter outside the quantizer."""
+    DIFFUSION_RS_TPU_HBM_BYTES sets a budget, and not under ``offloading``
+    (the encoders are not device-resident there), as in JAX. ``imatrix``
+    and ``isq_t5`` do nothing without ``isq``. LoRA factors fuse into dense
+    bases and become runtime terms on quantized ones (io/lora.py), so an
+    ISQ'd base keeps its adapter outside the quantizer."""
     from ..io.imatrix import load_imatrix
     from ..io.lora import apply_flux_lora
     from ..quant.isq import isq_tree
@@ -163,8 +173,8 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
         flux_params = isq_tree(flux_params, isq, imatrix=imat)
         t5_target = isq_t5 if isq_t5 is not None else isq
         device = tree_leaves(flux_params)[0].device
-        if isq_t5 is None and (device.type == "cuda"
-                               or os.environ.get("DIFFUSION_RS_TPU_HBM_BYTES")):
+        if isq_t5 is None and offloading is None and (
+                device.type == "cuda" or os.environ.get("DIFFUSION_RS_TPU_HBM_BYTES")):
             budget = int(0.92 * capacity.per_chip_hbm_bytes(device))  # 8% headroom
             flux_b = capacity.tree_device_bytes(flux_params)
             t5_now = capacity.tree_device_bytes(t5_params)
@@ -196,12 +206,10 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
     return flux_params, t5_params
 
 
-def _check_unported(offloading, mesh, compile_cache) -> None:
+def _check_unported(mesh, compile_cache) -> None:
     """The JAX loader's options that the port does not carry yet, resolved
     the way the JAX package resolves them (argument, else its environment
     variable)."""
-    if offloading is not None:
-        _not_ported(f"offloading={offloading}", "Queue 1 item 3")
     if compile_cache or os.environ.get("DIFFUSION_RS_TPU_COMPILE_CACHE"):
         _not_ported("compile_cache", "Queue 1 item 4")
     if mesh is not None and mesh.shape.get("tp", 1) > 1:
@@ -267,10 +275,16 @@ def load_pipeline(
     compile_cache: Optional[str] = None,
     device="cuda",
 ) -> FluxPipeline:
-    _check_unported(offloading, mesh, compile_cache)
+    _check_unported(mesh, compile_cache)
+    if mesh is not None and offloading is Offloading.Stream:
+        raise ValueError("mesh and Offloading.Stream are mutually exclusive")
     device = resolve_device(device)
     if mesh is not None and device.type == "cuda":
         device = mesh.device  # every rank loads the whole (replicated) weights
+    # offloading keeps the weights in host memory: build them there (under
+    # Stream only the transformer's; the encoders and the VAE stay resident)
+    flux_build = torch.device("cpu") if offloading is not None else device
+    build = torch.device("cpu") if offloading is Offloading.Full else device
     loader = FileLoader(model_id=source.model_id, dduf_file=source.dduf_file,
                         token=token, revision=revision, silent=silent)
     index = json.loads(loader.read_bytes("model_index.json"))
@@ -291,13 +305,13 @@ def load_pipeline(
         loader.read_bytes("tokenizer_2/tokenizer.json"))
 
     clip_cfg = ClipTextConfig.from_json(config("text_encoder/config.json"))
-    clip_params = build_clip_params(_component_store(loader, "text_encoder", dt, device),
+    clip_params = build_clip_params(_component_store(loader, "text_encoder", dt, build),
                                     clip_cfg, dt)
     t5_cfg = T5Config.from_json(config("text_encoder_2/config.json"))
-    t5_params = build_t5_params(_component_store(loader, "text_encoder_2", dt, device),
+    t5_params = build_t5_params(_component_store(loader, "text_encoder_2", dt, build),
                                 t5_cfg, dt)
     vae_cfg = VAEConfig.from_json(config("vae/config.json"))
-    vae_params = build_vae_params(_component_store(loader, "vae", dt, device), vae_cfg, dt)
+    vae_params = build_vae_params(_component_store(loader, "vae", dt, build), vae_cfg, dt)
     if not silent:
         log.info("loaded CLIP (%d layers), T5 (%d layers), VAE %s",
                  clip_cfg.num_hidden_layers, t5_cfg.num_layers,
@@ -307,7 +321,7 @@ def load_pipeline(
     if override and override.endswith(".gguf") and os.path.isfile(override):
         base_cfg = (FluxConfig.from_json(config("transformer/config.json"))
                     if loader.exists("transformer/config.json") else None)
-        flux_params, flux_cfg = load_flux_transformer(override, base_cfg, dt, device)
+        flux_params, flux_cfg = load_flux_transformer(override, base_cfg, dt, flux_build)
         if not silent:
             log.info("transformer from single-file GGUF %s", override)
     else:
@@ -318,20 +332,29 @@ def load_pipeline(
         flux_cfg = FluxConfig.from_json(
             json.loads(flux_loader.read_bytes("transformer/config.json")))
         flux_params = build_flux_params(
-            _component_store(flux_loader, "transformer", dt, device), flux_cfg, dt)
+            _component_store(flux_loader, "transformer", dt, flux_build), flux_cfg, dt)
     flux_params, t5_params = apply_weight_options(
         flux_params, flux_cfg, t5_params, isq=isq, isq_t5=isq_t5, imatrix=imatrix, lora=lora,
-        lora_scale=lora_scale, dtype=dt, silent=silent)
+        lora_scale=lora_scale, dtype=dt, silent=silent, offloading=offloading)
     flux_params, flux_cfg, t5_params = apply_layout_options(
         flux_params, flux_cfg, t5_params, fuse=fuse, silent=silent, mesh=mesh)
     if not silent:
         log.info("loaded FLUX transformer (%d double + %d single blocks, guidance=%s)",
                  flux_cfg.num_layers, flux_cfg.num_single_layers, flux_cfg.guidance_embeds)
 
+    offload = streamed = None
+    if offloading is Offloading.Full:
+        offload = HostOffload()
+    elif offloading is Offloading.Stream:
+        streamed = StreamedFlux(flux_params, flux_cfg, device=device)
+        flux_params = None  # the packed host buffers inside StreamedFlux
+        if not silent:
+            log.info("transformer weights in host memory (per-block streaming)")
     return FluxPipeline(
         flux_params=flux_params, flux_cfg=flux_cfg, t5_params=t5_params, t5_cfg=t5_cfg,
         clip_params=clip_params, clip_cfg=clip_cfg, vae_params=vae_params,
         vae_cfg=vae_cfg, scheduler=scheduler, t5_tokenizer=t5_tokenizer,
         clip_tokenizer=clip_tokenizer, dtype=dt, device=device, mesh=mesh,
-        t5_mask_pads=t5_mask_pads, step_progress=step_progress,
+        t5_mask_pads=t5_mask_pads, step_progress=step_progress, offload=offload,
+        streamed=streamed,
     )

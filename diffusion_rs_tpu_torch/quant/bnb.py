@@ -89,16 +89,23 @@ def bnb4bit_to_canonical(weight_bytes: np.ndarray, absmax: np.ndarray, shape: tu
                          out_dtype: str = "bfloat16") -> QuantizedTensor:
     """Repack a bnb 4-bit tensor (torch layout ``[out, in]``, row-major) into
     the canonical K-major split-block layout. ``absmax`` must already be
-    resolved (:func:`resolve_absmax`)."""
+    resolved (:func:`resolve_absmax`). The repack and the scale transpose
+    run in the native library (io/native.py) where it is available, else in
+    numpy, as in JAX."""
+    from ..io.native import bnb_repack4, transpose_2d
+
     n_out, k_in = shape
     if k_in % blocksize != 0:
         raise ValueError(f"in_features {k_in} not divisible by blocksize {blocksize}")
-    q = unpack_bnb_nibbles(weight_bytes, n_out * k_in).reshape(n_out, k_in)
     scale = absmax.astype(np.float32).reshape(n_out, k_in // blocksize)
     split = choose_split(k_in)
+    packed = bnb_repack4(weight_bytes, n_out, k_in, split)
+    if packed is None:
+        q = unpack_bnb_nibbles(weight_bytes, n_out * k_in).reshape(n_out, k_in)
+        packed = pack4(np.ascontiguousarray(q.T), split)
     return QuantizedTensor(
-        packed=torch.from_numpy(pack4(np.ascontiguousarray(q.T), split)),
-        scale=torch.from_numpy(np.ascontiguousarray(scale.T)),
+        packed=torch.from_numpy(packed),
+        scale=torch.from_numpy(transpose_2d(scale)),
         bias=None,
         codebook=torch.from_numpy(CODEBOOKS[kind].copy()),
         kind=kind,

@@ -143,7 +143,8 @@ def check_denoise_capacity(flux_params, *, batch: int, img_tokens: int, txt_toke
         raise ValueError(
             f"denoise: packed transformer weights alone are {w / 1e9:.1f} GB per "
             f"device vs {hbm / 1e9:.1f} GB — cannot fit on a single device. Route: "
-            "pick a smaller format (isq='nf4' halves q8t residency).")
+            "pick a smaller format (isq='nf4' halves q8t residency), or stream the "
+            "blocks from host memory (Offloading.Stream).")
     if w + act > hbm:
         return (f"denoise: estimated residency {w / 1e9:.1f} GB weights + "
                 f"~{act / 1e9:.1f} GB activations exceeds {hbm / 1e9:.1f} GB — "

@@ -10,7 +10,9 @@ value scales follow the JAX package's ``util/synthetic.py`` and the dense
 
 from __future__ import annotations
 
+import json
 import zlib
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -19,6 +21,7 @@ from ..models.clip import ClipTextConfig
 from ..models.flux import FluxConfig
 from ..models.t5 import T5Config
 from ..models.vae import VAEConfig
+from ..io.safetensors import save_safetensors
 from ..ops.conv import Conv
 from ..ops.linear import Linear
 from ..quant.bnb import NF4_CODEBOOK
@@ -431,3 +434,182 @@ class WordTokenizer:
                        for w in p.split()])
             for p in prompts
         ]
+
+
+def write_diffusers_dir(root, cfgs: dict, seed: int) -> None:
+    """A diffusers-layout FLUX.1-dev directory at the widths of ``cfgs``: random
+    bf16 weights (normal, std 1/sqrt(K) for linears) named as the published
+    checkpoint names them, with its configs (dev: guidance embedder, dynamic
+    shift) and small tokenizer files (a character BPE for CLIP, a word-level
+    T5 tokenizer; ids stay inside the vocabularies)."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    root = Path(root)
+    gen = torch.Generator().manual_seed(seed)
+    fc, tc, cc, vc = cfgs["flux_cfg"], cfgs["t5_cfg"], cfgs["clip_cfg"], cfgs["vae_cfg"]
+    for d in ("scheduler", "text_encoder", "text_encoder_2", "tokenizer", "tokenizer_2",
+              "transformer", "vae"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen) * std).to(torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.bfloat16)
+
+    def lin(t, name, n_out, n_in, bias=True):
+        t[f"{name}.weight"] = normal((n_out, n_in), n_in ** -0.5)
+        if bias:
+            t[f"{name}.bias"] = zeros(n_out)
+
+    def save(path, t, config=None):
+        save_safetensors(str(root / path), t)
+        if config is not None:
+            (root / Path(path).parent / "config.json").write_text(json.dumps(config))
+
+    (root / "model_index.json").write_text(json.dumps({"_class_name": "FluxPipeline"}))
+    (root / "scheduler/scheduler_config.json").write_text(json.dumps({
+        "_class_name": "FlowMatchEulerDiscreteScheduler", "base_image_seq_len": 256,
+        "base_shift": 0.5, "max_image_seq_len": 4096, "max_shift": 1.15, "shift": 3.0,
+        "use_dynamic_shifting": True}))
+    d, L = cc.projection_dim, cc.num_hidden_layers
+    t = {"text_model.embeddings.token_embedding.weight": normal((cc.vocab_size, d), 0.02),
+         "text_model.embeddings.position_embedding.weight":
+             normal((cc.max_position_embeddings, d), 0.02),
+         "text_model.final_layer_norm.weight": ones(d),
+         "text_model.final_layer_norm.bias": zeros(d)}
+    for i in range(L):
+        p = f"text_model.encoder.layers.{i}"
+        for stub in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(t, f"{p}.self_attn.{stub}", d, d)
+        lin(t, f"{p}.mlp.fc1", cc.intermediate_size, d)
+        lin(t, f"{p}.mlp.fc2", d, cc.intermediate_size)
+        for ln in ("layer_norm1", "layer_norm2"):
+            t[f"{p}.{ln}.weight"], t[f"{p}.{ln}.bias"] = ones(d), zeros(d)
+    save("text_encoder/model.safetensors", t, {
+        "vocab_size": cc.vocab_size, "hidden_size": d, "intermediate_size": cc.intermediate_size,
+        "max_position_embeddings": cc.max_position_embeddings, "num_hidden_layers": L,
+        "num_attention_heads": cc.num_attention_heads, "hidden_act": "quick_gelu"})
+    dm, inner = tc.d_model, tc.num_heads * tc.d_kv
+    t = {"shared.weight": normal((tc.vocab_size, dm), 1.0),
+         "encoder.final_layer_norm.weight": ones(dm),
+         "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+             normal((tc.relative_attention_num_buckets, tc.num_heads), 1.0)}
+    for i in range(tc.num_layers):
+        p = f"encoder.block.{i}.layer"
+        for k in "qkv":
+            lin(t, f"{p}.0.SelfAttention.{k}", inner, dm, bias=False)
+        lin(t, f"{p}.0.SelfAttention.o", dm, inner, bias=False)
+        t[f"{p}.0.layer_norm.weight"] = ones(dm)
+        lin(t, f"{p}.1.DenseReluDense.wi_0", tc.d_ff, dm, bias=False)
+        lin(t, f"{p}.1.DenseReluDense.wi_1", tc.d_ff, dm, bias=False)
+        lin(t, f"{p}.1.DenseReluDense.wo", dm, tc.d_ff, bias=False)
+        t[f"{p}.1.layer_norm.weight"] = ones(dm)
+    save("text_encoder_2/model.safetensors", t, {
+        "vocab_size": tc.vocab_size, "d_model": dm, "d_kv": tc.d_kv, "d_ff": tc.d_ff,
+        "num_layers": tc.num_layers, "num_heads": tc.num_heads,
+        "relative_attention_num_buckets": tc.relative_attention_num_buckets,
+        "relative_attention_max_distance": tc.relative_attention_max_distance,
+        "layer_norm_epsilon": tc.layer_norm_epsilon, "feed_forward_proj": "gated-gelu"})
+    chars = {chr(c): i for i, c in enumerate(range(32, 127))}
+    (root / "tokenizer/vocab.json").write_text(json.dumps(chars))
+    (root / "tokenizer/merges.txt").write_text("#version: 0.2\n")
+    words = ["<pad>", "</s>", "<unk>", "a", "photo", "of", "cat", "on", "the", "table"]
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    (root / "tokenizer_2/tokenizer.json").write_text(tok.to_str())
+    h, m = fc.hidden_size, fc.mlp_size
+    t = {}
+    tops = {"x_embedder": (h, fc.in_channels), "context_embedder": (h, fc.joint_attention_dim),
+            "time_text_embed.timestep_embedder.linear_1": (h, 256),
+            "time_text_embed.timestep_embedder.linear_2": (h, h),
+            "time_text_embed.text_embedder.linear_1": (h, fc.pooled_projection_dim),
+            "time_text_embed.text_embedder.linear_2": (h, h),
+            "time_text_embed.guidance_embedder.linear_1": (h, 256),
+            "time_text_embed.guidance_embedder.linear_2": (h, h),
+            "norm_out.linear": (2 * h, h), "proj_out": (fc.in_channels, h)}
+    for name, (o, n) in tops.items():
+        lin(t, name, o, n)
+    for i in range(fc.num_layers):
+        p = f"transformer_blocks.{i}"
+        for name, (o, n) in {
+                "norm1.linear": (6 * h, h), "norm1_context.linear": (6 * h, h),
+                "attn.to_q": (h, h), "attn.to_k": (h, h), "attn.to_v": (h, h),
+                "attn.to_out.0": (h, h), "attn.add_q_proj": (h, h), "attn.add_k_proj": (h, h),
+                "attn.add_v_proj": (h, h), "attn.to_add_out": (h, h),
+                "ff.net.0.proj": (m, h), "ff.net.2": (h, m),
+                "ff_context.net.0.proj": (m, h), "ff_context.net.2": (h, m)}.items():
+            lin(t, f"{p}.{name}", o, n)
+        for k in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            t[f"{p}.attn.{k}.weight"] = ones(fc.head_dim)
+    for i in range(fc.num_single_layers):
+        p = f"single_transformer_blocks.{i}"
+        for name, (o, n) in {"attn.to_q": (h, h), "attn.to_k": (h, h), "attn.to_v": (h, h),
+                             "proj_mlp": (m, h), "proj_out": (h, h + m),
+                             "norm.linear": (3 * h, h)}.items():
+            lin(t, f"{p}.{name}", o, n)
+        for k in ("norm_q", "norm_k"):
+            t[f"{p}.attn.{k}.weight"] = ones(fc.head_dim)
+    save("transformer/diffusion_pytorch_model.safetensors", t, {
+        "in_channels": fc.in_channels, "pooled_projection_dim": fc.pooled_projection_dim,
+        "joint_attention_dim": fc.joint_attention_dim,
+        "num_attention_heads": fc.num_attention_heads, "attention_head_dim": fc.head_dim,
+        "axes_dims_rope": list(fc.axes_dim), "num_layers": fc.num_layers,
+        "num_single_layers": fc.num_single_layers, "guidance_embeds": fc.guidance_embeds})
+    t = {}
+
+    def conv(p, cout, cin, k):
+        t[f"{p}.weight"] = normal((cout, cin, k, k), (cin * k * k) ** -0.5)
+        t[f"{p}.bias"] = zeros(cout)
+
+    def gn(p, c):
+        t[f"{p}.weight"], t[f"{p}.bias"] = ones(c), zeros(c)
+
+    def resnet(p, cin, cout):
+        gn(f"{p}.norm1", cin)
+        conv(f"{p}.conv1", cout, cin, 3)
+        gn(f"{p}.norm2", cout)
+        conv(f"{p}.conv2", cout, cout, 3)
+        if cin != cout:
+            conv(f"{p}.conv_shortcut", cout, cin, 1)
+
+    def mid(p, c):
+        resnet(f"{p}.resnets.0", c, c)
+        resnet(f"{p}.resnets.1", c, c)
+        gn(f"{p}.attentions.0.group_norm", c)
+        for k in ("to_q", "to_k", "to_v", "to_out.0"):
+            lin(t, f"{p}.attentions.0.{k}", c, c)
+
+    boc, lpb = vc.block_out_channels, vc.layers_per_block
+    conv("encoder.conv_in", boc[0], vc.in_channels, 3)
+    c = boc[0]
+    for i, cout in enumerate(boc):
+        for j in range(lpb):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", c, cout)
+            c = cout
+        if i != len(boc) - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", c, c, 3)
+    mid("encoder.mid_block", c)
+    gn("encoder.conv_norm_out", c)
+    conv("encoder.conv_out", 2 * vc.latent_channels, c, 3)
+    conv("decoder.conv_in", boc[-1], vc.latent_channels, 3)
+    mid("decoder.mid_block", boc[-1])
+    c = boc[-1]
+    for i, cout in enumerate(reversed(boc)):
+        for j in range(lpb + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", c, cout)
+            c = cout
+        if i != len(boc) - 1:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", c, c, 3)
+    gn("decoder.conv_norm_out", boc[0])
+    conv("decoder.conv_out", vc.out_channels, boc[0], 3)
+    save("vae/diffusion_pytorch_model.safetensors", t, {
+        "_class_name": "AutoencoderKL", "in_channels": vc.in_channels,
+        "out_channels": vc.out_channels, "block_out_channels": list(boc),
+        "layers_per_block": lpb, "latent_channels": vc.latent_channels,
+        "norm_num_groups": vc.norm_num_groups, "scaling_factor": vc.scaling_factor,
+        "shift_factor": vc.shift_factor, "mid_block_add_attention": vc.mid_block_add_attention,
+        "use_quant_conv": vc.use_quant_conv, "use_post_quant_conv": vc.use_post_quant_conv})

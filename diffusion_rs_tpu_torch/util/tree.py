@@ -38,6 +38,13 @@ def take_layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def stack_trees(trees: list):
+    """Stack a list of identically shaped trees along a new leading
+    ``[L, ...]`` axis (the first tree's structure and non-tensor fields)."""
+    it = zip(*(tree_leaves(t) for t in trees))
+    return tree_map(lambda _: torch.stack(next(it)), trees[0])
+
+
 def tree_leaves(tree) -> list:
     """The tensors of a tree in a fixed order (``None`` leaves skipped)."""
     out = []

@@ -22,7 +22,10 @@ launched on two cards from one process (needs two). The Hopper bodies
 held at FLUX's lengths (S4608, the ragged S4112, below one tile), with K7's
 rotation pass ``rope_qk`` bit for bit, the affine decoded weights bit for
 bit for every format under K4 and K13, the M1 modulation shapes, and K8's
-groups against K4 on both sides of the small-M plan.
+groups against K4 on both sides of the small-M plan. Offloading on the card:
+HostOffload's pinned host copy and its ``resident`` / ``release``, and a
+streamed tiny q8t FLUX through a two-slot ring against the resident steps,
+bit for bit (``-k "offload or streamed"``).
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -k "k3 or k4 or k6 or k7 or k8 or k13 or k14 or bf16_flash or rope or affine or dispatch"
 """
@@ -759,3 +762,121 @@ def test_k8_affine_plans_match_per_group_k4(dev, ms, kind):
     ys = qmatmul.qmm_grouped_affine(xs, qts, torch.bfloat16)
     for x, qt, y in zip(xs, qts, ys):
         assert torch.equal(y, qmatmul.qmm_affine(x, qt, torch.bfloat16))
+
+
+def test_host_offload_resident_lands_on_card(dev):
+    """HostOffload on the card: the host copy is pinned, ``resident`` puts
+    an equal copy on the card (a non-blocking copy on the current stream),
+    and ``release`` frees its bytes."""
+    from diffusion_rs_tpu_torch.ops.linear import Linear
+    from diffusion_rs_tpu_torch.parallel import HostOffload
+    from diffusion_rs_tpu_torch.util.capacity import tree_device_bytes
+    from diffusion_rs_tpu_torch.util.tree import tree_leaves
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"lin": Linear(w=random_qtensor(gen, 1024, 2048, kind="q8t", device=dev),
+                          b=torch.randn(2048, device=dev, generator=gen)),
+            "norm": torch.randn(4096, device=dev, generator=gen).bfloat16()}
+    off = HostOffload()
+    host = off.register("flux", tree)
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in tree_leaves(host))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    on_card = off.resident("flux")
+    for got, want in zip(tree_leaves(on_card), tree_leaves(tree)):
+        assert got.device.type == "cuda" and torch.equal(got, want)
+    assert torch.cuda.memory_allocated(dev) - before >= tree_device_bytes(tree)
+    del got, on_card
+    off.release("flux")
+    assert torch.cuda.memory_allocated(dev) == before
+
+
+def test_streamed_steps_equal_resident_on_card(dev, monkeypatch):
+    """Two Euler steps of a tiny q8t FLUX with the blocks streamed through a
+    two-slot ring (lookahead 1, where a slot-reuse race would show) equal
+    the resident steps bit for bit, with the same kernel launches; the
+    packed host buffers are pinned."""
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig, compute_pe, flux_forward
+    from diffusion_rs_tpu_torch.models.flux_streaming import StreamedFlux
+    from diffusion_rs_tpu_torch.pipelines.sampling import make_img_ids, make_txt_ids
+    from diffusion_rs_tpu_torch.util.synthetic import init_flux_params_quantized
+
+    monkeypatch.setenv("DIFFUSION_RS_TPU_STREAM_LOOKAHEAD", "1")
+    cfg = FluxConfig(in_channels=64, pooled_projection_dim=64, joint_attention_dim=256,
+                     num_attention_heads=2, num_layers=2, num_single_layers=3,
+                     hidden_size=256)
+    params = init_flux_params_quantized(0, cfg, kind="q8t", device=dev)
+    sf = StreamedFlux(params, cfg, device=dev)
+    assert all(b.is_pinned() for b in sf.dbl_bufs + sf.sgl_bufs)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    img = torch.randn(1, 256, 64, device=dev, generator=gen)
+    txt = torch.randn(1, 32, 256, device=dev, generator=gen).bfloat16()
+    y = torch.randn(1, 64, device=dev, generator=gen).bfloat16()
+    g = torch.full((1,), 3.5, device=dev)
+    pe = compute_pe(cfg, make_txt_ids(1, 32, dev), make_img_ids(1, 16, 16, dev))
+    sig = np.array([1.0, 0.6, 0.0], np.float32)
+
+    def resident_step(x, tc, tp):
+        t = torch.full((1,), float(tc), dtype=torch.float32, device=dev)
+        pred = flux_forward(params, cfg, x.bfloat16(), txt, t, y, g, pe=pe)
+        return x + pred.float() * float(tp - tc)
+
+    counts = []
+    outs = []
+    for step in (resident_step, lambda x, tc, tp: sf.step(x, txt, tc, tp, y, g, pe)):
+        _cuda.reset_launch_counts()
+        x = img
+        for tc, tp in zip(sig[:-1], sig[1:]):
+            x = step(x, tc, tp)
+        outs.append(x)
+        counts.append(_cuda.launch_counts())
+    assert counts[0] == counts[1] and counts[0]["qmm_s8"] > 0
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("mode", ["full", "stream"])
+def test_offloading_pipeline_loads_onto_card(dev, tmp_path, mode):
+    """``Pipeline(offloading=Full|Stream, device="cuda")`` from a tiny
+    diffusers directory: under ``Stream`` the encoders and the VAE are on
+    the card and the transformer's blocks in pinned host buffers, under
+    ``Full`` every component's host copy is pinned; the latent equals the
+    resident pipeline's bit for bit, with the same kernel launches."""
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams, ModelSource, Pipeline
+    from diffusion_rs_tpu_torch.models.clip import ClipTextConfig
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.models.t5 import T5Config
+    from diffusion_rs_tpu_torch.models.vae import VAEConfig
+    from diffusion_rs_tpu_torch.pipelines.api import Offloading
+    from diffusion_rs_tpu_torch.util.synthetic import write_diffusers_dir
+    from diffusion_rs_tpu_torch.util.tree import tree_leaves
+
+    cfgs = dict(
+        flux_cfg=FluxConfig(in_channels=64, pooled_projection_dim=64, joint_attention_dim=256,
+                            num_attention_heads=2, num_layers=1, num_single_layers=2,
+                            hidden_size=256, axes_dim=(16, 56, 56)),
+        t5_cfg=T5Config(vocab_size=512, d_model=256, d_kv=64, d_ff=512, num_layers=2,
+                        num_heads=4),
+        clip_cfg=ClipTextConfig(vocab_size=512, projection_dim=64, intermediate_size=128,
+                                num_hidden_layers=2, num_attention_heads=4),
+        vae_cfg=VAEConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8))
+    write_diffusers_dir(tmp_path, cfgs, seed=0)
+    src = ModelSource.from_model_id(str(tmp_path))
+    gen = DiffusionGenerationParams(height=64, width=64, num_steps=2, guidance_scale=3.5, seed=7)
+    prompts = ["a photo of a cat"]
+    lats, counts = [], []
+    for offloading in (None, Offloading.Full if mode == "full" else Offloading.Stream):
+        pipe = Pipeline(src, silent=True, offloading=offloading, device=dev)
+        inner = pipe._inner
+        if offloading is Offloading.Stream:
+            assert inner.flux_params is None
+            assert all(b.is_pinned() for b in inner.streamed.dbl_bufs + inner.streamed.sgl_bufs)
+            for name in ("t5", "clip", "vae"):
+                assert all(t.is_cuda for t in tree_leaves(getattr(inner, f"{name}_params")))
+        elif offloading is Offloading.Full:
+            for name in ("t5", "clip", "vae", "flux"):
+                assert all(t.is_pinned() for t in tree_leaves(getattr(inner, f"{name}_params")))
+        _cuda.reset_launch_counts()
+        lats.append(pipe.forward_latents(prompts, gen))
+        counts.append(_cuda.launch_counts())
+    assert counts[0] == counts[1] and counts[0]["flash_fwd"] > 0
+    assert np.array_equal(lats[0], lats[1])

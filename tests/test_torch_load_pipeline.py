@@ -29,7 +29,6 @@ from diffusion_rs_tpu import Pipeline as JPipeline
 from diffusion_rs_tpu.pipelines.sampling import get_noise as j_get_noise
 from diffusion_rs_tpu_torch.pipelines.api import ModelDType as TDType
 from diffusion_rs_tpu_torch.pipelines.api import ModelSource as TSource
-from diffusion_rs_tpu_torch.pipelines.api import Offloading
 from diffusion_rs_tpu_torch.pipelines.api import Pipeline as TPipeline
 from diffusion_rs_tpu_torch.pipelines.flux_pipeline import DiffusionGenerationParams as TParams
 from diffusion_rs_tpu_torch.pipelines.loader import load_pipeline
@@ -200,7 +199,7 @@ def test_resolve_fuse_matches_jax(monkeypatch, fuse, env):
 
 @pytest.mark.parametrize("option,value", [
     # a mesh runs (tests/test_torch_mesh.py) unless it has a tp axis
-    ("offloading", Offloading.Full), ("mesh", SimpleNamespace(shape={"dp": 1, "sp": 1, "tp": 2})),
+    ("mesh", SimpleNamespace(shape={"dp": 1, "sp": 1, "tp": 2})),
     ("compile_cache", "cache"),
 ])
 def test_unported_options_raise(sources, option, value):

@@ -2,8 +2,9 @@
 forward of tests/test_partitioned.py at dp=2 sp=2 (a spawned gloo world of
 4), in the default layout and the fused-RoPE one, against JAX's
 ``flux_forward``; the tiny ``Pipeline(mesh=make_mesh(dp=2, sp=2))`` against
-the JAX ``Pipeline`` on a 4-device mesh of the virtual CPU mesh, and its
-img2img and inpaint against the port's single-process pipeline; and the
+the JAX ``Pipeline`` on a 4-device mesh of the virtual CPU mesh, with
+``Offloading.Full`` against itself without it, and its img2img and inpaint
+against the port's single-process pipeline; and the
 mesh's own rules (tp and world-size checks, ``grouped`` turned off).
 """
 
@@ -132,6 +133,15 @@ def test_pipeline_dp2_sp2_matches_jax_mesh(pipeline_run):
         np.testing.assert_allclose(r["latents"], latents, rtol=0.05, atol=0.05)
         assert int(r["rings"]) == 2 * 4 and not bool(r["fallback"])
         assert np.array_equal(r["digest"], digest)
+
+
+def test_full_offload_under_mesh_equals_resident(pipeline_run):
+    """``Offloading.Full`` under the same dp2 x sp2 mesh: every rank's images
+    equal the resident mesh pipeline's bit for bit, with every component
+    managed by the registry and released after the call."""
+    for r in pipeline_run[3]:
+        np.testing.assert_array_equal(r["full_images"], r["images"])
+        assert bool(r["full_released"])
 
 
 def test_grouped_turns_off_under_mesh(pipeline_run):

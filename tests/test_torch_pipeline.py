@@ -5,9 +5,12 @@ CLIP encode, q8t FLUX denoise, VAE decode, u8, through both packages'
 Both packages get the same noise: the port's ``get_noise`` is replaced by
 the JAX package's draw for the same seed (torch cannot reproduce
 ``jax.random``). The JAX Pallas kernels run in interpret mode; the port runs
-its kernels' plain versions on the CPU.
+its kernels' plain versions on the CPU. The f32 denoise with the
+conditioning held equal also runs through ``Offloading.Stream``'s
+StreamedFlux in both packages.
 """
 
+import functools
 import importlib
 
 import jax
@@ -19,7 +22,9 @@ import torch
 from diffusion_rs_tpu.models import clip as jclip, flux as jflux, t5 as jt5, vae as jvae
 from diffusion_rs_tpu.pipelines.api import DiffusionGenerationParams as JParams
 from diffusion_rs_tpu.pipelines.flux_pipeline import FluxPipeline as JPipeline
+from diffusion_rs_tpu.models.flux_streaming import StreamedFlux as JStreamed
 from diffusion_rs_tpu.pipelines.sampling import get_noise as j_get_noise
+from diffusion_rs_tpu.pipelines.sampling import make_img_ids, make_txt_ids, pack_latents
 from diffusion_rs_tpu.pipelines.scheduler import SchedulerConfig as JSched
 from diffusion_rs_tpu.quant import bnb as jbnb
 from diffusion_rs_tpu.quant.qtensor import quantize_q8_tile
@@ -27,6 +32,8 @@ from diffusion_rs_tpu_torch import DiffusionGenerationParams as TParams
 from diffusion_rs_tpu_torch import FluxPipeline as TPipeline
 from diffusion_rs_tpu_torch.io.tokenizer import tokenize_and_pad
 from diffusion_rs_tpu_torch.models import clip as tclip, flux as tflux, t5 as tt5, vae as tvae
+from diffusion_rs_tpu_torch.models.flux_streaming import StreamedFlux
+from diffusion_rs_tpu_torch.pipelines.sampling import pack_latents as pack_latents_t
 from diffusion_rs_tpu_torch.pipelines.scheduler import SchedulerConfig as TSched
 from diffusion_rs_tpu_torch.util.synthetic import WordTokenizer
 from torch_port_util import (  # noqa: F401
@@ -101,27 +108,70 @@ def test_slice_f32_latent_matches_jax(jax_kernels_interpreted, same_noise):
     activation codes in FLUX's linears by one step, each moving its row by
     up to 1/127 of the row's max. With the text conditioning held equal the
     denoise stages agree to 1e-5 (measured 1.6e-7)."""
-    jpipe, tpipe = _pipelines("float32")
+    jpipe, tpipe = _f32_pipelines()
     lat_j = jpipe.forward_arrays(PROMPTS, JParams(**GEN), output_type="latent")
     lat_t = tpipe.forward_arrays(PROMPTS, TParams(**GEN), output_type="latent")
     assert lat_t.shape == lat_j.shape == (2, 16, 64)
     assert summed_rel(lat_t, lat_j) <= 5e-3
 
+    held = _held_equal()
+    txt_t, y_t = tpipe._encode(*map(torch.from_numpy, held["ids"]))
+    assert summed_rel(txt_t.numpy(), held["txt"]) <= 1e-5
+    assert summed_rel(y_t.numpy(), held["y"]) <= 1e-5
+    lat_j = jpipe._denoise(jpipe.flux_params, *(jnp.asarray(held[k]) for k in (
+        "txt", "y", "sigmas", "g", "noise")), height=64, width=64)
+    lat_t = tpipe._denoise(*_port_denoise_args(held))
+    assert summed_rel(lat_t.numpy(), np.asarray(lat_j)) <= 1e-5
+
+
+@functools.lru_cache(None)
+def _f32_pipelines():
+    """The f32 pipelines, built once for this module's f32 tests (other
+    modules call ``_pipelines`` for fresh ones: a JAX pipeline's jitted
+    stages keep the attention knobs they were traced under)."""
+    return _pipelines("float32")
+
+
+@functools.lru_cache(None)
+def _held_equal() -> dict:
+    """The f32 denoise's inputs with the conditioning held equal: the token
+    ids, JAX's T5 / CLIP encodes of them, JAX's noise for the seed, the
+    schedule and the guidance."""
+    jpipe, tpipe = _f32_pipelines()
     t5_ids = tokenize_and_pad(PROMPTS, tpipe.t5_tokenizer, pad_to=GEN["max_sequence_length"])
     clip_ids = tokenize_and_pad(PROMPTS, tpipe.clip_tokenizer)
     txt, y = jpipe._encode(jpipe.t5_params, jpipe.clip_params, jnp.asarray(t5_ids),
                            jnp.asarray(clip_ids))
-    txt_t, y_t = tpipe._encode(torch.from_numpy(t5_ids), torch.from_numpy(clip_ids))
-    assert summed_rel(txt_t.numpy(), np.asarray(txt)) <= 1e-5
-    assert summed_rel(y_t.numpy(), np.asarray(y)) <= 1e-5
-    noise = np.asarray(j_get_noise(jax.random.PRNGKey(GEN["seed"]), 2, 64, 64))
-    sigmas = tpipe.scheduler.timesteps(GEN["num_steps"], mu=0.6)
-    g = np.full((2,), GEN["guidance_scale"], np.float32)
-    lat_j = jpipe._denoise(jpipe.flux_params, txt, y, jnp.asarray(sigmas), jnp.asarray(g),
-                           jnp.asarray(noise), height=64, width=64)
-    lat_t = tpipe._denoise(torch.from_numpy(np.asarray(txt)), torch.from_numpy(np.asarray(y)),
-                           sigmas, torch.from_numpy(g), torch.from_numpy(noise))
-    assert summed_rel(lat_t.numpy(), np.asarray(lat_j)) <= 1e-5
+    return dict(ids=(t5_ids, clip_ids), txt=np.array(txt), y=np.array(y),
+                noise=np.array(j_get_noise(jax.random.PRNGKey(GEN["seed"]), 2, 64, 64)),
+                sigmas=tpipe.scheduler.timesteps(GEN["num_steps"], mu=0.6),
+                g=np.full((2,), GEN["guidance_scale"], np.float32))
+
+
+def _port_denoise_args(held: dict) -> tuple:
+    """(txt, y, sigmas, guidance, noise) for the port's ``_denoise``."""
+    return (torch.from_numpy(held["txt"]), torch.from_numpy(held["y"]), held["sigmas"],
+            torch.from_numpy(held["g"]), torch.from_numpy(held["noise"]))
+
+
+def test_streamed_denoise_matches_jax(jax_kernels_interpreted):
+    """Offloading.Stream on the held-equal txt2img case above: the port's
+    streamed denoise (models/flux_streaming.StreamedFlux, the blocks packed
+    in host buffers) within 1e-5 summed-rel of JAX's StreamedFlux.denoise
+    on the same q8t params and inputs (measured 1.6e-7), and equal to the
+    port's resident denoise bit for bit."""
+    jpipe, tpipe = _f32_pipelines()
+    held = _held_equal()
+    jpe = jflux.compute_pe(jpipe.flux_cfg, make_txt_ids(2, 64), make_img_ids(2, 4, 4))
+    want = JStreamed(jpipe.flux_params, jpipe.flux_cfg).denoise(
+        pack_latents(jnp.asarray(held["noise"])), *(jnp.asarray(held[k]) for k in (
+            "txt", "y", "g")), jpe, held["sigmas"])
+    txt, y, sigmas, g, noise = _port_denoise_args(held)
+    sf = StreamedFlux(tpipe.flux_params, tpipe.flux_cfg, device="cpu")
+    got = sf.denoise(pack_latents_t(noise), txt, y, g, tpipe._pe(txt, noise), sigmas)
+    assert got.shape == (2, 16, 64)
+    assert summed_rel(got.numpy(), np.asarray(want)) <= 1e-5
+    assert torch.equal(got, tpipe._denoise(txt, y, sigmas, g, noise))
 
 
 def test_slice_bf16_image_clears_psnr_floor(jax_kernels_interpreted, same_noise):

@@ -130,11 +130,12 @@ def pipeline_rank(rank: int, tmp: str) -> None:
     """``Pipeline(mesh=make_mesh(dp=2, sp=2))`` from the tiny checkpoint at
     ``tmp/ckpt``, with the JAX package's noise for the seed: the images and
     the latents of two prompts (one per dp rank), every rank's weight
-    digest, its ring calls and warnings; then ``fuse="grouped"`` under the
-    mesh (turned off, with JAX's warning)."""
+    digest, its ring calls and warnings; the same images under the mesh with
+    ``Offloading.Full``; then ``fuse="grouped"`` under the mesh (turned off,
+    with JAX's warning)."""
     from diffusion_rs_tpu_torch import DiffusionGenerationParams
     from diffusion_rs_tpu_torch.pipelines import flux_pipeline
-    from diffusion_rs_tpu_torch.pipelines.api import ModelSource, Pipeline
+    from diffusion_rs_tpu_torch.pipelines.api import ModelSource, Offloading, Pipeline
 
     torch.set_num_threads(2)
     tmp = Path(tmp)
@@ -151,10 +152,16 @@ def pipeline_rank(rank: int, tmp: str) -> None:
     images = np.stack(pipe.forward_images(prompts, params))
     rings = calls[0]
     latents = pipe.forward_latents(prompts, params)
+    full = Pipeline(ModelSource.from_model_id(str(tmp / "ckpt")), silent=True, mesh=mesh,
+                    device="cpu", offloading=Offloading.Full)
+    full_images = np.stack(full.forward_images(prompts, params))
     grouped = Pipeline(ModelSource.from_model_id(str(tmp / "ckpt")), silent=True, mesh=mesh,
                        device="cpu", fuse="grouped")._inner
     img2img_rank(rank, tmp, pipe, gen, prompts)
     np.savez(tmp / f"pipe_{rank}.npz", images=images, latents=latents, rings=np.array(rings),
+             full_images=full_images,
+             full_released=np.array(not full._inner.offload._refs
+                                    and full._inner.offload.manages("flux")),
              digest=_digest(pipe._inner.flux_params),
              fallback=np.array(any(WARN_TEXT in m for m in warned.messages)),
              grouped_qmm=np.array(grouped.flux_cfg.grouped_qmm),

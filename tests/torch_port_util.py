@@ -166,11 +166,11 @@ def nf4_t(w):
     return jbnb.quantize_nf4(np.ascontiguousarray(w.T), blocksize=64)
 
 
-def i2i_build(dtype, **flags):
+def i2i_build(dtype, dense_flux: bool = False, **flags):
     """The JAX pipeline and the port's constructor keywords on the same params
     (the whole VAE): dense f32 weights from the port's seeded factories,
-    carried into JAX trees, FLUX quantized q8t and T5 nf4 there, bridged
-    back."""
+    carried into JAX trees, FLUX quantized q8t (left dense with
+    ``dense_flux``) and T5 nf4 there, bridged back."""
     jd = getattr(jnp, dtype)
     tcfg = dict(flux_cfg=tflux.FluxConfig(**I2I_FLUX), t5_cfg=tt5.T5Config(**I2I_T5),
                 clip_cfg=tclip.ClipTextConfig(**I2I_CLIP), vae_cfg=tvae.VAEConfig(**I2I_VAE))
@@ -183,9 +183,10 @@ def i2i_build(dtype, **flags):
                     **syn.init_vae_encoder_params(4, tcfg["vae_cfg"], **f32)},
     )
     params = {k: to_jax_tree(v) for k, v in dense.items()}
-    params["flux_params"] = quantize_tree(params["flux_params"], quantize_q8_tile, jd)
+    if not dense_flux:
+        params["flux_params"] = quantize_tree(params["flux_params"], quantize_q8_tile, jd)
     params["t5_params"] = quantize_tree(params["t5_params"], nf4_t, jd)
-    for k in ("clip_params", "vae_params"):
+    for k in ("clip_params", "vae_params") + (("flux_params",) if dense_flux else ()):
         params[k] = jax.tree.map(lambda a: jnp.asarray(a, jd), params[k])
     tok = dict(t5_tokenizer=WordTokenizer(300), clip_tokenizer=WordTokenizer(300))
     jpipe = JPipeline(flux_cfg=jflux.FluxConfig(**I2I_FLUX), t5_cfg=jt5.T5Config(**I2I_T5),
@@ -238,13 +239,13 @@ def jax_interpreted_module():
     attention._flash_mode.cache_clear()
 
 
-def i2i_run_both(dtype, output_type):
+def i2i_run_both(dtype, output_type, dense_flux: bool = False):
     """img2img (strength 0.5) and inpaint (0.75) of both prompts through both
-    packages, the stages captured. Returns the pipelines, the port's
-    constructor keywords and, per mode, the JAX and port outputs with the
-    last call of the JAX image encode and denoise and of the port's denoise,
-    each as (args, kwargs, result)."""
-    jpipe, kw = i2i_build(dtype)
+    packages, the stages captured (FLUX q8t, or dense with ``dense_flux``).
+    Returns the pipelines, the port's constructor keywords and, per mode,
+    the JAX and port outputs with the last call of the JAX image encode and
+    denoise and of the port's denoise, each as (args, kwargs, result)."""
+    jpipe, kw = i2i_build(dtype, dense_flux=dense_flux)
     tpipe = TPipeline(**kw)
     images, mask = i2i_inputs()
     draws = jax_draws(getattr(jnp, dtype))
