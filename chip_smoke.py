@@ -36,7 +36,20 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    through ``FluxPipeline.forward_arrays`` on synthetic weights from a seed;
    the kernels' launch counters must match the path exactly;
 5. one more 1-step image under torch.profiler: device time by kernel and
-   the device's busy share; then img2img and inpainting on the same
+   the device's busy share; then the serve phase (4e) on the same
+   pipeline: K1 at M 16384 / 2048 / 18432 and K3 at B4 S4608 against their
+   plain versions, eight 1024x1024 ``--steps`` requests (two img2img lanes
+   at 0.6 with phase 4's image, two prompts repeated) one by one through
+   ``forward_arrays`` (the offline images, timed) and through
+   ``serving.FluxServer(max_batch=4)`` in two bursts (after a warm-up
+   forward of the 4-lane bucket; K1's launches tallied by M, K3's by B), each lane
+   within the JAX server's band of its offline image, ``stats()``, exact
+   launches per forward, served against one-by-one images/s and the peak
+   memory beside the batch-4 capacity estimate; then, on the tiny config,
+   one ``POST /generate`` and one ``GET /metrics`` through ``serve_http``
+   on localhost and a 1-step img2img image under
+   DIFFUSION_RS_TPU_TRACE_DIR whose trace must name the five spans and K1's
+   kernel; then img2img and inpainting on the same
    pipeline, phase 4's image as the init image (a 1-step warm-up, then
    img2img at strength 0.6, inpaint at 1.0 with a centre-square mask and
    img2img at 1.0, each ``--steps`` steps truncated to ``round(steps *
@@ -107,7 +120,8 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    Stream, device="cuda")``: where each component lands (pinned host
    copies; under Stream the encoders and the VAE on the card), the
    process's resident memory around each load, and a 1-step image whose
-   latent, image and launches equal the resident load's;
+   latent, image and launches equal the resident load's; and one 1-step
+   image from it through ``cli.main`` (a 1024x1024 PNG file);
 15. config S, last: phase 4's weights (made again from their seed) and
    image sequence-parallel over two ranks that share the card
    (``parallel.spawn``, gloo through pinned host memory; the ranks open the
@@ -118,9 +132,9 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    int8 attention setting (K14's int8 entries); then one 720x1280 decode
    through the tiled VAE decode (two 128-pixel latent tiles).
 
-Phases 7, 9 and 11-13 run 5 double + 10 single blocks at FLUX.1-dev's
+Phases 7, 9 and 11-13 run 3 double + 6 single blocks at FLUX.1-dev's
 widths (EARLIER_DEPTH; ``--full-depth`` restores 19 + 38); phases 4, 4c,
-4d, 5, 8 and 10 run the full depth.
+4d, 4e, 5, 8 and 10 run the full depth.
 
 Phase 2 also holds K7's rotation pass (``rope_qk``) to
 ``rope_halfsplit_seqmajor`` bit for bit on column slices of a fused qkv at
@@ -151,6 +165,7 @@ The last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -557,13 +572,13 @@ def check_fast16_format(fmt: str, m: int, k: int, n: int, gen):
                 decoded_max_abs=decoded)
 
 
-def check_flash(s_q: int, gen):
+def check_flash(s_q: int, gen, b: int = 1):
     import torch
     import torch.nn.functional as F
 
     from diffusion_rs_tpu_torch.ops import flash
 
-    b, h, d = 1, 24, 128
+    h, d = 24, 128
     q, k, v = (torch.randn((b, h, s_q, d), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     scale = 1.0 / math.sqrt(d)
@@ -1438,6 +1453,205 @@ def profile_image(pipe, prompts) -> None:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  x{n:<5d} {key[:90]}")
 
 
+# The serve phase's eight requests: (prompt, seed, img2img), in two bursts of
+# four; the second burst repeats two prompts of the first, so the encode
+# cache hits, and each burst's last request is an img2img lane.
+SERVE_REQUESTS = (
+    ("a photo of a cat sitting on a wooden table", 11, False),
+    ("a red house by the sea at dusk", 12, False),
+    ("a bowl of ripe oranges on a blue cloth", 13, False),
+    ("an old lighthouse in the fog", 14, True),
+    ("a map of a harbour drawn in ink", 15, False),
+    ("a photo of a cat sitting on a wooden table", 16, False),
+    ("a red house by the sea at dusk", 17, False),
+    ("a snowy mountain village at night", 18, True),
+)
+SERVE_STRENGTH = 0.6
+SERVE_MAX_BATCH = 4
+# each lane against the port's offline image at the same seed: the JAX
+# server's own band against its offline pipeline (tests/test_serving.py)
+SERVE_MEAN_BAND, SERVE_MAX_BAND = 1.0, 16
+
+
+def serve_phase(pipe, steps: int, init_img) -> list:
+    """Phase 4e, the continuous-batching server (serving.FluxServer,
+    ``max_batch`` 4) on phase 4's resident q8t pipeline: K1 at the batched
+    shapes (M 16384 / 2048 / 18432) and K3 at B4 S4608 against their plain
+    versions, then SERVE_REQUESTS one by one through ``forward_arrays`` (the
+    offline images at batch 1, timed: the sequential baseline), a 1-step
+    warm-up of the 4-lane bucket, and the eight requests through the server
+    in two bursts (the second once the first lanes have run 2 steps), each
+    lane's image against its offline image. Fails unless every lane is in
+    the band, ``stats()`` reads 8 completed, 0 failed, the lanes' steps and
+    at least 2 encode-cache hits, K1 and K3 ran a batch-1 step's count per
+    forward and K2 168 per encode. Returns the timed kernel rows."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.ops import _cuda, flash, qmatmul
+    from diffusion_rs_tpu_torch.serving import FluxServer
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = [check_qmm("q8t", m, 3072, 3072, gen, K1_TOL) for m in (16384, 2048, 18432)]
+    rows.append(check_flash(4608, gen, b=SERVE_MAX_BATCH))
+    for r in rows:
+        lib = f"{r['library_ms']:.4f} ms"
+        print(f"serve kernel {'qmm_s8' if r['shape'].startswith('M') else 'flash_fwd'} "
+              f"{r['shape']}: summed-rel {r['summed_rel']:.3e} max-abs {r['max_abs_err']:.3e} "
+              f"| kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}")
+    gc.collect()
+
+    def params(seed, num_steps=steps):
+        return DiffusionGenerationParams(height=1024, width=1024, num_steps=num_steps,
+                                         guidance_scale=3.5, seed=seed)
+
+    i2i = dict(init_image=init_img, strength=SERVE_STRENGTH)
+    pipe.forward_arrays([SERVE_REQUESTS[3][0]], params(0, 1), **i2i)  # the i2i path warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    offline = [pipe.forward_arrays([p], params(seed), **(i2i if edit else {}))[0]
+               for p, seed, edit in SERVE_REQUESTS]
+    seq_s = time.perf_counter() - t0
+
+    # one forward of the 4-lane bucket before the timed run (a long poll: the
+    # four lanes join one tick)
+    warm = FluxServer(pipe, max_batch=SERVE_MAX_BATCH, poll_ms=1000.0, encode_cache=0)
+    try:
+        [f.result() for f in [warm.submit(p, params(seed, 1))
+                              for p, seed, _ in SERVE_REQUESTS[:SERVE_MAX_BATCH]]]
+    finally:
+        warm.shutdown()
+    # the timed run tallies K1's launches by M and K3's by B (a Python call
+    # around each wrapper)
+    shapes = {"qmm_s8": collections.Counter(), "flash_fwd": collections.Counter()}
+    k1, k3 = qmatmul.qmm_s8, flash.flash_fwd
+
+    def k1_tally(x2, qt, out_dtype):
+        shapes["qmm_s8"][f"M{x2.shape[0]}"] += 1
+        return k1(x2, qt, out_dtype)
+
+    def k3_tally(q, *a, **kw):
+        shapes["flash_fwd"][f"B{q.shape[0]}"] += 1
+        return k3(q, *a, **kw)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server = FluxServer(pipe, max_batch=SERVE_MAX_BATCH)
+    _cuda.reset_launch_counts()
+    qmatmul.qmm_s8, flash.flash_fwd = k1_tally, k3_tally
+    try:
+        t0 = time.perf_counter()
+
+        def submit(reqs):
+            return [server.submit(p, params(seed), **(i2i if edit else {}))
+                    for p, seed, edit in reqs]
+
+        futs = submit(SERVE_REQUESTS[:4])
+        while server.stats()["forwards"] < 2:  # the first lanes at step 2
+            time.sleep(0.002)
+        futs += submit(SERVE_REQUESTS[4:])
+        served = [f.result(timeout=600) for f in futs]
+        srv_s = time.perf_counter() - t0
+    finally:
+        qmatmul.qmm_s8, flash.flash_fwd = k1, k3
+        server.shutdown()
+    counts = _cuda.launch_counts()
+    stats = server.stats()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bands = []
+    for (p, seed, edit), got, want in zip(SERVE_REQUESTS, served, offline):
+        d = np.abs(got.astype(np.float32) - want.astype(np.float32))
+        bands.append((float(d.mean()), float(d.max())))
+    lane_steps = sum(max(1, round(steps * SERVE_STRENGTH)) if edit else steps
+                     for _, _, edit in SERVE_REQUESTS)
+    encodes = len(SERVE_REQUESTS) - stats["encode_cache_hits"]
+    want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503 * stats["forwards"],
+            "flash_fwd": 57 * stats["forwards"], "qmm_nf4": 168 * encodes}
+    n = len(SERVE_REQUESTS)
+    print(f"serve: {n} requests ({sum(e for *_, e in SERVE_REQUESTS)} img2img at "
+          f"{SERVE_STRENGTH}), {steps} steps, 1024x1024, max_batch {SERVE_MAX_BATCH}: "
+          f"served {n / srv_s:.4f} images/s ({srv_s:.3f} s) against {n / seq_s:.4f} images/s "
+          f"one by one offline ({seq_s:.3f} s), {seq_s / srv_s:.3f}x")
+    print(f"serve stats {json.dumps(stats)}")
+    print(f"serve: {stats['forwards']} forwards for {stats['lane_steps']} lane steps "
+          f"(+{stats['padded_lane_steps']} padded), occupancy {stats['occupancy']:.4f}; peak "
+          f"memory {peak:.2f} GiB ({capacity_estimate(pipe, SERVE_MAX_BATCH)})")
+    print("serve lanes vs the offline images (u8 mean |diff|, max): "
+          + ", ".join(f"{m:.4f} / {x:.0f}" for m, x in bands))
+    print(f"serve launches { {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} }); by shape "
+          + json.dumps({k: dict(sorted(v.items())) for k, v in shapes.items()}))
+    bad = [i for i, (m, x) in enumerate(bands) if not (m < SERVE_MEAN_BAND and x <= SERVE_MAX_BAND)]
+    if bad or any(o.shape != (1024, 1024, 3) for o in served):
+        raise SystemExit(f"serve lanes {bad} outside the band of their offline images: {bands}")
+    if not (stats["completed"] == n and stats["failed"] == 0
+            and stats["lane_steps"] == lane_steps and stats["encode_cache_hits"] >= 2):
+        raise SystemExit(f"serve stats {stats}: expected {n} completed, 0 failed, "
+                         f"{lane_steps} lane steps, >= 2 encode-cache hits")
+    if counts != want:
+        raise SystemExit(f"serve launch counts {counts} differ from {want}")
+    return rows
+
+
+def small_entry_points() -> None:
+    """The other entry points at a tiny size on the card: ``serve_http`` on
+    localhost (one ``POST /generate``, one ``GET /metrics``), and one 1-step
+    img2img image under DIFFUSION_RS_TPU_TRACE_DIR, whose trace must name
+    the pipeline's five spans and K1's kernel."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.serving import FluxServer, serve_http
+
+    cfgs = tiny_configs()
+    pipe = make_pipeline(cfgs, make_params(cfgs, seed=21, device="cuda"), device="cuda")
+    server = FluxServer(pipe, max_batch=SERVE_MAX_BATCH)
+    httpd = serve_http(server, "127.0.0.1", 0, block=False)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        body = json.dumps({"prompt": "a photo of a small cat", "height": 64, "width": 64,
+                           "num_steps": 2, "seed": 3}).encode()
+        req = urllib.request.Request(base + "/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            png, ctype = r.read(), r.headers["Content-Type"]
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+    size = tuple(int.from_bytes(png[i:i + 4], "big") for i in (16, 20))
+    print(f"serve_http: POST /generate -> {ctype}, {len(png)} bytes, {size[0]}x{size[1]}; "
+          f"GET /metrics -> {len(metrics.splitlines())} lines")
+    if not (png[:8] == b"\x89PNG\r\n\x1a\n" and size == (64, 64) and ctype == "image/png"
+            and "drs_server_completed_total 1" in metrics):
+        raise SystemExit("serve_http did not answer with a 64x64 PNG and the metrics")
+
+    spans = ("generate", "text-encode", "vae-encode", "denoise", "vae-decode")
+    params = DiffusionGenerationParams(height=64, width=64, num_steps=1, guidance_scale=3.5,
+                                       seed=5)
+    init = np.random.default_rng(5).integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp, env(DIFFUSION_RS_TPU_TRACE_DIR=tmp):
+        pipe.forward_arrays(["a photo of a small cat"], params, init_image=init, strength=1.0)
+        files = os.listdir(tmp)
+        names = set()
+        if len(files) == 1:
+            with open(os.path.join(tmp, files[0])) as f:
+                names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = [sp for sp in spans if sp in names]
+    k1 = sorted({n for n in names if "qmm_s8_kernel" in n})
+    print(f"trace (DIFFUSION_RS_TPU_TRACE_DIR, 1-step img2img): files {files}, spans {found}, "
+          f"K1 kernels {k1}")
+    if len(found) != len(spans) or not k1:
+        raise SystemExit(f"the trace names spans {found} and K1 kernels {k1}")
+
+
 def image_edit_phase(pipe, prompts, steps: int, init_img, ref_latent) -> None:
     """Phase 4b, on phase 4's q8t pipeline and its 1024x1024 image as the init
     image: a 1-step warm-up, then img2img at strength 0.6 (``round(0.6 *
@@ -1911,15 +2125,15 @@ def timed_image(name: str, pipe, prompts, steps: int, want: dict, t_init=None):
     return counts, lat, median
 
 
-def capacity_estimate(pipe) -> str:
-    """check_denoise_capacity's numbers for a 1024x1024 batch-1 image of
-    ``pipe``: the transformer's resident bytes plus the activation estimate
+def capacity_estimate(pipe, batch: int = 1) -> str:
+    """check_denoise_capacity's numbers for a 1024x1024 image of ``pipe`` at
+    ``batch``: the transformer's resident bytes plus the activation estimate
     (util/capacity.py), printed beside a measured peak."""
     from diffusion_rs_tpu_torch.util.capacity import (
         estimate_denoise_activation_bytes, tree_device_bytes)
 
     w = tree_device_bytes(pipe.flux_params)
-    act = estimate_denoise_activation_bytes(1, 4096, 512, pipe.flux_cfg.hidden_size)
+    act = estimate_denoise_activation_bytes(batch, 4096, 512, pipe.flux_cfg.hidden_size)
     return (f"capacity estimate {(w + act) / 2**30:.2f} GiB = {w / 2**30:.2f} weights + "
             f"{act / 2**30:.2f} activations")
 
@@ -2383,6 +2597,23 @@ def offloaded_loads(root, prompts, dense) -> None:
         del pipe
 
 
+def cli_image(model_dir: str, out: str, prompt: str) -> None:
+    """One 1024x1024 1-step image through ``cli.main`` from the directory;
+    the file it writes must be a 1024x1024 PNG."""
+    from diffusion_rs_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    rc = cli.main(["--model-id", model_dir, "--prompt", prompt, "-o", out, "--num-steps", "1",
+                   "--height", "1024", "--width", "1024", "--seed", "7", "--silent"])
+    with open(out, "rb") as f:
+        png = f.read()
+    size = tuple(int.from_bytes(png[i:i + 4], "big") for i in (16, 20))
+    print(f"cli: rc {rc}, {len(png)} bytes, {size[0]}x{size[1]} PNG in "
+          f"{time.perf_counter() - t0:.1f} s (load included)")
+    if rc != 0 or png[:8] != b"\x89PNG\r\n\x1a\n" or size != (1024, 1024):
+        raise SystemExit(f"cli.main: rc {rc}, PNG {png[:8]!r}, size {size}")
+
+
 def isq_file_round_trip(prompts) -> int:
     """A diffusers-layout directory at full width (FLUX.1-dev with 1 double
     + 1 single block, T5-XXL cut to 1 layer, CLIP-L and the VAE whole, bf16)
@@ -2419,6 +2650,7 @@ def isq_file_round_trip(prompts) -> int:
         if dense.flux_cfg != cfgs["flux_cfg"]:
             raise SystemExit(f"the directory loads as {dense.flux_cfg}")
         offloaded_loads(f"{tmp}/flux", prompts, dense)
+        cli_image(f"{tmp}/flux", f"{tmp}/cli.png", prompts[0])
         write_flux_imatrix(f"{tmp}/imatrix.dat", dense.flux_params, seed=ISQ_SEED + 5)
         write_flux_lora(f"{tmp}/lora.safetensors", cfgs["flux_cfg"], seed=ISQ_SEED + 6)
         opts = dict(isq=ISQ_TARGET, imatrix=f"{tmp}/imatrix.dat",
@@ -2469,10 +2701,10 @@ def isq_file_round_trip(prompts) -> int:
 
 
 # Depth (double, single blocks) of the images that cut it by default, to make
-# room in the five-minute run for config S; their widths, and so every
-# kernel's shapes, are FLUX.1-dev's. The q8t main path, config S, C and A
-# keep 19 + 38.
-EARLIER_DEPTH = (5, 10)
+# room in the five-minute run for config S and the serve phase; their
+# widths, and so every kernel's shapes, are FLUX.1-dev's. The q8t main path,
+# the serve phase, config S, C and A keep 19 + 38.
+EARLIER_DEPTH = (3, 6)
 SP = 2
 # config S's latent against phase 4's (the same weights, noise and steps on
 # one rank): the linears see the same rows, but the ring merges each chunk's
@@ -2864,6 +3096,10 @@ def main() -> int:
 
     profile_image(pipe, prompts)
     mark("main path")
+    serve_rows = serve_phase(pipe, args.steps, img[0])
+    mark("serve phase")
+    small_entry_points()
+    mark("serve_http, trace")
     image_edit_phase(pipe, prompts, args.steps, img[0], lat)
     mark("img2img / inpaint")
 
@@ -2980,6 +3216,11 @@ def main() -> int:
             **({"m1_rows": [{k: x[k] for k in ("shape", "ms", "device_ms", "bound_ms",
                                                "library_ms")} for x in rows
                             if "device_ms" in x]} if name == "qmm_affine" else {}),
+            **({"serve_rows": [{k: x[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms")}
+                               for x in serve_rows if x["shape"].startswith(
+                                   "M" if name == "qmm_s8" else "B")]}
+               if name in ("qmm_s8", "flash_fwd") else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

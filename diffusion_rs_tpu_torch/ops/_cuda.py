@@ -18,6 +18,20 @@ the RoPE pass ``rope_qk`` that K7 launches before its attention; the
 quantize source ``flash_quant`` is the int8 forms' prepass).
 Every kernel wrapper adds one to its entry point's count in
 :data:`LAUNCHES` when it launches it, and nowhere else.
+
+Threads: the serving path launches kernels from several threads of one
+process (a request's text encode on its submitting thread, the batched
+steps on the server's worker, the decodes on its decode thread). One
+re-entrant lock guards the build, the loaded libraries and entry points,
+:data:`BUILD_DIR` and :data:`LAUNCHES`: each process builds each library
+once (a second thread that asks during the build waits for it and then
+loads the result; a failed build raises on every thread that asked for the
+library), and launches are counted exactly from any thread. A thread's
+first launch on a card makes the card's primary context current in that
+thread (``torch.cuda.set_device``): in a thread that has made no CUDA
+runtime call yet, a library's launch fails with cudaErrorInvalidValue.
+Processes (spawned ranks) build into pid-named temporaries renamed into
+place with ``os.replace``.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -74,15 +89,39 @@ KERNELS = {
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, object] = {}
+_lock = threading.RLock()
+
+
+class _ThreadCards(threading.local):
+    """Per thread: the cards whose primary context the thread made current."""
+
+    def __init__(self):
+        self.cards = set()
+
+
+_thread = _ThreadCards()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    with _lock:
+        return dict(LAUNCHES)
+
+
+def use_build_dir(path: Path) -> Path:
+    """Build and load the libraries under ``path`` from now on
+    (util/compile_cache.py). Returns the directory in effect: the present
+    one, unchanged, once a library has been loaded from it."""
+    global BUILD_DIR
+    with _lock:
+        if not _LIBS:
+            BUILD_DIR = Path(path)
+        return BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -109,55 +148,58 @@ def build_all() -> Dict[str, float]:
     """Compile every missing library in parallel; returns seconds per source
     (0.0 for a library that was already built). Raises on any failure, with
     the compiler's output."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    t0 = time.perf_counter()
-    for name in SOURCES:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        log = open(out.with_suffix(".log"), "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                       tmp, out, log)
-    times = {name: 0.0 for name in SOURCES}
-    failed = []
-    for name, (proc, tmp, out, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        times[name] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(f"{name} (rc {rc}):\n{out.with_suffix('.log').read_text()}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return times
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        t0 = time.perf_counter()
+        for name in SOURCES:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            log = open(out.with_suffix(".log"), "w")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                           tmp, out, log)
+        times = {name: 0.0 for name in SOURCES}
+        failed = []
+        for name, (proc, tmp, out, log) in procs.items():
+            rc = proc.wait()
+            log.close()
+            times[name] = time.perf_counter() - t0
+            if rc != 0:
+                failed.append(f"{name} (rc {rc}):\n{out.with_suffix('.log').read_text()}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return times
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        if not _lib_path(name).exists():
-            build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _LIBS[name] = lib
-    return lib
+    with _lock:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if not _lib_path(name).exists():
+                build_all()
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = lib
+        return lib
 
 
 def _entry(name: str):
-    fn = _FNS.get(name)
-    if fn is None:
-        source, sig = KERNELS[name]
-        fn = getattr(library(source), name)
-        fn.argtypes = sig
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
+    with _lock:
+        fn = _FNS.get(name)
+        if fn is None:
+            source, sig = KERNELS[name]
+            fn = getattr(library(source), name)
+            fn.argtypes = sig
+            fn.restype = ctypes.c_int
+            _FNS[name] = fn
+        return fn
 
 
 def int8_layout(s8: bool, s8_pv: bool) -> Tuple[int, int, int]:
@@ -181,8 +223,18 @@ def launch(name: str, *args, device) -> None:
     import torch
 
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _entry(name)(*args, stream)
+        card = torch.cuda.current_device()
+        if card not in _thread.cards:
+            torch.cuda.set_device(card)  # forces cudaSetDevice: the context, current here
+            _thread.cards.add(card)
+        call(name, args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def call(name: str, args, stream) -> None:
+    """Call entry point ``<name>(*args, stream)``, raise on its error code,
+    and count the launch."""
+    err = _entry(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1

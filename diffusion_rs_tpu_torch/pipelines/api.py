@@ -14,6 +14,7 @@ Pillow only to resize an init image or mask that is not already at size.
 from __future__ import annotations
 
 import enum
+import io
 import struct
 import zlib
 from dataclasses import dataclass
@@ -39,7 +40,9 @@ class Offloading(enum.Enum):
 
 
 class ModelDType(enum.Enum):
-    """``Auto`` resolves to bf16 (every card the port targets runs it)."""
+    """``Auto`` resolves on the target device (util/dtype.resolve_auto_dtype):
+    bf16 on a card that supports it, else the first of bf16, f16, f32 that
+    the device runs."""
 
     Auto = "auto"
     BF16 = "bf16"
@@ -84,6 +87,18 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def decode_image(data: bytes):
+    """Encoded image bytes (PNG, JPEG, ...) -> a PIL image, for init images
+    and masks read from files or requests; the one place besides resizing
+    where the port needs Pillow."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("decoding an image file needs Pillow (pip install Pillow); "
+                          "pass u8 arrays to the Python API to skip it") from e
+    return Image.open(io.BytesIO(data))
+
+
 class Pipeline:
     """Load a FLUX pipeline and generate images. ``forward`` returns one PNG
     (``bytes``) per prompt.
@@ -103,9 +118,10 @@ class Pipeline:
     pad keys; None: DIFFUSION_RS_TPU_T5_MASK_PADS=1) and ``step_progress``
     (a line per denoise step; None: DIFFUSION_RS_TPU_PROGRESS) resolve once,
     at construction. ``offloading`` (an :class:`Offloading`) keeps the
-    weights in host memory. ``compile_cache`` keeps the JAX package's name
-    but is not ported yet: setting it raises ``NotImplementedError`` naming
-    its ROADMAP item."""
+    weights in host memory. ``compile_cache`` (or
+    DIFFUSION_RS_TPU_COMPILE_CACHE) is the directory the CUDA kernels are
+    built into and loaded from, kept across processes
+    (util/compile_cache.py)."""
 
     def __init__(
         self,

@@ -25,6 +25,12 @@ the denoise streams the transformer's blocks from host memory
 (``_denoise_streamed``; img2img passes its start latent in as the noise,
 inpainting raises).
 
+The stages run inside the JAX pipeline's named spans (util/tracing.py:
+``text-encode``, ``denoise``, ``vae-decode``, ``vae-encode``,
+``vae-encode-tiled``), and ``forward_arrays`` inside
+``maybe_profile("generate")``, which writes a profiler trace when
+DIFFUSION_RS_TPU_TRACE_DIR is set.
+
 Under a mesh (``parallel.make_mesh``; one process per rank, SPMD) every
 rank tokenizes the whole batch and encodes its dp rows, draws the whole
 batch's noise (and encoder sample) from the seed and keeps its dp rows,
@@ -55,7 +61,7 @@ from ..models.vae import VAEConfig, vae_decode, vae_decode_tiled, vae_encode, va
 from ..parallel.mesh import Sharding, batch_sharding, sequence_sharding
 from ..util.capacity import check_denoise_capacity
 from ..util.device import resolve_device
-from ..util.tracing import warn_once
+from ..util.tracing import maybe_profile, trace_span, warn_once
 from .sampling import (
     denoise,
     get_encode_noise,
@@ -187,7 +193,8 @@ class FluxPipeline:
 
     @torch.no_grad()
     def _encode(self, t5_ids: torch.Tensor, clip_ids: torch.Tensor):
-        with self._resident("t5") as t5, self._resident("clip") as clip:
+        with (trace_span("text-encode"), self._resident("t5") as t5,
+              self._resident("clip") as clip):
             txt = t5_encode(t5, self.t5_cfg, t5_ids, mask_pads=self._t5_mask_pads).to(self.dtype)
             _, y = clip_encode(clip, self.clip_cfg, clip_ids)
         return txt, y.to(self.dtype)
@@ -212,7 +219,8 @@ class FluxPipeline:
                 return flux_forward(flux, self.flux_cfg, x.to(dt), txt, t_vec, y, guidance,
                                     pe=pe, mesh=self.mesh)
 
-            return self._euler(step, img, sigmas, inpaint)
+            with trace_span("denoise"):
+                return self._euler(step, img, sigmas, inpaint)
 
     @torch.no_grad()
     def _denoise_streamed(self, txt, y, sigmas: np.ndarray, guidance, noise):
@@ -220,8 +228,10 @@ class FluxPipeline:
         memory (``Offloading.Stream``; models/flux_streaming.py)."""
         dt = self.dtype
         pe = self._pe(txt, noise)
-        return self._euler(lambda x, t: self.streamed.predict(x.to(dt), txt, t, y, guidance, pe),
-                           pack_latents(noise.to(dt)), sigmas, None)
+        with trace_span("denoise"):
+            return self._euler(
+                lambda x, t: self.streamed.predict(x.to(dt), txt, t, y, guidance, pe),
+                pack_latents(noise.to(dt)), sigmas, None)
 
     def _pe(self, txt, noise):
         """RoPE tables of the joint sequence for ``noise`` [B, 16, h, w]."""
@@ -272,16 +282,17 @@ class FluxPipeline:
         """One-shot decode, or :func:`vae_decode_tiled` when the latent's
         longer side exceeds ``_TILE_DECODE_ABOVE``."""
         tile = int(os.environ.get("DIFFUSION_RS_TPU_VAE_TILE", "128"))
-        if tile <= 0 or max(latent_hw(height, width)) <= self._TILE_DECODE_ABOVE:
-            return self._decode(latent, height, width)
-        z = self._pre_decode(latent, height, width)
-        with self._resident("vae") as vae:
-            return self._to_u8(vae_decode_tiled(vae, self.vae_cfg, z, tile=tile))
+        with trace_span("vae-decode"):
+            if tile <= 0 or max(latent_hw(height, width)) <= self._TILE_DECODE_ABOVE:
+                return self._decode(latent, height, width)
+            z = self._pre_decode(latent, height, width)
+            with self._resident("vae") as vae:
+                return self._to_u8(vae_decode_tiled(vae, self.vae_cfg, z, tile=tile))
 
     @torch.no_grad()
     def _encode_image(self, x_nhwc, eps):
         """Image [-1, 1] NHWC -> scaled NCHW latent (the img2img init)."""
-        with self._resident("vae") as vae:
+        with trace_span("vae-encode"), self._resident("vae") as vae:
             return self._scale_latent(vae_encode(vae, self.vae_cfg, x_nhwc, eps))
 
     def _scale_latent(self, lat):
@@ -297,7 +308,7 @@ class FluxPipeline:
         f = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
         if tile <= 0 or max(x_nhwc.shape[1:3]) <= self._TILE_DECODE_ABOVE * f:
             return self._encode_image(x_nhwc, eps)
-        with self._resident("vae") as vae:
+        with trace_span("vae-encode-tiled"), self._resident("vae") as vae:
             return self._scale_latent(vae_encode_tiled(vae, self.vae_cfg, x_nhwc, eps,
                                                        tile=tile * f))
 
@@ -391,7 +402,14 @@ class FluxPipeline:
         ``init_image`` (PIL image or u8 array, or a list of them, one per
         prompt) switches to img2img: ``strength`` in (0, 1] is the share of
         the schedule run (1.0 ignores the image). ``mask_image`` (white =
-        repaint) with it inpaints."""
+        repaint) with it inpaints. With DIFFUSION_RS_TPU_TRACE_DIR set, the
+        call is profiled into that directory (util/tracing.maybe_profile)."""
+        with maybe_profile("generate"):
+            return self._forward_arrays(prompts, params, init_image, strength, mask_image,
+                                        output_type)
+
+    def _forward_arrays(self, prompts, params, init_image, strength, mask_image,
+                        output_type) -> np.ndarray:
         if output_type not in ("np", "latent"):
             raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
         n = len(prompts)

@@ -20,9 +20,13 @@ pipeline a parallel.HostOffload (pinned host copies, each component on the
 device around its use); ``Offloading.Stream`` builds the transformer on the
 CPU and packs its blocks into a models/flux_streaming.StreamedFlux, the
 encoders and the VAE built on the device (a mesh with it raises
-``ValueError``).
-Options of the JAX loader that the port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP item; none is silently ignored.
+``ValueError``). ``compile_cache`` (or DIFFUSION_RS_TPU_COMPILE_CACHE)
+points the CUDA kernels' build directory at a persistent one before
+anything launches (util/compile_cache.py); ``ModelDType.Auto`` resolves on
+the target device (util/dtype.py).
+Options of the JAX loader that the port does not carry yet (a mesh with
+tp > 1) raise ``NotImplementedError`` naming their ROADMAP item; none is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from ..models.t5 import T5Config
 from ..models.vae import VAEConfig
 from ..parallel.offload import HostOffload
 from ..util.device import resolve_device
+from ..util.dtype import resolve_auto_dtype
 from ..util.tree import tree_leaves
 from .api import ModelDType, ModelSource, Offloading
 from .flux_pipeline import FluxPipeline
@@ -68,8 +73,8 @@ log = logging.getLogger("diffusion_rs_tpu_torch")
 _FUSE_MEASURED_DEFAULT: tuple = ()
 _FUSE_ALL = ("img", "txt", "single", "t5")
 
-_DTYPES = {ModelDType.Auto: torch.bfloat16, ModelDType.BF16: torch.bfloat16,
-           ModelDType.F16: torch.float16, ModelDType.F32: torch.float32}
+_DTYPES = {ModelDType.BF16: torch.bfloat16, ModelDType.F16: torch.float16,
+           ModelDType.F32: torch.float32}
 
 
 def _not_ported(option: str, item: str):
@@ -206,24 +211,23 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
     return flux_params, t5_params
 
 
-def _check_unported(mesh, compile_cache) -> None:
-    """The JAX loader's options that the port does not carry yet, resolved
-    the way the JAX package resolves them (argument, else its environment
-    variable)."""
-    if compile_cache or os.environ.get("DIFFUSION_RS_TPU_COMPILE_CACHE"):
-        _not_ported("compile_cache", "Queue 1 item 4")
+def _check_unported(mesh) -> None:
+    """The JAX loader's options that the port does not carry yet."""
     if mesh is not None and mesh.shape.get("tp", 1) > 1:
         _not_ported(f"a mesh with tp={mesh.shape['tp']}", "Queue 1 item 5")
 
 
-def _component_store(loader: FileLoader, prefix: str, dtype, device) -> VarStore:
+def _component_store(loader: FileLoader, prefix: str, dtype, device,
+                     silent: bool = True) -> VarStore:
     """A component's weights: its safetensors and/or GGUF files."""
+    from ..util.progress import progress
+
     store = VarStore(default_dtype=dtype, device=device)
     files = [n for n in loader.list_files()
              if n.startswith(prefix + "/") and n.endswith((".safetensors", ".gguf"))]
     if not files:
         raise FileNotFoundError(f"no safetensors/gguf under {prefix}/")
-    for name in files:
+    for name in progress(files, desc=f"load {prefix}", silent=silent):
         if name.endswith(".safetensors"):
             store.add_safetensors(loader.safetensors(name))
         else:
@@ -275,7 +279,12 @@ def load_pipeline(
     compile_cache: Optional[str] = None,
     device="cuda",
 ) -> FluxPipeline:
-    _check_unported(mesh, compile_cache)
+    from ..util.compile_cache import enable_compile_cache
+
+    _check_unported(mesh)
+    # before any kernel launch: the first one builds into, or loads from,
+    # the cache directory
+    enable_compile_cache(compile_cache)
     if mesh is not None and offloading is Offloading.Stream:
         raise ValueError("mesh and Offloading.Stream are mutually exclusive")
     device = resolve_device(device)
@@ -291,7 +300,7 @@ def load_pipeline(
     class_name = index.get("_class_name")
     if class_name != "FluxPipeline":
         raise ValueError(f"unsupported pipeline class {class_name!r}")
-    dt = _DTYPES[dtype]
+    dt = resolve_auto_dtype(device) if dtype is ModelDType.Auto else _DTYPES[dtype]
     if not silent:
         log.info("loading FluxPipeline (dtype=%s, device=%s)", dt, device)
 
@@ -305,13 +314,13 @@ def load_pipeline(
         loader.read_bytes("tokenizer_2/tokenizer.json"))
 
     clip_cfg = ClipTextConfig.from_json(config("text_encoder/config.json"))
-    clip_params = build_clip_params(_component_store(loader, "text_encoder", dt, build),
+    clip_params = build_clip_params(_component_store(loader, "text_encoder", dt, build, silent),
                                     clip_cfg, dt)
     t5_cfg = T5Config.from_json(config("text_encoder_2/config.json"))
-    t5_params = build_t5_params(_component_store(loader, "text_encoder_2", dt, build),
+    t5_params = build_t5_params(_component_store(loader, "text_encoder_2", dt, build, silent),
                                 t5_cfg, dt)
     vae_cfg = VAEConfig.from_json(config("vae/config.json"))
-    vae_params = build_vae_params(_component_store(loader, "vae", dt, build), vae_cfg, dt)
+    vae_params = build_vae_params(_component_store(loader, "vae", dt, build, silent), vae_cfg, dt)
     if not silent:
         log.info("loaded CLIP (%d layers), T5 (%d layers), VAE %s",
                  clip_cfg.num_hidden_layers, t5_cfg.num_layers,
@@ -332,7 +341,7 @@ def load_pipeline(
         flux_cfg = FluxConfig.from_json(
             json.loads(flux_loader.read_bytes("transformer/config.json")))
         flux_params = build_flux_params(
-            _component_store(flux_loader, "transformer", dt, flux_build), flux_cfg, dt)
+            _component_store(flux_loader, "transformer", dt, flux_build, silent), flux_cfg, dt)
     flux_params, t5_params = apply_weight_options(
         flux_params, flux_cfg, t5_params, isq=isq, isq_t5=isq_t5, imatrix=imatrix, lora=lora,
         lora_scale=lora_scale, dtype=dt, silent=silent, offloading=offloading)

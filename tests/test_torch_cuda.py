@@ -25,7 +25,10 @@ bit for every format under K4 and K13, the M1 modulation shapes, and K8's
 groups against K4 on both sides of the small-M plan. Offloading on the card:
 HostOffload's pinned host copy and its ``resident`` / ``release``, and a
 streamed tiny q8t FLUX through a two-slot ring against the resident steps,
-bit for bit (``-k "offload or streamed"``).
+bit for bit (``-k "offload or streamed"``). Serving: a tiny FluxServer on
+the card (lanes against their offline images, launches per forward), and
+two threads' first launches racing in a fresh process with an empty build
+directory (``-k "server or race"``).
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -k "k3 or k4 or k6 or k7 or k8 or k13 or k14 or bf16_flash or rope or affine or dispatch"
 """
@@ -880,3 +883,117 @@ def test_offloading_pipeline_loads_onto_card(dev, tmp_path, mode):
         counts.append(_cuda.launch_counts())
     assert counts[0] == counts[1] and counts[0]["flash_fwd"] > 0
     assert np.array_equal(lats[0], lats[1])
+
+
+def _tiny_cuda_pipeline(dev):
+    """A tiny q8t FLUX pipeline on the card (T5 nf4, head dim 128)."""
+    from diffusion_rs_tpu_torch import FluxPipeline
+    from diffusion_rs_tpu_torch.models.clip import ClipTextConfig
+    from diffusion_rs_tpu_torch.models.flux import FluxConfig
+    from diffusion_rs_tpu_torch.models.t5 import T5Config
+    from diffusion_rs_tpu_torch.models.vae import VAEConfig
+    from diffusion_rs_tpu_torch.pipelines.scheduler import SchedulerConfig
+    from diffusion_rs_tpu_torch.util import synthetic as syn
+
+    cfgs = dict(
+        flux_cfg=FluxConfig(in_channels=64, pooled_projection_dim=64, joint_attention_dim=256,
+                            num_attention_heads=2, num_layers=1, num_single_layers=2,
+                            hidden_size=256, axes_dim=(16, 56, 56)),
+        t5_cfg=T5Config(vocab_size=512, d_model=256, d_kv=64, d_ff=512, num_layers=2,
+                        num_heads=4),
+        clip_cfg=ClipTextConfig(vocab_size=512, projection_dim=64, intermediate_size=128,
+                                num_hidden_layers=2, num_attention_heads=4),
+        vae_cfg=VAEConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8))
+    return FluxPipeline(
+        flux_params=syn.init_flux_params_quantized(0, cfgs["flux_cfg"], kind="q8t", device=dev),
+        t5_params=syn.init_t5_params_quantized(1, cfgs["t5_cfg"], kind="nf4", device=dev),
+        clip_params=syn.init_clip_params(2, cfgs["clip_cfg"], device=dev),
+        vae_params={**syn.init_vae_decoder_params(3, cfgs["vae_cfg"], device=dev),
+                    **syn.init_vae_encoder_params(4, cfgs["vae_cfg"], device=dev)},
+        scheduler=SchedulerConfig(use_dynamic_shifting=True),
+        t5_tokenizer=syn.WordTokenizer(512), clip_tokenizer=syn.WordTokenizer(512),
+        dtype=torch.bfloat16, device=dev, **cfgs)
+
+
+def test_tiny_server_on_card(dev):
+    """FluxServer on the card: three lanes (one img2img) share forwards at
+    batch buckets 1-4; each image is within the JAX server's band of the
+    offline image for its seed; K1 and K3 run a batch-1 step's count per
+    forward and K2 once per encode."""
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.serving import FluxServer
+
+    pipe = _tiny_cuda_pipeline(dev)
+    init = np.random.default_rng(3).integers(0, 256, (64, 64, 3), dtype=np.uint8)
+
+    def params(steps, seed):
+        return DiffusionGenerationParams(height=64, width=64, num_steps=steps,
+                                         guidance_scale=3.5, seed=seed)
+
+    reqs = [("a cat", params(2, 1), {}), ("a dog", params(4, 2), {}),
+            ("a fox", params(4, 9), dict(init_image=init, strength=0.5))]
+    _cuda.reset_launch_counts()
+    pipe.forward_arrays(["a cat"], params(2, 1))
+    one = _cuda.launch_counts()
+    per_step = {k: one[k] // 2 for k in ("qmm_s8", "flash_fwd")}
+    server = FluxServer(pipe, max_batch=4, poll_ms=500.0)
+    _cuda.reset_launch_counts()
+    try:
+        outs = [f.result(timeout=600) for f in [server.submit(p, gp, **kw)
+                                                for p, gp, kw in reqs]]
+    finally:
+        server.shutdown()
+    counts, s = _cuda.launch_counts(), server.stats()
+    assert s["completed"] == 3 and s["failed"] == 0 and s["lane_steps"] == 2 + 4 + 2
+    assert s["forwards"] < s["lane_steps"]
+    for k, n in per_step.items():
+        assert counts[k] == n * s["forwards"], (k, counts[k], n, s)
+    assert counts["qmm_nf4"] == 3 * one["qmm_nf4"]
+    for (p, gp, kw), got in zip(reqs, outs):
+        want = pipe.forward_arrays([p], gp, **kw)[0]
+        d = np.abs(got.astype(np.float32) - want.astype(np.float32))
+        assert d.mean() < 1.0 and d.max() <= 16, (p, d.mean(), d.max())
+
+
+def test_first_launches_race_from_two_threads(dev, tmp_path):
+    """Two threads' first launches (K1 and K2) in a fresh process with an
+    empty build directory: one build, no temporary left behind, both
+    results equal to their plain versions, each launch counted."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import threading, torch\n"
+        "from diffusion_rs_tpu_torch.ops import _cuda, qmatmul\n"
+        "from diffusion_rs_tpu_torch.util.synthetic import random_qtensor\n"
+        "g = torch.Generator(device='cuda').manual_seed(0)\n"
+        "qs = random_qtensor(g, 1024, 512, kind='q8t', device='cuda')\n"
+        "qn = random_qtensor(g, 1024, 512, kind='nf4', device='cuda')\n"
+        "x = torch.randn((64, 1024), generator=g, device='cuda').bfloat16()\n"
+        "builds, out, go = [], {}, threading.Barrier(2)\n"
+        "real = _cuda.build_all\n"
+        "_cuda.build_all = lambda: builds.append(1) or real()\n"
+        "def run(name, fn, qt):\n"
+        "    go.wait()\n"
+        "    out[name] = fn(x, qt, torch.bfloat16)\n"
+        "ts = [threading.Thread(target=run, args=a) for a in\n"
+        "      (('s8', qmatmul.qmm_s8, qs), ('nf4', qmatmul.qmm_nf4, qn))]\n"
+        "[t.start() for t in ts]; [t.join(600) for t in ts]\n"
+        "torch.cuda.synchronize()\n"
+        "assert builds == [1], builds\n"
+        "assert torch.equal(out['s8'], qmatmul.qmm_s8_plain(x, qs.packed, qs.scale,\n"
+        "                                                   torch.bfloat16))\n"
+        "ref = qmatmul.qmm_dequant_plain(x, qn, torch.bfloat16)\n"
+        "assert (out['nf4'].float() - ref.float()).abs().max() < 0.1\n"
+        "c = _cuda.launch_counts()\n"
+        "assert c['qmm_s8'] == 1 and c['qmm_nf4'] == 1, c\n"
+        "left = sorted(p.name for p in _cuda.BUILD_DIR.iterdir() if '.tmp' in p.name)\n"
+        "assert not left, left\n"
+        "assert all(_cuda._lib_path(n).exists() for n in _cuda.SOURCES)\n"
+    )
+    env = dict(os.environ, DIFFUSION_RS_TORCH_BUILD=str(tmp_path / "build"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=900, cwd=Path(__file__).resolve().parents[1])
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -200,17 +200,8 @@ def test_resolve_fuse_matches_jax(monkeypatch, fuse, env):
 @pytest.mark.parametrize("option,value", [
     # a mesh runs (tests/test_torch_mesh.py) unless it has a tp axis
     ("mesh", SimpleNamespace(shape={"dp": 1, "sp": 1, "tp": 2})),
-    ("compile_cache", "cache"),
 ])
 def test_unported_options_raise(sources, option, value):
     src = TSource.from_model_id(sources["dense"]["model_id"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_pipeline(src, device="cpu", **{option: value})
-
-
-@pytest.mark.parametrize("env", ["DIFFUSION_RS_TPU_COMPILE_CACHE=cache"])
-def test_unported_env_knobs_raise(sources, monkeypatch, env):
-    key, val = env.split("=")
-    monkeypatch.setenv(key, val)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPipeline(TSource.from_model_id(sources["dense"]["model_id"]), device="cpu")
