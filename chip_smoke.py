@@ -128,13 +128,21 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    weights through CUDA IPC, which keeps them allocated here until exit),
    each with its ring attention through K14: a tiny sp image against the
    CPU's plain versions, the timed ``--steps`` image with exact launches per
-   rank and its latent against phase 4's, and a 1-step image under each
-   int8 attention setting (K14's int8 entries); then one 720x1280 decode
-   through the tiled VAE decode (two 128-pixel latent tiles).
+   rank and its latent against one rank's at the same depth, and a 1-step
+   image under each int8 attention setting (K14's int8 entries); then
+   config T on the same two ranks and weights, ``make_mesh(tp=2)``: tiny
+   tp images (q8t; Q4_0; Q4_0 under DIFFUSION_RS_TPU_QMM_FAST16=1) against
+   the CPU's plain versions, each launching its f32 entries, then FLUX.1-dev
+   q8t with T5-XXL nf4 at full depth cut over tp (12 heads a rank; each
+   rank copies its slices), a 1-step 256x256 warm-up and the timed image
+   of ``min(--steps, 2)`` steps with exact launches and all-reduces (calls
+   and bytes: 118 a forward, 48 a T5 encode) per rank, its latent against
+   one rank's at the same steps; then one 720x1280
+   decode through the tiled VAE decode (two 128-pixel latent tiles).
 
-Phases 7, 9 and 11-13 run 3 double + 6 single blocks at FLUX.1-dev's
-widths (EARLIER_DEPTH; ``--full-depth`` restores 19 + 38); phases 4, 4c,
-4d, 4e, 5, 8 and 10 run the full depth.
+Phases 7, 9, 11-13 and config S run 3 double + 6 single blocks at
+FLUX.1-dev's widths (EARLIER_DEPTH; ``--full-depth`` restores 19 + 38);
+config T and phases 4, 4c, 4d, 4e, 5, 8 and 10 run the full depth.
 
 Phase 2 also holds K7's rotation pass (``rope_qk``) to
 ``rope_halfsplit_seqmajor`` bit for bit on column slices of a fused qkv at
@@ -148,7 +156,10 @@ quantize_v / v_kernel_layout at the same lengths,
 K14's four entry points (K3's and the int8 modes' output with the per-row
 log-sum-exp) at S2304 (config S's rows per rank), S4608 and S4112,
 K11 at the grouped double-block shapes (against per-group K2 launches, max-abs
-0), K2 at a FLUX shape, and the fast16 kernels K12 (nf4, at the T5 and D0
+0), K2 at a FLUX shape, K3 at config T's 12 heads, the f32-output entries
+of K1 (M4096 K1536 N3072, M4608 K7680 N3072: max-abs 0), K2 and K12 (M512
+K5120 N4096), K4 and K13 (Q4_0, M4608 K7680 N3072) at config T's K-slices,
+each beside its bf16 entry and the library's f32-output matmul, and the fast16 kernels K12 (nf4, at the T5 and D0
 shapes) and K13 (Q4_0 and Q4_K at M4608 K3072 N21504; Q8_0, Q6_K, bnb int8
 and a Q4_K plane with s == 0 groups untimed), each with its decoded weight
 (the product with the identity) equal to the plain version's and timed
@@ -572,13 +583,89 @@ def check_fast16_format(fmt: str, m: int, k: int, n: int, gen):
                 decoded_max_abs=decoded)
 
 
-def check_flash(s_q: int, gen, b: int = 1):
+# The f32-output entries (a row-parallel linear's partial product under
+# tp, before its all-reduce): entry -> weight kind. K1's is bit for bit with
+# its plain version; the decoding kernels hold every element within the f32
+# summation-order bound of theirs, 2 K 2^-24 sum |x w| (no bf16 cast here).
+F32_ENTRIES = {"qmm_s8": "q8t", "qmm_nf4": "nf4", "qmm_nf4_fast16": "nf4",
+               "qmm_affine": "q4_0", "qmm_affine_fast16": "q4_0"}
+
+
+def check_qmm_f32(name: str, m: int, k: int, n: int, gen):
+    """Kernel ``name`` storing f32 (its ``<name>_f32`` entry) at [m, k] x
+    [k, n], the K-slices of the row-parallel linears at tp=2: against its
+    plain version in f32 (K1 max-abs 0, the others within the summation-order
+    bound), its output cast to bf16 equal to the bf16 entry's bit for bit;
+    timed beside the bf16 entry on the same weights, the plain version and
+    the library's matmul with an f32 output on the decoded weight."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import qmatmul
+    from diffusion_rs_tpu_torch.quant import dequantize
+    from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
+
+    kind = F32_ENTRIES[name]
+    fast16 = name.endswith("fast16")
+    kern = getattr(qmatmul, name)
+    f32, bf16 = torch.float32, torch.bfloat16
+    set_bytes = {"q8t": k * n + k // 256 * n * 4, "nf4": k * n * (0.5 + 4 / 64),
+                 "q4_0": k * n * (0.5 + 8 / 32)}[kind]
+    n_sets = max(2, math.ceil(100e6 / set_bytes))
+    if kind == "q8t":
+        qts = [random_qtensor(gen, k, n, kind="q8t", device="cuda") for _ in range(n_sets)]
+        for qt in qts:
+            qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
+        plain = lambda x, qt: qmatmul.qmm_s8_plain(x, qt.packed, qt.scale, f32)  # noqa: E731
+        peak = PEAK_INT8_OPS
+    else:
+        qts = [fast16_weights(kind, k, n, gen) for _ in range(n_sets)]
+        plain_fn = qmatmul.qmm_dequant_fast16_plain if fast16 else qmatmul.qmm_dequant_plain
+        plain = lambda x, qt: plain_fn(x, qt, f32)  # noqa: E731
+        peak = PEAK_BF16_FLOPS
+    x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+    y = kern(x, qts[0], f32)
+    torch.cuda.synchronize()
+    ref = plain(x, qts[0])
+    same_as_bf16 = torch.equal(y.to(bf16), kern(x, qts[0], bf16))
+    max_abs = float((y - ref).abs().max())
+    if kind == "q8t":
+        ok = max_abs == 0.0
+    else:
+        w = (qmatmul.dequantize_fast16(qts[0], bf16) if fast16
+             else dequantize(qts[0], f32).to(bf16)).float()
+        ok = bool(((y - ref).abs() <= (x.float().abs() @ w.abs()) * (2 * k * 2.0 ** -24)).all())
+        del w
+    if not (ok and same_as_bf16 and y.dtype == f32 and torch.isfinite(y).all()):
+        raise SystemExit(f"{name}_f32 disagrees at M={m} K={k} N={n}: max-abs {max_abs:.3e} "
+                         f"against its plain version, bf16 cast equal to the bf16 entry "
+                         f"{same_as_bf16}")
+    deq = [(qmatmul.dequantize_fast16(qt, bf16) if fast16 else dequantize(qt, bf16))
+           for qt in qts]
+    try:  # the library's f32-output matmul of bf16 operands, where torch has it
+        torch.mm(x, deq[0], out_dtype=f32)
+        lib = lambda i: torch.mm(x, deq[i], out_dtype=f32)  # noqa: E731
+        note = "torch.mm(x, w, out_dtype=torch.float32) on the decoded bf16 weight"
+    except (TypeError, RuntimeError):
+        lib = lambda i: torch.matmul(x.float(), deq[i].float())  # noqa: E731
+        note = "torch.matmul in f32 on the decoded weight (no out_dtype in this torch)"
+    row = dict(shape=f"M{m} K{k} N{n} {kind}", summed_rel=summed_rel(y, ref),
+               max_abs_err=max_abs, library_note=note)
+    row["ms"] = cuda_ms(lambda i: kern(x, qts[i], f32), n_sets)
+    row["bf16_entry_ms"] = cuda_ms(lambda i: kern(x, qts[i], bf16), n_sets)
+    row["plain_ms"] = cuda_ms(lambda i: plain(x, qts[i]), n_sets, iters=4, warmup=1)
+    row["library_ms"] = cuda_ms(lib, n_sets)
+    row["bound_ms"], row["bound_by"] = bound(2.0 * m * k * n, peak,
+                                             m * k * 2 + set_bytes + m * n * 4)
+    return row
+
+
+def check_flash(s_q: int, gen, b: int = 1, h: int = 24):
     import torch
     import torch.nn.functional as F
 
     from diffusion_rs_tpu_torch.ops import flash
 
-    h, d = 24, 128
+    d = 128
     q, k, v = (torch.randn((b, h, s_q, d), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     scale = 1.0 / math.sqrt(d)
@@ -1101,6 +1188,8 @@ def make_params(cfgs, seed: int, device: str, flux_kind: str = "q8t") -> dict:
 
 
 def make_pipeline(cfgs, params: dict, device: str, mesh=None, offload=None):
+    """A FluxPipeline on ``params``; under a mesh with tp > 1 the pipeline
+    cuts FLUX and T5 to this rank's slices."""
     import torch
 
     from diffusion_rs_tpu_torch import FluxPipeline
@@ -2701,9 +2790,10 @@ def isq_file_round_trip(prompts) -> int:
 
 
 # Depth (double, single blocks) of the images that cut it by default, to make
-# room in the five-minute run for config S and the serve phase; their
+# room in the five-minute run for configs S and T and the serve phase; their
 # widths, and so every kernel's shapes, are FLUX.1-dev's. The q8t main path,
-# the serve phase, config S, C and A keep 19 + 38.
+# the serve phase, configs T, C and A keep 19 + 38; config S's images run
+# EARLIER_DEPTH too, against a single-rank latent at that depth.
 EARLIER_DEPTH = (3, 6)
 SP = 2
 # config S's latent against phase 4's (the same weights, noise and steps on
@@ -2713,12 +2803,34 @@ SP = 2
 # far (the readings are deterministic); the band is about three times that,
 # so a merge that weights the chunks wrongly fails here as well as in K14's
 # phase. Longer runs, whose drift is not measured, take config A's band.
+# At EARLIER_DEPTH the reference is the same 3 + 6 blocks on one rank.
 SP_LATENT_TOL = 3.3e-2
 
 
 def sp_latent_tol(steps: int) -> float:
     return SP_LATENT_TOL if steps <= 4 else LAYOUT_LATENT_TOL
 SP_INT8_ENTRIES = ("flash_s8_s8pv_lse", "flash_s8_lse", "flash_s8pv_lse")
+TP = 2
+# config T's latents against phase 4's (the same weights, noise and steps on
+# one rank): each row-parallel linear sums two f32 partials in another order
+# than one kernel's K loop, and the q8t activation quantize turns such f32
+# differences into int8 code flips, as in config S; the same band.
+TP_LATENT_TOL = SP_LATENT_TOL
+# Config T's tiny images: (FLUX weight kind, DIFFUSION_RS_TPU_QMM_FAST16) ->
+# the f32 entries each must launch (the tiny config's K-cut linears: the
+# MLPs' out in FLUX, wo in T5)
+TP_TINY = {"q8t": ("q8t", False, ("qmm_s8_f32", "qmm_nf4_f32")),
+           "q4_0": ("q4_0", False, ("qmm_affine_f32", "qmm_nf4_f32")),
+           "q4_0_fast16": ("q4_0", True, ("qmm_affine_fast16_f32", "qmm_nf4_fast16_f32"))}
+# FLUX.1-dev q8t at tp=2, per forward at 1024x1024 (4096 image + 512 text
+# tokens, batch 1): the K-cut linears of the 19 double blocks (img and txt
+# proj and MLP out), the 38 single blocks (linear2) and the three embedders'
+# out take K1's f32 entry; final.proj (N = 64, dequantized) an f32 matmul.
+# One all-reduce each: 118 per forward, 48 per T5 encode (o, wo x 24).
+TP_F32_LINEARS = 19 * 4 + 38 + 3
+TP_ALL_REDUCES = TP_F32_LINEARS + 1
+TP_FORWARD_BYTES = 4 * (19 * 2 * (4096 + 512) * 3072 + 38 * 4608 * 3072 + 3 * 3072 + 4096 * 64)
+TP_T5_BYTES = 4 * 48 * 512 * 4096
 
 
 def _nonzero(counts: dict) -> dict:
@@ -2726,7 +2838,7 @@ def _nonzero(counts: dict) -> dict:
 
 
 def sp_rank(rank: int, tmp: str, cfgs: dict, params: dict, tiny_params: dict, steps: int,
-            prompts) -> None:
+            prompts, t: dict) -> None:
     """Config S, one of SP ranks sharing cuda:0 over gloo (parallel.spawn).
     ``params`` are the main process's q8t weights, opened here through CUDA
     IPC (not copied); ``tiny_params`` the tiny config's, on the host. Runs
@@ -2734,7 +2846,9 @@ def sp_rank(rank: int, tmp: str, cfgs: dict, params: dict, tiny_params: dict, st
     ``steps``-step 1024x1024 image (launches reset just before it and read
     just after), then one 1-step image under each int8 attention setting.
     Writes its record to ``tmp/sp_<rank>.json``; rank 0 also the latents
-    and the tiny image."""
+    and the tiny image. Then config T on the same ranks and weights
+    (:func:`tp_phase` with ``t``'s configs, weights, tiny weights and
+    steps)."""
     import numpy as np
     import torch
 
@@ -2787,17 +2901,128 @@ def sp_rank(rank: int, tmp: str, cfgs: dict, params: dict, tiny_params: dict, st
         np.save(f"{tmp}/sp_latent.npy", latents[1].float().cpu().numpy())
         np.save(f"{tmp}/tiny_latent.npy", tiny_lat.numpy())
         np.save(f"{tmp}/tiny_image.npy", tiny_img)
+    del pipe, tiny, latents
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_phase(rank, tmp, t["cfgs"], t["params"], t["tiny"], t["steps"], prompts)
 
 
-def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent) -> dict:
-    """Config S: FLUX.1-dev q8t at full width and depth, 1024x1024, batch 1,
+def tp_phase(rank: int, tmp: str, cfgs: dict, params: dict, tiny_tp: dict, steps: int,
+             prompts) -> None:
+    """Config T, one of TP ranks sharing cuda:0 over gloo, after config S on
+    the same ranks: ``make_mesh(tp=TP)``, then the tiny tp images of
+    :data:`TP_TINY` (``tiny_tp``: their weights on the host), then FLUX.1-dev
+    q8t and T5-XXL nf4 at full width and depth cut over tp from the main
+    process's weights (CUDA IPC; each rank copies its slices): a 1-step
+    256x256 warm-up and the timed ``steps``-step 1024x1024 image, with the
+    launches and the all-reduces (calls and bytes,
+    parallel.mesh.ALL_REDUCES) reset just before it and read just after.
+    Writes ``tmp/tp_<rank>.json``; rank 0 also the timed image's latent and
+    the tiny images."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.ops import _cuda
+    from diffusion_rs_tpu_torch.parallel import make_mesh
+    from diffusion_rs_tpu_torch.parallel.mesh import ALL_REDUCES
+    from diffusion_rs_tpu_torch.util.capacity import tree_device_bytes
+    from diffusion_rs_tpu_torch.util.tree import tree_map
+
+    mesh = make_mesh(tp=TP)
+    rec = {"rank": rank, "coords": mesh.coords}
+    for name, (_, fast16, _) in TP_TINY.items():
+        with env(DIFFUSION_RS_TPU_QMM_FAST16="1" if fast16 else None):
+            tiny = make_pipeline(tiny_configs(), tree_map(lambda t: t.cuda(), tiny_tp[name]),
+                                 "cuda", mesh=mesh)
+            _cuda.reset_launch_counts()
+            lat, img = tiny_image(tiny, tiny_inputs(tiny), "cuda")
+            rec[f"tiny_{name}_launches"] = _nonzero(_cuda.launch_counts())
+        if rank == 0:
+            np.save(f"{tmp}/tp_tiny_{name}_latent.npy", lat.numpy())
+            np.save(f"{tmp}/tp_tiny_{name}_image.npy", img)
+        del tiny
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pipe = make_pipeline(cfgs, params, "cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    rec["cut_s"] = time.perf_counter() - t0
+    rec["flux_gib"] = tree_device_bytes(pipe.flux_params) / 2**30
+    rec["t5_gib"] = tree_device_bytes(pipe.t5_params) / 2**30
+    rec["copied_gib"] = (torch.cuda.memory_allocated() - base) / 2**30
+    latents = []
+    decode = pipe._decode_any
+
+    def capture_decode(lat, h, w):
+        latents.append(lat)
+        return decode(lat, h, w)
+
+    pipe._decode_any = capture_decode
+    # warm-up at 256x256: every kernel and all-reduce of the path at a
+    # sixth of the full size's gloo traffic (768 rows a linear, not 4608)
+    pipe.forward_arrays(prompts, DiffusionGenerationParams(
+        height=256, width=256, num_steps=1, guidance_scale=3.5, seed=7))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    ALL_REDUCES.clear()
+    t0 = time.perf_counter()
+    img = pipe.forward_arrays(prompts, DiffusionGenerationParams(
+        height=1024, width=1024, num_steps=steps, guidance_scale=3.5, seed=7))
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = _nonzero(_cuda.launch_counts())
+    rec["all_reduces"] = dict(ALL_REDUCES)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["timings"] = pipe.timings
+    rec["image"] = [list(img.shape), str(img.dtype)]
+    with open(f"{tmp}/tp_{rank}.json", "w") as f:
+        json.dump(rec, f)
+    if rank == 0:
+        np.save(f"{tmp}/tp_latent.npy", latents[-1].float().cpu().numpy())
+
+
+def single_rank_latent(cfgs: dict, params: dict, prompts, steps: int):
+    """The packed latent of one rank's ``steps``-step 1024x1024 image on
+    ``params`` (seed 7, guidance 3.5, as every timed image here)."""
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+
+    pipe = make_pipeline(cfgs, params, "cuda")
+    captured = {}
+    denoise = pipe._denoise
+    pipe._denoise = lambda *a: captured.setdefault("latent", denoise(*a))
+    pipe.forward_arrays(prompts, DiffusionGenerationParams(
+        height=1024, width=1024, num_steps=steps, guidance_scale=3.5, seed=7),
+        output_type="latent")
+    return captured["latent"]
+
+
+def cut_depth(cfgs: dict, params: dict, depth) -> tuple:
+    """FLUX cut to its first ``depth`` (double, single) blocks: the config
+    and views of the stacked block weights."""
+    from diffusion_rs_tpu_torch.util.tree import tree_map
+
+    flux = params["flux_params"]
+    return ({**cfgs, "flux_cfg": dataclasses.replace(
+                cfgs["flux_cfg"], num_layers=depth[0], num_single_layers=depth[1])},
+            {**params, "flux_params": {**flux,
+                                       "double": tree_map(lambda t: t[:depth[0]], flux["double"]),
+                                       "single": tree_map(lambda t: t[:depth[1]], flux["single"])}})
+
+
+def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent, full_depth: bool) -> dict:
+    """Config S: FLUX.1-dev q8t at full width, 1024x1024, batch 1,
     sequence-parallel over SP ranks that share the one card (gloo moves k/v
-    through pinned host memory: not a multi-GPU figure). The ranks open the
-    main pipeline's weights through CUDA IPC. Checks: the tiny sp image
-    against the CPU's plain versions, exact launches per rank (K14 on every
-    attention call, 57 x SP per step, K3 never), the latent against phase
-    4's, and each int8 setting's 1-step latent against the bf16 one. Returns
-    rank 0's K14 launches."""
+    through pinned host memory: not a multi-GPU figure), at EARLIER_DEPTH
+    unless ``full_depth``. The ranks open the main pipeline's weights
+    through CUDA IPC. Checks: the tiny sp image against the CPU's plain
+    versions, exact launches per rank (K14 on every attention call, K3
+    never), the latent against one rank's at the same depth (phase 4's at
+    full depth), and each int8 setting's 1-step latent against the bf16
+    one. Then config T on the same ranks at full depth, its timed image
+    ``min(steps, 2)`` steps against one rank's (:func:`check_config_t`).
+    Returns rank 0's K14 launches and config
+    T's f32-entry launches."""
     import tempfile
 
     import numpy as np
@@ -2809,12 +3034,29 @@ def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent) -> dict:
     tiny_params = make_params(tiny_cfgs, seed=11, device="cpu")
     cpu = make_pipeline(tiny_cfgs, tiny_params, device="cpu")
     tiny_cpu = tiny_image(cpu, tiny_inputs(cpu), "cpu")
+    # config T's tiny weights and their single-process CPU images (the q8t
+    # one is config S's)
+    tiny_tp, tiny_tp_cpu = {}, {}
+    for name, (kind, fast16, _) in TP_TINY.items():
+        tiny_tp[name] = tiny_params if kind == "q8t" else make_params(
+            tiny_cfgs, seed=11, device="cpu", flux_kind=kind)
+        with env(DIFFUSION_RS_TPU_QMM_FAST16="1" if fast16 else None):
+            ref = make_pipeline(tiny_cfgs, tiny_tp[name], device="cpu")
+            tiny_tp_cpu[name] = tiny_cpu if kind == "q8t" and not fast16 else tiny_image(
+                ref, tiny_inputs(ref), "cpu")
     params = {k: getattr(pipe, k) for k in ("flux_params", "t5_params", "clip_params",
                                             "vae_params")}
+    s_cfgs, s_params = (cfgs, params) if full_depth else cut_depth(cfgs, params, EARLIER_DEPTH)
+    s_ref = ref_latent if full_depth else single_rank_latent(s_cfgs, s_params, prompts, steps)
+    t_steps = min(steps, 2)
+    t_ref = ref_latent if t_steps == steps else single_rank_latent(cfgs, params, prompts,
+                                                                     t_steps)
+    t = {"cfgs": cfgs, "params": params, "tiny": tiny_tp, "steps": t_steps}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        spawn(sp_rank, SP, "gloo", args=(tmp, cfgs, params, tiny_params, steps, prompts))
+        spawn(sp_rank, SP, "gloo", args=(tmp, s_cfgs, s_params, tiny_params, steps, prompts, t))
         wall = time.perf_counter() - t0
+        t_counts = check_config_t(tmp, tiny_tp_cpu, t_steps, t_ref)
         recs = []
         for r in range(SP):
             with open(f"{tmp}/sp_{r}.json") as f:
@@ -2834,7 +3076,10 @@ def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent) -> dict:
         if not (c.get("flash_fwd_lse") and c.get("qmm_s8") and not c.get("flash_fwd")):
             raise SystemExit(f"config S tiny image did not run the ring's kernels: {c}")
     hop_mb = 2 * 24 * (4096 + 512) // SP * 128 * 2 / 1e6  # k and v of one rank's rows, bf16
-    want = {"qmm_s8": 503 * steps, "qmm_nf4": 168, "flash_fwd_lse": 57 * SP * steps}
+    per_step = flux_launches(s_cfgs["flux_cfg"])
+    attn = per_step["attention"]
+    want = {"qmm_s8": per_step["diffusers"] * steps, "qmm_nf4": 168,
+            "flash_fwd_lse": attn * SP * steps}
     for r in recs:
         tm = r["timings"]
         steps_ms = [x * 1e3 for x in tm["steps_s"]]
@@ -2844,7 +3089,7 @@ def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent) -> dict:
               f"{[round(x, 1) for x in steps_ms]}, decode {tm['decode_s'] * 1e3:.1f} ms, peak "
               f"memory {r['peak_gib']:.2f} GiB (activations; the weights are the main "
               f"process's, through CUDA IPC); {SP - 1} hops of {hop_mb:.1f} MB (k and v) per "
-              f"attention call, {57 * (SP - 1)} per step; launches {r['launches']} (expected "
+              f"attention call, {attn * (SP - 1)} per step; launches {r['launches']} (expected "
               f"{want}, every other kernel 0)")
         if r["launches"] != want:
             raise SystemExit(f"config S rank {r['rank']} launches {r['launches']} differ "
@@ -2852,21 +3097,89 @@ def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent) -> dict:
         if r["image"] != [[1, 1024, 1024, 3], "uint8"]:
             raise SystemExit(f"config S rank {r['rank']}: bad image {r['image']}")
         for entry in SP_INT8_ENTRIES:
-            w = {"qmm_s8": 503, "qmm_nf4": 168, entry: 57 * SP, "flash_quant": 57 * SP}
+            w = {"qmm_s8": per_step["diffusers"], "qmm_nf4": 168, entry: attn * SP,
+                 "flash_quant": attn * SP}
             got, dist = r[f"{entry}_launches"], r[f"{entry}_vs_bf16"]
             print(f"config S rank {r['rank']}, {entry} (1-step image): launches {got}, latent "
                   f"vs the bf16 1-step latent summed-rel {dist:.3e} (band {INT8_LATENT_TOL:g})")
             if got != w or not dist <= INT8_LATENT_TOL:
                 raise SystemExit(f"config S {entry}: launches {got} (expected {w}), latent "
                                  f"{dist:.3e} from bf16's")
-    dist = summed_rel(lat, ref_latent.float().cpu())
-    print(f"config S: {SP} ranks in {wall:.1f} s (spawn and set-up included); latent vs phase "
-          f"4's single-rank q8t latent: summed-rel {dist:.3e} (band {sp_latent_tol(steps):g})")
+    dist = summed_rel(lat, s_ref.float().cpu())
+    depth = (s_cfgs["flux_cfg"].num_layers, s_cfgs["flux_cfg"].num_single_layers)
+    print(f"config S ({depth[0]} + {depth[1]} blocks): {SP} ranks and config T in {wall:.1f} s "
+          f"(spawn and set-up included); latent vs one rank's q8t latent at that depth: "
+          f"summed-rel {dist:.3e} (band {sp_latent_tol(steps):g})")
     if tuple(lat.shape) != (1, 4096, 64) or not torch.isfinite(lat).all() \
             or not dist <= sp_latent_tol(steps):
         raise SystemExit(f"config S latent: shape {tuple(lat.shape)}, {dist:.3e} from phase 4's")
     return {"flash_fwd_lse": recs[0]["launches"]["flash_fwd_lse"],
-            **{e: recs[0][f"{e}_launches"][e] for e in SP_INT8_ENTRIES}}
+            **{e: recs[0][f"{e}_launches"][e] for e in SP_INT8_ENTRIES}, **t_counts}
+
+
+def check_config_t(tmp: str, tiny_cpu: dict, steps: int, ref_latent) -> dict:
+    """Config T's checks on the ranks' records: each tiny tp image against
+    the same image on the CPU in one process (plain versions) and its f32
+    entries launched; the full-width image's exact launches per rank (K1's
+    f32 entry on the K-cut linears, 117 per forward; K2's on T5's o and wo,
+    48; K3 on 12 heads, 57 per step), its all-reduces (118 per forward and
+    48 per T5 encode, calls and bytes), and its ``steps``-step latent
+    against one rank's (``ref_latent``). Returns rank 0's f32-entry launches (the
+    q8t image's, and the tiny images' of the others)."""
+    import numpy as np
+    import torch
+
+    recs = []
+    for r in range(TP):
+        with open(f"{tmp}/tp_{r}.json") as f:
+            recs.append(json.load(f))
+    counts = {}
+    for name, (_, _, entries) in TP_TINY.items():
+        card = (torch.from_numpy(np.load(f"{tmp}/tp_tiny_{name}_latent.npy")),
+                np.load(f"{tmp}/tp_tiny_{name}_image.npy"))
+        lat_err, psnr = image_match(card, tiny_cpu[name])
+        got = [r[f"tiny_{name}_launches"] for r in recs]
+        print(f"config T tiny {name} (tp={TP} on the card vs one CPU process): latent "
+              f"summed-rel {lat_err:.3e}, image PSNR {psnr:.1f} dB; card launches per rank {got}")
+        if not (lat_err <= 2e-2 and psnr >= 30.0):
+            raise SystemExit(f"config T tiny {name}: the tp image on the card does not agree "
+                             "with the plain versions on the CPU")
+        if not all(c.get(e) for c in got for e in entries):
+            raise SystemExit(f"config T tiny {name} did not launch {entries}: {got}")
+        counts.update({e: got[0][e] for e in entries if e not in ("qmm_s8_f32", "qmm_nf4_f32")})
+    want = {"qmm_s8": (503 - TP_F32_LINEARS) * steps, "qmm_s8_f32": TP_F32_LINEARS * steps,
+            "qmm_nf4": 168 - 48, "qmm_nf4_f32": 48, "flash_fwd": 57 * steps}
+    want_ar = {"calls": TP_ALL_REDUCES * steps + 48,
+               "bytes": TP_FORWARD_BYTES * steps + TP_T5_BYTES}
+    for r in recs:
+        tm = r["timings"]
+        steps_ms = [x * 1e3 for x in tm["steps_s"]]
+        ar = r["all_reduces"]
+        print(f"config T rank {r['rank']} (tp {r['coords']['tp']}): its cut {r['flux_gib']:.2f} "
+              f"GiB FLUX + {r['t5_gib']:.2f} GiB T5 ({r['copied_gib']:.2f} GiB copied in "
+              f"{r['cut_s']:.3f} s); image {r['wall_s']:.3f} s: encode {tm['encode_s'] * 1e3:.1f} "
+              f"ms, step median {statistics.median(steps_ms):.2f} ms ({min(steps_ms):.1f}-"
+              f"{max(steps_ms):.1f}), decode {tm['decode_s'] * 1e3:.1f} ms, peak memory "
+              f"{r['peak_gib']:.2f} GiB; all-reduces {ar.get('calls', 0)} of "
+              f"{ar.get('bytes', 0) / 1e9:.3f} GB (expected {want_ar['calls']} of "
+              f"{want_ar['bytes'] / 1e9:.3f}: {TP_ALL_REDUCES} a forward, 48 a T5 encode; gloo "
+              f"through pinned host memory); launches {r['launches']} (expected {want})")
+        if r["launches"] != want or ar != want_ar:
+            raise SystemExit(f"config T rank {r['rank']}: launches {r['launches']}, all-reduces "
+                             f"{ar}; expected {want}, {want_ar}")
+        if r["image"] != [[1, 1024, 1024, 3], "uint8"]:
+            raise SystemExit(f"config T rank {r['rank']}: bad image {r['image']}")
+    lat = torch.from_numpy(np.load(f"{tmp}/tp_latent.npy"))
+    dist = summed_rel(lat, ref_latent.float().cpu())
+    tol = TP_LATENT_TOL if steps <= 4 else LAYOUT_LATENT_TOL
+    print(f"config T {steps}-step latent vs one rank's q8t latent: summed-rel {dist:.3e} "
+          f"(band {tol:g})")
+    if tuple(lat.shape) != (1, 4096, 64) or not torch.isfinite(lat).all() or not dist <= tol:
+        raise SystemExit(f"config T {steps}-step latent: shape {tuple(lat.shape)}, {dist:.3e} "
+                         "from one rank's")
+    counts.update(qmm_s8_f32=recs[0]["launches"]["qmm_s8_f32"],
+                  qmm_nf4_f32=recs[0]["launches"]["qmm_nf4_f32"])
+    return counts
 
 
 def tiled_decode(pipe) -> None:
@@ -2905,9 +3218,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps of the timed image")
     ap.add_argument("--full-depth", action="store_true",
-                    help="run the GGUF, B, D0/D/F, dense and E0/E images at FLUX.1-dev's "
-                         f"19 + 38 blocks (default: {EARLIER_DEPTH[0]} + {EARLIER_DEPTH[1]}, "
-                         "the same widths)")
+                    help="run the GGUF, B, D0/D/F, dense, E0/E and config S images at "
+                         f"FLUX.1-dev's 19 + 38 blocks (default: {EARLIER_DEPTH[0]} + "
+                         f"{EARLIER_DEPTH[1]}, the same widths)")
     args = ap.parse_args()
 
     import torch
@@ -2957,7 +3270,9 @@ def main() -> int:
                     check_qmm("nf4", 4608, 3072, 12288, gen, K2_TOL)],  # configs D0/D
         "qmm_affine": [check_qmm(kind, m, 3072, n, gen, K4_TOL)
                        for kind in GGUF_KINDS for m, n in ((1, 18432), (4608, 21504))],
-        "flash_fwd": [check_flash(4608, gen), check_flash(4112, gen)],
+        # config T's 12 heads a rank last
+        "flash_fwd": [check_flash(4608, gen), check_flash(4112, gen),
+                      check_flash(4608, gen, h=24 // TP)],
         "flash_sm": [check_flash_seqmajor(s_, gen, rope=False) for s_ in (4608, 4112)],
         "flash_rope": [check_flash_seqmajor(s_, gen, rope=True) for s_ in (4608, 4112)],
         "rope_qk": [check_rope_qk(s_, gen) for s_ in (4608, 4112)],
@@ -2976,6 +3291,13 @@ def main() -> int:
                            check_fast16("nf4", 4608, 3072, 12288, gen)],  # config F
         "qmm_affine_fast16": [check_fast16("q4_0", 4608, 3072, 21504, gen),
                               check_fast16("q4_k", 4608, 3072, 21504, gen)],  # config E
+        # the f32 entries at config T's K-slices (tp=2): proj, linear2, T5's wo
+        "qmm_s8_f32": [check_qmm_f32("qmm_s8", 4096, 1536, 3072, gen),
+                       check_qmm_f32("qmm_s8", 4608, 7680, 3072, gen)],
+        "qmm_nf4_f32": [check_qmm_f32("qmm_nf4", 512, 5120, 4096, gen)],
+        "qmm_nf4_fast16_f32": [check_qmm_f32("qmm_nf4_fast16", 512, 5120, 4096, gen)],
+        "qmm_affine_f32": [check_qmm_f32("qmm_affine", 4608, 7680, 3072, gen)],
+        "qmm_affine_fast16_f32": [check_qmm_f32("qmm_affine_fast16", 4608, 7680, 3072, gen)],
     }
     for name, rows in checks.items():
         for r in rows:
@@ -3004,6 +3326,8 @@ def main() -> int:
                 line += f" (two calls), per-group launches {r['per_group_ms']:.4f} ms"
             if "f32_decode_ms" in r:
                 line += f"; the f32-decode kernel on the same weights {r['f32_decode_ms']:.4f} ms"
+            if "bf16_entry_ms" in r:
+                line += f"; the bf16 entry on the same weights {r['bf16_entry_ms']:.4f} ms"
             if "pass1_ms" in r:
                 i8 = r["int8_gemm_ms"]
                 line += (f"; pass 1 (quantize) {r['pass1_ms']:.4f} ms, pass 2 (product) "
@@ -3169,8 +3493,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipe = make_pipeline(cfgs, make_params(cfgs, seed=0, device="cuda"), device="cuda")
-    counts.update(config_s(cfgs, pipe, prompts, args.steps, lat))
-    mark("config S")
+    counts.update(config_s(cfgs, pipe, prompts, args.steps, lat, args.full_depth))
+    mark("configs S, T")
     tiled_decode(pipe)
 
     src = "diffusion_rs_tpu_torch/csrc/"
@@ -3196,6 +3520,12 @@ def main() -> int:
         "qmm_nf4_fast16": ("qmm_nf4.cu", f"{qmm_pallas}:378", -1),
         "qmm_affine_fast16": ("qmm_affine.cu", f"{qmm_pallas}:378", -1),
         **{entry: ("flash_fwd.cu", f"{flash_pallas}:396", 0) for entry in LSE_ENTRIES},
+        # config T's f32 entries: the heaviest (linear2's K-slice) reported
+        "qmm_s8_f32": ("qmm_s8.cu", f"{qmm_pallas}:378", -1),
+        "qmm_nf4_f32": ("qmm_nf4.cu", f"{qmm_pallas}:378", -1),
+        "qmm_nf4_fast16_f32": ("qmm_nf4.cu", f"{qmm_pallas}:378", -1),
+        "qmm_affine_f32": ("qmm_affine.cu", f"{qmm_pallas}:378", -1),
+        "qmm_affine_fast16_f32": ("qmm_affine.cu", f"{qmm_pallas}:378", -1),
     }
     kernels = []
     for name, rows in checks.items():
@@ -3211,7 +3541,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
             **{key: r[key] for key in ("library_note", "with_prepass_ms", "design_bound_ms",
-                                       "wrapper_ms", "pass1_ms",
+                                       "wrapper_ms", "pass1_ms", "bf16_entry_ms",
                                        "pass2_ms", "int8_gemm_ms", "rope_ms") if key in r},
             **({"m1_rows": [{k: x[k] for k in ("shape", "ms", "device_ms", "bound_ms",
                                                "library_ms")} for x in rows
@@ -3221,7 +3551,14 @@ def main() -> int:
                                for x in serve_rows if x["shape"].startswith(
                                    "M" if name == "qmm_s8" else "B")]}
                if name in ("qmm_s8", "flash_fwd") else {}),
+            **({"other_rows": [{k: x[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms")}
+                               for x in rows if x is not r and "ms" in x]}
+               if name == "qmm_s8_f32" or name == "flash_fwd" else {}),
         })
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise SystemExit(f"kernels launched no time on their paths: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,9 @@ Modes:
     prompts, the cache on against off).
 
 ``--device cpu`` runs the plain PyTorch versions (``--small`` sizes);
-``--mesh`` takes ``dp=,sp=`` (every rank runs this script after
-``parallel.init_multihost``'s environment; image mode) and refuses
-``tp > 1`` (ROADMAP Queue 1 item 5).
+``--mesh`` takes ``dp=,sp=,tp=`` (every rank runs this script after
+``parallel.init_multihost``'s environment; image mode); under ``tp`` each
+rank keeps its cut of the FLUX and T5 weights (parallel/sharding.py).
 
 Usage: python -m diffusion_rs_tpu_torch.bench [--mode image|step|serve]
        [--small] [--preset NAME] [--impl q4|q8t|dense] [--device cuda|cpu]
@@ -117,7 +117,8 @@ def _t5_params(cfg, impl: str, t5_impl: str, small: bool, device):
 def _pipeline(cfgs, flux_params, t5_params, device, dynamic_shift: bool, offload=None,
               mesh=None):
     """The FluxPipeline on seeded synthetic CLIP-L and VAE weights (CLIP in
-    host memory under ``offload``)."""
+    host memory under ``offload``); under a ``mesh`` with tp > 1 the
+    pipeline cuts FLUX and T5 to this rank's slices."""
     from .pipelines.flux_pipeline import FluxPipeline
     from .pipelines.scheduler import SchedulerConfig
     from .util import synthetic as syn
@@ -135,15 +136,15 @@ def _pipeline(cfgs, flux_params, t5_params, device, dynamic_shift: bool, offload
 
 
 def _parse_mesh(spec, device):
-    """'dp=2,sp=2' -> parallel.make_mesh over the ranks of
-    ``parallel.init_multihost`` (tp > 1 raises NotImplementedError)."""
+    """'dp=2,sp=2' or 'tp=2' -> parallel.make_mesh over the ranks of
+    ``parallel.init_multihost`` (an axis left out: 1, tp what dp and sp
+    leave)."""
     if not spec:
         return None
     from .parallel import init_multihost, make_mesh
 
     axes = {k.strip(): int(v) for k, v in (part.split("=") for part in spec.split(","))}
-    if axes.get("tp", 1) <= 1:
-        init_multihost()
+    init_multihost()
     return make_mesh(dp=axes.get("dp", 1), sp=axes.get("sp", 1), tp=axes.get("tp"),
                      device=device)
 
@@ -189,6 +190,7 @@ def bench_image(args, preset) -> int:
                            "cpu" if offload_enc else device)
     pipe = _pipeline({**cfgs, "flux_cfg": flux_cfg}, flux_params, t5_params, device,
                      dynamic_shift=flux_cfg.guidance_embeds, offload=offload, mesh=mesh)
+    del flux_params, t5_params  # under tp the pipeline holds only this rank's cut
     b = preset["batch"] if preset else args.batch
     impl = "dense-small" if args.small else args.impl
     if args.t5_impl == "q8t":
@@ -430,7 +432,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--preset", choices=list(PRESETS), default=None,
                     help="BASELINE.md target configs 1-5")
     ap.add_argument("--mesh", default=None,
-                    help="axis sizes, e.g. 'dp=2' or 'sp=2' (image mode; tp > 1 raises)")
+                    help="axis sizes, e.g. 'dp=2', 'sp=2' or 'tp=2' (image mode)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain PyTorch versions)")
     return ap

@@ -19,6 +19,17 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The matmul epilogues' store of two consecutive columns of one output row,
+// elements idx and idx + 1: one 4-byte bf16 pair, or, where f32 is set, one
+// 8-byte f32 pair (the f32-output entries; idx is even and the output 8-byte
+// aligned).
+__device__ __forceinline__ void store_pair(void* out, int f32, size_t idx, float lo, float hi) {
+  if (f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(lo, hi);
+  else
+    *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + idx) = pack_bf16x2(lo, hi);
+}
+
 // Packed bf16 pairs (low half = lower address), each result rounded once to
 // nearest even: fma.rn of an exact product or sum, so a * 1 + b is the
 // correctly rounded sum and a * b + (-0) the correctly rounded product, as

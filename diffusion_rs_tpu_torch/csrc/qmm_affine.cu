@@ -111,8 +111,8 @@ struct Group {
   CUtensorMap pmap;
   const float* scale;
   const float* bias;
-  __nv_bfloat16* out;
-  int m, tile0;
+  void* out;  // bf16, or f32 where out_f32
+  int m, tile0, out_f32;
 };
 
 struct Table {
@@ -382,9 +382,8 @@ qmm_affine_kernel(const __grid_constant__ Table tab, int tiles, int K, int N, in
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = T.m0 + 8 * j + 2 * t4 + e;
-        if (row < G.m)
-          *reinterpret_cast<uint32_t*>(G.out + (size_t)row * N + T.n0 + nb) =
-              pack_bf16x2(acc[4 * j + e], acc[4 * j + 2 + e]);
+        if (row < G.m) store_pair(G.out, G.out_f32, (size_t)row * N + T.n0 + nb,
+                                  acc[4 * j + e], acc[4 * j + 2 + e]);
       }
   }
 }
@@ -449,7 +448,7 @@ bool valid_bm(int bm) {
 // Returns a cudaError_t.
 template <bool FAST16>
 int run(const Args* args, int count, int K, int N, int bits, int split, int group,
-        bool has_bias, int bm, cudaStream_t stream) {
+        bool has_bias, int bm, bool out_f32, cudaStream_t stream) {
   if ((bits != 4 && bits != 8) || K % 64 != 0 || N % BN != 0 || group % 16 != 0 ||
       K % group != 0 || (bits == 4 && (split % 64 != 0 || K % split != 0)) || !valid_bm(bm))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -461,7 +460,8 @@ int run(const Args* args, int count, int K, int N, int bits, int split, int grou
     Group& g = tab.g[i];
     g.scale = static_cast<const float*>(a.scale);
     g.bias = has_bias ? static_cast<const float*>(a.bias) : nullptr;
-    g.out = static_cast<__nv_bfloat16*>(a.out);
+    g.out = a.out;
+    g.out_f32 = out_f32 ? 1 : 0;
     g.m = a.m;
     g.tile0 = tiles;
     if (has_bias && a.bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -497,7 +497,7 @@ extern "C" int qmm_affine(const void* x, const void* packed, const void* scale,
                           const void* bias, void* out, int M, int K, int N, int bits,
                           int split, int group, int block_m, void* stream) {
   const Args a{x, packed, scale, bias, out, M};
-  return run<false>(&a, 1, K, N, bits, split, group, bias != nullptr, block_m,
+  return run<false>(&a, 1, K, N, bits, split, group, bias != nullptr, block_m, false,
                     static_cast<cudaStream_t>(stream));
 }
 
@@ -506,7 +506,26 @@ extern "C" int qmm_affine_fast16(const void* x, const void* packed, const void* 
                                  const void* bias, void* out, int M, int K, int N, int bits,
                                  int split, int group, int block_m, void* stream) {
   const Args a{x, packed, scale, bias, out, M};
-  return run<true>(&a, 1, K, N, bits, split, group, bias != nullptr, block_m,
+  return run<true>(&a, 1, K, N, bits, split, group, bias != nullptr, block_m, false,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// K4 and K13 storing f32 (out f32 [M, N], 8-byte aligned; a row-parallel
+// linear's partial); the same arguments.
+extern "C" int qmm_affine_f32(const void* x, const void* packed, const void* scale,
+                              const void* bias, void* out, int M, int K, int N, int bits,
+                              int split, int group, int block_m, void* stream) {
+  const Args a{x, packed, scale, bias, out, M};
+  return run<false>(&a, 1, K, N, bits, split, group, bias != nullptr, block_m, true,
+                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int qmm_affine_fast16_f32(const void* x, const void* packed, const void* scale,
+                                     const void* bias, void* out, int M, int K, int N,
+                                     int bits, int split, int group, int block_m,
+                                     void* stream) {
+  const Args a{x, packed, scale, bias, out, M};
+  return run<true>(&a, 1, K, N, bits, split, group, bias != nullptr, block_m, true,
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -526,6 +545,6 @@ extern "C" int qmm_grouped_affine(const long long* table, int G, int K, int N, i
                reinterpret_cast<const void*>(r[2]), reinterpret_cast<const void*>(r[3]),
                reinterpret_cast<void*>(r[4]), static_cast<int>(r[5])};
   }
-  return run<false>(args, G, K, N, bits, split, group, has_bias != 0, block_m,
+  return run<false>(args, G, K, N, bits, split, group, has_bias != 0, block_m, false,
                     static_cast<cudaStream_t>(stream));
 }

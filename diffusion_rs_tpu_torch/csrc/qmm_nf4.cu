@@ -86,8 +86,8 @@ struct Group {
   CUtensorMap pmap;
   const float* scale;
   const float* codebook;
-  __nv_bfloat16* out;
-  int m, tile0;
+  void* out;  // bf16, or f32 where out_f32
+  int m, tile0, out_f32;
 };
 
 struct Table {
@@ -283,9 +283,8 @@ qmm_nf4_kernel(const __grid_constant__ Table tab, int tiles, int K, int N, int s
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = T.m0 + 8 * j + 2 * t4 + e;
-        if (row < G.m)
-          *reinterpret_cast<uint32_t*>(G.out + (size_t)row * N + T.n0 + nb) =
-              pack_bf16x2(acc[4 * j + e], acc[4 * j + 2 + e]);
+        if (row < G.m) store_pair(G.out, G.out_f32, (size_t)row * N + T.n0 + nb,
+                                  acc[4 * j + e], acc[4 * j + 2 + e]);
       }
   }
 }
@@ -322,7 +321,7 @@ cudaError_t launch(const Table& tab, int m_tiles, int K, int N, int split, int g
 // (128 or 256). Returns a cudaError_t.
 template <bool FAST16>
 int run(const Args* args, int count, int K, int N, int split, int group, int bm,
-        cudaStream_t stream) {
+        bool out_f32, cudaStream_t stream) {
   if (split % 64 != 0 || K % split != 0 || group % 32 != 0 || K % group != 0 || N % BN != 0 ||
       (bm != 128 && bm != 256))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -334,7 +333,8 @@ int run(const Args* args, int count, int K, int N, int split, int group, int bm,
     Group& g = tab.g[i];
     g.scale = static_cast<const float*>(a.scale);
     g.codebook = static_cast<const float*>(a.codebook);
-    g.out = static_cast<__nv_bfloat16*>(a.out);
+    g.out = a.out;
+    g.out_f32 = out_f32 ? 1 : 0;
     g.m = a.m;
     g.tile0 = tiles;
     if (a.m > 0) {
@@ -364,7 +364,8 @@ extern "C" int qmm_nf4(const void* x, const void* packed, const void* scale,
                        const void* codebook, void* out, int M, int K, int N,
                        int split, int group, int block_m, void* stream) {
   const Args a{x, packed, scale, codebook, out, M};
-  return run<false>(&a, 1, K, N, split, group, block_m, static_cast<cudaStream_t>(stream));
+  return run<false>(&a, 1, K, N, split, group, block_m, false,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // K12: K2 with the fast16 decode; the same arguments.
@@ -372,7 +373,26 @@ extern "C" int qmm_nf4_fast16(const void* x, const void* packed, const void* sca
                               const void* codebook, void* out, int M, int K, int N,
                               int split, int group, int block_m, void* stream) {
   const Args a{x, packed, scale, codebook, out, M};
-  return run<true>(&a, 1, K, N, split, group, block_m, static_cast<cudaStream_t>(stream));
+  return run<true>(&a, 1, K, N, split, group, block_m, false,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// K2 and K12 storing f32 (out f32 [M, N], 8-byte aligned; a row-parallel
+// linear's partial); the same arguments.
+extern "C" int qmm_nf4_f32(const void* x, const void* packed, const void* scale,
+                           const void* codebook, void* out, int M, int K, int N,
+                           int split, int group, int block_m, void* stream) {
+  const Args a{x, packed, scale, codebook, out, M};
+  return run<false>(&a, 1, K, N, split, group, block_m, true,
+                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int qmm_nf4_fast16_f32(const void* x, const void* packed, const void* scale,
+                                  const void* codebook, void* out, int M, int K, int N,
+                                  int split, int group, int block_m, void* stream) {
+  const Args a{x, packed, scale, codebook, out, M};
+  return run<true>(&a, 1, K, N, split, group, block_m, true,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // K11. table: G rows of 6 int64 {x, packed, scale, codebook, out, m}, each
@@ -388,5 +408,6 @@ extern "C" int qmm_grouped_nf4(const long long* table, int G, int K, int N, int 
                reinterpret_cast<const void*>(r[2]), reinterpret_cast<const void*>(r[3]),
                reinterpret_cast<void*>(r[4]), static_cast<int>(r[5])};
   }
-  return run<false>(args, G, K, N, split, group, block_m, static_cast<cudaStream_t>(stream));
+  return run<false>(args, G, K, N, split, group, block_m, false,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-// q8t quantized matmul: y[M, N] = x[M, K] @ deq(W)[K, N], bf16 in and out.
+// q8t quantized matmul: y[M, N] = x[M, K] @ deq(W)[K, N], bf16 in, bf16 or f32 out.
 //
 // K1 qmm_s8: replaces diffusion_rs_tpu/ops/qmatmul_pallas.py:_qmm_kernel,
 // s8 branch (:134-151), reached through _qmm_call -> pl.pallas_call (:378).
@@ -17,7 +17,8 @@
 // bk = min(256, K) columns, sx = max|x| / 127 (1 where the row is all zero),
 // xq = round_half_even(x / sx) as int8, an s8 x s8 -> s32 dot with the int8
 // weight plane, then acc += float(i32) * (sx * scale[kt, n]) in f32, K-tiles
-// summed in order, and one cast to bf16 at the end. The division and the
+// summed in order, and one cast to bf16 at the end (none for the f32-output
+// entry, qmm_s8_f32: a row-parallel linear's partial). The division and the
 // rounding are IEEE (no fast math); the fold uses __fmul_rn/__fadd_rn so the
 // compiler cannot contract it into an FMA. A finer fold would change the f32
 // roundings, so the s32 sum spans exactly one K-tile.
@@ -100,8 +101,8 @@ struct Group {
   CUtensorMap wmap;
   const float* sx;
   const float* scale;
-  __nv_bfloat16* out;
-  int m, m_pad, tile0;
+  void* out;  // bf16, or f32 where out_f32
+  int m, m_pad, tile0, out_f32;
 };
 
 struct Table {
@@ -367,9 +368,8 @@ qmm_s8_kernel(const __grid_constant__ Table tab, int tiles, int K, int N, int bk
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = T.m0 + 8 * j + 2 * t4 + e;
-        if (row < G.m)
-          *reinterpret_cast<uint32_t*>(G.out + (size_t)row * N + T.n0 + nb) =
-              pack_bf16x2(accf[4 * j + e], accf[4 * j + 2 + e]);
+        if (row < G.m) store_pair(G.out, G.out_f32, (size_t)row * N + T.n0 + nb,
+                                  accf[4 * j + e], accf[4 * j + 2 + e]);
       }
   }
 }
@@ -402,7 +402,7 @@ cudaError_t launch_product(const Table& tab, int m_tiles, int K, int N, int bk, 
 
 // Both passes over 1..8 products of one K, N and bk, with 128-k ring stages
 // when bk allows, else 64-k. Returns a cudaError_t.
-int run(const Args* args, int count, int K, int N, int bk, cudaStream_t st) {
+int run(const Args* args, int count, int K, int N, int bk, bool out_f32, cudaStream_t st) {
   if (bk % 64 != 0 || K % bk != 0 || N % BN != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int BK = bk % 128 == 0 ? 128 : 64;
   QuantTable qtab{};
@@ -417,7 +417,8 @@ int run(const Args* args, int count, int K, int N, int bk, cudaStream_t st) {
     Group& g = tab.g[i];
     g.sx = static_cast<const float*>(a.sx);
     g.scale = static_cast<const float*>(a.scale);
-    g.out = static_cast<__nv_bfloat16*>(a.out);
+    g.out = a.out;
+    g.out_f32 = out_f32 ? 1 : 0;
     g.m = a.m;
     g.m_pad = m_pad;
     g.tile0 = tiles;
@@ -455,7 +456,15 @@ extern "C" int qmm_s8(const void* x, void* xq, void* sx, const void* w,
                       const void* scale, void* out, int M, int K, int N, int bk,
                       void* stream) {
   const Args a{x, xq, sx, w, scale, out, M};
-  return run(&a, 1, K, N, bk, static_cast<cudaStream_t>(stream));
+  return run(&a, 1, K, N, bk, false, static_cast<cudaStream_t>(stream));
+}
+
+// K1 storing f32 (out f32 [M, N], 8-byte aligned); the same arguments.
+extern "C" int qmm_s8_f32(const void* x, void* xq, void* sx, const void* w,
+                          const void* scale, void* out, int M, int K, int N, int bk,
+                          void* stream) {
+  const Args a{x, xq, sx, w, scale, out, M};
+  return run(&a, 1, K, N, bk, true, static_cast<cudaStream_t>(stream));
 }
 
 // K8, s8 branch. table: G rows of 7 int64 {x, xq, sx, w, scale, out, m},
@@ -472,5 +481,5 @@ extern "C" int qmm_grouped_s8(const long long* table, int G, int K, int N, int b
                reinterpret_cast<const void*>(r[4]), reinterpret_cast<void*>(r[5]),
                static_cast<int>(r[6])};
   }
-  return run(args, G, K, N, bk, static_cast<cudaStream_t>(stream));
+  return run(args, G, K, N, bk, false, static_cast<cudaStream_t>(stream));
 }

@@ -21,6 +21,13 @@ of the text and of the image tokens (``S_txt / sp`` and ``S_img / sp``, its
 local joint sequence ``[txt_r; img_r]``) with the matching RoPE rows, and
 joint attention runs over the sp group (ops/partitioned.py); ``vec`` is
 per sample and the same on every rank.
+
+Under ``tp`` the params are a rank's cut tree (parallel/sharding.py): the
+blocks run on the rank's own heads (``num_attention_heads / tp``) and MLP
+columns, read off the row-parallel linears' cut (ops/linear.tp_size), and
+each row-parallel linear (``proj``, the MLPs' ``out``, ``linear2``, the
+embedders' ``out`` and ``final.proj``) sums its partial product over the tp
+group. Under sp x tp the ring runs over sp on the local heads.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch.nn.functional as F
 from ..ops import (apply_rope, apply_rope_halfsplit, expand_rope_tables, layer_norm,
                    linear, linear_grouped, rms_norm, rope_tables, sdpa_merged)
 from ..ops.flash import flash_attention_fused
-from ..ops.linear import Linear
+from ..ops.linear import Linear, tp_size
 from ..ops.partitioned import SeqShard, partitioned_flash_rope
 from ..parallel.mesh import split_sizes
 from ..util.tree import take_layer
@@ -212,7 +219,7 @@ def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig,
 
     img_mod = _scale_shift(layer_norm(img), i_shift1, i_scale1)
     txt_mod = _scale_shift(layer_norm(txt), t_shift1, t_scale1)
-    heads = cfg.num_attention_heads
+    heads = cfg.num_attention_heads // tp_size(p["img_attn"]["proj"])  # this rank's
     # grouped path: each img/txt projection pair as one grouped call, the
     # txt rows riding on the img call's grid; needs fused qkv in both streams
     grouped = cfg.grouped_qmm and "qkv" in p["img_attn"] and "qkv" in p["txt_attn"]
@@ -270,8 +277,9 @@ def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig,
     ``cfg.rope_fused``, (cos, sin) carry the expanded (ce, se) tables."""
     shift, scale, gate = _modulation(p["mod"], vec, 3)
     x_mod = _scale_shift(layer_norm(x), shift, scale)
-    h = cfg.hidden_size
-    heads = cfg.num_attention_heads
+    tp = tp_size(p["linear2"])  # this rank's heads and their width
+    h = cfg.hidden_size // tp
+    heads = cfg.num_attention_heads // tp
     if cfg.rope_fused:
         if "qkv_mlp" in p:
             fused = linear(x_mod, p["qkv_mlp"])

@@ -2,7 +2,13 @@
 variance, gated gelu_new feed-forward, relative-position-bucket bias built
 once from the block-0 embedding, unscaled attention scores in f32, and the
 f16 overflow clamp. Blocks take separate q/k/v and wi_0/wi_1 projections or
-the fused ``qkv`` / ``wi01`` ones of models/optimize.fuse_t5."""
+the fused ``qkv`` / ``wi01`` ones of models/optimize.fuse_t5.
+
+Under ``tp`` (a rank's cut tree, parallel/sharding.py) each rank attends
+with its own heads (``num_heads / tp``) and their columns of the position
+bias; ``o`` and ``wo`` are row-parallel. ``wi01``, whole on every rank as
+in the JAX package, gives every rank the whole ``gate * up``, which ``wo``
+cuts to its rows (ops/linear.linear)."""
 
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import linear, rms_norm, sdpa
+from ..ops.linear import tp_size
 from ..util.tree import take_layer
 
 Params = Dict[str, Any]
@@ -104,7 +111,7 @@ def _clamp_f16(x: torch.Tensor) -> torch.Tensor:
 
 def t5_block(bp: Params, x: torch.Tensor, bias: torch.Tensor, cfg: T5Config):
     b, s, _ = x.shape
-    h, dk = cfg.num_heads, cfg.d_kv
+    h, dk = cfg.num_heads // tp_size(bp["attn"]["o"]), cfg.d_kv  # this rank's heads
 
     def split(t):
         return t.reshape(b, s, h, dk).transpose(1, 2)
@@ -142,6 +149,10 @@ def t5_encode(params: Params, cfg: T5Config, input_ids: torch.Tensor,
     x = params["shared"][input_ids.long()]
     s = x.shape[1]
     bias = position_bias(params, cfg, s, s).float()
+    tp = params["blocks"]["attn"]["o"].tp
+    if tp is not None:  # this rank's heads' columns
+        n = cfg.num_heads // tp.size
+        bias = bias[:, tp.rank * n:(tp.rank + 1) * n]
     if mask_pads:
         key_is_pad = (input_ids == 0)[:, None, None, :]
         bias = bias + torch.where(key_is_pad, -1e9, 0.0).float()

@@ -11,8 +11,8 @@ No ``--use_fast_math``: the s8 matmul divides and rounds half-to-even exactly
 as ``jnp.round(x / sx)`` does, and fast math would change both.
 
 A source may export several entry points (:data:`KERNELS`: the q8t, nf4 and
-affine sources also export their grouped forms, the nf4 and affine sources
-their fast16 forms, the flash source its seq-major, fused-RoPE and int8
+affine sources also export their grouped forms and their f32-output forms
+(``<name>_f32``), the nf4 and affine sources their fast16 forms, the flash source its seq-major, fused-RoPE and int8
 forms, the bf16 and int8 forms that also write the log-sum-exp, K14, and
 the RoPE pass ``rope_qk`` that K7 launches before its attention; the
 quantize source ``flash_quant`` is the int8 forms' prepass).
@@ -85,6 +85,9 @@ KERNELS = {
     "flash_s8_s8pv_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "flash_quant": ("flash_quant", [_P] * 8 + [_I] * 4 + [_P]),
 }
+# K1, K2, K12, K4 and K13 storing f32 (a row-parallel linear's partial product)
+KERNELS.update({f"{name}_f32": KERNELS[name] for name in (
+    "qmm_s8", "qmm_nf4", "qmm_nf4_fast16", "qmm_affine", "qmm_affine_fast16")})
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,6 @@
-"""Sequence-parallel attention over a mesh's ``sp`` group (port of the flash
-rules of ``ops/partitioned.py``).
+"""Sequence-parallel attention over a mesh's ``sp`` group and row-parallel
+linears over its ``tp`` group (port of the flash and qmm rules of
+``ops/partitioned.py``).
 
 JAX registers GSPMD rules on its Pallas kernels; the port, which runs one
 process per rank, dispatches explicitly. Each rank holds its own rows of a
@@ -18,6 +19,14 @@ q . mean``. JAX's ring merges the centred log-sum-exps as they are, and so
 weights chunks with different means wrongly; the port adds each chunk's
 shift back before the merge, which makes the ring equal the single-chip s8
 attention within the int8 band, as the JAX docstring promises.
+
+A row-parallel linear (``make_partitioned_qmm``'s K-sharded rule,
+partitioned.py:286) holds a K-slice of the weight on each tp rank:
+:func:`row_parallel_linear` computes the rank's partial product over its
+K range in f32 (the quantized kernels' f32-output entries), sums the
+partials over the group with one all-reduce and casts once. A quantized
+weight is K-sharded only where each slice keeps whole split blocks and
+scale groups (:func:`_local_k_ok`).
 """
 
 from __future__ import annotations
@@ -28,9 +37,11 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import RingShift, all_gather_rows
+from ..parallel.mesh import RingShift, all_gather_rows, all_reduce_sum
+from ..quant.qtensor import QuantizedTensor, dequantize
 from ..util.tracing import warn_once
 from .flash import flash_attention, rope_halfsplit_seqmajor
+from .qmatmul import quantized_matmul, supports
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +133,36 @@ def partitioned_flash_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kr = rope_halfsplit_seqmajor(k, ce, se, head_dim)
     return partitioned_flash(split(qr), split(kr), split(v), seq, scale,
                              what="fused-rope flash attention")
+
+
+def _local_k_ok(kl: int, bits: int, group: int, split: int) -> bool:
+    """Whether a K-shard of length ``kl`` satisfies the kernels' tiling
+    (partitioned.py:273): whole split blocks (4-bit nibble layout), whole
+    scale groups, and a K-tile that divides kl (8-bit: min(256, kl))."""
+    if kl <= 0 or kl % group != 0:
+        return False
+    if bits == 4:
+        return kl % split == 0
+    bk = min(256, kl)
+    return kl % bk == 0 and bk % 8 == 0
+
+
+def row_parallel_linear(x: torch.Tensor, lin) -> torch.Tensor:
+    """``x @ w + b`` for a row-parallel ``Linear`` holding this rank's K rows
+    (``x``: this rank's input features): the partial product in f32 (the
+    quantized kernels' f32 output; a dense or untiled weight through an f32
+    matmul), plus the LoRA term's partial ``(x @ a_rows) @ bl``, summed over
+    the tp group by one all-reduce, cast once to x's dtype; the bias is
+    added after the cast, as JAX adds it."""
+    w = lin.w
+    f32 = torch.float32
+    if isinstance(w, QuantizedTensor) and supports(w):
+        y = quantized_matmul(x, w, out_dtype=f32)
+    else:
+        wd = dequantize(w, x.dtype) if isinstance(w, QuantizedTensor) else w.to(x.dtype)
+        y = torch.matmul(x.float(), wd.float())
+    if lin.lora is not None:
+        a, bl = lin.lora
+        y = y + torch.matmul(torch.matmul(x, a.to(x.dtype)).float(), bl.float())
+    y = all_reduce_sum(y, lin.tp.group).to(x.dtype)
+    return y if lin.b is None else y + lin.b

@@ -14,6 +14,12 @@ Port of ``diffusion_rs_tpu/ops/qmatmul_pallas.py``. The dispatch mirrors
 * with DIFFUSION_RS_TPU_QMM_FAST16 set and 16-bit activations (:466-471),
   the nf4 and affine kernels decode in bf16 arithmetic instead (K12, K13).
 
+Each of K1, K2, K12, K4 and K13 also has an f32-output entry (``<name>_f32``,
+``out_dtype=torch.float32``): the same kernel storing its f32 accumulators
+uncast, which a row-parallel linear's partial product takes before its
+all-reduce (ops/partitioned.py), as JAX's K-sharded rule runs the Pallas
+kernel with an f32 output (partitioned.py:380-386).
+
 Three hand-written Hopper kernel sources (``csrc/qmm_s8.cu``, ``csrc/qmm_nf4.cu``,
 ``csrc/qmm_affine.cu``) serve the CUDA path. Beside each is its plain PyTorch version, which follows
 the Pallas math tile for tile. A wrapper given a CPU tensor runs the plain
@@ -241,15 +247,32 @@ def qmm_s8_plain(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     return acc.to(out_dtype)
 
 
+# Output dtypes of the single-product entries (bf16, or f32 through the
+# "_f32" entry) and of the grouped ones (bf16 only)
+OUT_DTYPES = (torch.bfloat16, torch.float32)
+GROUPED_OUT = (torch.bfloat16,)
+
+
+def _check_out(name: str, x2: torch.Tensor, out_dtype, outs) -> None:
+    _require(x2.dtype == torch.bfloat16 and out_dtype in outs,
+             f"{name} takes bf16 activations and produces "
+             f"{' or '.join(str(d).removeprefix('torch.') for d in outs)}, not {out_dtype}")
+
+
+def _entry_name(name: str, out_dtype) -> str:
+    """The entry point of kernel ``name`` that stores ``out_dtype``."""
+    return f"{name}_f32" if out_dtype == torch.float32 else name
+
+
 def _check_s8(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
-              device=None) -> QmmPlan:
+              device=None, outs=OUT_DTYPES) -> QmmPlan:
     """What K1 takes (K8-s8 checks each group with it): bf16 x [M, K] on
     ``device`` (any CUDA device when None), the q8t planes beside it, each
-    aligned for TMA. Returns the launch plan."""
+    aligned for TMA, and an output dtype of ``outs``. Returns the launch
+    plan."""
     m, k = x2.shape
     n, bk = qt.n, qt.group
-    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
-             f"{name} takes bf16 activations and produces bf16")
+    _check_out(name, x2, out_dtype, outs)
     plan = qmm_plan("s8", m, k, n, bk=bk)
     _check_cuda(x2, (m, k), torch.bfloat16, "x", device)
     _check_cuda(qt.packed, (k, n), torch.int8, "packed", x2.device)
@@ -276,8 +299,8 @@ def qmm_s8(x2: torch.Tensor, qt: QuantizedTensor,
     m, k = x2.shape
     n, bk = qt.n, qt.group
     xq, sx = _s8_scratch(x2, plan, bk)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    _cuda.launch("qmm_s8", x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+    _cuda.launch(_entry_name("qmm_s8", out_dtype), x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
                  qt.packed.data_ptr(), qt.scale.data_ptr(), out.data_ptr(),
                  m, k, n, bk, device=x2.device)
     return out
@@ -301,14 +324,14 @@ def qmm_dequant_plain(x2: torch.Tensor, qt: QuantizedTensor,
 
 
 def _check_nf4(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
-               device=None) -> QmmPlan:
+               device=None, outs=OUT_DTYPES) -> QmmPlan:
     """What K2 takes (K11 checks each group with it): bf16 x [M, K] on
     ``device`` (any CUDA device when None), the 4-bit codebook planes beside
-    it, each aligned for TMA. Returns the launch plan."""
+    it, each aligned for TMA, and an output dtype of ``outs``. Returns the
+    launch plan."""
     m, k = x2.shape
     n = qt.n
-    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
-             f"{name} takes bf16 activations and produces bf16")
+    _check_out(name, x2, out_dtype, outs)
     _require(_codebook_ok(qt), f"{name} takes 4-bit codebook codes without a bias ({qt.kind})")
     plan = qmm_plan("nf4", m, k, n, split=qt.split, group=qt.group)
     _check_cuda(x2, (m, k), torch.bfloat16, "x", device)
@@ -328,10 +351,10 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
     plan = _check_nf4("qmm_nf4", x2, qt, out_dtype)
     m, k = x2.shape
     n = qt.n
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     if m == 0:
         return out
-    _cuda.launch("qmm_nf4", x2.data_ptr(), qt.packed.data_ptr(),
+    _cuda.launch(_entry_name("qmm_nf4", out_dtype), x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
                  m, k, n, qt.split, qt.group, plan.block_m, device=x2.device)
     return out
@@ -343,14 +366,14 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
 
 
 def _check_affine(name: str, x2: torch.Tensor, qt: QuantizedTensor, out_dtype,
-                  device=None) -> QmmPlan:
+                  device=None, outs=OUT_DTYPES) -> QmmPlan:
     """What K4 takes (K8-affine checks each group with it): bf16 x [M, K] on
     ``device`` (any CUDA device when None), the affine planes beside it,
-    each aligned for TMA. Returns the launch plan."""
+    each aligned for TMA, and an output dtype of ``outs``. Returns the
+    launch plan."""
     m, k = x2.shape
     n = qt.n
-    _require(x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
-             f"{name} takes bf16 activations and produces bf16")
+    _check_out(name, x2, out_dtype, outs)
     _require(qt.codebook is None and qt.bits in (4, 8),
              f"{name} takes 4- or 8-bit codes without a codebook ({qt.kind})")
     plan = qmm_plan("affine", m, k, n, bits=qt.bits, split=qt.split, group=qt.group)
@@ -377,10 +400,10 @@ def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
     plan = _check_affine("qmm_affine", x2, qt, out_dtype)
     m, k = x2.shape
     n = qt.n
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     if m == 0:
         return out
-    _cuda.launch("qmm_affine", x2.data_ptr(), qt.packed.data_ptr(),
+    _cuda.launch(_entry_name("qmm_affine", out_dtype), x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(),
                  None if qt.bias is None else qt.bias.data_ptr(),
                  out.data_ptr(), m, k, n, qt.bits, qt.split, qt.group, plan.block_m,
@@ -451,10 +474,10 @@ def qmm_nf4_fast16(x2: torch.Tensor, qt: QuantizedTensor,
         return qmm_dequant_fast16_plain(x2, qt, out_dtype)
     plan = _check_nf4("qmm_nf4_fast16", x2, qt, out_dtype)
     m, k = x2.shape
-    out = torch.empty((m, qt.n), dtype=torch.bfloat16, device=x2.device)
+    out = torch.empty((m, qt.n), dtype=out_dtype, device=x2.device)
     if m == 0:
         return out
-    _cuda.launch("qmm_nf4_fast16", x2.data_ptr(), qt.packed.data_ptr(),
+    _cuda.launch(_entry_name("qmm_nf4_fast16", out_dtype), x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
                  m, k, qt.n, qt.split, qt.group, plan.block_m, device=x2.device)
     return out
@@ -469,10 +492,10 @@ def qmm_affine_fast16(x2: torch.Tensor, qt: QuantizedTensor,
         return qmm_dequant_fast16_plain(x2, qt, out_dtype)
     plan = _check_affine("qmm_affine_fast16", x2, qt, out_dtype)
     m, k = x2.shape
-    out = torch.empty((m, qt.n), dtype=torch.bfloat16, device=x2.device)
+    out = torch.empty((m, qt.n), dtype=out_dtype, device=x2.device)
     if m == 0:
         return out
-    _cuda.launch("qmm_affine_fast16", x2.data_ptr(), qt.packed.data_ptr(),
+    _cuda.launch(_entry_name("qmm_affine_fast16", out_dtype), x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(),
                  None if qt.bias is None else qt.bias.data_ptr(),
                  out.data_ptr(), m, k, qt.n, qt.bits, qt.split, qt.group, plan.block_m,
@@ -568,7 +591,7 @@ def qmm_grouped_s8(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
     bk = qts[0].group
     rows, outs, keep = [], [], []
     for x2, qt in zip(x2s, qts):
-        plan = _check_s8("qmm_grouped_s8", x2, qt, out_dtype, x2s[0].device)
+        plan = _check_s8("qmm_grouped_s8", x2, qt, out_dtype, x2s[0].device, GROUPED_OUT)
         m = x2.shape[0]
         xq, sx = _s8_scratch(x2, plan, bk)
         out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
@@ -595,7 +618,7 @@ def qmm_grouped_affine(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTenso
     k, n = q0.shape
     rows, outs = [], []
     for x2, qt in zip(x2s, qts):
-        _check_affine("qmm_grouped_affine", x2, qt, out_dtype, x2s[0].device)
+        _check_affine("qmm_grouped_affine", x2, qt, out_dtype, x2s[0].device, GROUPED_OUT)
         m = x2.shape[0]
         out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
         outs.append(out)
@@ -625,7 +648,7 @@ def qmm_grouped_nf4(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
     k, n = q0.shape
     rows, outs = [], []
     for x2, qt in zip(x2s, qts):
-        _check_nf4("qmm_grouped_nf4", x2, qt, out_dtype, x2s[0].device)
+        _check_nf4("qmm_grouped_nf4", x2, qt, out_dtype, x2s[0].device, GROUPED_OUT)
         m = x2.shape[0]
         out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
         outs.append(out)

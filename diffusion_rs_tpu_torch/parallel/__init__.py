@@ -1,6 +1,7 @@
 """Parallelism over ``torch.distributed`` (port of ``parallel/``): the
-(dp, sp, tp) mesh, the process-group start-up, a launcher for N ranks on
-one host, and host-memory offload. Tensor parallelism is not ported yet."""
+(dp, sp, tp) mesh, the tensor-parallel cut of the weights, the
+process-group start-up and the multi-host helpers, a launcher for N ranks
+on one host, and host-memory offload."""
 
 from .launch import spawn  # noqa: F401
 from .mesh import (  # noqa: F401
@@ -11,5 +12,11 @@ from .mesh import (  # noqa: F401
     replicated,
     sequence_sharding,
 )
-from .multihost import init_multihost, local_device  # noqa: F401
+from .multihost import (  # noqa: F401
+    init_multihost,
+    local_batch_to_global,
+    local_device,
+    make_multislice_mesh,
+)
 from .offload import HostOffload  # noqa: F401
+from .sharding import replicate_params, shard_params  # noqa: F401

@@ -9,15 +9,18 @@ coordinates and the process groups of the axes it belongs to; the JAX
 package's ``NamedSharding`` specs become :class:`Sharding`, which cuts a
 rank's local rows out of a whole tensor and gathers them back.
 
-Tensor parallelism is not ported yet: a mesh with ``tp > 1`` raises
-(ROADMAP Queue 1 item 5). gloo moves only CPU tensors, so under a gloo group
-the collectives here stage CUDA tensors through pinned host memory; under
-NCCL they send device memory directly.
+Under ``tp`` each rank holds its own slice of the FLUX and T5 weights
+(parallel/sharding.py) and the row-parallel linears sum their partial
+products over the tp group with :func:`all_reduce_sum`. gloo moves only CPU
+tensors, so under a gloo group the collectives here stage CUDA tensors
+through pinned host memory; under NCCL they send device memory directly.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -26,7 +29,8 @@ import torch.distributed as dist
 from .multihost import local_device
 
 AXES = ("dp", "sp", "tp")
-TP_ITEM = "ROADMAP Queue 1 item 5"
+# all_reduce_sum's calls and bytes (per rank), for chip_smoke.py's counts
+ALL_REDUCES: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,31 +50,29 @@ def make_mesh(dp: int = 1, tp: Optional[int] = None, sp: int = 1,
               device="cuda") -> Mesh:
     """The (dp, sp, tp) mesh over the initialized process group (a world of
     one without it). ``tp=None`` takes what dp and sp leave. Raises
-    ``NotImplementedError`` for ``tp > 1`` and ``ValueError`` unless
-    ``dp * sp * tp`` is the world size. Every rank must call it, in the same
-    order, since it creates the axes' process groups; ``device`` "cuda"
-    means this rank's card (multihost.local_device)."""
+    ``ValueError`` unless ``dp * sp * tp`` is the world size. Every rank
+    must call it, in the same order, since it creates the axes' process
+    groups; ``device`` "cuda" means this rank's card
+    (multihost.local_device)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if tp is None:
         tp = world // (dp * sp)
-    if tp > 1:
-        raise NotImplementedError(
-            f"tensor parallelism (tp={tp}) is not ported to diffusion_rs_tpu_torch yet "
-            f"({TP_ITEM})")
     if dp * sp * tp != world:
         raise ValueError(f"dp({dp}) * sp({sp}) * tp({tp}) != world_size({world})")
     rank = dist.get_rank() if dist.is_initialized() else 0
     shape = {"dp": dp, "sp": sp, "tp": tp}
-    coords = {"dp": rank // (sp * tp), "sp": (rank // tp) % sp, "tp": rank % tp}
+    stride = {"dp": sp * tp, "sp": tp, "tp": 1}
+    coords = {a: (rank // stride[a]) % shape[a] for a in AXES}
     groups: Dict[str, Optional[object]] = dict.fromkeys(AXES)
     # new_group is collective over the world: every rank creates every group
     # of an axis, in one order, and keeps the one it belongs to
-    for axis in ("dp", "sp"):
+    for axis in AXES:
         if shape[axis] == 1:
             continue
-        for other in range(world // shape[axis]):
-            ranks = ([d * sp + other for d in range(dp)] if axis == "dp"
-                     else [other * sp + s for s in range(sp)])
+        others = [a for a in AXES if a != axis]
+        for fixed in itertools.product(*(range(shape[a]) for a in others)):
+            base = sum(c * stride[a] for a, c in zip(others, fixed))
+            ranks = [base + i * stride[axis] for i in range(shape[axis])]
             g = dist.new_group(ranks)
             if rank in ranks:
                 groups[axis] = g
@@ -111,6 +113,24 @@ def all_gather_rows(t: torch.Tensor, group, sizes: Sequence[int], dim: int) -> t
     dist.all_gather(parts, wire, group=group)
     out = torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim=dim)
     return out.to(t.device, non_blocking=True)
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every group rank's ``t``, on every rank, on ``t``'s
+    device (``t`` itself, summed in place, under NCCL or on the CPU; a CUDA
+    tensor under gloo goes through a pinned host copy). Counted in
+    :data:`ALL_REDUCES` (calls and bytes)."""
+    if group is None:
+        return t
+    ALL_REDUCES["calls"] += 1
+    ALL_REDUCES["bytes"] += t.numel() * t.element_size()
+    if _gloo_cuda(t, group):
+        h = _to_host(t)
+        dist.all_reduce(h, group=group)
+        return h.to(t.device, non_blocking=True)
+    t = t.contiguous()
+    dist.all_reduce(t, group=group)
+    return t
 
 
 class RingShift:

@@ -7,6 +7,11 @@ and a ``Pipeline(mesh=...)``. Nothing on a host tells a program of a
 cluster, so the rendezvous comes from the standard variables (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``) or from the arguments.
+
+:func:`make_multislice_mesh` and :func:`local_batch_to_global` are the JAX
+package's multi-host helpers: the mesh with dp inferred from the world size
+and made the major axis, and each rank's own rows of the batch as its block
+of the dp-sharded global batch.
 """
 
 from __future__ import annotations
@@ -67,3 +72,33 @@ def init_multihost(init_method: Optional[str] = None, world_size: Optional[int] 
                             world_size=world_size, rank=rank)
     log.info("multihost: rank %d/%d, backend %s", rank, world_size, backend)
     return True
+
+
+def make_multislice_mesh(dp: int = 0, sp: int = 1, tp: int = 1, device="cuda"):
+    """The (dp, sp, tp) mesh over the world with dp the major axis
+    (``make_multislice_mesh``, multihost.py:46): ranks are numbered host by
+    host, so dp spans the hosts while the sp and tp groups, whose
+    collectives run every block, stay within one. ``dp`` 0 (or None)
+    infers it: the world size over ``sp * tp``."""
+    from .mesh import make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dp in (0, None):
+        if world % (sp * tp):
+            raise ValueError(f"world size {world} is not divisible by sp*tp={sp * tp}")
+        dp = world // (sp * tp)
+    return make_mesh(dp=dp, sp=sp, tp=tp, device=device)
+
+
+def local_batch_to_global(local_batch, mesh, spec=None) -> torch.Tensor:
+    """This rank's rows of the batch as its block of the global batch
+    sharded by ``spec`` (default ``("dp",)``: the leading dim over dp), on
+    the mesh's device (``local_batch_to_global``, multihost.py:72). The port
+    never assembles the global array: one process per rank, each holding
+    its block, which is what every sharded entry point of the port takes
+    (parallel.Sharding's ``local``). Ranks that differ only off the spec's
+    axes (the tp ranks of one dp row) must pass the same rows."""
+    spec = ("dp",) if spec is None else tuple(spec)
+    if any(a is not None and a not in mesh.shape for a in spec):
+        raise ValueError(f"spec {spec} names an axis outside the mesh's {tuple(mesh.shape)}")
+    return torch.as_tensor(local_batch).to(mesh.device)

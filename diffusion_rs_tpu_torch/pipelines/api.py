@@ -113,11 +113,13 @@ class Pipeline:
     importance-matrix file weighting ISQ), ``lora`` (one LoRA file or a
     list) and ``lora_scale`` (loader.apply_weight_options). ``mesh`` (a
     parallel.make_mesh built on every rank after parallel.init_multihost)
-    runs the pipeline data- and sequence-parallel, each rank holding the
-    whole weights; a mesh with tp > 1 raises. ``t5_mask_pads`` (mask T5's
-    pad keys; None: DIFFUSION_RS_TPU_T5_MASK_PADS=1) and ``step_progress``
-    (a line per denoise step; None: DIFFUSION_RS_TPU_PROGRESS) resolve once,
-    at construction. ``offloading`` (an :class:`Offloading`) keeps the
+    runs the pipeline data-, sequence- and tensor-parallel: under tp each
+    rank holds its own slices of the FLUX and T5 weights
+    (parallel/sharding.py), under dp and sp the whole weights.
+    ``t5_mask_pads`` (mask T5's pad keys; None:
+    DIFFUSION_RS_TPU_T5_MASK_PADS=1) and ``step_progress`` (a line per
+    denoise step; None: DIFFUSION_RS_TPU_PROGRESS) resolve once, at
+    construction. ``offloading`` (an :class:`Offloading`) keeps the
     weights in host memory. ``compile_cache`` (or
     DIFFUSION_RS_TPU_COMPILE_CACHE) is the directory the CUDA kernels are
     built into and loaded from, kept across processes

@@ -39,6 +39,11 @@ VAE-encodes its dp rows, packs them and keeps its sp rows of the image
 tokens (and of the inpaint planes) through the Euler loop (the update is
 per token), then gathers the whole latent over sp and dp before the
 decode, so that ``forward_arrays`` returns the same images on every rank.
+Under ``tp`` the ranks of one (dp, sp) position hold their own slices of
+the FLUX and T5 weights (the constructor cuts whole trees with
+parallel/sharding.shard_flux_t5), run the same rows, and sum
+each row-parallel product over the tp group, so they hold the same
+activations.
 """
 
 from __future__ import annotations
@@ -103,8 +108,11 @@ def _import_pil():
 class FluxPipeline:
     """Holds the four components' params on one device. ``device`` defaults
     to CUDA (under a ``mesh``, the rank's card) and raises when CUDA is
-    absent. With ``mesh``, every rank builds the pipeline on the same
-    (replicated) params.
+    absent. With ``mesh``, every rank builds the pipeline on the same whole
+    params; where the mesh's tp > 1, the constructor cuts FLUX and T5 to
+    this rank's slices (parallel/sharding.shard_flux_t5) and moves them to
+    the device unless ``offload`` holds them, so that whole trees built in
+    host memory never lie whole on the card.
 
     ``t5_mask_pads`` (masks T5's pad keys out of attention; the reference
     attends them) and ``step_progress`` (one line per denoise step) resolve
@@ -129,6 +137,15 @@ class FluxPipeline:
         if mesh is not None and self.device.type == "cuda":
             self.device = mesh.device
         self.mesh = mesh
+        if mesh is not None and mesh.shape["tp"] > 1:
+            # each rank keeps its own slices of FLUX and T5, on the device
+            # unless offloaded (a rank's cut of a tree built in host memory
+            # is the only part that reaches its card)
+            from ..parallel.sharding import shard_flux_t5
+
+            flux_params, t5_params = shard_flux_t5(
+                flux_params, flux_cfg, t5_params, t5_cfg, mesh,
+                device=None if offload is not None else self.device)
         self.flux_params = flux_params
         self.flux_cfg = flux_cfg
         self.t5_params = t5_params
@@ -385,9 +402,10 @@ class FluxPipeline:
         if self.device.type != "cuda" and not os.environ.get("DIFFUSION_RS_TPU_HBM_BYTES"):
             return
         img_tokens = ((params.height + 15) // 16) * ((params.width + 15) // 16)
+        tp = 1 if self.mesh is None else self.mesh.shape["tp"]
         msg = check_denoise_capacity(self.flux_params, batch=batch, img_tokens=img_tokens,
-                                     txt_tokens=txt_tokens,
-                                     hidden=self.flux_cfg.hidden_size, device=self.device)
+                                     txt_tokens=txt_tokens, hidden=self.flux_cfg.hidden_size,
+                                     tp=tp, device=self.device)
         if msg:
             warn_once(f"capacity-{params.height}x{params.width}-{batch}", msg)
 

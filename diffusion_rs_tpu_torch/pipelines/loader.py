@@ -13,8 +13,12 @@ The load-time weight options (``isq``, ``isq_t5``, ``imatrix``, ``lora``,
 options (``fuse=`` / ``DIFFUSION_RS_TPU_FUSE``, with ``grouped``, and
 ``DIFFUSION_RS_TPU_FUSED_ROPE=1``) in :func:`apply_layout_options`, with the
 JAX package's names, defaults and order. ``mesh=`` (parallel.make_mesh,
-built on every rank) replicates the weights on every rank and turns
-``grouped`` off, as in JAX. ``offloading`` keeps weights in host memory:
+built on every rank) turns ``grouped`` off, as in JAX; with tp > 1 FLUX
+and T5 are built in host memory and the FluxPipeline cuts them after the
+layout options (parallel/sharding.shard_flux_t5: each rank's slices go to
+its card; CLIP and the VAE stay whole), so that a rank's card never holds
+more of them than its cut; a tp that does not divide the heads or a width
+raises ``ValueError``. ``offloading`` keeps weights in host memory:
 ``Offloading.Full`` builds every component on the CPU and hands the
 pipeline a parallel.HostOffload (pinned host copies, each component on the
 device around its use); ``Offloading.Stream`` builds the transformer on the
@@ -24,9 +28,6 @@ encoders and the VAE built on the device (a mesh with it raises
 points the CUDA kernels' build directory at a persistent one before
 anything launches (util/compile_cache.py); ``ModelDType.Auto`` resolves on
 the target device (util/dtype.py).
-Options of the JAX loader that the port does not carry yet (a mesh with
-tp > 1) raise ``NotImplementedError`` naming their ROADMAP item; none is
-silently ignored.
 """
 
 from __future__ import annotations
@@ -75,11 +76,6 @@ _FUSE_ALL = ("img", "txt", "single", "t5")
 
 _DTYPES = {ModelDType.BF16: torch.bfloat16, ModelDType.F16: torch.float16,
            ModelDType.F32: torch.float32}
-
-
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(
-        f"{option} is not ported to diffusion_rs_tpu_torch yet (ROADMAP {item})")
 
 
 def _resolve_fuse(fuse) -> tuple:
@@ -152,7 +148,8 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
                          lora: Union[str, Sequence[str], None] = None,
                          lora_scale: Union[float, Sequence[float]] = 1.0,
                          dtype=torch.bfloat16, silent: bool = True,
-                         offloading: Optional[Offloading] = None) -> Tuple[dict, dict]:
+                         offloading: Optional[Offloading] = None,
+                         tp: int = 1, device=None) -> Tuple[dict, dict]:
     """The JAX loader's load-time weight transforms, in its order, on
     in-memory trees and on their own device: ISQ of FLUX (``isq``, weighted
     by the ``imatrix`` file when given), the T5 capacity guard, ISQ of T5,
@@ -161,7 +158,10 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
     T5 follows ``isq`` unless ``isq_t5`` names its own target; the guard
     keeps T5 in its present format when following ``isq`` would put FLUX
     and T5 together over 92% of the device budget (util/capacity.py) and
-    its present format is the smaller; it runs on a CUDA device, or where
+    its present format is the smaller, both trees' bytes divided by ``tp``
+    (the mesh's tensor-parallel degree; the trees are still whole here), as
+    in JAX; it runs for a CUDA ``device`` (the one the weights are for;
+    None: the trees' own), or where
     DIFFUSION_RS_TPU_HBM_BYTES sets a budget, and not under ``offloading``
     (the encoders are not device-resident there), as in JAX. ``imatrix``
     and ``isq_t5`` do nothing without ``isq``. LoRA factors fuse into dense
@@ -177,20 +177,20 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
         imat = load_imatrix(imatrix) if imatrix else None
         flux_params = isq_tree(flux_params, isq, imatrix=imat)
         t5_target = isq_t5 if isq_t5 is not None else isq
-        device = tree_leaves(flux_params)[0].device
+        device = tree_leaves(flux_params)[0].device if device is None else torch.device(device)
         if isq_t5 is None and offloading is None and (
                 device.type == "cuda" or os.environ.get("DIFFUSION_RS_TPU_HBM_BYTES")):
             budget = int(0.92 * capacity.per_chip_hbm_bytes(device))  # 8% headroom
-            flux_b = capacity.tree_device_bytes(flux_params)
-            t5_now = capacity.tree_device_bytes(t5_params)
-            t5_isq = capacity.estimate_isq_tree_bytes(t5_params, isq)
+            flux_b = capacity.tree_device_bytes(flux_params) // tp
+            t5_now = capacity.tree_device_bytes(t5_params) // tp
+            t5_isq = capacity.estimate_isq_tree_bytes(t5_params, isq) // tp
             if flux_b + t5_isq > budget and t5_now < t5_isq:
                 warn_once(
                     "isq-t5-capacity",
                     f"isq='{isq}' would put T5 at ~{t5_isq / 1e9:.1f} GB beside "
                     f"{flux_b / 1e9:.1f} GB transformer weights — over the "
                     f"{budget / 1e9:.1f} GB budget; keeping T5 in its current "
-                    "(smaller) format. Pass isq_t5= to force.")
+                    "(smaller) format. Pass isq_t5= to force, or shard with a tp mesh.")
                 t5_target = None
         if t5_target:
             t5_params = isq_tree(t5_params, t5_target, imatrix=imat)
@@ -209,12 +209,6 @@ def apply_weight_options(flux_params: dict, flux_cfg: FluxConfig, t5_params: dic
             if not silent:
                 log.info("applied LoRA %s (scale %.2f)", lf, sc)
     return flux_params, t5_params
-
-
-def _check_unported(mesh) -> None:
-    """The JAX loader's options that the port does not carry yet."""
-    if mesh is not None and mesh.shape.get("tp", 1) > 1:
-        _not_ported(f"a mesh with tp={mesh.shape['tp']}", "Queue 1 item 5")
 
 
 def _component_store(loader: FileLoader, prefix: str, dtype, device,
@@ -281,7 +275,6 @@ def load_pipeline(
 ) -> FluxPipeline:
     from ..util.compile_cache import enable_compile_cache
 
-    _check_unported(mesh)
     # before any kernel launch: the first one builds into, or loads from,
     # the cache directory
     enable_compile_cache(compile_cache)
@@ -289,11 +282,16 @@ def load_pipeline(
         raise ValueError("mesh and Offloading.Stream are mutually exclusive")
     device = resolve_device(device)
     if mesh is not None and device.type == "cuda":
-        device = mesh.device  # every rank loads the whole (replicated) weights
+        device = mesh.device
+    tp = 1 if mesh is None else mesh.shape["tp"]
     # offloading keeps the weights in host memory: build them there (under
-    # Stream only the transformer's; the encoders and the VAE stay resident)
-    flux_build = torch.device("cpu") if offloading is not None else device
-    build = torch.device("cpu") if offloading is Offloading.Full else device
+    # Stream only the transformer's; the encoders and the VAE stay resident).
+    # Under tp FLUX and T5 are built there too: the pipeline moves each
+    # rank's cut of them to its card.
+    cpu = torch.device("cpu")
+    flux_build = cpu if offloading is not None or tp > 1 else device
+    build = cpu if offloading is Offloading.Full else device
+    t5_build = cpu if tp > 1 else build
     loader = FileLoader(model_id=source.model_id, dduf_file=source.dduf_file,
                         token=token, revision=revision, silent=silent)
     index = json.loads(loader.read_bytes("model_index.json"))
@@ -317,8 +315,8 @@ def load_pipeline(
     clip_params = build_clip_params(_component_store(loader, "text_encoder", dt, build, silent),
                                     clip_cfg, dt)
     t5_cfg = T5Config.from_json(config("text_encoder_2/config.json"))
-    t5_params = build_t5_params(_component_store(loader, "text_encoder_2", dt, build, silent),
-                                t5_cfg, dt)
+    t5_params = build_t5_params(
+        _component_store(loader, "text_encoder_2", dt, t5_build, silent), t5_cfg, dt)
     vae_cfg = VAEConfig.from_json(config("vae/config.json"))
     vae_params = build_vae_params(_component_store(loader, "vae", dt, build, silent), vae_cfg, dt)
     if not silent:
@@ -344,7 +342,8 @@ def load_pipeline(
             _component_store(flux_loader, "transformer", dt, flux_build, silent), flux_cfg, dt)
     flux_params, t5_params = apply_weight_options(
         flux_params, flux_cfg, t5_params, isq=isq, isq_t5=isq_t5, imatrix=imatrix, lora=lora,
-        lora_scale=lora_scale, dtype=dt, silent=silent, offloading=offloading)
+        lora_scale=lora_scale, dtype=dt, silent=silent, offloading=offloading, tp=tp,
+        device=device)
     flux_params, flux_cfg, t5_params = apply_layout_options(
         flux_params, flux_cfg, t5_params, fuse=fuse, silent=silent, mesh=mesh)
     if not silent:
@@ -359,6 +358,8 @@ def load_pipeline(
         flux_params = None  # the packed host buffers inside StreamedFlux
         if not silent:
             log.info("transformer weights in host memory (per-block streaming)")
+    # under tp the pipeline cuts FLUX and T5 (after ISQ, LoRA, fuse= and the
+    # RoPE re-layout, as in JAX)
     return FluxPipeline(
         flux_params=flux_params, flux_cfg=flux_cfg, t5_params=t5_params, t5_cfg=t5_cfg,
         clip_params=clip_params, clip_cfg=clip_cfg, vae_params=vae_params,

@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..ops.linear import Linear
+from ..ops.linear import Linear, TensorParallel
 from ..quant.qtensor import QuantizedTensor
 
 
@@ -55,7 +55,7 @@ def leaf_bytes_of(x) -> int:
 def _leaves(tree):
     """Tensors and QuantizedTensors of a tree (Linear fields, LoRA terms and
     Conv fields included)."""
-    if tree is None:
+    if tree is None or isinstance(tree, TensorParallel):
         return
     if isinstance(tree, (torch.Tensor, QuantizedTensor)):
         yield tree
@@ -73,6 +73,33 @@ def _leaves(tree):
 def tree_device_bytes(params) -> int:
     """Total device bytes of a param tree (see :func:`leaf_bytes_of`)."""
     return sum(leaf_bytes_of(x) for x in _leaves(params))
+
+
+def whole_tree_bytes(params) -> int:
+    """:func:`tree_device_bytes` of the whole tree that ``params`` is one
+    tensor-parallel rank's part of (parallel/sharding.py): each tensor a
+    ``Linear``'s cut split counts tp times (a 4-bit codebook once). Equal to
+    :func:`tree_device_bytes` for an uncut tree."""
+
+    def visit(node) -> int:
+        if isinstance(node, Linear) and node.tp is not None and node.tp.sharded:
+            n, col = node.tp.size, node.tp.role == "col"
+            w = node.w
+            total = leaf_bytes_of(w) * n
+            if isinstance(w, QuantizedTensor) and w.codebook is not None:
+                total -= leaf_bytes_of(w.codebook) * (n - 1)
+            total += leaf_bytes_of(node.b) * (n if col else 1)
+            if node.lora is not None:
+                a, bl = node.lora
+                total += leaf_bytes_of(a) * (1 if col else n) + leaf_bytes_of(bl) * (n if col else 1)
+            return total
+        if isinstance(node, dict):
+            return sum(visit(v) for v in node.values())
+        if isinstance(node, (list, tuple)):
+            return sum(visit(v) for v in node)
+        return sum(leaf_bytes_of(x) for x in _leaves(node))
+
+    return visit(params)
 
 
 # Bits per element of each ISQ target in the canonical layout (codes + f32
@@ -131,23 +158,33 @@ def estimate_denoise_activation_bytes(batch: int, img_tokens: int, txt_tokens: i
 
 
 def check_denoise_capacity(flux_params, *, batch: int, img_tokens: int, txt_tokens: int,
-                           hidden: int, device="cuda") -> Optional[str]:
+                           hidden: int, tp: int = 1, device="cuda") -> Optional[str]:
     """Before a denoise: raise ValueError when the transformer's weights alone
     do not fit the device (certain), return a warning string when weights
     plus the activation estimate exceed it (the caller logs it once), else
-    None."""
+    None.
+
+    ``tp``: the tensor-parallel degree. The weights counted are the whole
+    tree's bytes divided by tp (:func:`whole_tree_bytes`, from a rank's cut
+    tree or a whole one), as the JAX package counts them, so that both
+    packages warn at the same sizes. That figure undercounts what a rank
+    holds by the leaves every rank keeps whole (the modulation linears, the
+    norms): FLUX.1-dev in q8t at tp=2 counts about
+    5.6 GiB against the 7.17 GiB a rank holds."""
     hbm = per_chip_hbm_bytes(device)
-    w = tree_device_bytes(flux_params)
+    w = whole_tree_bytes(flux_params) // max(1, tp)
     act = estimate_denoise_activation_bytes(batch, img_tokens, txt_tokens, hidden)
     if w >= hbm:
         raise ValueError(
             f"denoise: packed transformer weights alone are {w / 1e9:.1f} GB per "
             f"device vs {hbm / 1e9:.1f} GB — cannot fit on a single device. Route: "
-            "pick a smaller format (isq='nf4' halves q8t residency), or stream the "
-            "blocks from host memory (Offloading.Stream).")
+            "load with a tensor-parallel mesh (Pipeline(mesh=make_mesh(tp=...)) cuts "
+            "the planes), pick a smaller format (isq='nf4' halves q8t residency), or "
+            "stream the blocks from host memory (Offloading.Stream).")
     if w + act > hbm:
-        return (f"denoise: estimated residency {w / 1e9:.1f} GB weights + "
-                f"~{act / 1e9:.1f} GB activations exceeds {hbm / 1e9:.1f} GB — "
-                "likely out of memory. Routes: isq='nf4', a smaller batch or "
-                "resolution.")
+        return (f"denoise: estimated residency {w / 1e9:.1f} GB weights"
+                + (f" (tp={tp})" if tp > 1 else "")
+                + f" + ~{act / 1e9:.1f} GB activations exceeds {hbm / 1e9:.1f} GB — "
+                "likely out of memory. Routes: a tp mesh (weights / tp), an sp mesh "
+                "(activations / sp), isq='nf4', a smaller batch or resolution.")
     return None

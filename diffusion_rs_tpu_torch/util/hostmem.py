@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.conv import Conv
-from ..ops.linear import Linear
+from ..ops.linear import Linear, TensorParallel
 from ..quant.qtensor import QuantizedTensor
 from .tree import tree_leaves, tree_map
 
@@ -66,7 +66,7 @@ def host_buffer(nbytes: int, pin: bool) -> torch.Tensor:
 def _paths(tree, path: str = "") -> list:
     """The dotted field path of every tensor of ``tree``, in tree_leaves'
     order."""
-    if tree is None:
+    if tree is None or isinstance(tree, TensorParallel):
         return []
     if isinstance(tree, torch.Tensor):
         return [path]

@@ -8,14 +8,15 @@ import dataclasses
 import torch
 
 from ..ops.conv import Conv
-from ..ops.linear import Linear
+from ..ops.linear import Linear, TensorParallel
 from ..quant.qtensor import QuantizedTensor
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor in the tree; structure is kept."""
-    if tree is None:
-        return None
+    """Apply ``fn`` to every tensor in the tree; structure is kept (a
+    ``Linear``'s tensor-parallel cut is carried as it is)."""
+    if tree is None or isinstance(tree, TensorParallel):
+        return tree
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, QuantizedTensor):

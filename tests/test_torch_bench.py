@@ -1,7 +1,8 @@
 """The port's bench script (python -m diffusion_rs_tpu_torch.bench) at
 ``--small --device cpu``: each mode prints one parseable JSON line with the
 root bench's keys, ``vs_baseline`` null (the root bench's baselines are TPU
-numbers) and the device named; ``--mesh`` with tp > 1 is refused."""
+numbers) and the device named; ``--mesh tp=2`` is refused in a world of
+one process."""
 
 import importlib.util
 import json
@@ -50,5 +51,7 @@ def test_presets_are_the_root_benchs():
 
 
 def test_mesh_with_tp_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """``--mesh tp=2`` is taken (tp is ported), but without the ranks'
+    environment the world is one process, which the mesh refuses."""
+    with pytest.raises(ValueError, match=r"tp\(2\) != world_size\(1\)"):
         main(["--small", "--device", "cpu", "--mesh", "tp=2"])

@@ -28,7 +28,10 @@ streamed tiny q8t FLUX through a two-slot ring against the resident steps,
 bit for bit (``-k "offload or streamed"``). Serving: a tiny FluxServer on
 the card (lanes against their offline images, launches per forward), and
 two threads' first launches racing in a fresh process with an empty build
-directory (``-k "server or race"``).
+directory (``-k "server or race"``). Tensor parallelism: the f32-output
+entries of K1, K2, K12, K4 and K13 against their plain versions at the
+K-slices of FLUX's proj and linear2 (K1 bit for bit), and the grouped
+kernels' refusal of f32 (``-k f32``).
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -k "k3 or k4 or k6 or k7 or k8 or k13 or k14 or bf16_flash or rope or affine or dispatch"
 """
@@ -474,6 +477,58 @@ def test_k13_matches_plain(dev, fmt, m, k, n):
     ref = qmatmul.qmm_dequant_fast16_plain(x, qt, torch.bfloat16)
     assert torch.isfinite(y).all() and _fast16_within_summation_order(y, ref, x, w16)
     assert _summed_rel(y, ref) <= 1e-5
+
+
+F32_ENTRIES = [("qmm_s8", "q8t"), ("qmm_nf4", "nf4"), ("qmm_nf4_fast16", "nf4"),
+               ("qmm_affine", "q4_0"), ("qmm_affine", "q8_0"), ("qmm_affine", "q4_k"),
+               ("qmm_affine_fast16", "q4_0"), ("qmm_affine_fast16", "q4_k")]
+
+
+@pytest.mark.parametrize("name,fmt", F32_ENTRIES)
+@pytest.mark.parametrize("m,k,n", [(33, 1536, 256), (300, 7680, 384)])
+def test_f32_entries_match_plain(dev, name, fmt, m, k, n):
+    """K1, K2, K12, K4 and K13 storing f32 (a row-parallel linear's partial,
+    the K-slices of FLUX's proj and linear2 at tp=2): one launch of the
+    ``_f32`` entry and none of the bf16 one; the f32 output cast to bf16 is
+    the bf16 entry's output bit for bit (the same accumulators); K1 equals
+    its plain version bit for bit, the decoding kernels stay within the f32
+    summation-order bound of theirs (2 K 2^-24 sum |x w| per element)."""
+    gen = torch.Generator(device=dev).manual_seed(m + k)
+    if fmt in ("q8t", "nf4"):
+        qt = random_qtensor(gen, k, n, kind=fmt, device=dev)
+        qt.scale.uniform_(0.5e-3, 2e-3, generator=gen)
+    else:
+        qt = _affine_qtensor(fmt, k, n, seed=m).map(lambda t: t.to(dev))
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    fn = getattr(qmatmul, name)
+    before = _cuda.launch_counts()
+    y = fn(x, qt, torch.float32)
+    after = _cuda.launch_counts()
+    assert (after[f"{name}_f32"] - before[f"{name}_f32"], after[name] - before[name]) == (1, 0)
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    assert torch.equal(y.bfloat16(), fn(x, qt, torch.bfloat16))
+    if name == "qmm_s8":
+        assert torch.equal(y, qmatmul.qmm_s8_plain(x, qt.packed, qt.scale, torch.float32))
+        return
+    fast16 = name.endswith("fast16")
+    w = (qmatmul.dequantize_fast16(qt, torch.bfloat16) if fast16
+         else dequantize(qt, torch.float32).bfloat16()).float()
+    ref = (qmatmul.qmm_dequant_fast16_plain if fast16 else qmatmul.qmm_dequant_plain)(
+        x, qt, torch.float32)
+    tol = (x.float().abs() @ w.abs()) * (2 * k * 2.0 ** -24)
+    assert bool(((y - ref).abs() <= tol).all())
+
+
+def test_grouped_entries_refuse_f32(dev):
+    """The grouped kernels (K8, K11) have no f32 entry: asked for one on the
+    card they raise rather than store bf16."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((8, 256), generator=gen, device=dev).bfloat16()
+    for kind, grouped in (("q8t", qmatmul.qmm_grouped_s8), ("nf4", qmatmul.qmm_grouped_nf4),
+                          ("q4_0", qmatmul.qmm_grouped_affine)):
+        qt = random_qtensor(gen, 256, 128, kind=kind, device=dev)
+        with pytest.raises(ValueError, match="produces bfloat16, not torch.float32"):
+            grouped([x, x], [qt, qt], torch.float32)
 
 
 def test_fast16_dispatch_on_card(dev, monkeypatch):

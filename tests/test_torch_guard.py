@@ -144,6 +144,8 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "    qmatmul.quantized_matmul(x, random_qtensor(g, 256, 128, kind=kind, device='cpu'))\n"
         "    qmatmul.quantized_matmul(x.bfloat16(), random_qtensor(g, 256, 128, kind=kind,\n"
         "                                                          device='cpu'))\n"
+        "    qmatmul.quantized_matmul(x.bfloat16(), random_qtensor(g, 256, 128, kind=kind,\n"
+        "                                                          device='cpu'), torch.float32)\n"
         "    qts = [random_qtensor(g, 256, 128, kind=kind, device='cpu') for _ in range(2)]\n"
         "    qmatmul.quantized_matmul_grouped([x, x[:1]], qts)\n"
         "q = torch.randn(1, 1, 5, 128, generator=g)\n"
@@ -165,7 +167,9 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "                              'flash_fwd', 'flash_sm', 'flash_rope', 'flash_s8',\n"
         "                              'flash_s8pv', 'flash_s8_s8pv', 'flash_fwd_lse',\n"
         "                              'flash_s8_lse', 'flash_s8pv_lse', 'flash_s8_s8pv_lse',\n"
-        "                              'rope_qk', 'flash_quant'}\n"
+        "                              'rope_qk', 'flash_quant', 'qmm_s8_f32', 'qmm_nf4_f32',\n"
+        "                              'qmm_nf4_fast16_f32', 'qmm_affine_f32',\n"
+        "                              'qmm_affine_fast16_f32'}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"

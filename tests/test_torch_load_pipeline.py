@@ -198,10 +198,12 @@ def test_resolve_fuse_matches_jax(monkeypatch, fuse, env):
 
 
 @pytest.mark.parametrize("option,value", [
-    # a mesh runs (tests/test_torch_mesh.py) unless it has a tp axis
-    ("mesh", SimpleNamespace(shape={"dp": 1, "sp": 1, "tp": 2})),
+    # a mesh runs, tp included (tests/test_torch_mesh.py), unless its tp does
+    # not divide the heads (tests/synth.py's FLUX has 2): the port refuses
+    # what GSPMD would pad
+    ("mesh", SimpleNamespace(shape={"dp": 1, "sp": 1, "tp": 3})),
 ])
 def test_unported_options_raise(sources, option, value):
     src = TSource.from_model_id(sources["dense"]["model_id"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="FLUX num_attention_heads = 2 is not divisible by tp=3"):
         load_pipeline(src, device="cpu", **{option: value})

@@ -103,12 +103,18 @@ def test_pipeline_plumbs_compile_cache(monkeypatch, tmp_path, how):
     assert calls == [kw.get("compile_cache")]
 
 
-def test_mesh_with_tp_still_raises():
+def test_mesh_with_tp_still_raises(tmp_path):
+    """A mesh whose tp does not divide the model's heads still raises: the
+    loader names the dimension (ValueError) before it cuts the weights
+    (tests/synth.py's FLUX has 2 heads; tp=4)."""
     from types import SimpleNamespace
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        loader_mod.load_pipeline(ModelSource.from_model_id("unused"), device="cpu",
-                                 mesh=SimpleNamespace(shape={"dp": 1, "sp": 1, "tp": 2}))
+    from synth import write_checkpoint
+
+    ckpt = write_checkpoint(tmp_path / "ckpt", seed=0)
+    with pytest.raises(ValueError, match="FLUX num_attention_heads = 2 is not divisible by tp=4"):
+        loader_mod.load_pipeline(ModelSource.from_model_id(str(ckpt)), device="cpu", silent=True,
+                                 mesh=SimpleNamespace(shape={"dp": 1, "sp": 1, "tp": 4}))
 
 
 def test_trace_span_is_recorded_by_the_profiler():
