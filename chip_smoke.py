@@ -23,7 +23,9 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    seq-major flash kernels (K6, K7) at B1 H24 S4608 and the ragged S4112,
    K7 also against K6 on plain-rotated q/k (max-abs 0); the grouped kernel
    (K8: s8, Q8_0 and Q4_0) at the grouped double-block shapes (M 4096 +
-   512), each group also against its own K1/K4 launch (max-abs 0);
+   512), each group also against its own K1/K4 launch (max-abs 0); then
+   the grad guard: a q8t linear and a flash call on inputs that require
+   grad, under grad mode, must raise and launch nothing;
 3. a tiny-config image on the card against the same image through the plain
    versions on the CPU (same weights, same noise): the default layout, and
    every stream fused and grouped (``fuse="img,txt,single,t5,grouped"``)
@@ -137,8 +139,19 @@ Phases, each fatal on failure (non-zero exit, no final line; a line
    rank copies its slices), a 1-step 256x256 warm-up and the timed image
    of ``min(--steps, 2)`` steps with exact launches and all-reduces (calls
    and bytes: 118 a forward, 48 a T5 encode) per rank, its latent against
-   one rank's at the same steps; then one 720x1280
-   decode through the tiled VAE decode (two 128-pixel latent tiles).
+   one rank's at the same steps; then the mesh serve on the same two ranks
+   and weights: ``FluxServer(max_batch=2)`` on a ``make_mesh(dp=2)``
+   pipeline (rank 0 takes the requests, the other follows its command
+   stream), three 1024x1024 requests at ``min(--steps, 2)`` steps, each
+   image against the single-process one, the bucket counters, exact
+   launches per rank with K3 at the dp-local batch B1; then one 720x1280
+   decode through the tiled VAE decode (two 128-pixel latent tiles);
+16. the training dryrun: ``dryrun_multichip(8)`` (diffusion_rs_tpu_torch/
+   dryrun.py) in a world of 8 spawned ranks on the card over gloo, at
+   dp=2 sp=2 tp=2: the f32 training step's loss (finite, the same on every
+   rank), no kernel launched by it, every tp-cut leaf's gradient nonzero,
+   then the q8t ring step's exact launches per rank (K1, its f32 entry,
+   K14) and ring hops.
 
 Phases 7, 9, 11-13 and config S run 3 double + 6 single blocks at
 FLUX.1-dev's widths (EARLIER_DEPTH; ``--full-depth`` restores 19 + 38);
@@ -366,10 +379,12 @@ def int8_gemm_ms(x, qts, bk: int, n_sets: int):
     return {"row_major_ms": row_major, "col_major_ms": col_major}
 
 
-def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float):
+def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float, detail: bool = True):
     """One quantized-matmul kernel against its plain version at [m, k] x [k, n]
     (K1 bit for bit; K2 also through the identity: its decoded weight equal
-    to ``dequantize(qt, f32).to(bf16)``)."""
+    to ``dequantize(qt, f32).to(bf16)``). ``detail`` False skips the
+    profiler's device times and K1's int8-GEMM row (the serve phase's rows
+    report the events' times only)."""
     import torch
 
     from diffusion_rs_tpu_torch.ops import qmatmul
@@ -424,10 +439,10 @@ def check_qmm(kind: str, m: int, k: int, n: int, gen, tol: float):
     ms = cuda_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets)
     plain_ms = cuda_ms(lambda i: plain(x, qts[i]), n_sets, iters=4, warmup=1)
     lib_ms = cuda_ms(lambda i: torch.matmul(x, w_deq[i]), n_sets)
-    if kind in GGUF_KINDS and m <= 64:  # byte-bound: the device time beside the events'
+    if detail and kind in GGUF_KINDS and m <= 64:  # byte-bound: device beside events' time
         extra["device_ms"] = kernel_device_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets,
                                               ("qmm_affine_kernel",))["qmm_affine_kernel"]
-    if kind == "q8t":
+    if detail and kind == "q8t":
         passes = kernel_device_ms(lambda i: kern(x, qts[i], torch.bfloat16), n_sets,
                                   ("quantize_rows_kernel", "qmm_s8_kernel"))
         extra["pass1_ms"] = passes["quantize_rows_kernel"]
@@ -1582,7 +1597,8 @@ def serve_phase(pipe, steps: int, init_img) -> list:
     from diffusion_rs_tpu_torch.serving import FluxServer
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    rows = [check_qmm("q8t", m, 3072, 3072, gen, K1_TOL) for m in (16384, 2048, 18432)]
+    rows = [check_qmm("q8t", m, 3072, 3072, gen, K1_TOL, detail=False)
+            for m in (16384, 2048, 18432)]
     rows.append(check_flash(4608, gen, b=SERVE_MAX_BATCH))
     for r in rows:
         lib = f"{r['library_ms']:.4f} ms"
@@ -2732,7 +2748,7 @@ def isq_file_round_trip(prompts) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        write_diffusers_dir(f"{tmp}/flux", cfgs, seed=ISQ_SEED + 4)
+        write_diffusers_dir(f"{tmp}/flux", cfgs, seed=ISQ_SEED + 4, device="cuda")
         t_write = time.perf_counter() - t0
         dense = load_pipeline(ModelSource.from_model_id(f"{tmp}/flux"), silent=True,
                               device="cuda")
@@ -2905,6 +2921,9 @@ def sp_rank(rank: int, tmp: str, cfgs: dict, params: dict, tiny_params: dict, st
     gc.collect()
     torch.cuda.empty_cache()
     tp_phase(rank, tmp, t["cfgs"], t["params"], t["tiny"], t["steps"], prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_serve_rank(rank, tmp, t["cfgs"], t["params"], t["steps"])
 
 
 def tp_phase(rank: int, tmp: str, cfgs: dict, params: dict, tiny_tp: dict, steps: int,
@@ -2982,6 +3001,219 @@ def tp_phase(rank: int, tmp: str, cfgs: dict, params: dict, tiny_tp: dict, steps
         np.save(f"{tmp}/tp_latent.npy", latents[-1].float().cpu().numpy())
 
 
+# The mesh serve's requests (prompt, seed): three lanes at max_batch 2 over
+# dp=2, so the first two share a bucket of 2 (one lane a rank) and the third
+# runs alone in the smallest bucket, dp (its padding lane on the other rank).
+MESH_SERVE_REQUESTS = tuple(
+    (p, seed) for p, seed, edit in SERVE_REQUESTS[:3])
+MESH_SERVE_DP, MESH_SERVE_MAX_BATCH = 2, 2
+
+
+def mesh_serve_rank(rank: int, tmp: str, cfgs: dict, params: dict, steps: int) -> None:
+    """The mesh serve, one of the two ranks after config T: a ``make_mesh(dp=2)``
+    pipeline on the main process's q8t weights (CUDA IPC, uncut) and
+    ``FluxServer(max_batch=2)`` on every rank; rank 0 submits
+    MESH_SERVE_REQUESTS at ``steps`` steps, the other follows the command
+    stream. Launches are reset before the server is built and read once
+    this rank's server has stopped; K1's tallied by M and K3's by B. Writes
+    ``tmp/serve_<rank>.json`` and, on rank 0, the images."""
+    import numpy as np
+    import torch
+
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch.ops import _cuda, flash, qmatmul
+    from diffusion_rs_tpu_torch.parallel import make_mesh
+    from diffusion_rs_tpu_torch.serving import FluxServer
+
+    mesh = make_mesh(dp=MESH_SERVE_DP)
+    pipe = make_pipeline(cfgs, params, "cuda", mesh=mesh)
+    shapes = {"qmm_s8": collections.Counter(), "flash_fwd": collections.Counter()}
+    k1, k3 = qmatmul.qmm_s8, flash.flash_fwd
+
+    def k1_tally(x2, qt, out_dtype):
+        shapes["qmm_s8"][f"M{x2.shape[0]}"] += 1
+        return k1(x2, qt, out_dtype)
+
+    def k3_tally(q, *a, **kw):
+        shapes["flash_fwd"][f"B{q.shape[0]}"] += 1
+        return k3(q, *a, **kw)
+
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    qmatmul.qmm_s8, flash.flash_fwd = k1_tally, k3_tally
+    # a long poll: the three requests are queued before the first admission
+    server = FluxServer(pipe, max_batch=MESH_SERVE_MAX_BATCH, poll_ms=500.0)
+    rec = {"rank": rank, "leader": server.leader}
+    try:
+        if server.leader:
+            t0 = time.perf_counter()
+            futs = [server.submit(p, DiffusionGenerationParams(
+                height=1024, width=1024, num_steps=steps, guidance_scale=3.5, seed=seed))
+                for p, seed in MESH_SERVE_REQUESTS]
+            images = [f.result(timeout=600) for f in futs]
+            rec["served_s"] = time.perf_counter() - t0
+            rec["stats"] = server.stats()
+            np.save(f"{tmp}/mesh_serve_images.npy", np.stack(images))
+    finally:
+        server.shutdown()
+        qmatmul.qmm_s8, flash.flash_fwd = k1, k3
+    torch.cuda.synchronize()
+    rec["launches"] = _nonzero(_cuda.launch_counts())
+    rec["shapes"] = {k: dict(v) for k, v in shapes.items()}
+    with open(f"{tmp}/serve_{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def check_mesh_serve(tmp: str, refs, steps: int) -> dict:
+    """The mesh serve's checks: each served image within the serve phase's
+    band of the single-process pipeline's image for the same seed and steps
+    (``refs``); the stats (forwards, lane steps, padding: buckets of dp);
+    each rank's launches exact (K1 503 and K3 57 a forward, K2 168 an
+    encode: every rank encodes every prompt), every K3 launch at the
+    dp-local batch B1 and K1 at its rows (M 4608 for the single blocks).
+    Returns rank 0's K1 and K3 launches."""
+    import numpy as np
+
+    recs = []
+    for r in range(MESH_SERVE_DP):
+        with open(f"{tmp}/serve_{r}.json") as f:
+            recs.append(json.load(f))
+    images = np.load(f"{tmp}/mesh_serve_images.npy")
+    n = len(MESH_SERVE_REQUESTS)
+    stats = recs[0]["stats"]
+    forwards = 2 * steps  # the pair's bucket, then the lone lane's
+    want_stats = (forwards, n * steps, steps, n, 0)
+    got_stats = tuple(stats[k] for k in ("forwards", "lane_steps", "padded_lane_steps",
+                                         "completed", "failed"))
+    want = {"qmm_s8": 503 * forwards, "flash_fwd": 57 * forwards, "qmm_nf4": 168 * n}
+    bands = []
+    for got, ref in zip(images, refs):
+        d = np.abs(got.astype(np.float32) - ref.astype(np.float32))
+        bands.append((float(d.mean()), float(d.max())))
+    print(f"mesh serve (FluxServer on make_mesh(dp={MESH_SERVE_DP}), two ranks sharing the "
+          f"card over gloo: not a multi-GPU figure): {n} requests at 1024x1024, {steps} "
+          f"steps, max_batch {MESH_SERVE_MAX_BATCH}, served in {recs[0]['served_s']:.3f} s, "
+          f"{recs[0]['served_s'] / n:.3f} s per image; stats (forwards, lane steps, padded, "
+          f"completed, failed) {got_stats} (expected {want_stats})")
+    print("mesh serve lanes vs the single-process images (u8 mean |diff|, max): "
+          + ", ".join(f"{m:.4f} / {x:.0f}" for m, x in bands))
+    for r in recs:
+        print(f"mesh serve rank {r['rank']} ({'leader' if r['leader'] else 'follower'}): "
+              f"launches {r['launches']} (expected {want}); by shape {json.dumps(r['shapes'])}")
+        if r["launches"] != want:
+            raise SystemExit(f"mesh serve rank {r['rank']}: launches {r['launches']}, "
+                             f"expected {want}")
+        if set(r["shapes"]["flash_fwd"]) != {"B1"} or "M4608" not in r["shapes"]["qmm_s8"]:
+            raise SystemExit(f"mesh serve rank {r['rank']} did not run the dp-local batch: "
+                             f"{r['shapes']}")
+    if got_stats != want_stats:
+        raise SystemExit(f"mesh serve stats {stats}: expected {want_stats}")
+    bad = [i for i, (m, x) in enumerate(bands)
+           if not (m < SERVE_MEAN_BAND and x <= SERVE_MAX_BAND)]
+    if bad or images.shape != (n, 1024, 1024, 3):
+        raise SystemExit(f"mesh serve lanes {bad} outside the band of the single-process "
+                         f"images: {bands}")
+    return recs[0]["launches"]
+
+
+# The dryrun's world: JAX's default n, each rank on the one card over gloo.
+DRYRUN_N = 8
+# Its phase 2 per rank (one q8t forward of the tiny config at dp=2 sp=2
+# tp=2: hidden 128, 4 heads, 2 a rank): K1 on img_in, txt_in, the three
+# embedders' out (K=128 kept whole: a K-cut would split its 128-row scale
+# group), every modulation (2 x 2 double, 4 single, final), the double
+# blocks' proj (kept whole) and MLP in (N 256 a rank), the single blocks'
+# proj_mlp: 2 + 3 + 9 + 2 x 2 x 2 + 4 = 26; K1's f32 entry on the double
+# blocks' MLP out (K-cut to 256 rows): 2 x 2 = 4. The q/k/v (64 columns a
+# rank), the embedders' in, linear2 (K 640) and final.proj (N 64) take
+# dequantize + matmul. K14 on each joint attention's two ring chunks: 6 x 2.
+DRYRUN_Q8T_LAUNCHES = {"qmm_s8": 26, "qmm_s8_f32": 4, "flash_fwd_lse": 12}
+
+
+def dryrun_rank(rank: int, tmp: str) -> None:
+    """One rank of the dryrun world: ``dryrun_multichip(DRYRUN_N)`` on the
+    spawned group (it asserts its own checks); writes its record to
+    ``tmp/dryrun_<rank>.json``."""
+    from diffusion_rs_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    rec = dryrun_multichip(DRYRUN_N)
+    rec["run_s"] = time.perf_counter() - t0
+    with open(f"{tmp}/dryrun_{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def dryrun_phase() -> dict:
+    """The training dryrun (diffusion_rs_tpu_torch/dryrun.py) on DRYRUN_N
+    ranks spawned on the card over gloo: phase 1's loss finite and the same
+    on every rank, no kernel launched by the training step, every tp-cut
+    leaf's gradient nonzero; phase 2's launches per rank exact
+    (DRYRUN_Q8T_LAUNCHES) and its ring's hops (6 joint attentions x (sp -
+    1)). Prints the spawn and run times. Returns rank 0's phase-2
+    launches."""
+    import tempfile
+
+    from diffusion_rs_tpu_torch.parallel import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn(dryrun_rank, DRYRUN_N, "gloo", args=(tmp,))
+        wall = time.perf_counter() - t0
+        recs = []
+        for r in range(DRYRUN_N):
+            with open(f"{tmp}/dryrun_{r}.json") as f:
+                recs.append(json.load(f))
+    run = max(r["run_s"] for r in recs)
+    losses = {r["loss"] for r in recs}
+    print(f"dryrun_multichip({DRYRUN_N}): {DRYRUN_N} ranks on the one card over gloo in "
+          f"{wall:.1f} s (spawn, start-up and both phases; the phases {run:.2f} s on the "
+          f"slowest rank); mesh {recs[0]['mesh']}, heads {recs[0]['heads']}, batch "
+          f"{recs[0]['batch']}; loss {sorted(losses)}; training-step launches "
+          f"{[r['train_launches'] for r in recs]}; tp-cut leaves with a nonzero gradient "
+          f"{[r['tp_cut_leaves'] for r in recs]} (zero: "
+          f"{sum(len(r['zero_grad_leaves']) for r in recs)}); phase 2 launches per rank "
+          f"{[r['q8t_launches'] for r in recs]} (expected {DRYRUN_Q8T_LAUNCHES}), ring hops "
+          f"{[r['ring_hops'] for r in recs]}")
+    if len(losses) != 1 or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"dryrun losses {losses}: expected one finite value")
+    for r in recs:
+        if r["train_launches"] or r["zero_grad_leaves"] or not r["tp_cut_leaves"]:
+            raise SystemExit(f"dryrun rank: training launches {r['train_launches']}, zero "
+                             f"gradients {r['zero_grad_leaves']}")
+        if r["q8t_launches"] != DRYRUN_Q8T_LAUNCHES or r["ring_hops"] != 6:
+            raise SystemExit(f"dryrun phase 2: launches {r['q8t_launches']}, hops "
+                             f"{r['ring_hops']}; expected {DRYRUN_Q8T_LAUNCHES}, 6")
+    return recs[0]["q8t_launches"]
+
+
+def grad_guard_check() -> None:
+    """The kernels have no backward: one q8t linear (K1) and one flash call
+    (K3) on inputs that require grad, under grad mode, must raise
+    RuntimeError and launch nothing."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import Linear, _cuda, linear
+    from diffusion_rs_tpu_torch.ops.attention import sdpa
+    from diffusion_rs_tpu_torch.util.synthetic import random_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lin = Linear(w=random_qtensor(gen, 3072, 3072, kind="q8t", device="cuda"))
+    x = torch.randn((64, 3072), generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    q = torch.randn((1, 24, 256, 128), generator=gen, device="cuda").bfloat16()
+    q.requires_grad_(True)
+    before = _cuda.launch_counts()
+    raised = []
+    for name, fn in (("q8t linear", lambda: linear(x, lin)), ("flash", lambda: sdpa(q, q, q))):
+        try:
+            fn()
+        except RuntimeError as e:
+            raised.append(f"{name}: {str(e)[:60]}...")
+    print(f"grad guard: {len(raised)} of 2 calls on inputs that require grad raised "
+          f"({'; '.join(raised)}); launches unchanged {_cuda.launch_counts() == before}")
+    if len(raised) != 2 or _cuda.launch_counts() != before:
+        raise SystemExit("grad guard: a kernel ran on an input that requires grad")
+
+
 def single_rank_latent(cfgs: dict, params: dict, prompts, steps: int):
     """The packed latent of one rank's ``steps``-step 1024x1024 image on
     ``params`` (seed 7, guidance 3.5, as every timed image here)."""
@@ -3052,11 +3284,18 @@ def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent, full_depth: bool
     t_ref = ref_latent if t_steps == steps else single_rank_latent(cfgs, params, prompts,
                                                                      t_steps)
     t = {"cfgs": cfgs, "params": params, "tiny": tiny_tp, "steps": t_steps}
+    # the mesh serve's references: this process's pipeline, one request at a time
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+
+    serve_refs = [pipe.forward_arrays([p], DiffusionGenerationParams(
+        height=1024, width=1024, num_steps=t_steps, guidance_scale=3.5, seed=seed))[0]
+        for p, seed in MESH_SERVE_REQUESTS]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         spawn(sp_rank, SP, "gloo", args=(tmp, s_cfgs, s_params, tiny_params, steps, prompts, t))
         wall = time.perf_counter() - t0
         t_counts = check_config_t(tmp, tiny_tp_cpu, t_steps, t_ref)
+        check_mesh_serve(tmp, serve_refs, t_steps)
         recs = []
         for r in range(SP):
             with open(f"{tmp}/sp_{r}.json") as f:
@@ -3348,6 +3587,7 @@ def main() -> int:
         print(f"kernel qmm_affine_fast16 {r['shape']}: decoded max-abs "
               f"{r['decoded_max_abs']:.3e}, summed-rel {r['summed_rel']:.3e} max-abs "
               f"{r['max_abs_err']:.3e} (untimed)")
+    grad_guard_check()
     mark("kernel phase")
     for attn_layout in (None, "inkernel", "seqmajor"):
         tiny_reference_check(attn_layout)
@@ -3494,8 +3734,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipe = make_pipeline(cfgs, make_params(cfgs, seed=0, device="cuda"), device="cuda")
     counts.update(config_s(cfgs, pipe, prompts, args.steps, lat, args.full_depth))
-    mark("configs S, T")
+    mark("configs S, T, mesh serve")
     tiled_decode(pipe)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase()
+    mark("dryrun")
 
     src = "diffusion_rs_tpu_torch/csrc/"
     qmm_pallas = "diffusion_rs_tpu/ops/qmatmul_pallas.py"

@@ -28,6 +28,11 @@ columns, read off the row-parallel linears' cut (ops/linear.tp_size), and
 each row-parallel linear (``proj``, the MLPs' ``out``, ``linear2``, the
 embedders' ``out`` and ``final.proj``) sums its partial product over the tp
 group. Under sp x tp the ring runs over sp on the local heads.
+
+The forward is differentiable (a training step, dryrun.py): the collectives
+under grad mode are parallel/mesh.py's conjugate pairs, and the QK-norm
+scales, whole on every tp rank but applied to its own heads only, sum their
+gradient over the tp group (:func:`_head_norms`).
 """
 
 from __future__ import annotations
@@ -42,10 +47,11 @@ import torch.nn.functional as F
 
 from ..ops import (apply_rope, apply_rope_halfsplit, expand_rope_tables, layer_norm,
                    linear, linear_grouped, rms_norm, rope_tables, sdpa_merged)
+from ..ops import attention
 from ..ops.flash import flash_attention_fused
 from ..ops.linear import Linear, tp_size
 from ..ops.partitioned import SeqShard, partitioned_flash_rope
-from ..parallel.mesh import split_sizes
+from ..parallel.mesh import copy_to_group, split_sizes
 from ..util.tree import take_layer
 
 Params = Dict[str, Any]
@@ -134,6 +140,15 @@ def _split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
     return t.reshape(b, s, n_heads, -1).transpose(1, 2)
 
 
+def _head_norms(p: Params):
+    """The q_norm / k_norm scales of an attention (or single block) dict.
+    Each tp rank applies them to its own heads, so under grad mode their
+    gradient sums over the tp group (``copy_to_group``; forward: as is)."""
+    lin = p[next(k for k in ("qkv", "qkv_mlp", "q") if k in p)]
+    group = None if lin.tp is None else lin.tp.group
+    return copy_to_group(p["q_norm"], group), copy_to_group(p["k_norm"], group)
+
+
 def _qkv(p: Params, x: torch.Tensor, n_heads: int, proj=None):
     """Project (one fused ``qkv`` linear, or q/k/v), split heads to
     [B, H, S, D], QK-RMSNorm. ``proj`` is a fused q|k|v projection computed
@@ -144,8 +159,9 @@ def _qkv(p: Params, x: torch.Tensor, n_heads: int, proj=None):
         qc, kc, vc = torch.chunk(proj, 3, dim=-1)
     else:
         qc, kc, vc = linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
-    q = rms_norm(_split_heads(qc, n_heads), p["q_norm"])
-    k = rms_norm(_split_heads(kc, n_heads), p["k_norm"])
+    qn, kn = _head_norms(p)
+    q = rms_norm(_split_heads(qc, n_heads), qn)
+    k = rms_norm(_split_heads(kc, n_heads), kn)
     return q, k, _split_heads(vc, n_heads)
 
 
@@ -173,7 +189,8 @@ def _qkv_sm(p: Params, x: torch.Tensor, n_heads: int, proj=None):
         qc, kc, vc = torch.chunk(proj, 3, dim=-1)
     else:
         qc, kc, vc = linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
-    return _norm_sm(qc, p["q_norm"], n_heads), _norm_sm(kc, p["k_norm"], n_heads), vc
+    qn, kn = _head_norms(p)
+    return _norm_sm(qc, qn, n_heads), _norm_sm(kc, kn, n_heads), vc
 
 
 def _joint_attention_sm(q, k, v, ce, se, head_dim: int, seq: Optional[SeqShard] = None):
@@ -186,11 +203,14 @@ def _joint_attention_sm(q, k, v, ce, se, head_dim: int, seq: Optional[SeqShard] 
     it (K7); ``bhsd`` (the default), or a head dim the fused kernels do not
     take, rotates outside, splits heads and runs the [B, H, S, D] kernel
     (K3). Under ``seq`` every layout rotates outside and takes the ring (or
-    its gather fallback), as JAX's sp rules do."""
-    if seq is not None:
+    its gather fallback), as JAX's sp rules do. With
+    DIFFUSION_RS_TPU_NO_FLASH set every layout rotates outside and takes
+    ``sdpa_merged``'s XLA path, as JAX's does without its flash mode."""
+    no_flash = attention._no_flash()
+    if seq is not None and not no_flash:
         return partitioned_flash_rope(q, k, v, ce, se, head_dim, seq)
     layout = os.environ.get("DIFFUSION_RS_TPU_ATTN_LAYOUT", "bhsd")
-    if head_dim % 128 == 0 and layout in ("seqmajor", "inkernel"):
+    if not no_flash and head_dim % 128 == 0 and layout in ("seqmajor", "inkernel"):
         try:
             return flash_attention_fused(q, k, v, ce, se, head_dim=head_dim)
         except NotImplementedError:
@@ -205,7 +225,7 @@ def _joint_attention_sm(q, k, v, ce, se, head_dim: int, seq: Optional[SeqShard] 
 
     qr = apply_rope_halfsplit(split(q), cos, sin)
     kr = apply_rope_halfsplit(split(k), cos, sin)
-    return sdpa_merged(qr.contiguous(), kr.contiguous(), split(v).contiguous())
+    return sdpa_merged(qr.contiguous(), kr.contiguous(), split(v).contiguous(), seq=seq)
 
 
 def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig,
@@ -283,8 +303,9 @@ def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig,
     if cfg.rope_fused:
         if "qkv_mlp" in p:
             fused = linear(x_mod, p["qkv_mlp"])
-            q = _norm_sm(fused[..., 0:h], p["q_norm"], heads)
-            k = _norm_sm(fused[..., h:2 * h], p["k_norm"], heads)
+            qn, kn = _head_norms(p)
+            q = _norm_sm(fused[..., 0:h], qn, heads)
+            k = _norm_sm(fused[..., h:2 * h], kn, heads)
             v = fused[..., 2 * h:3 * h]
             mlp = _gelu(fused[..., 3 * h:])
         else:
@@ -295,8 +316,9 @@ def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig,
         if "qkv_mlp" in p:
             # fused q|k|v|mlp projection (BFL linear1)
             fused = linear(x_mod, p["qkv_mlp"])
-            q = rms_norm(_split_heads(fused[..., 0:h], heads), p["q_norm"])
-            k = rms_norm(_split_heads(fused[..., h:2 * h], heads), p["k_norm"])
+            qn, kn = _head_norms(p)
+            q = rms_norm(_split_heads(fused[..., 0:h], heads), qn)
+            k = rms_norm(_split_heads(fused[..., h:2 * h], heads), kn)
             v = _split_heads(fused[..., 2 * h:3 * h], heads)
             mlp = _gelu(fused[..., 3 * h:])
         else:

@@ -19,6 +19,14 @@ quantize source ``flash_quant`` is the int8 forms' prepass).
 Every kernel wrapper adds one to its entry point's count in
 :data:`LAUNCHES` when it launches it, and nowhere else.
 
+The kernels have no backward: a launch returns a tensor autograd sees as a
+constant. So every wrapper hands :func:`launch` its tensor operands, and a
+launch under grad mode with an operand that requires grad raises
+``RuntimeError`` instead of silently giving the upstream parameters no
+gradient (JAX's flash wrapper has no autodiff rule either). A training step
+runs attention through ``sdpa_xla`` (DIFFUSION_RS_TPU_NO_FLASH=1) on dense
+weights, which launches no kernel.
+
 Threads: the serving path launches kernels from several threads of one
 process (a request's text encode on its submitting thread, the batched
 steps on the server's worker, the decodes on its decode thread). One
@@ -218,13 +226,28 @@ def int8_layout(s8: bool, s8_pv: bool) -> Tuple[int, int, int]:
     return kv.value, stages.value, smem.value
 
 
-def launch(name: str, *args, device) -> None:
+def check_no_grad(name: str, inputs) -> None:
+    """Raise when grad mode is on and a tensor of ``inputs`` requires grad:
+    the kernel behind wrapper ``name`` has no backward."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: a hand-written CUDA kernel has no backward, and an input requires "
+            "grad under grad mode (its output would be a constant to autograd). Run it "
+            "under torch.no_grad(), or train with DIFFUSION_RS_TPU_NO_FLASH=1 (attention "
+            "through sdpa_xla) and dense weights (plain matmuls)")
+
+
+def launch(name: str, *args, device, inputs=()) -> None:
     """Call entry point ``<name>(...)`` on ``device`` (the card its operands
     lie on), on that card's current stream; raise on a CUDA error. The
     launch runs under that device's context whatever the thread's current
-    device is, so a rank whose tensors lie on ``cuda:r`` launches there."""
+    device is, so a rank whose tensors lie on ``cuda:r`` launches there.
+    ``inputs``: the wrapper's tensor operands, for :func:`check_no_grad`."""
     import torch
 
+    check_no_grad(name, inputs)
     with torch.cuda.device(device):
         card = torch.cuda.current_device()
         if card not in _thread.cards:

@@ -5,7 +5,11 @@ additive bias and tanh softcap; T5, CLIP and the VAE call it directly
 (``impl="xla"``). ``sdpa`` / ``sdpa_merged`` dispatch the unbiased case to
 the flash kernels (ops/flash.py), which is what FLUX joint attention
 reaches; under sequence parallelism ``sdpa_merged(seq=...)`` takes the ring
-or its gather fallback (ops/partitioned.py). The int8 modes are read from
+or its gather fallback (ops/partitioned.py), and its XLA path gathers k/v
+over the sp group (GSPMD's form of it in JAX), differentiably under grad
+mode. ``DIFFUSION_RS_TPU_NO_FLASH`` (any non-empty value, as in JAX) sends
+the automatic pick to ``sdpa_xla``: the path a training step takes, since
+the hand-written kernels have no backward. The int8 modes are read from
 the JAX package's environment knobs, with its parsing and defaults:
 ``DIFFUSION_RS_TPU_ATTN_S8`` (s8 QK^T, K9, off),
 ``DIFFUSION_RS_TPU_ATTN_S8PV`` (s8 P.V, K10, off) and
@@ -21,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import gather_rows
 from .flash import flash_attention
 from .partitioned import SeqShard, partitioned_flash
 
@@ -49,6 +54,13 @@ def _env_flag(name: str) -> Optional[bool]:
     if env in ("1", "on", "force", "true"):
         return True
     return None
+
+
+@functools.lru_cache(None)
+def _no_flash() -> bool:
+    """Whether DIFFUSION_RS_TPU_NO_FLASH is set (non-empty): the automatic
+    pick of :func:`sdpa` / :func:`sdpa_merged` is then ``sdpa_xla``."""
+    return bool(os.environ.get("DIFFUSION_RS_TPU_NO_FLASH"))
 
 
 @functools.lru_cache(None)
@@ -84,7 +96,7 @@ def sdpa(q, k, v, scale: Optional[float] = None, bias=None,
     environment's default) pick the int8 modes. A shape the flash kernels do
     not take (``NotImplementedError``) runs ``sdpa_xla``, as in JAX."""
     if impl is None:
-        impl = "flash" if bias is None and softcap is None else "xla"
+        impl = "flash" if bias is None and softcap is None and not _no_flash() else "xla"
     if impl == "flash":
         s8 = _s8_default() if s8 is None else s8
         s8_pv = _s8_pv_default() if s8_pv is None else s8_pv
@@ -102,12 +114,13 @@ def sdpa_merged(q, k, v, scale: Optional[float] = None,
     on the flash path the kernel writes that layout directly (unless
     DIFFUSION_RS_TPU_ATTN_MERGED=0, or the shape needs the [B, H, S, D] path).
     ``seq``: q/k/v are this rank's rows of a sequence split over a process
-    group, and the flash path runs :func:`partitioned_flash` (the ring);
-    another ``impl`` raises, since it would attend the local rows only."""
-    if seq is not None and impl not in (None, "flash"):
-        raise NotImplementedError(f"attention impl {impl!r} has no sequence-parallel form; "
-                                  "under an sp mesh only the flash path runs")
-    if impl in (None, "flash"):
+    group; the flash path runs :func:`partitioned_flash` (the ring), the
+    XLA path attends this rank's q rows over k/v gathered from the group
+    (parallel/mesh.gather_rows). ``impl`` None takes the flash path unless
+    DIFFUSION_RS_TPU_NO_FLASH is set."""
+    if impl is None:
+        impl = "xla" if _no_flash() else "flash"
+    if impl == "flash":
         s8 = _s8_default() if s8 is None else s8
         s8_pv = _s8_pv_default() if s8_pv is None else s8_pv
         if seq is not None:
@@ -120,6 +133,9 @@ def sdpa_merged(q, k, v, scale: Optional[float] = None,
                 pass
         x = sdpa(q, k, v, scale=scale, impl="flash", s8=s8, s8_pv=s8_pv)
     else:
+        if seq is not None:
+            k = gather_rows(k, seq.group, seq.lens, dim=2)
+            v = gather_rows(v, seq.group, seq.lens, dim=2)
         x = sdpa_xla(q, k, v, scale=scale)
     b, h, s, d = x.shape
     return x.transpose(1, 2).reshape(b, s, h * d)

@@ -396,11 +396,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
     if lse is None:
         _cuda.launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), b, h, sq, k.shape[2], float(scale), device=q.device)
+                     out.data_ptr(), b, h, sq, k.shape[2], float(scale), device=q.device,
+                     inputs=(q, k, v))
     else:
         _check_lse(lse, q)
         _cuda.launch("flash_fwd_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     lse.data_ptr(), b, h, sq, k.shape[2], float(scale), device=q.device)
+                     lse.data_ptr(), b, h, sq, k.shape[2], float(scale), device=q.device,
+                     inputs=(q, k, v))
     return out
 
 
@@ -605,7 +607,8 @@ def quantize_kv(k: Optional[torch.Tensor], v: Optional[torch.Tensor], block: int
         return None if t is None else t.data_ptr()
 
     _cuda.launch("flash_quant", ptr(k), *(ptr(t) for t in outs["k"]), ptr(v),
-                 *(ptr(t) for t in outs["v"]), b, h, skv, block, device=x.device)
+                 *(ptr(t) for t in outs["v"]), b, h, skv, block, device=x.device,
+                 inputs=(k, v))
     return outs["k"], outs["v"]
 
 
@@ -646,7 +649,8 @@ def _int8_launch(q, k, v, scale: float, s8: bool, s8_pv: bool, qblock: Optional[
     ptrs = [q.data_ptr(), kk.data_ptr(), None if sk is None else sk.data_ptr(), vv.data_ptr(),
             None if sv is None else sv.data_ptr(), None if vm is None else vm.data_ptr(),
             out.data_ptr()] + ([] if lse is None else [lse.data_ptr()])
-    _cuda.launch(entry, *ptrs, b, h, sq, skv, qb, float(scale), device=q.device)
+    _cuda.launch(entry, *ptrs, b, h, sq, skv, qb, float(scale), device=q.device,
+                 inputs=(q, k, v))
     return out, km
 
 
@@ -761,7 +765,7 @@ def flash_sm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (b, h, sq, skv), strides = _seqmajor_args(q, k, v)
     out = torch.empty((b, sq, h * HEAD_DIM), dtype=torch.bfloat16, device=q.device)
     _cuda.launch("flash_sm", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, h, sq, skv, *strides, float(scale), device=q.device)
+                 b, h, sq, skv, *strides, float(scale), device=q.device, inputs=(q, k, v))
     return out
 
 
@@ -780,7 +784,8 @@ def _rope_launch(q, k, ce_q, se_q, ce_k, se_k, b: int, h: int, sq: int, skv: int
     kr = torch.empty((b, skv, h * HEAD_DIM), dtype=torch.bfloat16, device=q.device)
     _cuda.launch("rope_qk", q.data_ptr(), k.data_ptr(), ce_q.data_ptr(), se_q.data_ptr(),
                  ce_k.data_ptr(), se_k.data_ptr(), qr.data_ptr(), kr.data_ptr(),
-                 b, h, sq, skv, *strides[:4], device=q.device)
+                 b, h, sq, skv, *strides[:4], device=q.device,
+                 inputs=(q, k, ce_q, se_q, ce_k, se_k))
     return qr, kr
 
 
@@ -810,7 +815,7 @@ def flash_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, n), dtype=torch.bfloat16, device=q.device)
     _cuda.launch("flash_rope", qr.data_ptr(), kr.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, h, sq, skv, sq * n, n, skv * n, n, *strides[4:], float(scale),
-                 device=q.device)
+                 device=q.device, inputs=(qr, kr, v))
     return out
 
 

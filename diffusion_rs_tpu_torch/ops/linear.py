@@ -11,6 +11,12 @@ Under tensor parallelism (parallel/sharding.py) a ``Linear`` carries its
 columns and runs as any other. A row-parallel one that holds this rank's
 input rows runs ops/partitioned.row_parallel_linear: the partial product in
 f32, one all-reduce over the tp group, one cast, then the bias.
+
+Under grad mode the cuts are differentiable (parallel/mesh.py's conjugate
+collectives): a column-parallel linear's whole input sums its gradient over
+the tp group, a whole input cut to a rank's rows does the same, and a rank's
+features gathered for a row weight kept whole take back their own slice of
+the gradient (every rank computes the same product from them).
 """
 
 from __future__ import annotations
@@ -59,11 +65,21 @@ class TensorParallel:
     sharded: bool = True
 
     def local_features(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's share of every segment of ``x``'s last dim (whole)."""
-        return cut_segments(x, -1, self.segments, self.rank, self.size)
+        """This rank's share of every segment of ``x``'s last dim (whole);
+        under grad mode the gradient of ``x`` sums over the group."""
+        from ..parallel.mesh import copy_to_group
+
+        return cut_segments(copy_to_group(x, self.group), -1, self.segments, self.rank,
+                            self.size)
 
     def gather_features(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole last dim from every rank's :meth:`local_features`."""
+        """The whole last dim from every rank's :meth:`local_features`;
+        under grad mode ``x``'s gradient is its slice of the whole one."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _GatherFeatures.apply(x, self)
+        return self._gather(x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
         from ..parallel.mesh import all_gather_rows
 
         local = [n // self.size for n in self.segments]
@@ -72,6 +88,18 @@ class TensorParallel:
         segs = [torch.split(r, local, dim=-1) for r in ranks]
         return torch.cat([segs[r][i] for i in range(len(local)) for r in range(self.size)],
                          dim=-1)
+
+
+class _GatherFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp._gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        return cut_segments(g, -1, tp.segments, tp.rank, tp.size), None
 
 
 @dataclasses.dataclass
@@ -100,6 +128,10 @@ def linear(x: torch.Tensor, lin: Linear) -> torch.Tensor:
     a sharded weight cuts a whole input to its rows, and a weight kept whole
     gathers a rank's features from the group, in segment order."""
     tp = lin.tp
+    if tp is not None and tp.role == "col" and tp.size > 1:
+        from ..parallel.mesh import copy_to_group
+
+        x = copy_to_group(x, tp.group)
     if tp is not None and tp.role == "row" and tp.size > 1:
         k = lin.w.shape[-2]
         if tp.sharded:

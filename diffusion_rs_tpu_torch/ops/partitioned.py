@@ -31,17 +31,22 @@ scale groups (:func:`_local_k_ok`).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import RingShift, all_gather_rows, all_reduce_sum
+from ..parallel.mesh import RingShift, all_gather_rows, reduce_sum
 from ..quant.qtensor import QuantizedTensor, dequantize
 from ..util.tracing import warn_once
 from .flash import flash_attention, rope_halfsplit_seqmajor
 from .qmatmul import quantized_matmul, supports
+
+
+# ring_attention's calls ("rings") and k/v hops ("hops") on this rank
+RING_HOPS: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,15 +79,18 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group,
     same count on every rank. k/v rotate one hop ``n - 1`` times (to group
     rank r + 1, from r - 1) while each chunk's attention runs; the merge is
     JAX's, in f32: ``lse' = logaddexp(lse, lse_i)``, ``o = o exp(lse - lse')
-    + o_i exp(lse_i - lse')``. Returns [B, S_local, H*D] in q's dtype."""
+    + o_i exp(lse_i - lse')``. Returns [B, S_local, H*D] in q's dtype.
+    Counted in :data:`RING_HOPS` (calls and hops received)."""
     b, h, s, d = q.shape
     if scale is None:
         scale = d ** -0.5
     n = dist.get_world_size(group)
+    RING_HOPS["rings"] += 1
     shift = RingShift([k, v], group) if n > 1 else None
     o, lse = _attend(q, k, v, scale, s8, s8_pv)
     for hop in range(1, n):
         k, v = shift.wait()
+        RING_HOPS["hops"] += 1
         if hop + 1 < n:
             shift = RingShift([k, v], group)
         o_i, lse_i = _attend(q, k, v, scale, s8, s8_pv)
@@ -153,7 +161,8 @@ def row_parallel_linear(x: torch.Tensor, lin) -> torch.Tensor:
     quantized kernels' f32 output; a dense or untiled weight through an f32
     matmul), plus the LoRA term's partial ``(x @ a_rows) @ bl``, summed over
     the tp group by one all-reduce, cast once to x's dtype; the bias is
-    added after the cast, as JAX adds it."""
+    added after the cast, as JAX adds it. Under grad mode the all-reduce
+    passes the gradient back unchanged (parallel/mesh.reduce_sum)."""
     w = lin.w
     f32 = torch.float32
     if isinstance(w, QuantizedTensor) and supports(w):
@@ -164,5 +173,5 @@ def row_parallel_linear(x: torch.Tensor, lin) -> torch.Tensor:
     if lin.lora is not None:
         a, bl = lin.lora
         y = y + torch.matmul(torch.matmul(x, a.to(x.dtype)).float(), bl.float())
-    y = all_reduce_sum(y, lin.tp.group).to(x.dtype)
+    y = reduce_sum(y, lin.tp.group).to(x.dtype)
     return y if lin.b is None else y + lin.b

@@ -302,7 +302,7 @@ def qmm_s8(x2: torch.Tensor, qt: QuantizedTensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     _cuda.launch(_entry_name("qmm_s8", out_dtype), x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
                  qt.packed.data_ptr(), qt.scale.data_ptr(), out.data_ptr(),
-                 m, k, n, bk, device=x2.device)
+                 m, k, n, bk, device=x2.device, inputs=(x2, *qt.planes()))
     return out
 
 
@@ -356,7 +356,8 @@ def qmm_nf4(x2: torch.Tensor, qt: QuantizedTensor,
         return out
     _cuda.launch(_entry_name("qmm_nf4", out_dtype), x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
-                 m, k, n, qt.split, qt.group, plan.block_m, device=x2.device)
+                 m, k, n, qt.split, qt.group, plan.block_m, device=x2.device,
+                 inputs=(x2, *qt.planes()))
     return out
 
 
@@ -407,7 +408,7 @@ def qmm_affine(x2: torch.Tensor, qt: QuantizedTensor,
                  qt.scale.data_ptr(),
                  None if qt.bias is None else qt.bias.data_ptr(),
                  out.data_ptr(), m, k, n, qt.bits, qt.split, qt.group, plan.block_m,
-                 device=x2.device)
+                 device=x2.device, inputs=(x2, *qt.planes()))
     return out
 
 
@@ -479,7 +480,8 @@ def qmm_nf4_fast16(x2: torch.Tensor, qt: QuantizedTensor,
         return out
     _cuda.launch(_entry_name("qmm_nf4_fast16", out_dtype), x2.data_ptr(), qt.packed.data_ptr(),
                  qt.scale.data_ptr(), qt.codebook.data_ptr(), out.data_ptr(),
-                 m, k, qt.n, qt.split, qt.group, plan.block_m, device=x2.device)
+                 m, k, qt.n, qt.split, qt.group, plan.block_m, device=x2.device,
+                 inputs=(x2, *qt.planes()))
     return out
 
 
@@ -499,7 +501,7 @@ def qmm_affine_fast16(x2: torch.Tensor, qt: QuantizedTensor,
                  qt.scale.data_ptr(),
                  None if qt.bias is None else qt.bias.data_ptr(),
                  out.data_ptr(), m, k, qt.n, qt.bits, qt.split, qt.group, plan.block_m,
-                 device=x2.device)
+                 device=x2.device, inputs=(x2, *qt.planes()))
     return out
 
 
@@ -601,7 +603,8 @@ def qmm_grouped_s8(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
                      qt.scale.data_ptr(), out.data_ptr(), m))
     table = _table(rows)
     _cuda.launch("qmm_grouped_s8", ctypes.addressof(table), len(rows), k, n, bk,
-                 device=x2s[0].device)
+                 device=x2s[0].device,
+                 inputs=[t for x2, qt in zip(x2s, qts) for t in (x2, *qt.planes())])
     return outs
 
 
@@ -629,7 +632,8 @@ def qmm_grouped_affine(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTenso
                     group=q0.group, group_ms=[r[5] for r in rows])
     _cuda.launch("qmm_grouped_affine", ctypes.addressof(table), len(rows), k, n, q0.bits,
                  q0.split, q0.group, int(q0.bias is not None), plan.block_m,
-                 device=x2s[0].device)
+                 device=x2s[0].device,
+                 inputs=[t for x2, qt in zip(x2s, qts) for t in (x2, *qt.planes())])
     return outs
 
 
@@ -658,7 +662,8 @@ def qmm_grouped_nf4(x2s: Sequence[torch.Tensor], qts: Sequence[QuantizedTensor],
     plan = qmm_plan("nf4", rows[0][5], k, n, split=q0.split, group=q0.group,
                     group_ms=[r[5] for r in rows])
     _cuda.launch("qmm_grouped_nf4", ctypes.addressof(table), len(rows), k, n, q0.split,
-                 q0.group, plan.block_m, device=x2s[0].device)
+                 q0.group, plan.block_m, device=x2s[0].device,
+                 inputs=[t for x2, qt in zip(x2s, qts) for t in (x2, *qt.planes())])
     return outs
 
 

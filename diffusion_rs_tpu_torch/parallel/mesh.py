@@ -14,6 +14,16 @@ Under ``tp`` each rank holds its own slice of the FLUX and T5 weights
 products over the tp group with :func:`all_reduce_sum`. gloo moves only CPU
 tensors, so under a gloo group the collectives here stage CUDA tensors
 through pinned host memory; under NCCL they send device memory directly.
+
+Autograd: :func:`all_reduce_sum` and :func:`all_gather_rows` are not
+differentiable (one sums in place, the other returns a constant). Under grad
+mode the callers take :func:`reduce_sum` (the sum; backward: identity, since
+the sum is replicated over the group), :func:`copy_to_group` (identity;
+backward: the gradient summed over the group, for a replicated tensor each
+rank uses on its own share of the work) and :func:`gather_rows` (the
+gather; backward: the gradient summed over the group, then this rank's
+rows), Megatron's conjugate pairs. Each runs its plain form when grad mode
+is off or its input needs no gradient, so the no-grad forward is unchanged.
 """
 
 from __future__ import annotations
@@ -131,6 +141,70 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     dist.all_reduce(t, group=group)
     return t
+
+
+def _tracks_grad(t: torch.Tensor, group) -> bool:
+    return group is not None and torch.is_grad_enabled() and t.requires_grad
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_sum(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(), ctx.group), None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, sizes, dim):
+        ctx.group, ctx.sizes, ctx.dim = group, list(sizes), dim
+        return all_gather_rows(t, group, sizes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        whole = all_reduce_sum(g.contiguous().clone(), ctx.group)
+        return whole.narrow(ctx.dim, sum(ctx.sizes[:r]), ctx.sizes[r]), None, None, None
+
+
+def reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_reduce_sum`, differentiable under grad mode: every rank
+    holds the same sum, so its gradient passes back unchanged."""
+    if _tracks_grad(t, group):
+        return _ReduceSum.apply(t, group)
+    return all_reduce_sum(t, group)
+
+
+def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` itself; under grad mode its gradient is summed over ``group``
+    (a tensor every rank holds whole and applies to its own share: the input
+    of a column-parallel linear, a norm scale of a rank's own heads)."""
+    if _tracks_grad(t, group):
+        return _CopyToGroup.apply(t, group)
+    return t
+
+
+def gather_rows(t: torch.Tensor, group, sizes: Sequence[int], dim: int) -> torch.Tensor:
+    """:func:`all_gather_rows`, differentiable under grad mode for a gather
+    each rank then uses on its own rows (k/v over sp): the gradient is
+    summed over ``group`` and this rank's rows are kept."""
+    if _tracks_grad(t, group):
+        return _GatherRows.apply(t, group, sizes, dim)
+    return all_gather_rows(t, group, sizes, dim)
 
 
 class RingShift:

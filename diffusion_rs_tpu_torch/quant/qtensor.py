@@ -55,6 +55,11 @@ class QuantizedTensor:
     def n(self) -> int:
         return self.shape[1]
 
+    def planes(self) -> tuple:
+        """The data fields that are present (packed, scale, bias, codebook)."""
+        return tuple(t for t in (self.packed, self.scale, self.bias, self.codebook)
+                     if t is not None)
+
     def map(self, fn) -> "QuantizedTensor":
         """Apply ``fn`` to every data field (indexing, device moves)."""
         return dataclasses.replace(

@@ -436,23 +436,25 @@ class WordTokenizer:
         ]
 
 
-def write_diffusers_dir(root, cfgs: dict, seed: int) -> None:
+def write_diffusers_dir(root, cfgs: dict, seed: int, device="cpu") -> None:
     """A diffusers-layout FLUX.1-dev directory at the widths of ``cfgs``: random
     bf16 weights (normal, std 1/sqrt(K) for linears) named as the published
     checkpoint names them, with its configs (dev: guidance embedder, dynamic
     shift) and small tokenizer files (a character BPE for CLIP, a word-level
-    T5 tokenizer; ids stay inside the vocabularies)."""
+    T5 tokenizer; ids stay inside the vocabularies). ``device``: where the
+    weights are drawn (from a generator seeded there) before they are
+    written; a card draws full-width ones much faster than the host."""
     from tokenizers import Tokenizer, models, pre_tokenizers
 
     root = Path(root)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     fc, tc, cc, vc = cfgs["flux_cfg"], cfgs["t5_cfg"], cfgs["clip_cfg"], cfgs["vae_cfg"]
     for d in ("scheduler", "text_encoder", "text_encoder_2", "tokenizer", "tokenizer_2",
               "transformer", "vae"):
         (root / d).mkdir(parents=True, exist_ok=True)
 
     def normal(shape, std):
-        return (torch.randn(shape, generator=gen) * std).to(torch.bfloat16)
+        return (torch.randn(shape, generator=gen, device=device) * std).to(torch.bfloat16).cpu()
 
     def ones(n):
         return torch.ones(n, dtype=torch.bfloat16)

@@ -31,7 +31,8 @@ two threads' first launches racing in a fresh process with an empty build
 directory (``-k "server or race"``). Tensor parallelism: the f32-output
 entries of K1, K2, K12, K4 and K13 against their plain versions at the
 K-slices of FLUX's proj and linear2 (K1 bit for bit), and the grouped
-kernels' refusal of f32 (``-k f32``).
+kernels' refusal of f32 (``-k f32``). The grad guard: K1 and K3 refuse an
+input that requires grad under grad mode (``-k grad_guard``).
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -k "k3 or k4 or k6 or k7 or k8 or k13 or k14 or bf16_flash or rope or affine or dispatch"
 """
@@ -224,6 +225,33 @@ def test_k3_matches_plain(dev, b, h, sq, skv):
     y = flash.flash_fwd(q, k, v, 128 ** -0.5)
     ref = flash.flash_attention_plain(q, k, v, 128 ** -0.5)
     assert _summed_rel(y, ref.transpose(1, 2).reshape(b, sq, h * 128)) <= 5e-4
+
+
+def test_grad_guard_refuses_inputs_that_require_grad(dev):
+    """The kernels have no backward: under grad mode a q8t linear (K1,
+    through ops.linear) and a flash call (K3, through sdpa) on an input that
+    requires grad raise RuntimeError naming the wrapper and the
+    DIFFUSION_RS_TPU_NO_FLASH knob, and launch nothing; under no_grad both
+    run; nothing falls back to the plain version."""
+    from diffusion_rs_tpu_torch.ops import Linear, linear
+    from diffusion_rs_tpu_torch.ops.attention import sdpa
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lin = Linear(w=random_qtensor(gen, 256, 128, kind="q8t", device=dev))
+    x = torch.randn((4, 256), generator=gen, device=dev).bfloat16().requires_grad_(True)
+    q = torch.randn((1, 2, 64, 128), generator=gen, device=dev).bfloat16().requires_grad_(True)
+    before = _cuda.launch_counts()
+    with pytest.raises(RuntimeError, match="qmm_s8.*no backward.*DIFFUSION_RS_TPU_NO_FLASH"):
+        linear(x, lin)
+    with pytest.raises(RuntimeError, match="flash_fwd.*no backward.*DIFFUSION_RS_TPU_NO_FLASH"):
+        sdpa(q, q, q)
+    assert _cuda.launch_counts() == before
+    with torch.no_grad():
+        linear(x, lin)
+        sdpa(q, q, q)
+    after = _cuda.launch_counts()
+    assert after["qmm_s8"] == before["qmm_s8"] + 1
+    assert after["flash_fwd"] == before["flash_fwd"] + 1
 
 
 def test_quantized_matmul_dispatch_on_card(dev):

@@ -13,6 +13,15 @@ whose row-parallel linears are K-cut or kept whole, against JAX's forward
 with its kernels interpreted; T5 (nf4) at tp=2, unfused and fused;
 ``Pipeline(mesh=make_mesh(dp=2, tp=2))`` against the JAX mesh images; the
 multi-host helpers.
+
+The last two modules run in the same world too: the training dryrun's
+step (diffusion_rs_tpu_torch/dryrun.train_step, torch_mesh_workers.
+train_rank) at dp=2 x tp=2 and sp=2 x tp=2 against ``jax.value_and_grad``
+of ``__graft_entry__.py``'s loss on one device, every leaf's gradient put
+back whole; and ``FluxServer`` on ``Pipeline(mesh=...)`` at dp=2 x tp=2 and
+dp=2 x sp=2 (torch_mesh_workers.serve_rank) against the JAX package's
+offline images, with its dp-multiple buckets, its failed lanes and the
+followers' refusal to take requests.
 """
 
 import importlib
@@ -41,7 +50,7 @@ from synth import FLUX_HIDDEN, write_checkpoint
 from diffusion_rs_tpu_torch.models.flux import FluxConfig as TFluxConfig
 from diffusion_rs_tpu_torch.models.t5 import T5Config as TT5Config
 from diffusion_rs_tpu_torch.util.synthetic import init_flux_params, init_t5_params
-from torch_mesh_workers import _digest, mesh_rank
+from torch_mesh_workers import SERVE_PROMPTS, _digest, mesh_rank
 from torch_port_util import quantize_tree, summed_rel, to_jax_tree, to_numpy_tree
 
 # tests/test_partitioned.py's FLUX: 60 image + 4 text tokens
@@ -136,6 +145,64 @@ def _tp_references(tmp, rng):
     return refs
 
 
+def _flat_numpy_tree(tree, path=""):
+    """(path, array) of every array of the bridge's plain form, paths as
+    torch_mesh_workers._whole_grads writes them."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k not in ("__type__", "lora"):
+                yield from _flat_numpy_tree(v, f"{path}.{k}" if path else k)
+    elif tree is not None:
+        yield path, np.asarray(tree)
+
+
+def _train_reference(tmp):
+    """``jax.value_and_grad`` of __graft_entry__.py's ``loss_fn`` on one
+    device: ``_tiny_cfg`` at 4 heads (JAX's rule for 4 devices: tp=2) with
+    f32 params from PRNGKey(0) and the dryrun's JAX draws for a batch of 4.
+    The params (bridge form) and the inputs go to ``tmp``; returns the loss
+    and every leaf's gradient by path."""
+    from __graft_entry__ import _tiny_cfg
+
+    cfg = _tiny_cfg(heads=4)
+    params = jflux.init_flux_params(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
+    b, txt_len, h2, w2 = 4, 16, 8, 8
+    ks = jax.random.split(jax.random.PRNGKey(1), 3)
+    inp = {"img": jax.random.normal(ks[0], (b, h2 * w2, cfg.in_channels), jnp.float32),
+           "txt": jax.random.normal(ks[1], (b, txt_len, cfg.joint_attention_dim), jnp.float32),
+           "y": jax.random.normal(ks[2], (b, cfg.pooled_projection_dim), jnp.float32),
+           "t": jnp.full((b,), 0.7, jnp.float32), "guidance": jnp.full((b,), 3.5, jnp.float32),
+           "txt_ids": make_txt_ids(b, txt_len), "img_ids": make_img_ids(b, h2, w2)}
+    inp["target"] = jax.random.normal(jax.random.PRNGKey(7), inp["img"].shape, jnp.float32)
+    pe = jflux.compute_pe(cfg, inp["txt_ids"], inp["img_ids"])
+
+    def loss_fn(p):
+        pred = jflux.flux_forward(p, cfg, inp["img"], inp["txt"], inp["t"], inp["y"],
+                                  inp["guidance"], pe=pe)
+        return jnp.mean((pred - inp["target"]) ** 2)
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    with open(tmp / "train.pkl", "wb") as f:
+        pickle.dump({"heads": 4, "params": to_numpy_tree(params)}, f)
+    np.savez(tmp / "train_inputs.npz", **{k: np.asarray(v) for k, v in inp.items()})
+    return float(loss), dict(_flat_numpy_tree(to_numpy_tree(grads)))
+
+
+SERVE_SEEDS = (1, 2, 3, 5, 99)
+
+
+def _serve_reference(tmp, ckpt):
+    """The JAX package's offline images of SERVE_PROMPTS (2 steps, seeds
+    1-3) on the world's checkpoint, and its noise draws for the served
+    seeds (to ``tmp/serve_noise.npz``)."""
+    np.savez(tmp / "serve_noise.npz", **{
+        str(s): np.asarray(j_get_noise(jax.random.PRNGKey(s), 1, 64, 64)) for s in SERVE_SEEDS})
+    plain = JPipeline(JSource.from_model_id(str(ckpt)), silent=True)._inner
+    return np.stack([plain.forward_arrays([p], JParams(height=64, width=64, num_steps=2,
+                                                       guidance_scale=3.5, seed=i + 1))[0]
+                     for i, p in enumerate(SERVE_PROMPTS)])
+
+
 @pytest.fixture(scope="module")
 def mesh_run(tmp_path_factory):
     """One spawned world of 4 for both comparisons: the tiny FLUX forward
@@ -175,6 +242,8 @@ def mesh_run(tmp_path_factory):
     np.savez(tmp / "i2i.npz", images=rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
              mask=mask)
     tp_refs = _tp_references(tmp, np.random.default_rng(3))
+    train_ref = _train_reference(tmp)
+    serve_ref = _serve_reference(tmp, ckpt)
 
     spawn(mesh_rank, 4, "gloo", args=(str(tmp),))
     return {"flux": (ref, _digest(from_numpy_tree(tree, "cpu")),
@@ -184,7 +253,9 @@ def mesh_run(tmp_path_factory):
             "pipeline": (images, latents, digest,
                          [np.load(tmp / f"pipe_{r}.npz") for r in range(4)]),
             "img2img": (tmp, [np.load(tmp / f"i2i_{r}.npz") for r in range(4)]),
-            "img2img_tp": [np.load(tmp / f"i2i_tp_{r}.npz") for r in range(4)]}
+            "img2img_tp": [np.load(tmp / f"i2i_tp_{r}.npz") for r in range(4)],
+            "train": (train_ref, [np.load(tmp / f"train_{r}.npz") for r in range(4)]),
+            "serve": (serve_ref, [np.load(tmp / f"serve_{r}.npz") for r in range(4)])}
 
 
 @pytest.fixture(scope="module")
@@ -403,3 +474,57 @@ def test_multislice_mesh_and_local_batch(tp_run):
         assert r["multislice_shape"].tolist() == [2, 1, 2] and int(r["world"]) == 4
         assert r["coords"].tolist() == [rank // 2, 0, rank % 2]
         assert float(r["global_sum"][0]) == 8.0
+
+
+# -- the training dryrun's step and the server on a mesh, in the same world ----------
+
+
+@pytest.mark.parametrize("mesh", ["dp2_tp2", "sp2_tp2"])
+def test_train_step_matches_jax_value_and_grad(mesh_run, mesh):
+    """dryrun.train_step at dp=2 x tp=2 (JAX's rule for 4 devices) and at
+    sp=2 x tp=2 against JAX's value_and_grad on one device: the loss within
+    1e-5 relative and every leaf's gradient (66 leaves; tp-cut ones gathered
+    whole) within 1e-3 summed-rel, on every rank. The backward runs through
+    the differentiable collectives: column inputs sum their gradient over
+    tp, the row all-reduce passes it back, the QK-norm scales sum theirs over
+    tp, the sp XLA path's k/v gather sums over sp and keeps the rank's rows."""
+    (loss, grads), ranks = mesh_run["train"]
+    for r in ranks:
+        assert abs(float(r[f"{mesh}_loss"]) / loss - 1.0) <= 1e-5
+        got = {k.split(":", 1)[1] for k in r.files if k.startswith(f"{mesh}:")}
+        assert got == set(grads) and len(grads) == 66
+        worst = max(summed_rel(r[f"{mesh}:{k}"], g) for k, g in grads.items())
+        assert worst <= 1e-3, worst
+
+
+@pytest.mark.parametrize("mesh", ["dp2_tp2", "dp2_sp2"])
+def test_server_on_mesh_matches_jax_offline(mesh_run, mesh):
+    """``FluxServer(max_batch=4)`` on ``Pipeline(mesh=...)``, as JAX's
+    tests/test_serving.py::test_server_dp_mesh_sharded (three prompts, 2
+    steps, seeds 1-3): each served image, and "a cat" served alone
+    afterwards, within JAX's band (u8 mean < 1, max <= 16) of the JAX
+    package's offline image for the same seed."""
+    refs, ranks = mesh_run["serve"]
+    images = ranks[0][f"{mesh}_images"]
+    for got, want in [*zip(images, refs), (ranks[0][f"{mesh}_alone"], refs[0])]:
+        d = np.abs(got.astype(np.float32) - want.astype(np.float32))
+        assert d.mean() < 1.0 and d.max() <= 16, (d.mean(), d.max())
+
+
+@pytest.mark.parametrize("mesh", ["dp2_tp2", "dp2_sp2"])
+def test_server_on_mesh_buckets_and_failures(mesh_run, mesh):
+    """Buckets start at dp and double: the three lanes step twice at bucket
+    4 (one padding lane) and the lone one twice at bucket 2 (one). A prompt
+    longer than its T5 length fails its lane on every rank, a request whose
+    noise fails on the followers only fails on the leader with the first
+    failing rank's message; the server goes on (the lone request after them
+    completes) and no rank hangs (each rank's watchdog is 120 s). A
+    follower's ``submit`` raises."""
+    _, ranks = mesh_run["serve"]
+    forwards, lane_steps, padded, completed, failed = ranks[0][f"{mesh}_stats"].tolist()
+    assert (forwards, lane_steps, padded, completed, failed) == (4, 8, 4, 4, 2)
+    long_prompt, follower = (str(e) for e in ranks[0][f"{mesh}_errors"])
+    assert "T5 embedding length" in long_prompt
+    assert follower == "RuntimeError: rank 1 failed: RuntimeError: injected noise failure"
+    for r in ranks[1:]:
+        assert "rank 0 only" in str(r[f"{mesh}_refused"])

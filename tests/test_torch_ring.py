@@ -145,15 +145,31 @@ def test_uneven_rows_fall_back_with_warning(rings):
     assert all(port["warned"])
 
 
-def test_sdpa_merged_sp_needs_the_flash_path():
-    """Under an sp split only the flash path has a sequence-parallel form:
-    ``sdpa_merged(seq=..., impl="xla")`` raises instead of attending the
-    local rows alone."""
+def test_sdpa_merged_sp_needs_the_flash_path(monkeypatch):
+    """Under an sp split the XLA path (``impl="xla"``, or
+    DIFFUSION_RS_TPU_NO_FLASH) attends this rank's q rows over k/v gathered
+    from the group (parallel/mesh.gather_rows, differentiable), as GSPMD
+    does for JAX's training step; the flash path keeps the ring. The gather
+    is stood in by this rank's rows plus the other rank's, so the result
+    equals the whole attention's rows of this rank."""
     import torch
 
-    from diffusion_rs_tpu_torch.ops.attention import sdpa_merged
+    from diffusion_rs_tpu_torch.ops import attention
     from diffusion_rs_tpu_torch.ops.partitioned import SeqShard
 
-    q = torch.zeros((1, 1, 4, 128))
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        sdpa_merged(q, q, q, impl="xla", seq=SeqShard(group=None, lens=[4, 4]))
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 8, 128), generator=gen) for _ in range(3))
+    seq = SeqShard(group="sp", lens=[4, 4])
+    calls = []
+
+    def gather(t, group, sizes, dim):
+        calls.append((group, list(sizes), dim))
+        whole = {id(k_local): k, id(v_local): v}[id(t)]
+        return whole
+
+    k_local, v_local = k[:, :, :4], v[:, :, :4]
+    monkeypatch.setattr(attention, "gather_rows", gather)
+    out = attention.sdpa_merged(q[:, :, :4], k_local, v_local, impl="xla", seq=seq)
+    want = attention.sdpa_xla(q, k, v)[:, :, :4].transpose(1, 2).reshape(1, 4, 256)
+    torch.testing.assert_close(out, want)
+    assert calls == [("sp", [4, 4], 2)] * 2

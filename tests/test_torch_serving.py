@@ -12,8 +12,9 @@ images to the JAX server's own band against its offline pipeline (u8 mean
 draw the same noise: the port's ``get_noise`` / ``get_encode_noise`` are
 the JAX package's draws for the seed (torch_port_util.jax_draws). One JAX
 server run and one port server run are shared by the cases that read
-them. The mesh cases use a stand-in mesh object (the server reads only its
-axis sizes before it refuses), so no process world is spawned.
+them. The mesh cases use a mesh of one rank or, for the dp check, a
+stand-in mesh object (the server reads only its axis sizes before it
+refuses), so no process world is spawned.
 """
 
 import base64
@@ -242,10 +243,29 @@ def _with_mesh(pipe, dp):
 
 
 def test_server_dp_mesh_sharded(tpipe):
-    """The JAX server dp-shards lanes over its mesh; the port's refuses a
-    pipeline with a mesh, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        FluxServer(_with_mesh(tpipe, 2), max_batch=4)
+    """A pipeline with a mesh is served, as the JAX server serves one: here
+    a mesh of one rank (``make_mesh`` without a process group), so the
+    server runs its command stream (admit, step, retire) with no followers.
+    Each lane is within JAX's band of its offline image, and the three
+    lanes step at bucket 4. The dp=2 x tp=2 and dp=2 x sp=2 worlds
+    (followers, images against JAX's offline ones, failures) are in
+    tests/test_torch_mesh.py."""
+    from diffusion_rs_tpu_torch.parallel import make_mesh
+
+    meshed = copy.copy(tpipe)
+    meshed.mesh = make_mesh(device="cpu")
+    server = FluxServer(meshed, max_batch=4, poll_ms=300.0)
+    prompts = ["a cat", "a dog", "a fox"]
+    try:
+        futs = [server.submit(p, _params(2, 1 + i)) for i, p in enumerate(prompts)]
+        outs = [f.result(timeout=600) for f in futs]
+    finally:
+        server.shutdown()
+    assert server.leader
+    for i, (p, img) in enumerate(zip(prompts, outs)):
+        _assert_band(img, tpipe.forward_arrays([p], _params(2, 1 + i))[0], p)
+    s = server.stats()
+    assert (s["forwards"], s["lane_steps"], s["padded_lane_steps"]) == (2, 6, 2)
 
 
 def test_server_rejects_indivisible_dp_batch(tpipe):

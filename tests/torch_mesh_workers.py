@@ -203,11 +203,146 @@ def img2img_rank(rank: int, tmp: Path, pipe, gen: dict, prompts, stem: str = "i2
 
 
 def mesh_rank(rank: int, tmp: str) -> None:
-    """:func:`flux_rank`, :func:`pipeline_rank`, then :func:`tp_rank`, in
-    one world."""
+    """:func:`flux_rank`, :func:`pipeline_rank`, :func:`tp_rank`,
+    :func:`train_rank`, then :func:`serve_rank`, in one world."""
     flux_rank(rank, tmp)
     pipeline_rank(rank, tmp)
     tp_rank(rank, tmp)
+    train_rank(rank, tmp)
+    serve_rank(rank, tmp)
+
+
+def _whole_grads(tree, path=""):
+    """(path, whole gradient) of every leaf of a rank's gradient tree: a
+    leaf cut over tp is gathered from the group in segment order (a row
+    weight's K rows, a column weight's and bias's N columns)."""
+    from diffusion_rs_tpu_torch.ops.linear import Linear
+
+    if isinstance(tree, Linear):
+        tp, w, b = tree.tp, tree.w, tree.b
+        if tp is not None and tp.size > 1 and tp.sharded:
+            if tp.role == "col":
+                w, b = tp._gather(w), None if b is None else tp._gather(b)
+            else:
+                w = tp._gather(w.transpose(-1, -2)).transpose(-1, -2)
+        yield f"{path}.w", w.numpy()
+        if b is not None:
+            yield f"{path}.b", b.numpy()
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _whole_grads(v, f"{path}.{k}" if path else k)
+    else:
+        yield path, tree.numpy()
+
+
+def train_rank(rank: int, tmp: str) -> None:
+    """The dryrun's training step (diffusion_rs_tpu_torch.dryrun.train_step)
+    on ``tmp/train.pkl``'s params (JAX's, bridged) and
+    ``tmp/train_inputs.npz``'s whole batch, at dp=2 x tp=2 (JAX's rule for
+    4 devices) and at sp=2 x tp=2: saves the loss and every leaf's whole
+    gradient to ``tmp/train_<rank>.npz``."""
+    from diffusion_rs_tpu_torch import dryrun
+    from diffusion_rs_tpu_torch.parallel import shard_params
+
+    torch.set_num_threads(2)
+    tmp = Path(tmp)
+    with open(tmp / "train.pkl", "rb") as f:
+        blob = pickle.load(f)
+    cfg = dryrun.tiny_cfg(blob["heads"])
+    params = from_numpy_tree(blob["params"], "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in np.load(tmp / "train_inputs.npz").items()}
+    out = {}
+    for name, axes in (("dp2_tp2", dict(dp=2, tp=2)), ("sp2_tp2", dict(sp=2, tp=2))):
+        mesh = make_mesh(**axes, device="cpu")
+        loss, grads, _ = dryrun.train_step(shard_params(params, mesh), batch, mesh, cfg)
+        out[f"{name}_loss"] = np.array(float(loss))
+        out.update({f"{name}:{k}": g for k, g in _whole_grads(grads)})
+    np.savez(tmp / f"train_{rank}.npz", **out)
+
+
+def _watchdog(seconds: float, what: str):
+    """A timer that ends this rank's process if ``what`` has not finished
+    within ``seconds``: parallel.spawn then fails instead of waiting on a
+    hung rank. Cancel it when done."""
+    import os
+    import sys
+    import threading
+
+    def expire():
+        print(f"{what} did not finish within {seconds} s", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    return timer
+
+
+SERVE_PROMPTS = ["a cat", "a dog", "a fox"]
+
+
+def serve_rank(rank: int, tmp: str) -> None:
+    """``FluxServer`` on ``Pipeline(mesh=...)`` from ``tmp/ckpt`` at dp=2 x
+    tp=2 and at dp=2 x sp=2 (max_batch 4, one intra-op thread, noise from
+    ``tmp/serve_noise.npz``: the JAX package's draws per seed). Rank 0
+    submits SERVE_PROMPTS (2 steps, seeds 1-3), then a prompt longer than
+    its T5 length (fails on every rank), a request whose noise fails on the
+    other ranks only (seed 99), then "a cat" alone; the others try one
+    submit. Saves the images, the failures, ``stats()`` and the followers'
+    refusal to ``tmp/serve_<rank>.npz``; a watchdog ends a rank that hangs."""
+    from diffusion_rs_tpu_torch import DiffusionGenerationParams
+    from diffusion_rs_tpu_torch import serving
+    from diffusion_rs_tpu_torch.pipelines.api import ModelSource, Pipeline
+
+    torch.set_num_threads(1)
+    tmp = Path(tmp)
+    noise = dict(np.load(tmp / "serve_noise.npz"))
+
+    def get_noise(seed, n, h, w, device):
+        if seed == 99 and rank != 0:
+            raise RuntimeError("injected noise failure")
+        return torch.from_numpy(noise[str(seed)]).clone()
+
+    serving.get_noise = get_noise
+    timer = _watchdog(120.0, f"serve_rank {rank}")
+    out = {}
+    for name, axes in (("dp2_tp2", dict(dp=2, tp=2)), ("dp2_sp2", dict(dp=2, sp=2))):
+        mesh = make_mesh(**axes, device="cpu")
+        pipe = Pipeline(ModelSource.from_model_id(str(tmp / "ckpt")), silent=True, mesh=mesh,
+                        device="cpu")
+        server = serving.FluxServer(pipe._inner, max_batch=4, poll_ms=300.0)
+
+        def params(seed, **kw):
+            return DiffusionGenerationParams(height=64, width=64, num_steps=2,
+                                             guidance_scale=3.5, seed=seed, **kw)
+
+        try:
+            if rank == 0:
+                futs = [server.submit(p, params(i + 1)) for i, p in enumerate(SERVE_PROMPTS)]
+                out[f"{name}_images"] = np.stack([f.result(timeout=60) for f in futs])
+                errors = []
+                for fut in (server.submit("a cat " * 40, params(5, max_sequence_length=8)),
+                            server.submit("a cow", params(99))):
+                    try:
+                        fut.result(timeout=60)
+                        errors.append("")
+                    except Exception as e:  # the lane's failure, as the leader saw it
+                        errors.append(f"{type(e).__name__}: {e}")
+                out[f"{name}_errors"] = np.array(errors)
+                out[f"{name}_alone"] = server.submit("a cat", params(1)).result(timeout=60)
+                stats = server.stats()
+                out[f"{name}_stats"] = np.array([stats[k] for k in (
+                    "forwards", "lane_steps", "padded_lane_steps", "completed", "failed")])
+            else:
+                try:
+                    server.submit("a cat", params(1))
+                    out[f"{name}_refused"] = np.array("")
+                except RuntimeError as e:
+                    out[f"{name}_refused"] = np.array(str(e))
+        finally:
+            server.shutdown()
+    timer.cancel()
+    np.savez(tmp / f"serve_{rank}.npz", **out)
 
 
 def cuda_ring_rank(rank: int, tmp: str) -> None:
