@@ -29,6 +29,17 @@ each row-parallel linear (``proj``, the MLPs' ``out``, ``linear2``, the
 embedders' ``out`` and ``final.proj``) sums its partial product over the tp
 group. Under sp x tp the ring runs over sp on the local heads.
 
+The step's plain-torch work runs inside three op-family spans, for the
+profiler only (util/tracing.trace_span without NVTX): ``flux.norm_mod``
+(the AdaLN modulation with its chunks, LayerNorm, scale/shift),
+``flux.qk_rope`` (from the q/k/v projection's output to the attention
+call: head split, QK-RMSNorm, the joint cat, RoPE, the contiguous
+operands) and ``flux.gate_act`` (GELU, the gated residual adds, the single
+block's cat). The quantized linears and the attention call run outside
+them, but for the modulation's linear, whose kernels a reader tells apart
+by name. The fused-RoPE layouts rotate inside the attention call (K7's
+pass, or ``flash_attention_fused``'s rotation under ``seqmajor``).
+
 The forward is differentiable (a training step, dryrun.py): the collectives
 under grad mode are parallel/mesh.py's conjugate pairs, and the QK-norm
 scales, whole on every tp rank but applied to its own heads only, sum their
@@ -52,9 +63,17 @@ from ..ops.flash import flash_attention_fused
 from ..ops.linear import Linear, tp_size
 from ..ops.partitioned import SeqShard, partitioned_flash_rope
 from ..parallel.mesh import copy_to_group, split_sizes
+from ..util.tracing import trace_span
 from ..util.tree import take_layer
 
 Params = Dict[str, Any]
+
+
+def _op_span(name: str):
+    """A span around one family of the step's plain-torch ops
+    (``flux.norm_mod``, ``flux.qk_rope``, ``flux.gate_act``), for the
+    profiler only: outside a profiler it costs the check of its flag."""
+    return trace_span(name, nvtx=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,29 +168,31 @@ def _head_norms(p: Params):
     return copy_to_group(p["q_norm"], group), copy_to_group(p["k_norm"], group)
 
 
-def _qkv(p: Params, x: torch.Tensor, n_heads: int, proj=None):
-    """Project (one fused ``qkv`` linear, or q/k/v), split heads to
-    [B, H, S, D], QK-RMSNorm. ``proj`` is a fused q|k|v projection computed
-    already (the grouped path)."""
+def _qkv_cols(p: Params, x: torch.Tensor, proj=None):
+    """The q, k, v columns [B, S, H*D]: one fused ``qkv`` linear, q/k/v
+    linears, or ``proj``, a fused q|k|v projection computed already (the
+    grouped path)."""
     if proj is None and "qkv" in p:
         proj = linear(x, p["qkv"])
     if proj is not None:
-        qc, kc, vc = torch.chunk(proj, 3, dim=-1)
-    else:
-        qc, kc, vc = linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
+        return torch.chunk(proj, 3, dim=-1)
+    return linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
+
+
+def _qkv(p: Params, cols, n_heads: int):
+    """Split the q/k/v columns to heads [B, H, S, D], QK-RMSNorm."""
+    qc, kc, vc = cols
     qn, kn = _head_norms(p)
     q = rms_norm(_split_heads(qc, n_heads), qn)
     k = rms_norm(_split_heads(kc, n_heads), kn)
     return q, k, _split_heads(vc, n_heads)
 
 
-def _joint_attention(q, k, v, cos, sin, seq: Optional[SeqShard] = None):
-    """RoPE + attention; the flash kernel writes the head-merged
-    [B, S, H*D] layout directly. ``seq``: the rows are this rank's of a
-    sequence split over the sp group."""
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    return sdpa_merged(q.contiguous(), k.contiguous(), v.contiguous(), seq=seq)
+def _rope_qk(q, k, v, cos, sin):
+    """RoPE on q/k [B, H, S, D], and the contiguous operands of the flash
+    kernel, which writes the head-merged [B, S, H*D] layout directly."""
+    return (apply_rope(q, cos, sin).contiguous(), apply_rope(k, cos, sin).contiguous(),
+            v.contiguous())
 
 
 def _norm_sm(t: torch.Tensor, scale: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -180,15 +201,10 @@ def _norm_sm(t: torch.Tensor, scale: torch.Tensor, n_heads: int) -> torch.Tensor
     return rms_norm(t.reshape(b, s, n_heads, -1), scale).reshape(b, s, -1)
 
 
-def _qkv_sm(p: Params, x: torch.Tensor, n_heads: int, proj=None):
+def _qkv_sm(p: Params, cols, n_heads: int):
     """Seq-major :func:`_qkv`: q/k/v stay [B, S, H*D] (the layout the
     seq-major flash kernels read), q/k per-head RMS-normed."""
-    if proj is None and "qkv" in p:
-        proj = linear(x, p["qkv"])
-    if proj is not None:
-        qc, kc, vc = torch.chunk(proj, 3, dim=-1)
-    else:
-        qc, kc, vc = linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
+    qc, kc, vc = cols
     qn, kn = _head_norms(p)
     return _norm_sm(qc, qn, n_heads), _norm_sm(kc, kn, n_heads), vc
 
@@ -205,7 +221,8 @@ def _joint_attention_sm(q, k, v, ce, se, head_dim: int, seq: Optional[SeqShard] 
     (K3). Under ``seq`` every layout rotates outside and takes the ring (or
     its gather fallback), as JAX's sp rules do. With
     DIFFUSION_RS_TPU_NO_FLASH set every layout rotates outside and takes
-    ``sdpa_merged``'s XLA path, as JAX's does without its flash mode."""
+    ``sdpa_merged``'s XLA path, as JAX's does without its flash mode. The
+    [B, H, S, D] path's rotation runs inside ``flux.qk_rope``."""
     no_flash = attention._no_flash()
     if seq is not None and not no_flash:
         return partitioned_flash_rope(q, k, v, ce, se, head_dim, seq)
@@ -223,22 +240,31 @@ def _joint_attention_sm(q, k, v, ce, se, head_dim: int, seq: Optional[SeqShard] 
     def split(t):
         return t.reshape(b, s, h, head_dim).transpose(1, 2)
 
-    qr = apply_rope_halfsplit(split(q), cos, sin)
-    kr = apply_rope_halfsplit(split(k), cos, sin)
-    return sdpa_merged(qr.contiguous(), kr.contiguous(), split(v).contiguous(), seq=seq)
+    with _op_span("flux.qk_rope"):
+        qr = apply_rope_halfsplit(split(q), cos, sin).contiguous()
+        kr = apply_rope_halfsplit(split(k), cos, sin).contiguous()
+        vr = split(v).contiguous()
+    return sdpa_merged(qr, kr, vr, seq=seq)
+
+
+def _attend(q, k, v, cos, sin, cfg: FluxConfig, seq: Optional[SeqShard]):
+    """The joint attention call on the prepared q/k/v (outside the spans)."""
+    if cfg.rope_fused:
+        return _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim, seq)
+    return sdpa_merged(q, k, v, seq=seq)
 
 
 def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig,
                  seq: Optional[SeqShard] = None):
     """Double-stream block; txt tokens lead in the joint sequence. With
     ``cfg.rope_fused``, (cos, sin) carry the expanded (ce, se) tables."""
-    i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = _modulation(
-        p["img_mod"], vec, 6)
-    t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = _modulation(
-        p["txt_mod"], vec, 6)
-
-    img_mod = _scale_shift(layer_norm(img), i_shift1, i_scale1)
-    txt_mod = _scale_shift(layer_norm(txt), t_shift1, t_scale1)
+    with _op_span("flux.norm_mod"):
+        i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = _modulation(
+            p["img_mod"], vec, 6)
+        t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = _modulation(
+            p["txt_mod"], vec, 6)
+        img_mod = _scale_shift(layer_norm(img), i_shift1, i_scale1)
+        txt_mod = _scale_shift(layer_norm(txt), t_shift1, t_scale1)
     heads = cfg.num_attention_heads // tp_size(p["img_attn"]["proj"])  # this rank's
     # grouped path: each img/txt projection pair as one grouped call, the
     # txt rows riding on the img call's grid; needs fused qkv in both streams
@@ -248,46 +274,61 @@ def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig,
             [img_mod, txt_mod], [p["img_attn"]["qkv"], p["txt_attn"]["qkv"]])
     else:
         i_proj = t_proj = None
-    if cfg.rope_fused:
-        iq, ik, iv = _qkv_sm(p["img_attn"], img_mod, heads, proj=i_proj)
-        tq, tk, tv = _qkv_sm(p["txt_attn"], txt_mod, heads, proj=t_proj)
-        q = torch.cat([tq, iq], dim=1)
-        k = torch.cat([tk, ik], dim=1)
-        v = torch.cat([tv, iv], dim=1)
-        attn = _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim, seq)
-    else:
-        iq, ik, iv = _qkv(p["img_attn"], img_mod, heads, proj=i_proj)
-        tq, tk, tv = _qkv(p["txt_attn"], txt_mod, heads, proj=t_proj)
-        q = torch.cat([tq, iq], dim=2)
-        k = torch.cat([tk, ik], dim=2)
-        v = torch.cat([tv, iv], dim=2)
-        attn = _joint_attention(q, k, v, cos, sin, seq)
+    i_cols = _qkv_cols(p["img_attn"], img_mod, i_proj)
+    t_cols = _qkv_cols(p["txt_attn"], txt_mod, t_proj)
+    with _op_span("flux.qk_rope"):
+        if cfg.rope_fused:
+            iq, ik, iv = _qkv_sm(p["img_attn"], i_cols, heads)
+            tq, tk, tv = _qkv_sm(p["txt_attn"], t_cols, heads)
+            q, k, v = (torch.cat(pair, dim=1) for pair in ((tq, iq), (tk, ik), (tv, iv)))
+        else:
+            iq, ik, iv = _qkv(p["img_attn"], i_cols, heads)
+            tq, tk, tv = _qkv(p["txt_attn"], t_cols, heads)
+            q, k, v = _rope_qk(torch.cat([tq, iq], dim=2), torch.cat([tk, ik], dim=2),
+                               torch.cat([tv, iv], dim=2), cos, sin)
+    attn = _attend(q, k, v, cos, sin, cfg, seq)
     txt_len = txt.shape[1]
     txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
 
     if grouped:
         i_p, t_p = linear_grouped([img_attn, txt_attn],
                                   [p["img_attn"]["proj"], p["txt_attn"]["proj"]])
-        img = img + i_gate1 * i_p
-        txt = txt + t_gate1 * t_p
-        img_mlp_in = _scale_shift(layer_norm(img), i_shift2, i_scale2)
-        txt_mlp_in = _scale_shift(layer_norm(txt), t_shift2, t_scale2)
+        with _op_span("flux.gate_act"):
+            img = img + i_gate1 * i_p
+            txt = txt + t_gate1 * t_p
+        with _op_span("flux.norm_mod"):
+            img_mlp_in = _scale_shift(layer_norm(img), i_shift2, i_scale2)
+            txt_mlp_in = _scale_shift(layer_norm(txt), t_shift2, t_scale2)
         i_h, t_h = linear_grouped([img_mlp_in, txt_mlp_in],
                                   [p["img_mlp"]["in"], p["txt_mlp"]["in"]])
-        img_mlp, txt_mlp = linear_grouped([_gelu(i_h), _gelu(t_h)],
+        with _op_span("flux.gate_act"):
+            i_h, t_h = _gelu(i_h), _gelu(t_h)
+        img_mlp, txt_mlp = linear_grouped([i_h, t_h],
                                           [p["img_mlp"]["out"], p["txt_mlp"]["out"]])
-        return img + i_gate2 * img_mlp, txt + t_gate2 * txt_mlp
+        with _op_span("flux.gate_act"):
+            return img + i_gate2 * img_mlp, txt + t_gate2 * txt_mlp
 
-    img = img + i_gate1 * linear(img_attn, p["img_attn"]["proj"])
-    img_mlp_in = _scale_shift(layer_norm(img), i_shift2, i_scale2)
-    img_mlp = linear(_gelu(linear(img_mlp_in, p["img_mlp"]["in"])), p["img_mlp"]["out"])
-    img = img + i_gate2 * img_mlp
-
-    txt = txt + t_gate1 * linear(txt_attn, p["txt_attn"]["proj"])
-    txt_mlp_in = _scale_shift(layer_norm(txt), t_shift2, t_scale2)
-    txt_mlp = linear(_gelu(linear(txt_mlp_in, p["txt_mlp"]["in"])), p["txt_mlp"]["out"])
-    txt = txt + t_gate2 * txt_mlp
+    img = _mlp_stream(p["img_attn"]["proj"], p["img_mlp"], img, img_attn,
+                      i_gate1, i_shift2, i_scale2, i_gate2)
+    txt = _mlp_stream(p["txt_attn"]["proj"], p["txt_mlp"], txt, txt_attn,
+                      t_gate1, t_shift2, t_scale2, t_gate2)
     return img, txt
+
+
+def _mlp_stream(proj: Linear, mlp: Params, x, attn, gate1, shift2, scale2, gate2):
+    """One stream's attention projection, gated residual, AdaLN MLP and
+    gated residual (a double block's ungrouped path)."""
+    a = linear(attn, proj)
+    with _op_span("flux.gate_act"):
+        x = x + gate1 * a
+    with _op_span("flux.norm_mod"):
+        mlp_in = _scale_shift(layer_norm(x), shift2, scale2)
+    h = linear(mlp_in, mlp["in"])
+    with _op_span("flux.gate_act"):
+        h = _gelu(h)
+    out = linear(h, mlp["out"])
+    with _op_span("flux.gate_act"):
+        return x + gate2 * out
 
 
 def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig,
@@ -295,45 +336,41 @@ def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig,
     """Single-stream block: a shared pre-norm feeds attention and the
     parallel MLP; their outputs concatenate into one projection. With
     ``cfg.rope_fused``, (cos, sin) carry the expanded (ce, se) tables."""
-    shift, scale, gate = _modulation(p["mod"], vec, 3)
-    x_mod = _scale_shift(layer_norm(x), shift, scale)
+    with _op_span("flux.norm_mod"):
+        shift, scale, gate = _modulation(p["mod"], vec, 3)
+        x_mod = _scale_shift(layer_norm(x), shift, scale)
     tp = tp_size(p["linear2"])  # this rank's heads and their width
     h = cfg.hidden_size // tp
     heads = cfg.num_attention_heads // tp
-    if cfg.rope_fused:
-        if "qkv_mlp" in p:
-            fused = linear(x_mod, p["qkv_mlp"])
-            qn, kn = _head_norms(p)
-            q = _norm_sm(fused[..., 0:h], qn, heads)
-            k = _norm_sm(fused[..., h:2 * h], kn, heads)
-            v = fused[..., 2 * h:3 * h]
-            mlp = _gelu(fused[..., 3 * h:])
-        else:
-            q, k, v = _qkv_sm(p, x_mod, heads)
-            mlp = _gelu(linear(x_mod, p["proj_mlp"]))
-        attn = _joint_attention_sm(q, k, v, cos, sin, cfg.head_dim, seq)
+    if "qkv_mlp" in p:
+        # fused q|k|v|mlp projection (BFL linear1)
+        fused = linear(x_mod, p["qkv_mlp"])
+        cols = (fused[..., 0:h], fused[..., h:2 * h], fused[..., 2 * h:3 * h])
+        mlp_h = fused[..., 3 * h:]
     else:
-        if "qkv_mlp" in p:
-            # fused q|k|v|mlp projection (BFL linear1)
-            fused = linear(x_mod, p["qkv_mlp"])
-            qn, kn = _head_norms(p)
-            q = rms_norm(_split_heads(fused[..., 0:h], heads), qn)
-            k = rms_norm(_split_heads(fused[..., h:2 * h], heads), kn)
-            v = _split_heads(fused[..., 2 * h:3 * h], heads)
-            mlp = _gelu(fused[..., 3 * h:])
+        cols = _qkv_cols(p, x_mod)
+        mlp_h = linear(x_mod, p["proj_mlp"])
+    with _op_span("flux.qk_rope"):
+        if cfg.rope_fused:
+            q, k, v = _qkv_sm(p, cols, heads)
         else:
-            q, k, v = _qkv(p, x_mod, heads)
-            mlp = _gelu(linear(x_mod, p["proj_mlp"]))
-        attn = _joint_attention(q, k, v, cos, sin, seq)
-    out = linear(torch.cat([attn, mlp], dim=-1), p["linear2"])
-    return x + gate * out
+            q, k, v = _rope_qk(*_qkv(p, cols, heads), cos, sin)
+    with _op_span("flux.gate_act"):
+        mlp = _gelu(mlp_h)
+    attn = _attend(q, k, v, cos, sin, cfg, seq)
+    with _op_span("flux.gate_act"):
+        cat = torch.cat([attn, mlp], dim=-1)
+    out = linear(cat, p["linear2"])
+    with _op_span("flux.gate_act"):
+        return x + gate * out
 
 
 def final_layer(p: Params, x, vec):
     """AdaLN-final then patch projection; chunk order is (scale, shift)."""
-    y = linear(F.silu(vec), p["mod"])
-    scale, shift = torch.chunk(y[:, None, :], 2, dim=-1)
-    x = layer_norm(x) * (scale + 1.0) + shift
+    with _op_span("flux.norm_mod"):
+        y = linear(F.silu(vec), p["mod"])
+        scale, shift = torch.chunk(y[:, None, :], 2, dim=-1)
+        x = layer_norm(x) * (scale + 1.0) + shift
     return linear(x, p["proj"])
 
 

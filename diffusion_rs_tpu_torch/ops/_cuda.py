@@ -17,7 +17,11 @@ forms, the bf16 and int8 forms that also write the log-sum-exp, K14, and
 the RoPE pass ``rope_qk`` that K7 launches before its attention; the
 quantize source ``flash_quant`` is the int8 forms' prepass).
 Every kernel wrapper adds one to its entry point's count in
-:data:`LAUNCHES` when it launches it, and nowhere else.
+:data:`LAUNCHES` when it launches it, and nowhere else. :func:`launch` also
+adds its own host time outside the entry call (the grad check, the device
+context, the stream lookup, the count) to :func:`launch_wrapper_ns`: the
+wrapper's cost per launch, which a full launch queue cannot inflate (a
+launch blocks inside the entry call).
 
 The kernels have no backward: a launch returns a tensor autograd sees as a
 constant. So every wrapper hands :func:`launch` its tensor operands, and a
@@ -31,13 +35,14 @@ Threads: the serving path launches kernels from several threads of one
 process (a request's text encode on its submitting thread, the batched
 steps on the server's worker, the decodes on its decode thread). One
 re-entrant lock guards the build, the loaded libraries and entry points,
-:data:`BUILD_DIR` and :data:`LAUNCHES`: each process builds each library
-once (a second thread that asks during the build waits for it and then
-loads the result; a failed build raises on every thread that asked for the
-library), and launches are counted exactly from any thread. A thread's
-first launch on a card makes the card's primary context current in that
-thread (``torch.cuda.set_device``): in a thread that has made no CUDA
-runtime call yet, a library's launch fails with cudaErrorInvalidValue.
+:data:`BUILD_DIR`, :data:`LAUNCHES` and the wrapper time: each process
+builds each library once (a second thread that asks during the build waits
+for it and then loads the result; a failed build raises on every thread
+that asked for the library), and launches are counted exactly from any
+thread. A thread's first launch on a card makes the card's primary context
+current in that thread (``torch.cuda.set_device``): in a thread that has
+made no CUDA runtime call yet, a library's launch fails with
+cudaErrorInvalidValue.
 Processes (spawned ranks) build into pid-named temporaries renamed into
 place with ``os.replace``.
 """
@@ -98,6 +103,7 @@ KERNELS.update({f"{name}_f32": KERNELS[name] for name in (
     "qmm_s8", "qmm_nf4", "qmm_nf4_fast16", "qmm_affine", "qmm_affine_fast16")})
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_wrapper_ns = 0  # launch()'s host time outside the entry calls, all entries
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, object] = {}
 _lock = threading.RLock()
@@ -114,14 +120,23 @@ _thread = _ThreadCards()
 
 
 def reset_launch_counts() -> None:
+    global _wrapper_ns
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        _wrapper_ns = 0
 
 
 def launch_counts() -> Dict[str, int]:
     with _lock:
         return dict(LAUNCHES)
+
+
+def launch_wrapper_ns() -> int:
+    """Host nanoseconds spent in :func:`launch` outside the entry calls,
+    over every launch since the last :func:`reset_launch_counts`."""
+    with _lock:
+        return _wrapper_ns
 
 
 def use_build_dir(path: Path) -> Path:
@@ -247,20 +262,29 @@ def launch(name: str, *args, device, inputs=()) -> None:
     ``inputs``: the wrapper's tensor operands, for :func:`check_no_grad`."""
     import torch
 
+    global _wrapper_ns
+    t0 = time.perf_counter_ns()
     check_no_grad(name, inputs)
     with torch.cuda.device(device):
         card = torch.cuda.current_device()
         if card not in _thread.cards:
             torch.cuda.set_device(card)  # forces cudaSetDevice: the context, current here
             _thread.cards.add(card)
-        call(name, args, torch.cuda.current_stream(device).cuda_stream)
+        entry_ns = call(name, args, torch.cuda.current_stream(device).cuda_stream)
+    wrapper_ns = time.perf_counter_ns() - t0 - entry_ns
+    with _lock:
+        _wrapper_ns += wrapper_ns
 
 
-def call(name: str, args, stream) -> None:
+def call(name: str, args, stream) -> int:
     """Call entry point ``<name>(*args, stream)``, raise on its error code,
-    and count the launch."""
-    err = _entry(name)(*args, stream)
+    and count the launch; returns the entry call's own host nanoseconds."""
+    fn = _entry(name)
+    t0 = time.perf_counter_ns()
+    err = fn(*args, stream)
+    entry_ns = time.perf_counter_ns() - t0
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     with _lock:
         LAUNCHES[name] += 1
+    return entry_ns

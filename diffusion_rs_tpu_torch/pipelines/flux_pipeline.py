@@ -63,6 +63,7 @@ from ..models.clip import ClipTextConfig, clip_encode
 from ..models.flux import FluxConfig, compute_pe, flux_forward
 from ..models.t5 import T5Config, t5_encode
 from ..models.vae import VAEConfig, vae_decode, vae_decode_tiled, vae_encode, vae_encode_tiled
+from ..ops import _cuda
 from ..parallel.mesh import Sharding, batch_sharding, sequence_sharding
 from ..util.capacity import check_denoise_capacity
 from ..util.device import resolve_device
@@ -174,7 +175,8 @@ class FluxPipeline:
                                                          device=self.device))
         # Stage wall times of the last forward_arrays call, in seconds
         # (encode, init-image encode, per denoise step, decode), each ending
-        # in a device sync.
+        # in a device sync; with each step's host launch time and the
+        # denoise's launch wrapper time (_euler).
         self.timings: dict = {}
 
     @property
@@ -257,13 +259,21 @@ class FluxPipeline:
                           make_img_ids(bs, h2, w2, txt.device))
 
     def _euler(self, step, img, sigmas: np.ndarray, inpaint):
-        """pipelines/sampling.denoise with the per-step wall times in
-        ``timings["steps_s"]``."""
-        steps = []
+        """pipelines/sampling.denoise with, per step, the wall time ending in
+        a device sync (``timings["steps_s"]``) and the host time until the
+        step's Euler update returned, before that sync
+        (``timings["steps_host_s"]``): their difference is the work the
+        device still had queued when the host had launched the step. Also
+        ``timings["launch_wrapper_s"]``: the kernel launches' wrapper time
+        over the denoise (ops/_cuda.launch_wrapper_ns, every thread's)."""
+        steps, host = [], []
+        wrapper0 = _cuda.launch_wrapper_ns()
         last = [self._sync()]
 
         def on_step(i):
+            launched = time.perf_counter()
             now = self._sync()
+            host.append(launched - last[0])
             steps.append(now - last[0])
             last[0] = now
 
@@ -271,6 +281,8 @@ class FluxPipeline:
         out = denoise(step, img, sigmas, on_step=on_step, inpaint=inpaint,
                       progress=self._step_progress and first_rank)
         self.timings["steps_s"] = steps
+        self.timings["steps_host_s"] = host
+        self.timings["launch_wrapper_s"] = (_cuda.launch_wrapper_ns() - wrapper0) * 1e-9
         return out
 
     def _pre_decode(self, latent, height: int, width: int):

@@ -15,7 +15,27 @@ forward). Batches are padded to power-of-two buckets with copies of lane 0
 at ``dt = 0`` (a no-op update): the kernels see at most log2(max_batch) + 1
 batch shapes per group, and a lone request does not pay a max_batch
 forward. ``stats()`` / ``metrics_text()`` export occupancy, queue depth,
-latency and step counters (Prometheus text, ``drs_server_*``).
+latency, stage-time and step counters (Prometheus text, ``drs_server_*``).
+
+What it records, always on (host clock, ``time.perf_counter``):
+
+- **Per request** (``request_trace(future)``, the last ``REQUEST_RECORDS``
+  requests): an id given when ``submit`` is entered, and the stamps
+  ``arrive`` (submit entered, before any encode), ``queued`` (the encoded
+  lane in the queue), ``admitted`` (taken from the queue by the worker),
+  ``first_step`` / ``last_step`` (the host end of the enqueue of its first
+  and last step), ``decode_start`` (on the decode thread) and ``done`` (as
+  its Future resolves). ``mean_latency_s`` and the request timeout count
+  from ``arrive``.
+- **Per forward** (``trace_snapshot()``, the last ``TRACE_SPANS`` entries):
+  a ``serve.forward`` entry with its host start and end, bucket, lane
+  count, shape group and the lanes' request ids, and on a card a CUDA event
+  recorded just after the Euler update, which ``trace_snapshot`` resolves to
+  the host-clock time the device finished the forward; and one
+  ``serve.idle`` entry per period in which the worker had no lane in flight.
+  The forward and the decode also run inside ``trace_span`` for a profiler
+  (``serve.forward``, ``serve.decode``); the submitter's encode is inside
+  the pipeline's ``text-encode``.
 
 The port's design:
 
@@ -87,9 +107,11 @@ runs one process per rank, so:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -112,14 +134,35 @@ from .pipelines.sampling import (
     pack_latents,
 )
 from .util.device import resolve_device
+from .util.tracing import SpanLog, trace_span
 
 # seconds of leader idleness between no-op commands under a mesh
 HEARTBEAT_S = 5.0
+# requests whose records request_trace keeps (the oldest go first)
+REQUEST_RECORDS = 4096
+# forward and idle entries that trace_snapshot keeps (the oldest go first)
+TRACE_SPANS = 4096
 
 
 class ServerBusy(RuntimeError):
     """Raised by ``FluxServer.submit`` when the request queue is at its
     ``max_queue`` bound; the HTTP front end maps it to 503."""
+
+
+@dataclass
+class RequestTrace:
+    """One request's stamps on the host clock (``time.perf_counter``); a
+    stage not reached is None. Under a mesh the leader encodes in the admit
+    command, after ``admitted``, so there ``queued`` equals ``arrive``."""
+
+    id: int
+    arrive: float                        # submit entered, before any encode
+    queued: Optional[float] = None       # in the queue
+    admitted: Optional[float] = None     # taken from the queue by the worker
+    first_step: Optional[float] = None   # host end of its first step's enqueue
+    last_step: Optional[float] = None    # host end of its last step's enqueue
+    decode_start: Optional[float] = None
+    done: Optional[float] = None         # as its Future resolves
 
 
 @dataclass
@@ -136,8 +179,8 @@ class _Lane:
     guidance: float
     sigmas: np.ndarray             # remaining schedule (>= 2 entries), f32
     step: int = 0
-    t_submit: float = 0.0
     lane_id: int = -1
+    rec: Optional[RequestTrace] = None  # the leader's
 
     @property
     def done(self) -> bool:
@@ -156,7 +199,7 @@ class _Request:
     strength: float
     t5_len: int
     seed: int
-    t_submit: float = 0.0
+    rec: Optional[RequestTrace] = None
 
 
 @dataclass
@@ -225,7 +268,15 @@ class FluxServer:
             "submitted": 0, "completed": 0, "failed": 0, "rejected": 0,
             "forwards": 0, "lane_steps": 0, "padded_lane_steps": 0,
             "encode_cache_hits": 0, "latency_sum_s": 0.0,
+            # stage sums over completed requests (their RequestTrace)
+            "queue_wait_seconds": 0.0, "encode_seconds": 0.0, "decode_seconds": 0.0,
         }
+        # request records by id(Future), with a weak reference to it (a
+        # record does not keep a Future and its image alive); the forward
+        # and idle log
+        self._records: "OrderedDict[int, tuple]" = OrderedDict()
+        self._request_ids = itertools.count()
+        self._spans = SpanLog(TRACE_SPANS)
         # under a mesh: the command stream's group, every rank's lane states
         # by id, and whether this rank leads
         self._cmd_group = None
@@ -250,6 +301,7 @@ class FluxServer:
         ``FluxPipeline.img2img`` does; t2i and i2i lanes batch together.
         Under a mesh only the leader (rank 0) takes requests, and the lane
         is encoded when it is admitted (in the command stream)."""
+        arrive = time.perf_counter()
         if not self.leader:
             raise RuntimeError(f"FluxServer under a mesh takes requests on rank 0 only "
                                f"(this is rank {dist.get_rank()})")
@@ -268,7 +320,9 @@ class FluxServer:
         if self._mesh is not None:
             req = _Request(future=Future(), prompt=prompt, params=params,
                            init_image=init_image, strength=strength, t5_len=t5_len,
-                           seed=seed, t_submit=time.perf_counter())
+                           seed=seed)
+            req.rec = self._track(req.future, arrive)
+            req.rec.queued = arrive
             with self._lock:
                 self._queue.append(req)
                 self._m["submitted"] += 1
@@ -290,12 +344,60 @@ class FluxServer:
             # the offline denoise's start: the noise in the model dtype, an f32 carry
             latent=pack_latents(noise.to(p.dtype)).float()[0],
             txt=txt0, y=y0, guidance=float(params.guidance_scale),
-            sigmas=np.asarray(sigmas, np.float32), t_submit=time.perf_counter(),
+            sigmas=np.asarray(sigmas, np.float32),
         )
+        lane.rec = self._track(lane.future, arrive)
         with self._lock:
+            lane.rec.queued = time.perf_counter()
             self._queue.append(lane)
             self._m["submitted"] += 1
         return lane.future
+
+    def _track(self, fut: Future, arrive: float) -> RequestTrace:
+        """A new request's record, kept for :meth:`request_trace`."""
+        rec = RequestTrace(id=next(self._request_ids), arrive=arrive)
+        with self._lock:
+            self._records[id(fut)] = (weakref.ref(fut), rec)
+            while len(self._records) > REQUEST_RECORDS:
+                self._records.popitem(last=False)
+        return rec
+
+    def request_trace(self, fut: Future) -> Optional[dict]:
+        """The record of the request whose Future is ``fut`` (a dict of
+        :class:`RequestTrace`'s fields), or None where it is not kept."""
+        with self._lock:
+            ref, rec = self._records.get(id(fut), (None, None))
+            if ref is None or ref() is not fut:
+                return None
+            return dataclasses.asdict(rec)
+
+    def trace_snapshot(self) -> List[dict]:
+        """The forward and idle log, oldest first (at most ``TRACE_SPANS``
+        entries): dicts of name, thread, start and end (host clock) and the
+        entry's attrs. A ``serve.forward``'s ``device_end`` is the host-clock
+        time at which the device finished its Euler update: an anchor event
+        is recorded and synchronised, the host clock read, and each
+        forward's event placed ``elapsed_time`` before it (None off a
+        card)."""
+        spans = self._spans.snapshot()
+        anchor = t_anchor = None
+        if any("event" in sp.attrs for sp in spans):
+            with torch.cuda.device(self.device):
+                anchor = torch.cuda.Event(enable_timing=True)
+                anchor.record()
+                torch.cuda.synchronize(self.device)
+            t_anchor = time.perf_counter()
+        out = []
+        for sp in spans:
+            attrs = dict(sp.attrs)
+            ev = attrs.pop("event", None)
+            entry = {"name": sp.name, "thread": sp.thread, "start": sp.start, "end": sp.end,
+                     **attrs}
+            if sp.name == "serve.forward":
+                entry["device_end"] = (None if ev is None
+                                       else t_anchor - ev.elapsed_time(anchor) * 1e-3)
+            out.append(entry)
+        return out
 
     def _encode_cached(self, prompt: str, t5_len: int):
         """(txt [T, D], y [Dp]) of ``prompt``, from the LRU or encoded here."""
@@ -380,11 +482,17 @@ class FluxServer:
     # rate() / increase() expect); point-in-time stats stay gauges.
     _COUNTERS = frozenset(
         {"submitted", "completed", "failed", "rejected", "forwards",
-         "lane_steps", "padded_lane_steps", "encode_cache_hits"}
+         "lane_steps", "padded_lane_steps", "encode_cache_hits",
+         "queue_wait_seconds", "encode_seconds", "decode_seconds"}
     )
 
     def metrics_text(self) -> str:
-        """Prometheus text exposition of ``stats()`` (drs_server_*)."""
+        """Prometheus text exposition of ``stats()`` (drs_server_*). The stage
+        sums over completed requests: ``queue_wait_seconds`` (queued to
+        admitted), ``encode_seconds`` (arrival to queued: tokenize, the
+        T5 + CLIP encode, the LRU wait), ``decode_seconds`` (its last step
+        enqueued to its image: the device finishing the lane, the decode
+        thread's queue, the decode and the copy to the host)."""
         lines = []
         for k, v in sorted(self.stats().items()):
             if k in self._COUNTERS:
@@ -439,11 +547,11 @@ class FluxServer:
         with self._lock:
             keep_q = []
             for ln in self._queue:
-                (expired if now - ln.t_submit > self.request_timeout_s else keep_q).append(ln)
+                (expired if now - ln.rec.arrive > self.request_timeout_s else keep_q).append(ln)
             self._queue = keep_q
         keep_a, gone = [], []
         for ln in self._active:
-            (gone if now - ln.t_submit > self.request_timeout_s else keep_a).append(ln)
+            (gone if now - ln.rec.arrive > self.request_timeout_s else keep_a).append(ln)
         self._active = keep_a
         if gone and self._mesh is not None:
             self._command({"op": "drop", "ids": [ln.lane_id for ln in gone]})
@@ -463,12 +571,16 @@ class FluxServer:
                 else contextlib.nullcontext())
 
     def _run(self):
+        idle_since = None
         with self._on_card(), torch.no_grad():
             while not self._stop.is_set():
                 with self._lock:
                     while self._queue and len(self._active) < self.max_batch:
-                        self._active.append(self._queue.pop(0))
+                        ln = self._queue.pop(0)
+                        ln.rec.admitted = time.perf_counter()
+                        self._active.append(ln)
                     self._inflight = len(self._active)
+                idle_since = self._mark_idle(idle_since)
                 if not self._active:
                     # going idle: drop the transformer's device copy, so that
                     # Offloading.Full does not hold it between requests
@@ -477,9 +589,20 @@ class FluxServer:
                     continue
                 self._serve_active()
             self._release_flux()
+        self._mark_idle(idle_since, stopping=True)
         for ln in self._active + self._queue:
             if not ln.future.done():
                 ln.future.cancel()
+
+    def _mark_idle(self, since: Optional[float], stopping: bool = False) -> Optional[float]:
+        """The start of the worker's idle period in progress (no lane in
+        flight), or None while it has lanes; a period that ends (or is open
+        at ``stopping``) goes to the log as one ``serve.idle`` entry."""
+        if not self._active and not stopping:
+            return time.perf_counter() if since is None else since
+        if since is not None:
+            self._spans.add("serve.idle", since, time.perf_counter())
+        return None
 
     def _serve_active(self):
         """Expire, then one tick over the lanes in flight."""
@@ -535,14 +658,21 @@ class FluxServer:
     def _retire(self, ln: _Lane):
         """Decode one finished lane (on the decode thread; under a mesh on
         the leader's worker)."""
+        rec = ln.rec
+        rec.decode_start = time.perf_counter()
         try:
-            img = self.pipe._decode_any(ln.latent[None], ln.params.height, ln.params.width)
-            arr = img[0].cpu().numpy()
+            with trace_span("serve.decode"):
+                img = self.pipe._decode_any(ln.latent[None], ln.params.height, ln.params.width)
+                arr = img[0].cpu().numpy()
+            rec.done = time.perf_counter()
             if not ln.future.cancelled():
                 ln.future.set_result(arr)
             with self._lock:
                 self._m["completed"] += 1
-                self._m["latency_sum_s"] += time.perf_counter() - ln.t_submit
+                self._m["latency_sum_s"] += rec.done - rec.arrive
+                self._m["queue_wait_seconds"] += rec.admitted - rec.queued
+                self._m["encode_seconds"] += rec.queued - rec.arrive
+                self._m["decode_seconds"] += rec.done - rec.last_step
         except Exception as e:
             if not ln.future.done():
                 ln.future.set_exception(e)
@@ -580,17 +710,28 @@ class FluxServer:
         while bucket < b:
             bucket *= 2
         bucket = min(bucket, self.max_batch)
-        if self._mesh is not None:
-            self._command({"op": "step", "ids": [ln.lane_id for ln in lanes],
-                           "bucket": bucket})
-        else:
-            dev = self.device
-            pe = compute_pe(self.pipe.flux_cfg, make_txt_ids(bucket, group.txt_len, dev),
-                            make_img_ids(bucket, group.h2, group.w2, dev))
-            out = self._cb_step(self._acquire_flux(), *self._batch(lanes, bucket), pe)
-            for i, ln in enumerate(lanes):
-                ln.latent = out[i]
-                ln.step += 1
+        attrs = {"bucket": bucket, "lanes": b, "group": (group.h2, group.w2, group.txt_len),
+                 "ids": [ln.rec.id for ln in lanes]}
+        with trace_span("serve.forward", self._spans, attrs) as span:
+            if self._mesh is not None:
+                self._command({"op": "step", "ids": [ln.lane_id for ln in lanes],
+                               "bucket": bucket})
+            else:
+                dev = self.device
+                pe = compute_pe(self.pipe.flux_cfg, make_txt_ids(bucket, group.txt_len, dev),
+                                make_img_ids(bucket, group.h2, group.w2, dev))
+                out = self._cb_step(self._acquire_flux(), *self._batch(lanes, bucket), pe)
+                for i, ln in enumerate(lanes):
+                    ln.latent = out[i]
+                    ln.step += 1
+            if self.device.type == "cuda":
+                span.attrs["event"] = torch.cuda.Event(enable_timing=True)
+                span.attrs["event"].record()
+            enqueued = time.perf_counter()
+        for ln in lanes:
+            if ln.rec.first_step is None:
+                ln.rec.first_step = enqueued
+            ln.rec.last_step = enqueued
         with self._lock:
             self._m["forwards"] += 1
             self._m["lane_steps"] += b
@@ -602,18 +743,22 @@ class FluxServer:
         """The leader's worker: admits queued requests (each an admit
         command), ticks, and ends with the stop command."""
         last = time.perf_counter()
+        idle_since = None
         with self._on_card(), torch.no_grad():
             while not self._stop.is_set():
                 with self._lock:
                     admit = []
                     while self._queue and len(self._active) + len(admit) < self.max_batch:
-                        admit.append(self._queue.pop(0))
+                        req = self._queue.pop(0)
+                        req.rec.admitted = time.perf_counter()
+                        admit.append(req)
                 for req in admit:
                     lane = self._admit(req)
                     if lane is not None:
                         self._active.append(lane)
                 with self._lock:
                     self._inflight = len(self._active)
+                idle_since = self._mark_idle(idle_since)
                 if self._active:
                     self._serve_active()
                     last = time.perf_counter()
@@ -625,6 +770,7 @@ class FluxServer:
                 time.sleep(self.poll_s)
             self._release_flux()
             self._command({"op": "stop"})
+        self._mark_idle(idle_since, stopping=True)
         for ln in self._active + self._queue:
             if not ln.future.done():
                 ln.future.cancel()
@@ -765,8 +911,7 @@ class FluxServer:
         lane = _Lane(future=None if req is None else req.future, prompt=cmd["prompt"],
                      params=params, latent=pack_latents(noise.to(p.dtype)).float()[0],
                      txt=txt, y=y, guidance=float(params.guidance_scale), sigmas=st["sigmas"],
-                     t_submit=time.perf_counter() if req is None else req.t_submit,
-                     lane_id=cmd["id"])
+                     lane_id=cmd["id"], rec=None if req is None else req.rec)
         self._lanes[cmd["id"]] = lane
         return lane
 

@@ -18,6 +18,7 @@ refuses), so no process world is spawned.
 """
 
 import base64
+import contextlib
 import copy
 import json
 import sys
@@ -25,7 +26,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -202,7 +203,8 @@ def test_server_queues_beyond_batch(tpipe):
 
 def test_server_mixed_resolutions_and_metrics(tpipe):
     """Mixed resolutions in one server (a lane group each), each image equal
-    to its offline generation, and the counters add up."""
+    to its offline generation, and the counters add up: the stage sums are
+    the requests' records'."""
     server = FluxServer(tpipe, max_batch=4)
     p64, p96 = _params(2, 1), _params(3, 2, height=96)
     try:
@@ -218,10 +220,87 @@ def test_server_mixed_resolutions_and_metrics(tpipe):
     assert s["submitted"] == 3 and s["completed"] == 3 and s["failed"] == 0
     assert s["lane_steps"] == 7
     assert 0.0 < s["occupancy"] <= 1.0 and s["mean_latency_s"] > 0
+    recs = [server.request_trace(f) for f in futs]
+    stages = {"queue_wait_seconds": ("queued", "admitted"), "encode_seconds": ("arrive", "queued"),
+              "decode_seconds": ("last_step", "done")}
+    for key, (a, b) in stages.items():
+        assert s[key] == pytest.approx(sum(r[b] - r[a] for r in recs))
+    assert s["encode_seconds"] > 0 and s["decode_seconds"] > 0
+    assert s["mean_latency_s"] == pytest.approx(sum(r["done"] - r["arrive"] for r in recs) / 3)
     text = server.metrics_text()
     assert "# TYPE drs_server_completed_total counter" in text
     assert "drs_server_completed_total 3" in text
     assert "# TYPE drs_server_queue_depth gauge" in text
+    for key in stages:
+        assert f"# TYPE drs_server_{key}_total counter" in text
+        assert f"drs_server_{key}_total {s[key]}" in text
+
+
+STAMPS = ("arrive", "queued", "admitted", "first_step", "last_step", "decode_start", "done")
+
+
+def test_server_request_records_and_forward_log(tpipe, monkeypatch):
+    """Each request's stamps are ordered, ``arrive`` before its encode; its
+    id is in the log entries of exactly the forwards that stepped it, which
+    hold its first and last step; idle periods lie between forwards; off a
+    card no forward has a device time. The forwards run inside
+    ``serve.forward`` spans on the worker, the decodes inside
+    ``serve.decode`` on the decode thread."""
+    encodes, spans = [], set()
+    real, real_span = tpipe._encode, tserving.trace_span
+
+    def stamped(*a, **kw):
+        encodes.append(time.perf_counter())
+        return real(*a, **kw)
+
+    def span(name, *a, **kw):
+        spans.add((name, threading.current_thread().name))
+        return real_span(name, *a, **kw)
+
+    monkeypatch.setattr(tpipe, "_encode", stamped)
+    monkeypatch.setattr(tserving, "trace_span", span)
+    server = FluxServer(tpipe, max_batch=2)
+    try:
+        futs = [server.submit(f"req {i}", _params(2 + i, 20 + i)) for i in range(3)]
+        [f.result(timeout=600) for f in futs]
+        time.sleep(0.05)  # the worker goes idle once more
+    finally:
+        server.shutdown()
+    recs = [server.request_trace(f) for f in futs]
+    assert sorted(r["id"] for r in recs) == [recs[0]["id"] + i for i in range(3)]
+    log = server.trace_snapshot()
+    forwards = [e for e in log if e["name"] == "serve.forward"]
+    idle = [e for e in log if e["name"] == "serve.idle"]
+    assert len(forwards) == server.stats()["forwards"] and idle
+    for i, (r, t_enc) in enumerate(zip(recs, encodes)):
+        stamps = [r[k] for k in STAMPS]
+        assert stamps == sorted(stamps) and r["arrive"] <= t_enc <= r["queued"]
+        mine = [e for e in forwards if r["id"] in e["ids"]]
+        assert len(mine) == 2 + i  # one forward per step
+        assert mine[0]["start"] <= r["first_step"] <= mine[0]["end"]
+        assert mine[-1]["start"] <= r["last_step"] <= mine[-1]["end"]
+    assert spans == {("serve.forward", "drs-server"), ("serve.decode", "drs-decode_0")}
+    for e in forwards:
+        assert e["device_end"] is None and e["thread"] == "drs-server"
+        assert e["lanes"] == len(e["ids"]) <= e["bucket"] <= 2 and e["group"] == (4, 4, 64)
+        assert not any(i["start"] < e["start"] < i["end"] for i in idle)
+
+
+def test_server_records_and_log_are_bounded(tpipe, monkeypatch):
+    """The server keeps the newest REQUEST_RECORDS records and TRACE_SPANS
+    log entries; a Future it did not make has no record."""
+    monkeypatch.setattr(tserving, "REQUEST_RECORDS", 2)
+    monkeypatch.setattr(tserving, "TRACE_SPANS", 3)
+    server = FluxServer(tpipe, max_batch=1)
+    try:
+        futs = [server.submit(f"b {i}", _params(2, i)) for i in range(3)]
+        [f.result(timeout=600) for f in futs]
+    finally:
+        server.shutdown()
+    assert server.request_trace(futs[0]) is None
+    assert all(server.request_trace(f)["done"] is not None for f in futs[1:])
+    assert server.request_trace(Future()) is None
+    assert len(server.trace_snapshot()) == 3
 
 
 def test_server_bucket_padding_compiles_small_batches(tpipe):
@@ -529,6 +608,27 @@ def test_cuda_library_builds_once_and_counts_exactly_under_threads(fresh_cuda):
         for j in range(per_thread):
             want[names[(i + j) % len(names)]] += 1
     assert _cuda.launch_counts() == want
+
+
+def test_launch_wrapper_time_leaves_out_the_entry_call(fresh_cuda):
+    """``launch`` counts its own host time, not the (stubbed, 10 ms) entry
+    call's; ``reset_launch_counts`` zeroes it."""
+    fresh_cuda.setattr(_cuda, "_wrapper_ns", 0)
+    fresh_cuda.setattr(_cuda, "_thread", _cuda._ThreadCards())
+    fresh_cuda.setitem(_cuda._FNS, "qmm_s8", lambda *args: time.sleep(0.01) or 0)
+    fresh_cuda.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    fresh_cuda.setattr(torch.cuda, "current_device", lambda: 0)
+    fresh_cuda.setattr(torch.cuda, "set_device", lambda card: None)
+    fresh_cuda.setattr(torch.cuda, "current_stream",
+                       lambda device=None: SimpleNamespace(cuda_stream=0))
+    t0 = time.perf_counter_ns()
+    for _ in range(5):
+        _cuda.launch("qmm_s8", 1, 2, device=0, inputs=(torch.ones(2),))
+    elapsed = time.perf_counter_ns() - t0
+    assert _cuda.launch_counts()["qmm_s8"] == 5
+    assert 0 < _cuda.launch_wrapper_ns() < elapsed - 5 * 10_000_000
+    _cuda.reset_launch_counts()
+    assert _cuda.launch_wrapper_ns() == 0
 
 
 def test_cuda_failed_build_raises_on_every_thread(fresh_cuda):

@@ -3,10 +3,15 @@ counterparts of tests/test_compile_cache.py's five cases against
 ops/_cuda.BUILD_DIR instead of XLA's cache; nothing is built), the spans
 and the profiler context (util/tracing.py), auto-dtype (util/dtype.py,
 against the JAX package's choice on the CPU) and progress
-(util/progress.py)."""
+(util/progress.py). The spans: ``trace_span`` enters the profiler only
+while one records and feeds a ``SpanLog``; the pipeline's per-step host
+times; the model step's op-family spans per block."""
 
+import collections
+import dataclasses
 import json
 import logging
+import threading
 
 import pytest
 import torch
@@ -14,18 +19,20 @@ import torch
 from diffusion_rs_tpu.util.dtype import resolve_auto_dtype as j_resolve_auto_dtype
 from diffusion_rs_tpu_torch import DiffusionGenerationParams, FluxPipeline
 from diffusion_rs_tpu_torch.models.clip import ClipTextConfig
-from diffusion_rs_tpu_torch.models.flux import FluxConfig
+from diffusion_rs_tpu_torch.models.flux import FluxConfig, compute_pe, flux_forward
+from diffusion_rs_tpu_torch.models.optimize import fuse_flux_qkv
 from diffusion_rs_tpu_torch.models.t5 import T5Config
 from diffusion_rs_tpu_torch.models.vae import VAEConfig
 from diffusion_rs_tpu_torch.ops import _cuda
 from diffusion_rs_tpu_torch.pipelines import loader as loader_mod
 from diffusion_rs_tpu_torch.pipelines.api import ModelDType, ModelSource, Pipeline
+from diffusion_rs_tpu_torch.pipelines.sampling import make_img_ids, make_txt_ids
 from diffusion_rs_tpu_torch.pipelines.scheduler import SchedulerConfig
 from diffusion_rs_tpu_torch.util import compile_cache as cc
 from diffusion_rs_tpu_torch.util import synthetic as syn
 from diffusion_rs_tpu_torch.util.dtype import resolve_auto_dtype
 from diffusion_rs_tpu_torch.util.progress import progress
-from diffusion_rs_tpu_torch.util.tracing import maybe_profile, trace_span
+from diffusion_rs_tpu_torch.util.tracing import SpanLog, maybe_profile, trace_span
 from torch_port_util import I2I_CLIP, I2I_FLUX, I2I_T5, I2I_VAE
 
 SPANS = ("generate", "text-encode", "vae-encode", "denoise", "vae-decode")
@@ -124,6 +131,101 @@ def test_trace_span_is_recorded_by_the_profiler():
         with trace_span("text-encode"):
             torch.ones(4).add_(1)
     assert "text-encode" in {e.key for e in prof.key_averages()}
+
+
+def test_trace_span_enters_record_function_only_inside_a_profiler(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(name):
+        entered.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    with trace_span("outside", nvtx=False) as span:
+        torch.ones(4).add_(1)
+    assert span is None and entered == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace_span("inside", nvtx=False):
+            torch.ones(4).add_(1)
+    assert entered == ["inside"]
+    assert "inside" in {e.key for e in prof.key_averages()}
+
+
+def test_trace_span_appends_to_a_bounded_span_log():
+    """Each span on its own named thread, with attrs given and added inside
+    the block; the log keeps the newest ``capacity`` entries."""
+    log = SpanLog(capacity=3)
+
+    def work(i):
+        with trace_span("job", log, {"i": i}, nvtx=False) as span:
+            span.attrs["twice"] = 2 * i
+
+    for i in range(5):
+        t = threading.Thread(target=work, args=(i,), name=f"worker-{i}")
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+    got = log.snapshot()
+    assert [(s.thread, s.attrs) for s in got] == [
+        (f"worker-{i}", {"i": i, "twice": 2 * i}) for i in (2, 3, 4)]
+    assert all(s.name == "job" and s.start <= s.end for s in got)
+    assert all(a.end <= b.start for a, b in zip(got, got[1:]))
+
+
+def test_pipeline_step_host_times():
+    """One host launch time per step, each within its synced step time; no
+    kernel launches on the CPU, so no wrapper time."""
+    pipe = _tiny_pipeline()
+    params = DiffusionGenerationParams(height=64, width=64, num_steps=3, guidance_scale=3.5,
+                                       seed=7, max_sequence_length=64)
+    pipe.forward_arrays(["a cat"], params)
+    t = pipe.timings
+    assert len(t["steps_s"]) == len(t["steps_host_s"]) == 3
+    assert all(0 < h <= s for h, s in zip(t["steps_host_s"], t["steps_s"]))
+    assert t["launch_wrapper_s"] == 0.0
+
+
+_MATMULS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::matmul", "aten::linear"}
+
+
+@pytest.mark.parametrize("path", ["default", "grouped", "rope_fused"])
+def test_flux_forward_family_spans_per_block(path):
+    """A tiny flux_forward under a CPU profiler records each op-family span
+    the expected number of times per block, and no product runs inside a
+    ``flux.qk_rope`` or ``flux.gate_act`` span (``flux.norm_mod`` holds the
+    modulation's linear)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = FluxConfig(**I2I_FLUX)
+    params = syn.init_flux_params(0, cfg, dtype=torch.float32, device="cpu")
+    if path == "grouped":
+        params = fuse_flux_qkv(params, ("img", "txt"))
+        cfg = dataclasses.replace(cfg, grouped_qmm=True)
+    elif path == "rope_fused":  # the default bhsd layout rotates inside _joint_attention_sm
+        cfg = dataclasses.replace(cfg, rope_fused=True)
+    d, s = cfg.num_layers, cfg.num_single_layers
+    want = {"flux.norm_mod": 3 * d + s + 1, "flux.qk_rope": d + s, "flux.gate_act": 6 * d + 3 * s}
+    if path == "grouped":
+        want.update({"flux.norm_mod": 2 * d + s + 1, "flux.gate_act": 3 * d + 3 * s})
+    elif path == "rope_fused":
+        want["flux.qk_rope"] = 2 * (d + s)
+    g = torch.Generator().manual_seed(0)
+    img = torch.randn(1, 16, cfg.in_channels, generator=g)
+    txt = torch.randn(1, 8, cfg.joint_attention_dim, generator=g)
+    y = torch.randn(1, cfg.pooled_projection_dim, generator=g)
+    pe = compute_pe(cfg, make_txt_ids(1, 8, "cpu"), make_img_ids(1, 4, 4, "cpu"))
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        flux_forward(params, cfg, img, txt, torch.tensor([0.5]), y, torch.tensor([3.5]), pe=pe)
+    events = prof.events()
+    assert collections.Counter(e.name for e in events if e.name.startswith("flux.")) == want
+    spans = [e.time_range for e in events if e.name in ("flux.qk_rope", "flux.gate_act")]
+    assert any(e.name in _MATMULS for e in events)
+    for e in events:
+        if e.name in _MATMULS:
+            assert not any(r.start <= e.time_range.start <= r.end for r in spans), e.name
 
 
 def _tiny_pipeline():
