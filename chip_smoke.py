@@ -159,7 +159,12 @@ config T and phases 4, 4c, 4d, 4e, 5, 8 and 10 run the full depth.
 
 Phase 2 also holds K7's rotation pass (``rope_qk``) to
 ``rope_halfsplit_seqmajor`` bit for bit on column slices of a fused qkv at
-S4608 and S4112 and times it (K7's rows also time it alone), gives the K4
+S4608 and S4112 and times it (K7's rows also time it alone), holds the
+default layout's attention prologue (``qk_norm_rope``: one launch per
+block) to its plain route at 512 + 4096 rows and 24 heads (a double block
+on linear outputs, a single block on qkv_mlp slices; v bit for bit, q and k
+off in at most 0.1% of their elements) and times it beside its 0.0514 ms
+byte bound, gives the K4
 M1 rows (the modulation products) their device time from torch.profiler
 beside the events' time, and holds K9, K10 and the combined entry point at
 S4608, S4112 and S2304 (each also timed with its prepass kernel, and
@@ -784,6 +789,79 @@ def check_flash_seqmajor(s_q: int, gen, rope: bool):
     return row
 
 
+def check_qk_norm_rope(kind: str):
+    """The default layout's attention prologue (``qk_norm_rope``) against its
+    plain route at FLUX.1-dev's 512 + 4096 rows, 24 heads: a double block
+    (txt then img, linear outputs) or a single block (column slices of the
+    fused qkv_mlp projection). v bit for bit; q and k differ in at most
+    0.1% of their elements, each rotated pair within 2^-5 of its norm (the
+    sum of squares' order moves 1 / rms by an f32 ulp, the two bf16
+    roundings and the rotation carry that on). Bound: its bytes (q, k, v
+    read and written once, the cos / sin tables read once): 0.0514 ms. Its
+    inputs come from a generator of its own, so the kernel phase's other
+    checks draw what they drew without it."""
+    import torch
+
+    from diffusion_rs_tpu_torch.ops import rope
+
+    gen = torch.Generator(device="cuda").manual_seed({"double": 18, "single": 19}[kind])
+
+    b, h, d, s_txt, s = 1, 24, 128, 512, 4608
+    n = h * d
+    tables = flux_tables(s)
+    cos, sin = tables[0][..., :d // 2].contiguous(), tables[1][..., d // 2:].contiguous()
+
+    def scales():
+        return tuple((0.5 + torch.rand(d, generator=gen, device="cuda")).bfloat16()
+                     for _ in range(2))
+
+    if kind == "double":
+        streams = [(*(torch.randn((b, rows, n), generator=gen, device="cuda").bfloat16()
+                      for _ in range(3)), *scales()) for rows in (s_txt, s - s_txt)]
+    else:
+        fused = torch.randn((b, s, 7 * n), generator=gen, device="cuda").bfloat16()
+        streams = [(fused[..., :n], fused[..., n:2 * n], fused[..., 2 * n:3 * n], *scales())]
+    got = rope.qk_norm_rope(streams, cos, sin, h)
+    torch.cuda.synchronize()
+    want = rope.qk_norm_rope_plain(streams, cos, sin, h)
+    if not torch.equal(got[2], want[2]):
+        raise SystemExit(f"qk_norm_rope ({kind}): v differs from the plain route")
+    diffs = []
+    for x, y in zip(got[:2], want[:2]):
+        x, y = x.float(), y.float()
+        xp, yp = x.unflatten(-1, (-1, 2)), y.unflatten(-1, (-1, 2))
+        norm = torch.maximum(xp.norm(dim=-1), yp.norm(dim=-1))[..., None]
+        if not ((xp - yp).abs() <= norm * 2.0 ** -5).all():
+            raise SystemExit(f"qk_norm_rope ({kind}): a rotated q/k pair off the plain route "
+                             f"by more than 2^-5 of its norm")
+        diffs.append(float((x != y).float().mean()))
+    if max(diffs) > 1e-3:
+        raise SystemExit(f"qk_norm_rope ({kind}): {max(diffs):.2e} of q/k elements differ")
+    row = dict(shape=f"B{b} H{h} S{s_txt}+{s - s_txt} D{d} ({kind}"
+                     f"{', qkv_mlp slices' if kind == 'single' else ''})",
+               summed_rel=summed_rel(torch.cat([g.float().flatten() for g in got[:2]]),
+                                     torch.cat([w.float().flatten() for w in want[:2]])),
+               max_abs_err=max(float((x.float() - y.float()).abs().max())
+                               for x, y in zip(got, want)),
+               differing_share=max(diffs))
+    # device time from the profiler: back to back, the wrapper's host time
+    # (its checks, three allocations, the launch) exceeds the kernel's, so
+    # the events' time per call is the host's (wrapper_ms)
+    row["ms"] = kernel_device_ms(lambda i: rope.qk_norm_rope(streams, cos, sin, h), 1,
+                                 ("qk_norm_rope_kernel",))["qk_norm_rope_kernel"]
+    row["wrapper_ms"] = cuda_ms(lambda i: rope.qk_norm_rope(streams, cos, sin, h), 1)
+    row["plain_ms"] = cuda_ms(lambda i: rope.qk_norm_rope_plain(streams, cos, sin, h), 1)
+    row["library_ms"] = None
+    nbytes = 6 * b * s * n * 2 + 2 * b * s * (d // 2) * 4
+    row["bound_ms"], row["bound_by"] = bound(0.0, PEAK_F32_FLOPS, nbytes)
+    print(f"qk_norm_rope ({kind}) {row['shape']}: {row['ms']:.4f} ms on the device, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of "
+          f"it; {row['wrapper_ms']:.4f} ms a call back to back (the wrapper's host time); "
+          f"plain route {row['plain_ms']:.4f} ms; share of q/k elements that differ "
+          f"{max(diffs):.2e}")
+    return row
+
+
 def check_rope_qk(s: int, gen):
     """K7's rotation pass (``rope_qk``) against its plain version,
     ``rope_halfsplit_seqmajor`` on q and k, bit for bit (``torch.equal``), on
@@ -970,9 +1048,14 @@ def attention_bound(b: int, h: int, s: int, d: int, s8: bool, s8_pv: bool, lse: 
 def check_flash_quant(s: int, gen):
     """The prepass kernel (``flash_quant``: k and v of B1 H24 S ``s`` in one
     launch) against the plain versions (quantize_k, quantize_v,
-    v_kernel_layout) on the same inputs: means within rtol 1e-6, scales
-    within one f32 ulp, codes off by one on at most 1e-3 of the entries
-    (the kernel sums the mean in f64 in another order), padding zero. ``ms``
+    v_kernel_layout) on the same inputs: means within rtol 1e-6 (the kernel
+    sums them in f64 in a fixed order, the plain version in f32), codes off
+    by one on at most 1e-3 of the entries, padding zero. The scales follow
+    the mean: a block's max |x - m| moves with m, so a mean k f32 ulps off
+    the plain one moves the scale by up to about k ulps of the mean's size.
+    So the scales are held bit for bit to the plain quantizer's on x centred
+    at the kernel's own mean (max |x - m| / 127, IEEE), and their distance
+    from the plain prepass's is reported (``scale_ulps``). ``ms``
     times the kernel alone, ``wrapper_ms`` quantize_kv (checks and
     allocations too). Bound: the bytes (k and v read once, codes, scales and
     means written); no PyTorch call computes it."""
@@ -994,7 +1077,7 @@ def check_flash_quant(s: int, gen):
     torch.cuda.synchronize()
     row = dict(shape=f"B{b} H{h} S{s} D{d} (k and v)")
     worst = {"mean_max_abs": 0.0, "scale_ulps": 0, "codes_off": 0.0, "max_abs_err": 0}
-    for which, (codes, scales, mean), (rc, rs, rm) in zip("kv", got, ref):
+    for which, x, (codes, scales, mean), (rc, rs, rm) in zip("kv", (k, v), got, ref):
         src = torch.arange(codes.shape[2 if which == "k" else 3], device=codes.device)
         if which == "v":  # the source row of each position of v_kernel_layout
             src = flash.v_kernel_layout(src[None, None, :, None])[0, 0, 0]
@@ -1003,13 +1086,15 @@ def check_flash_quant(s: int, gen):
         worst["mean_max_abs"] = max(worst["mean_max_abs"], float((mean - rm).abs().max()))
         worst["scale_ulps"] = max(worst["scale_ulps"], int(
             (scales.view(torch.int32) - rs.view(torch.int32)).abs().max()))
+        own = flash._block_quantize(x.float() - mean[:, :, None, :], qb)[1]
         worst["codes_off"] = max(worst["codes_off"], float((diff > 0).float().mean()))
         worst["max_abs_err"] = max(worst["max_abs_err"], int(diff.max()))
-        if not (torch.allclose(mean, rm, rtol=1e-6, atol=1e-7) and worst["scale_ulps"] <= 1
+        if not (torch.allclose(mean, rm, rtol=1e-6, atol=1e-7) and torch.equal(scales, own)
                 and worst["max_abs_err"] <= 1 and worst["codes_off"] <= 1e-3
                 and not pad.any()):
             raise SystemExit(f"flash_quant disagrees with the plain prepass ({which}) at S={s}: "
-                             f"{worst}, padding zero {not pad.any()}")
+                             f"{worst}, scales equal to the plain quantizer's on its own mean "
+                             f"{torch.equal(scales, own)}, padding zero {not pad.any()}")
     row.update(worst)
     # the kernel alone on the wrapper's outputs, then the wrapper (checks and
     # allocations included)
@@ -1329,6 +1414,7 @@ def tiny_reference_check(attn_layout=None, flux_kind="q8t", fuse=None, int8=Fals
     if not (counts[flash_kernel] > 0 and counts[qmm_kernel] > 0
             and not any(counts[k] for k in others)
             and counts["rope_qk"] == (counts["flash_rope"] if flash_kernel == "flash_rope" else 0)
+            and counts == with_prologue(counts)
             and (not int8 or counts["flash_quant"] == counts["flash_s8_s8pv"])):
         raise SystemExit(f"tiny image ({label}) did not run its kernels: {counts}")
     return lat_err, psnr
@@ -1396,8 +1482,10 @@ def tiny_edit_check(mode: str):
     if not (lat_err <= 2e-2 and psnr >= 30.0):
         raise SystemExit(f"tiny {mode} check failed: the card's image does not agree with "
                          "the plain versions on the CPU")
-    if sorted(counts) != ["flash_fwd", "qmm_nf4", "qmm_s8"]:
-        raise SystemExit(f"tiny {mode} image did not run K1, K2 and K3 alone: {counts}")
+    if (sorted(counts) != ["flash_fwd", "qk_norm_rope", "qmm_nf4", "qmm_s8"]
+            or counts != with_prologue(counts)):
+        raise SystemExit(f"tiny {mode} image did not run K1, K2, K3 and the prologue alone: "
+                         f"{counts}")
 
 
 def flux_linear_names(params) -> dict:
@@ -1672,8 +1760,8 @@ def serve_phase(pipe, steps: int, init_img) -> list:
     lane_steps = sum(max(1, round(steps * SERVE_STRENGTH)) if edit else steps
                      for _, _, edit in SERVE_REQUESTS)
     encodes = len(SERVE_REQUESTS) - stats["encode_cache_hits"]
-    want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503 * stats["forwards"],
-            "flash_fwd": 57 * stats["forwards"], "qmm_nf4": 168 * encodes}
+    want = with_prologue({**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503 * stats["forwards"],
+                          "flash_fwd": 57 * stats["forwards"], "qmm_nf4": 168 * encodes})
     n = len(SERVE_REQUESTS)
     print(f"serve: {n} requests ({sum(e for *_, e in SERVE_REQUESTS)} img2img at "
           f"{SERVE_STRENGTH}), {steps} steps, 1024x1024, max_batch {SERVE_MAX_BATCH}: "
@@ -1805,8 +1893,8 @@ def image_edit_phase(pipe, prompts, steps: int, init_img, ref_latent) -> None:
     for name, strength, m in (("img2img 0.6", 0.6, None), ("inpaint 1.0", 1.0, mask),
                               ("img2img 1.0", 1.0, None)):
         run = max(1, min(int(round(steps * strength)), steps))
-        want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": n["diffusers"] * run,
-                "qmm_nf4": 168, "flash_fwd": n["attention"] * run}
+        want = with_prologue({**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": n["diffusers"] * run,
+                              "qmm_nf4": 168, "flash_fwd": n["attention"] * run})
         torch.cuda.reset_peak_memory_stats()
         before = card_state()
         _cuda.reset_launch_counts()
@@ -2165,8 +2253,8 @@ def gguf_round_trip(encoders, prompts):
     img = pipe.forward_arrays(prompts, DiffusionGenerationParams(
         height=1024, width=1024, num_steps=1, guidance_scale=3.5, seed=7))
     counts = _cuda.launch_counts()
-    want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_nf4": 168, "qmm_affine": 22,
-            "flash_fwd": 2}
+    want = with_prologue({**dict.fromkeys(_cuda.KERNELS, 0), "qmm_nf4": 168, "qmm_affine": 22,
+                          "flash_fwd": 2})
     print(f"gguf round trip: {size_mb:.1f} MB BFL Q4_0 file (1+1 blocks, hidden {h}) "
           f"written in {t_write:.1f} s, loaded in {t_load:.1f} s; config {cfg}; "
           f"{len(checks)} tensors equal to the host decode; 1-step image "
@@ -2208,7 +2296,7 @@ def timed_image(name: str, pipe, prompts, steps: int, want: dict, t_init=None):
     counts = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     tm = pipe.timings
-    want = {**dict.fromkeys(_cuda.KERNELS, 0), **want}
+    want = with_prologue({**dict.fromkeys(_cuda.KERNELS, 0), **want})
     made = "" if t_init is None else f" (weights made on the card in {t_init:.1f} s)"
     steps_ms = [x * 1e3 for x in tm["steps_s"]]
     median = statistics.median(steps_ms)
@@ -2280,6 +2368,24 @@ def flux_launches(cfg) -> dict:
     return dict(diffusers=14 * L + 6 * Ls + 9, bfl=10 * L + 3 * Ls + 9, grouped=4 * L,
                 grouped_fused_rest=2 * L + 3 * Ls + 9, grouped_rest=2 * L + 6 * Ls + 9,
                 attention=L + Ls)
+
+
+# The attention entries of the [B, H, S, D] layout (one launch a call) and
+# of the sp ring (K14: SP launches a call), after which the default layout
+# launches its attention prologue once a call.
+BHSD_ATTENTION = ("flash_fwd", "flash_s8", "flash_s8pv", "flash_s8_s8pv")
+
+
+def with_prologue(want: dict) -> dict:
+    """``want``, a path's exact launch counts, with the default layout's
+    attention prologue: one ``qk_norm_rope`` launch per attention call of
+    the [B, H, S, D] layout, read off the attention entries in ``want``.
+    The fused-RoPE layouts' entries (``flash_sm``, ``flash_rope``) call no
+    prologue. The key is added only where ``want`` has it or it is not 0,
+    so that it fits both zero-filled counts and a rank's nonzero ones."""
+    calls = (sum(want.get(e, 0) for e in BHSD_ATTENTION)
+             + sum(want.get(e, 0) for e in LSE_ENTRIES) // SP)
+    return {**want, "qk_norm_rope": calls} if calls or "qk_norm_rope" in want else dict(want)
 
 
 # Phases 8-9: (name, weight kind, layout and seed as phase 4 / phase 7 made
@@ -2396,8 +2502,8 @@ def int8_attention_images(pipe, prompts, steps: int, ref_latent):
             finally:
                 flux_model.sdpa_merged = sdpa_merged
             c = _cuda.launch_counts()
-        want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503, "qmm_nf4": 168, entry: 57,
-                "flash_quant": 57}
+        want = with_prologue({**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503, "qmm_nf4": 168,
+                              entry: 57, "flash_quant": 57})
         print(f"config C, {ATTN_KNOBS[s8_pv]}=1 alone, 1-step image: launches "
               f"{ {k: v for k, v in c.items() if v} } (expected "
               f"{ {k: v for k, v in want.items() if v} })")
@@ -2784,9 +2890,9 @@ def isq_file_round_trip(prompts) -> int:
     want_lora = ref_flux["double"]["img_attn"]["q"].lora
     if lora is None or not all(torch.equal(x, y) for x, y in zip(lora, want_lora)):
         raise SystemExit("the loaded LoRA terms differ from the in-memory ones")
-    want = {**dict.fromkeys(_cuda.KERNELS, 0), "flash_fwd": 2,
-            "qmm_affine_fast16": count_qmm_linears(pipe.flux_params)
-            + count_qmm_linears(pipe.t5_params)}
+    want = with_prologue({**dict.fromkeys(_cuda.KERNELS, 0), "flash_fwd": 2,
+                          "qmm_affine_fast16": count_qmm_linears(pipe.flux_params)
+                          + count_qmm_linears(pipe.t5_params)})
     with env(DIFFUSION_RS_TPU_QMM_FAST16="1"):
         _cuda.reset_launch_counts()
         img = pipe.forward_arrays(prompts, DiffusionGenerationParams(
@@ -3085,7 +3191,8 @@ def check_mesh_serve(tmp: str, refs, steps: int) -> dict:
     want_stats = (forwards, n * steps, steps, n, 0)
     got_stats = tuple(stats[k] for k in ("forwards", "lane_steps", "padded_lane_steps",
                                          "completed", "failed"))
-    want = {"qmm_s8": 503 * forwards, "flash_fwd": 57 * forwards, "qmm_nf4": 168 * n}
+    want = with_prologue({"qmm_s8": 503 * forwards, "flash_fwd": 57 * forwards,
+                          "qmm_nf4": 168 * n})
     bands = []
     for got, ref in zip(images, refs):
         d = np.abs(got.astype(np.float32) - ref.astype(np.float32))
@@ -3317,8 +3424,8 @@ def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent, full_depth: bool
     hop_mb = 2 * 24 * (4096 + 512) // SP * 128 * 2 / 1e6  # k and v of one rank's rows, bf16
     per_step = flux_launches(s_cfgs["flux_cfg"])
     attn = per_step["attention"]
-    want = {"qmm_s8": per_step["diffusers"] * steps, "qmm_nf4": 168,
-            "flash_fwd_lse": attn * SP * steps}
+    want = with_prologue({"qmm_s8": per_step["diffusers"] * steps, "qmm_nf4": 168,
+                          "flash_fwd_lse": attn * SP * steps})
     for r in recs:
         tm = r["timings"]
         steps_ms = [x * 1e3 for x in tm["steps_s"]]
@@ -3336,8 +3443,8 @@ def config_s(cfgs: dict, pipe, prompts, steps: int, ref_latent, full_depth: bool
         if r["image"] != [[1, 1024, 1024, 3], "uint8"]:
             raise SystemExit(f"config S rank {r['rank']}: bad image {r['image']}")
         for entry in SP_INT8_ENTRIES:
-            w = {"qmm_s8": per_step["diffusers"], "qmm_nf4": 168, entry: attn * SP,
-                 "flash_quant": attn * SP}
+            w = with_prologue({"qmm_s8": per_step["diffusers"], "qmm_nf4": 168,
+                               entry: attn * SP, "flash_quant": attn * SP})
             got, dist = r[f"{entry}_launches"], r[f"{entry}_vs_bf16"]
             print(f"config S rank {r['rank']}, {entry} (1-step image): launches {got}, latent "
                   f"vs the bf16 1-step latent summed-rel {dist:.3e} (band {INT8_LATENT_TOL:g})")
@@ -3386,8 +3493,9 @@ def check_config_t(tmp: str, tiny_cpu: dict, steps: int, ref_latent) -> dict:
         if not all(c.get(e) for c in got for e in entries):
             raise SystemExit(f"config T tiny {name} did not launch {entries}: {got}")
         counts.update({e: got[0][e] for e in entries if e not in ("qmm_s8_f32", "qmm_nf4_f32")})
-    want = {"qmm_s8": (503 - TP_F32_LINEARS) * steps, "qmm_s8_f32": TP_F32_LINEARS * steps,
-            "qmm_nf4": 168 - 48, "qmm_nf4_f32": 48, "flash_fwd": 57 * steps}
+    want = with_prologue({"qmm_s8": (503 - TP_F32_LINEARS) * steps,
+                          "qmm_s8_f32": TP_F32_LINEARS * steps, "qmm_nf4": 168 - 48,
+                          "qmm_nf4_f32": 48, "flash_fwd": 57 * steps})
     want_ar = {"calls": TP_ALL_REDUCES * steps + 48,
                "bytes": TP_FORWARD_BYTES * steps + TP_T5_BYTES}
     for r in recs:
@@ -3515,6 +3623,7 @@ def main() -> int:
         "flash_sm": [check_flash_seqmajor(s_, gen, rope=False) for s_ in (4608, 4112)],
         "flash_rope": [check_flash_seqmajor(s_, gen, rope=True) for s_ in (4608, 4112)],
         "rope_qk": [check_rope_qk(s_, gen) for s_ in (4608, 4112)],
+        "qk_norm_rope": [check_qk_norm_rope(kind) for kind in ("double", "single")],
         "qmm_grouped_s8": check_grouped("q8t", gen),
         "qmm_grouped_affine": check_grouped("q8_0", gen) + check_grouped("q4_0", gen),
         **{entry: [check_flash_int8(s_, gen, entry) for s_ in (4608, 4112, 2304)]
@@ -3556,7 +3665,8 @@ def main() -> int:
             if "library_note" in r:
                 line += f" ({r['library_note']})"
             if "wrapper_ms" in r:
-                line += f"; through quantize_kv {r['wrapper_ms']:.4f} ms"
+                via = "quantize_kv" if name == "flash_quant" else "its wrapper, back to back"
+                line += f"; through {via} {r['wrapper_ms']:.4f} ms"
             if "design_bound_ms" in r:
                 line += f"; design bound {r['design_bound_ms']:.4f} ms"
             if "with_prepass_ms" in r:
@@ -3641,8 +3751,8 @@ def main() -> int:
     counts = _cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     tm = pipe.timings
-    want = {**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503 * args.steps,
-            "qmm_nf4": 168, "flash_fwd": 57 * args.steps}
+    want = with_prologue({**dict.fromkeys(_cuda.KERNELS, 0), "qmm_s8": 503 * args.steps,
+                          "qmm_nf4": 168, "flash_fwd": 57 * args.steps})
     print(f"image {wall:.3f} s: encode {tm['encode_s'] * 1e3:.1f} ms, steps ms "
           f"{[round(s * 1e3, 1) for s in tm['steps_s']]}, decode "
           f"{tm['decode_s'] * 1e3:.1f} ms, peak memory {peak:.2f} GiB "
@@ -3755,6 +3865,8 @@ def main() -> int:
         "flash_sm": ("flash_fwd.cu", f"{flash_pallas}:636", 0),
         "flash_rope": ("flash_fwd.cu", f"{flash_pallas}:523", 0),
         "rope_qk": ("flash_fwd.cu", f"{flash_pallas}:523", 0),
+        "qk_norm_rope": ("qk_norm_rope.cu", "none: XLA's fusion of models/flux.py's _qkv, the "
+                         "joint concatenate and _rope_qk", 0),
         "qmm_grouped_s8": ("qmm_s8.cu", f"{qmm_pallas}:630", -1),
         "qmm_grouped_affine": ("qmm_affine.cu", f"{qmm_pallas}:630", -1),
         "flash_s8": ("flash_fwd.cu", f"{flash_pallas}:396", 0),

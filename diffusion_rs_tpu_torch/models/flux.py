@@ -34,10 +34,11 @@ profiler only (util/tracing.trace_span without NVTX): ``flux.norm_mod``
 (the AdaLN modulation with its chunks, LayerNorm, scale/shift),
 ``flux.qk_rope`` (from the q/k/v projection's output to the attention
 call: head split, QK-RMSNorm, the joint cat, RoPE, the contiguous
-operands) and ``flux.gate_act`` (GELU, the gated residual adds, the single
-block's cat). The quantized linears and the attention call run outside
-them, but for the modulation's linear, whose kernels a reader tells apart
-by name. The fused-RoPE layouts rotate inside the attention call (K7's
+operands; in the default layout ops/rope.qk_norm_rope, one kernel launch
+on the card, through :func:`_qk_prologue`) and ``flux.gate_act`` (GELU, the gated residual adds, the
+single block's cat). The quantized linears and the attention call run
+outside them, but for the modulation's linear, whose kernels a reader
+tells apart by name. The fused-RoPE layouts rotate inside the attention call (K7's
 pass, or ``flash_attention_fused``'s rotation under ``seqmajor``).
 
 The forward is differentiable (a training step, dryrun.py): the collectives
@@ -56,10 +57,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops import (apply_rope, apply_rope_halfsplit, expand_rope_tables, layer_norm,
-                   linear, linear_grouped, rms_norm, rope_tables, sdpa_merged)
+from ..ops import (apply_rope_halfsplit, expand_rope_tables, layer_norm, linear,
+                   linear_grouped, qk_norm_rope, rms_norm, rope_tables, sdpa_merged)
 from ..ops import attention
 from ..ops.flash import flash_attention_fused
+from ..ops.rope import HEAD_DIM, qk_norm_rope_plain
 from ..ops.linear import Linear, tp_size
 from ..ops.partitioned import SeqShard, partitioned_flash_rope
 from ..parallel.mesh import copy_to_group, split_sizes
@@ -154,11 +156,6 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
-    b, s, _ = t.shape
-    return t.reshape(b, s, n_heads, -1).transpose(1, 2)
-
-
 def _head_norms(p: Params):
     """The q_norm / k_norm scales of an attention (or single block) dict.
     Each tp rank applies them to its own heads, so under grad mode their
@@ -179,20 +176,17 @@ def _qkv_cols(p: Params, x: torch.Tensor, proj=None):
     return linear(x, p["q"]), linear(x, p["k"]), linear(x, p["v"])
 
 
-def _qkv(p: Params, cols, n_heads: int):
-    """Split the q/k/v columns to heads [B, H, S, D], QK-RMSNorm."""
-    qc, kc, vc = cols
-    qn, kn = _head_norms(p)
-    q = rms_norm(_split_heads(qc, n_heads), qn)
-    k = rms_norm(_split_heads(kc, n_heads), kn)
-    return q, k, _split_heads(vc, n_heads)
-
-
-def _rope_qk(q, k, v, cos, sin):
-    """RoPE on q/k [B, H, S, D], and the contiguous operands of the flash
-    kernel, which writes the head-merged [B, S, H*D] layout directly."""
-    return (apply_rope(q, cos, sin).contiguous(), apply_rope(k, cos, sin).contiguous(),
-            v.contiguous())
+def _qk_prologue(streams, cos, sin, n_heads: int, cfg: FluxConfig):
+    """The default layout's attention prologue (``flux.qk_rope``):
+    ops/rope.qk_norm_rope, one kernel launch on the card, which raises on
+    what it cannot take. Its plain composition runs instead where the
+    block's attention runs without the flash kernels
+    (DIFFUSION_RS_TPU_NO_FLASH, which the training step sets) or the head
+    dim is not the kernel's, as :func:`_joint_attention_sm` picks its
+    layout by head dim."""
+    if attention._no_flash() or cfg.head_dim != HEAD_DIM:
+        return qk_norm_rope_plain(streams, cos, sin, n_heads)
+    return qk_norm_rope(streams, cos, sin, n_heads)
 
 
 def _norm_sm(t: torch.Tensor, scale: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -202,8 +196,8 @@ def _norm_sm(t: torch.Tensor, scale: torch.Tensor, n_heads: int) -> torch.Tensor
 
 
 def _qkv_sm(p: Params, cols, n_heads: int):
-    """Seq-major :func:`_qkv`: q/k/v stay [B, S, H*D] (the layout the
-    seq-major flash kernels read), q/k per-head RMS-normed."""
+    """The ``rope_fused`` layout's QK-RMSNorm: q/k/v stay [B, S, H*D] (the
+    layout the seq-major flash kernels read), q/k per-head RMS-normed."""
     qc, kc, vc = cols
     qn, kn = _head_norms(p)
     return _norm_sm(qc, qn, n_heads), _norm_sm(kc, kn, n_heads), vc
@@ -282,10 +276,9 @@ def double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig,
             tq, tk, tv = _qkv_sm(p["txt_attn"], t_cols, heads)
             q, k, v = (torch.cat(pair, dim=1) for pair in ((tq, iq), (tk, ik), (tv, iv)))
         else:
-            iq, ik, iv = _qkv(p["img_attn"], i_cols, heads)
-            tq, tk, tv = _qkv(p["txt_attn"], t_cols, heads)
-            q, k, v = _rope_qk(torch.cat([tq, iq], dim=2), torch.cat([tk, ik], dim=2),
-                               torch.cat([tv, iv], dim=2), cos, sin)
+            q, k, v = _qk_prologue([(*t_cols, *_head_norms(p["txt_attn"])),
+                                    (*i_cols, *_head_norms(p["img_attn"]))], cos, sin, heads,
+                                   cfg)
     attn = _attend(q, k, v, cos, sin, cfg, seq)
     txt_len = txt.shape[1]
     txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
@@ -354,7 +347,7 @@ def single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig,
         if cfg.rope_fused:
             q, k, v = _qkv_sm(p, cols, heads)
         else:
-            q, k, v = _rope_qk(*_qkv(p, cols, heads), cos, sin)
+            q, k, v = _qk_prologue([(*cols, *_head_norms(p))], cos, sin, heads, cfg)
     with _op_span("flux.gate_act"):
         mlp = _gelu(mlp_h)
     attn = _attend(q, k, v, cos, sin, cfg, seq)

@@ -5,7 +5,8 @@ from .flash import flash_attention, flash_attention_fused, flash_attention_plain
 from .linear import Linear, linear, linear_grouped
 from .norms import group_norm, layer_norm, rms_norm
 from .qmatmul import quantized_matmul, quantized_matmul_grouped, supports
-from .rope import apply_rope, apply_rope_halfsplit, expand_rope_tables, rope_tables
+from .rope import (apply_rope, apply_rope_halfsplit, expand_rope_tables, qk_norm_rope,
+                   rope_tables)
 
 __all__ = [
     "Conv",
@@ -22,6 +23,7 @@ __all__ = [
     "layer_norm",
     "linear",
     "linear_grouped",
+    "qk_norm_rope",
     "quantized_matmul",
     "quantized_matmul_grouped",
     "reset_launch_counts",

@@ -15,7 +15,8 @@ affine sources also export their grouped forms and their f32-output forms
 (``<name>_f32``), the nf4 and affine sources their fast16 forms, the flash source its seq-major, fused-RoPE and int8
 forms, the bf16 and int8 forms that also write the log-sum-exp, K14, and
 the RoPE pass ``rope_qk`` that K7 launches before its attention; the
-quantize source ``flash_quant`` is the int8 forms' prepass).
+quantize source ``flash_quant`` is the int8 forms' prepass; ``qk_norm_rope``
+is a FLUX block's attention prologue in the default layout).
 Every kernel wrapper adds one to its entry point's count in
 :data:`LAUNCHES` when it launches it, and nowhere else. :func:`launch` also
 adds its own host time outside the entry call (the grad check, the device
@@ -71,7 +72,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-lineinfo", "-Xptxas", "-v",
 ]
-SOURCES = ("qmm_s8", "qmm_nf4", "qmm_affine", "flash_fwd", "flash_quant")
+SOURCES = ("qmm_s8", "qmm_nf4", "qmm_affine", "flash_fwd", "flash_quant", "qk_norm_rope")
 
 # Entry point -> (source, C signature): pointers, host tables and the stream
 # as c_void_p, sizes as c_int, strides as c_int64.
@@ -97,6 +98,7 @@ KERNELS = {
     "flash_s8pv_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "flash_s8_s8pv_lse": ("flash_fwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "flash_quant": ("flash_quant", [_P] * 8 + [_I] * 4 + [_P]),
+    "qk_norm_rope": ("qk_norm_rope", [_P] * 15 + [_I] * 4 + [_L] * 13 + [_F, _P]),
 }
 # K1, K2, K12, K4 and K13 storing f32 (a row-parallel linear's partial product)
 KERNELS.update({f"{name}_f32": KERNELS[name] for name in (

@@ -20,8 +20,10 @@ int8 modes), a two-rank ring on one card over gloo, and K1, K2 and K4
 launched on two cards from one process (needs two). The Hopper bodies
 (TMA + wgmma) of the bf16 flash kernels and of the affine kernels are also
 held at FLUX's lengths (S4608, the ragged S4112, below one tile), with K7's
-rotation pass ``rope_qk`` bit for bit, the affine decoded weights bit for
-bit for every format under K4 and K13, the M1 modulation shapes, and K8's
+rotation pass ``rope_qk`` bit for bit, the default layout's attention
+prologue ``qk_norm_rope`` against its plain route (``-k qk_norm_rope``),
+the affine decoded weights bit for bit for every format under K4 and K13,
+the M1 modulation shapes, and K8's
 groups against K4 on both sides of the small-M plan. Offloading on the card:
 HostOffload's pinned host copy and its ``resident`` / ``release``, and a
 streamed tiny q8t FLUX through a two-slot ring against the resident steps,
@@ -774,6 +776,106 @@ def test_rope_qk_on_fused_projection_slices(dev, offset, width):
     assert _summed_rel(y, flash.flash_sm_plain(x, x, x, 128, 128 ** -0.5)) <= 5e-4
 
 
+def _rotated_pairs_close(x, y) -> bool:
+    """Each rotated pair of q or k [..., 128] within 2^-5 of the pair's norm
+    of its counterpart: a sum of squares taken in another order moves 1 /
+    rms by an f32 ulp, which can flip bf16(x * r) by one ulp; the scale's
+    product rounds again (2 ulps of y), and the rotation carries that
+    error whole into each output of the pair, however much the output
+    cancels (one ulp of the output would not hold there)."""
+    x, y = x.float().unflatten(-1, (-1, 2)), y.float().unflatten(-1, (-1, 2))
+    norm = torch.maximum(x.norm(dim=-1), y.norm(dim=-1))[..., None]
+    return bool(((x - y).abs() <= norm * 2.0 ** -5).all())
+
+
+# (kind, batch, txt rows, img rows, heads, qkv_mlp / qkv column views, per-sample tables)
+QK_NORM_ROPE_CASES = {
+    "dev_double": ("double", 1, 512, 4096, 24, False, False),
+    "dev_single": ("single", 1, 512, 4096, 24, False, False),
+    "schnell_double": ("double", 1, 256, 4096, 24, False, False),
+    "served_b4_double": ("double", 4, 256, 1024, 24, False, True),
+    "served_b4_single": ("single", 4, 256, 1024, 24, False, False),
+    "tp_rank_h12": ("double", 1, 512, 4096, 12, False, False),
+    "qkv_mlp_view": ("single", 1, 512, 4096, 24, True, False),
+    "qkv_view_ragged": ("double", 1, 7, 34, 2, True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(QK_NORM_ROPE_CASES))
+def test_qk_norm_rope_matches_plain(dev, case):
+    """The attention prologue kernel (qk_norm_rope) against its plain route
+    at FLUX.1-dev's and schnell's joint lengths, a served batch-4 bucket, a
+    tp rank's 12 heads, column views of a fused qkv_mlp / qkv projection and
+    an odd token count: one launch; v bit for bit; q and k differ only where
+    the sum of squares' order moves 1 / rms by an f32 ulp, at most 0.1% of
+    their elements, each within :func:`_rotated_pairs_close`."""
+    from diffusion_rs_tpu_torch.ops import rope
+
+    kind, b, s_txt, s_img, heads, view, per_sample = QK_NORM_ROPE_CASES[case]
+    n = heads * 128
+    gen = torch.Generator(device=dev).manual_seed(len(case) * 1000 + s_img + heads)
+
+    def columns(s):
+        if not view:
+            return tuple(torch.randn((b, s, n), generator=gen, device=dev).bfloat16()
+                         for _ in range(3))
+        width = 3 * n + (4 * n if kind == "single" else 0)
+        fused = torch.randn((b, s, width), generator=gen, device=dev).bfloat16()
+        return fused[..., :n], fused[..., n:2 * n], fused[..., 2 * n:3 * n]
+
+    def scales():
+        return tuple((0.5 + torch.rand(128, generator=gen, device=dev)).bfloat16()
+                     for _ in range(2))
+
+    rows = (s_txt, s_img) if kind == "double" else (s_txt + s_img,)
+    streams = [(*columns(s), *scales()) for s in rows]
+    ids = torch.randint(0, 128, (b if per_sample else 1, s_txt + s_img, 3), generator=gen,
+                        device=dev)
+    cos, sin = rope_tables(ids, (16, 56, 56))
+    before = _cuda.launch_counts()["qk_norm_rope"]
+    got = rope.qk_norm_rope(streams, cos, sin, heads)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["qk_norm_rope"] == before + 1
+    want = rope.qk_norm_rope_plain(streams, cos, sin, heads)
+    assert torch.equal(got[2], want[2])
+    for x, y in zip(got[:2], want[:2]):
+        assert x.shape == y.shape and x.is_contiguous()
+        assert _rotated_pairs_close(x, y)
+        assert float((x != y).float().mean()) <= 1e-3
+
+
+def test_qk_norm_rope_refuses_on_card(dev):
+    """On the card the prologue never gives way to its plain route: a head
+    dim other than 128 raises NotImplementedError, f32 operands ValueError,
+    an operand that requires grad under grad mode RuntimeError, each before
+    any launch; the same bf16 operands under no_grad launch once."""
+    from diffusion_rs_tpu_torch.ops import rope
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def streams(head_dim, dtype):
+        cols = tuple(torch.randn((1, 40, 2 * head_dim), generator=gen, device=dev).to(dtype)
+                     for _ in range(3))
+        return [(*cols, *(torch.ones(head_dim, device=dev, dtype=dtype) for _ in range(2)))]
+
+    def tables(head_dim):
+        ids = torch.randint(0, 64, (1, 40, 3), generator=gen, device=dev)
+        return rope_tables(ids, (head_dim // 4, head_dim // 4, head_dim // 2))
+
+    before = _cuda.launch_counts()
+    with pytest.raises(NotImplementedError, match="qk_norm_rope"):
+        rope.qk_norm_rope(streams(64, torch.bfloat16), *tables(64), 2)
+    with pytest.raises(ValueError, match="qk_norm_rope"):
+        rope.qk_norm_rope(streams(128, torch.float32), *tables(128), 2)
+    grad = [tuple(t.requires_grad_(True) for t in streams(128, torch.bfloat16)[0])]
+    with pytest.raises(RuntimeError, match="qk_norm_rope.*no backward"):
+        rope.qk_norm_rope(grad, *tables(128), 2)
+    assert _cuda.launch_counts() == before
+    with torch.no_grad():
+        rope.qk_norm_rope(grad, *tables(128), 2)
+    assert _cuda.launch_counts()["qk_norm_rope"] == before["qk_norm_rope"] + 1
+
+
 def test_flash_refuses_misaligned_slices_on_card(dev):
     """A column slice off 16-byte alignment, or rows whose stride is not a
     multiple of 16 bytes, raise before any launch."""
@@ -1018,7 +1120,7 @@ def test_tiny_server_on_card(dev):
     _cuda.reset_launch_counts()
     pipe.forward_arrays(["a cat"], params(2, 1))
     one = _cuda.launch_counts()
-    per_step = {k: one[k] // 2 for k in ("qmm_s8", "flash_fwd")}
+    per_step = {k: one[k] // 2 for k in ("qmm_s8", "flash_fwd", "qk_norm_rope")}
     server = FluxServer(pipe, max_batch=4, poll_ms=500.0)
     _cuda.reset_launch_counts()
     try:

@@ -159,6 +159,10 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "ce = torch.ones(1, 5, 128)\n"
         "for inkernel in (False, True):\n"
         "    flash.flash_attention_fused(qs, qs, qs, ce, ce, 128, rope_in_kernel=inkernel)\n"
+        "from diffusion_rs_tpu_torch.ops.rope import qk_norm_rope\n"
+        "w = torch.ones(128, dtype=torch.bfloat16)\n"
+        "qb = qs.bfloat16()\n"
+        "qk_norm_rope([(qb, qb, qb, w, w)], ce[..., :64], ce[..., :64], 2)\n"
         "assert not _cuda.BUILD_DIR.exists(), _cuda.BUILD_DIR\n"
         "assert _cuda.launch_counts() == dict.fromkeys(_cuda.KERNELS, 0)\n"
         "assert set(_cuda.KERNELS) == {'qmm_s8', 'qmm_grouped_s8', 'qmm_nf4',\n"
@@ -169,7 +173,7 @@ def test_kernel_wrappers_work_without_nvcc(tmp_path):
         "                              'flash_s8_lse', 'flash_s8pv_lse', 'flash_s8_s8pv_lse',\n"
         "                              'rope_qk', 'flash_quant', 'qmm_s8_f32', 'qmm_nf4_f32',\n"
         "                              'qmm_nf4_fast16_f32', 'qmm_affine_f32',\n"
-        "                              'qmm_affine_fast16_f32'}\n"
+        "                              'qmm_affine_fast16_f32', 'qk_norm_rope'}\n"
         "try:\n"
         "    _cuda.build_all()\n"
         "except RuntimeError as e:\n"
