@@ -4,10 +4,10 @@ sizes (the benchmark's runs never run them):
     python3 benchmark/control.py --config flux1-dev-q8t --seeds 1,2,3 --res 1024x1024
 
 For each seed and resolution: one request (prompt and image seed drawn from
-the seed, as the traffic draws them) through the program's timed entry,
-``FluxPipeline.forward_arrays``, with the latent taken where the timed path
-hands it to the decode (``port.LatentTap``); the same with the program's own
-lower-precision attention (DIFFUSION_RS_TPU_ATTN_S8=1 and ATTN_S8PV=1: int8
+the seed, as the traffic draws them) through the program's timed entry (the
+configuration's family route, ``families/<family>.py``), with the latent
+taken where the timed path hands it to the decode; the same with the
+program's own lower-precision attention (DIFFUSION_RS_TPU_ATTN_S8=1 and ATTN_S8PV=1: int8
 QK^T and P.V); then, in the program's place, the reference in each precision
 of ``--controls`` (``reference/common.Precision``). Each is read by the
 check's two numbers (``harness/check.judge``) against the float32
@@ -37,12 +37,12 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from benchmark.harness import check, planes as P, port
+    from benchmark.harness import check, manifest
     from benchmark.harness.requests import Request, image_seed, prompt
     from benchmark.reference.common import Precision
-    from benchmark.reference.pipeline import image
 
     cfg = json.loads((ROOT / "benchmark" / "configs" / f"{args.config}.json").read_text())
+    route = manifest.route(cfg)
     dev = torch.device(args.device)
     sizes = [tuple(int(v) for v in r.split("x")) for r in args.res.split(",")]
     controls = args.controls.split(",") if args.controls else []
@@ -50,11 +50,11 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         rng = np.random.default_rng([seed, 0xC0])
         lo, hi = 5, min(60, cfg["generation"]["max_sequence_length"])
-        reqs = [(prompt(rng, lo, hi), image_seed(rng), h, w) for h, w in sizes]
+        reqs = [Request(i, prompt(rng, lo, hi), image_seed(rng), h, w)
+                for i, (h, w) in enumerate(sizes)]
         with torch.no_grad():
-            pl = P.model_planes(cfg, seed, dev)
-            pipe = port.build_pipeline(cfg, pl, dev)
-            tap = port.LatentTap(pipe)
+            pl = route.planes(cfg, seed, dev)
+            pipe, tap = route.build(cfg, pl, dev)
             prog = {"0": [], "1": []}
             for knob, out in prog.items():
                 os.environ["DIFFUSION_RS_TPU_ATTN_S8"] = knob
@@ -63,20 +63,20 @@ def main(argv=None) -> int:
 
                 for f in (attention._s8_default, attention._s8_pv_default):
                     f.cache_clear()
-                for p, s, h, w in reqs:
-                    img = pipe.forward_arrays([p], port.generation_params(cfg, h, w, s))[0]
+                for r in reqs:
+                    img = route.image(pipe, cfg, r)
                     out.append((tap.take(), img))
             os.environ["DIFFUSION_RS_TPU_ATTN_S8"] = "0"
             os.environ["DIFFUSION_RS_TPU_ATTN_S8PV"] = "0"
-            for i, (p, s, h, w) in enumerate(reqs):
-                r = Request(i, p, s, h, w)
-                ref_lat = image(cfg, pl, p, s, h, w, dev)[0].cpu().numpy()
-                row = {"seed": seed, "res": f"{h}x{w}"}
+            for i, r in enumerate(reqs):
+                ref_lat = route.reference_latent(cfg, pl, r, dev).cpu().numpy()
+                row = {"seed": seed, "res": f"{r.height}x{r.width}"}
                 for name, (lat, img) in (("program", prog["0"][i]),
                                          ("program_attn_s8", prog["1"][i])):
                     row[name] = check.judge(cfg, pl, r, lat, img, ref_lat, dev)
                 for c in controls:
-                    lat, img = image(cfg, pl, p, s, h, w, dev, Precision(c))
+                    lat = route.reference_latent(cfg, pl, r, dev, Precision(c))
+                    img = route.decode_u8(cfg, pl, lat, r, Precision(c))
                     row[c] = check.judge(cfg, pl, r, lat.cpu().numpy(), img, ref_lat, dev)
                 pimg = prog["0"][i][1]
                 row["saturated"] = float(np.mean((pimg == 0) | (pimg == 255)))

@@ -1,15 +1,17 @@
 """Whether what the timed path produced is correct: each sampled image
-against the float32 reference (reference/), after the program's state is
-freed. The reference regenerates the planes from the run's seed (the
-benchmark's own draw) and works out the rest again.
+against the float32 reference (reference/; its T5 in the configuration's
+stated bfloat16), after the program's state is freed. The reference
+regenerates the planes from the run's seed (the benchmark's own draw) and
+works out the rest again; the configuration's family route
+(``families/<family>.py``) gives both.
 
 Two numbers are compared, each the largest over the sampled images, one for
 each stage of an image:
 
 - ``latent_rel_err``, the encoders and the denoise (every linear,
   attention, the Euler loop): the L2 distance between the packed latent
-  that the program's timed path handed to its VAE decode
-  (``port.LatentTap``) and the reference's latent of the same request, over
+  that the program's timed path handed to its VAE decode (the route's
+  latent tap) and the reference's latent of the same request, over
   the reference latent's L2 norm;
 - ``decode_rel_err``, the VAE decode and the u8 conversion: the L2 distance
   between the program's u8 image and the reference's decode of the
@@ -24,6 +26,8 @@ import gc
 import time
 
 import numpy as np
+
+from . import manifest
 
 
 def rel_err(prog: np.ndarray, ref: np.ndarray) -> float:
@@ -69,12 +73,10 @@ def judge(cfg: dict, planes: dict, req, lat, img, ref_lat, device) -> dict:
     None, ``img`` its u8 image) against the reference latent ``ref_lat``."""
     import torch
 
-    from benchmark.reference.pipeline import decode_u8
-
     out = {"latent_rel_err": latent_rel_err(lat, ref_lat), "decode_rel_err": float("inf")}
     if lat is not None and out["latent_rel_err"] != float("inf"):
-        x = torch.as_tensor(np.asarray(lat, np.float32), device=device)[None]
-        out["decode_rel_err"] = rel_err(img, decode_u8(cfg, planes, x, req.height, req.width))
+        x = torch.as_tensor(np.asarray(lat, np.float32), device=device)
+        out["decode_rel_err"] = rel_err(img, manifest.route(cfg).decode_u8(cfg, planes, x, req))
     return out
 
 
@@ -82,18 +84,16 @@ def compare(cfg: dict, seed: int, records: list, device, limits: dict) -> dict:
     """{"correct", "numbers": {name: (value, limit)}, "seconds", "each"}."""
     import torch
 
-    from benchmark.harness.planes import model_planes
-    from benchmark.reference.pipeline import latent
-
     t0 = time.perf_counter()
     if not records:
         return {"correct": False, "numbers": {"images_compared": (0, 1)},
                 "seconds": 0.0}
-    planes = model_planes(cfg, seed, device)
+    route = manifest.route(cfg)
+    planes = route.planes(cfg, seed, device)
     each = {"latent_rel_err": [], "decode_rel_err": []}
     for rec in records:
         r = rec["request"]
-        ref_lat = latent(cfg, planes, r.prompt, r.seed, r.height, r.width, device)[0]
+        ref_lat = route.reference_latent(cfg, planes, r, device)
         got = judge(cfg, planes, r, rec.get("latent"), rec["image"], ref_lat.cpu().numpy(),
                     device)
         for k, v in got.items():

@@ -1,6 +1,8 @@
 """One run of one cell: set-up (weights drawn on the device from the seed,
 the pipeline, the cell's warm-up), the measured window, the traced
-sub-window (``trace``), the metrics, and the check against the reference."""
+sub-window (``trace``), the metrics, and the check against the reference.
+What is particular to the configuration's model family comes from its route
+(``families/<family>.py``)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,6 @@ import sys
 import time
 
 from . import check, manifest, trace as tracing
-from .planes import model_planes
 
 
 class Tracer:
@@ -49,6 +50,7 @@ class Run:
         self.man = man
         self.cell = cell
         self.cfg = man.config(cell)
+        self.route = manifest.route(self.cfg)
         self.mix = man.traffic(cell)
         self.gen = manifest.generator(self.mix)
         self.seed = int(seed)
@@ -69,17 +71,17 @@ class Run:
 
     # -- what generators call ---------------------------------------------------
 
-    def gen_params(self, height, width, seed, num_steps=None):
-        from . import port
-
-        return port.generation_params(self.cfg, height, width, seed, num_steps)
+    def image(self, req, num_steps=None):
+        """One request through the timed entry at batch 1: its u8 image."""
+        return self.route.image(self.pipe, self.cfg, req, num_steps)
 
     def make_server(self, **kw):
-        from . import port
+        self.server, self.server_tap = self.route.server(self.pipe, **kw)
+        return self.server
 
-        server = port.server(self.pipe, **kw)
-        self.server_tap = port.ServerTap(server)
-        return server
+    def submit(self, req):
+        """One request to the server: its Future."""
+        return self.route.submit(self.server, self.cfg, req)
 
     @staticmethod
     def span(name: str):
@@ -127,8 +129,6 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, t_start: fl
     a Manifest other than the checkout's)."""
     import torch
 
-    from . import port
-
     man = man or manifest.Manifest(root)
     cell = man.cell(workload)
     device = torch.device(device or "cuda")
@@ -137,11 +137,10 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, t_start: fl
     readers = {n: manifest.load_module("metrics", n) for n in names}
 
     # inside set-up (the build is part of a first run's set-up), and printed apart
-    build_s = port.build_kernels() if device.type == "cuda" else 0.0
+    build_s = r.route.build_kernels() if device.type == "cuda" else 0.0
     with torch.no_grad():
-        planes = model_planes(r.cfg, r.seed, device)
-        r.pipe = port.build_pipeline(r.cfg, planes, device)
-        r.tap = port.LatentTap(r.pipe)
+        planes = r.route.planes(r.cfg, r.seed, device)
+        r.pipe, r.tap = r.route.build(r.cfg, planes, device)
         del planes
         requests = r.gen.schedule(r.mix, r.seed, r.seconds)
         r.gen.warm(r, r.mix, requests)

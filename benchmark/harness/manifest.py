@@ -1,5 +1,6 @@
 """``BENCHMARK.json`` and the files it names, found by name: a cell's
-configuration (``configs/<config>.json``), its traffic mix
+configuration (``configs/<config>.json``), its family's route and work model
+(``families/<family>.py``, ``work/<family>.py``), its traffic mix
 (``traffic/<mix>.json``, read by the generator ``traffic/<kind>.py``), its
 metrics (``metrics/<metric>.py``, one reader each) and the kernel families
 (``kernels/<family>.json``)."""
@@ -83,3 +84,16 @@ def kernel_families() -> dict:
 
 def work_model(cfg: dict):
     return importlib.import_module(f"benchmark.work.{cfg['family']}")
+
+
+def route(cfg: dict):
+    """The route of the configuration's family (``families/<family>.py``)."""
+    name = f"benchmark.families.{cfg['family']}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise ModuleNotFoundError(f"no route for the family {cfg['family']!r} of "
+                                  f"{cfg.get('name')!r}: no module {name} "
+                                  f"(benchmark/families/{cfg['family']}.py)", name=name) from None

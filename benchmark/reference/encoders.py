@@ -1,8 +1,9 @@
-"""The text encoders in plain float32: T5-XXL v1.1's encoder (RMS norms,
+"""The text encoders in plain PyTorch: T5-XXL v1.1's encoder (RMS norms,
 unscaled attention with the bidirectional relative-position bucket bias of
 block 0, gated GELU-tanh feed-forward; pad tokens attended, as the published
-encoder runs them without a mask) and CLIP-L's text tower (pre-LayerNorm
-blocks with a causal mask, quick GELU, pooled at the largest token id)."""
+encoder runs them without a mask), in the precision the configuration
+states for it, and CLIP-L's text tower (pre-LayerNorm blocks with a causal
+mask, quick GELU, pooled at the largest token id) in float32."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import Precision, attention, layer_norm, linear, rms_norm
+from .common import Precision, attention, dequant, layer_norm, linear
 
 
 def t5_buckets(n: int, num_buckets: int, max_distance: int, device) -> torch.Tensor:
@@ -29,32 +30,52 @@ def t5_buckets(n: int, num_buckets: int, max_distance: int, device) -> torch.Ten
 
 
 def t5_encode(cfg: dict, p: dict, ids: torch.Tensor, prec: Precision) -> torch.Tensor:
-    """ids [B, S] -> [B, S, d_model]."""
+    """ids [B, S] -> [B, S, d_model], in the precision the configuration
+    states for the encoder: every activation rounded to its activation dtype
+    where a bfloat16 encoder keeps one (each norm's output, each product's
+    output, the residual stream), each nf4 weight decoded to that dtype (as
+    bitsandbytes' nf4 linear decodes it before the product), products,
+    attention scores and softmax in float32. Unscaled attention over seeded
+    planes reaches scores of several hundred, so that which key wins depends
+    on the last bits of q and k: a float32 encoder is then another function
+    than the stated one, and flips whole rows of its output against it."""
     t = cfg["text_encoder_2"]
+    act = getattr(torch, cfg["formats"]["activations"])
     eps = t.get("layer_norm_epsilon", 1e-6)
     b, s = ids.shape
     h, dk = t["num_heads"], t["d_kv"]
-    st = prec.store
     x = p["shared"][ids].float()
     bias = p["rel_bias"].float()[t5_buckets(s, t["relative_attention_num_buckets"],
                                             t["relative_attention_max_distance"],
                                             ids.device)].permute(2, 0, 1)[None]
     blk = p["blocks"]
 
+    def r(z):
+        """A value as the configuration keeps it (and as the control keeps it)."""
+        return prec.store(z.to(act).float())
+
+    def norm(z, w):
+        z = z * (1.0 / torch.sqrt(z.square().mean(-1, keepdim=True) + eps))
+        return r(r(z) * w.float())
+
+    def lin(z, name, i):
+        w = blk[name[0]][name[1]].w
+        return r(prec.product_in(z) @ dequant(w, i).to(act).float())
+
     def split(z):
         return z.view(b, s, h, dk).transpose(1, 2)
 
     for i in range(t["num_layers"]):
-        n = st(rms_norm(x, blk["attn_norm"][i], eps))
-        a = attention(split(linear(n, blk["attn"]["q"], prec, i)),
-                      split(linear(n, blk["attn"]["k"], prec, i)),
-                      split(linear(n, blk["attn"]["v"], prec, i)), prec, scale=1.0, bias=bias)
-        x = st(x + linear(a.transpose(1, 2).reshape(b, s, h * dk), blk["attn"]["o"], prec, i))
-        n = st(rms_norm(x, blk["ff_norm"][i], eps))
-        gate = st(F.gelu(linear(n, blk["ff"]["wi_0"], prec, i), approximate="tanh"))
-        x = st(x + linear(st(gate * linear(n, blk["ff"]["wi_1"], prec, i)), blk["ff"]["wo"],
-                          prec, i))
-    return st(rms_norm(x, p["final_norm"], eps))
+        n = norm(x, blk["attn_norm"][i])
+        q, k, v = (split(lin(n, ("attn", c), i)) for c in "qkv")
+        sc = torch.einsum("bhsd,bhtd->bhst", prec.product_in(q), prec.product_in(k)) + bias
+        a = r(torch.einsum("bhst,bhtd->bhsd", prec.product_in(torch.softmax(sc, dim=-1)),
+                           prec.product_in(v)))
+        x = r(x + lin(a.transpose(1, 2).reshape(b, s, h * dk), ("attn", "o"), i))
+        n = norm(x, blk["ff_norm"][i])
+        gate = r(F.gelu(lin(n, ("ff", "wi_0"), i), approximate="tanh"))
+        x = r(x + lin(r(gate * lin(n, ("ff", "wi_1"), i)), ("ff", "wo"), i))
+    return norm(x, p["final_norm"])
 
 
 def clip_pooled(cfg: dict, p: dict, ids: torch.Tensor, prec: Precision) -> torch.Tensor:

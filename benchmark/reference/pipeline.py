@@ -1,5 +1,6 @@
-"""Text-to-image in plain float32, for one request: tokenize, T5 + CLIP
-encode, the seed's latent noise, the flow-match Euler loop over the
+"""Text-to-image in plain float32 (T5 in the precision the configuration
+states, encoders.t5_encode), for one request: tokenize, T5 + CLIP encode,
+the seed's latent noise, the flow-match Euler loop over the
 configuration's sigma schedule, the VAE decode and the u8 conversion.
 
 It works out everything the port derives from a request again: the token
@@ -68,15 +69,16 @@ def to_u8(img_nchw: torch.Tensor) -> np.ndarray:
 
 
 def latent(cfg: dict, planes: dict, prompt: str, seed: int, height: int, width: int,
-           device, prec: Precision = None) -> torch.Tensor:
-    """The request's packed latent after the Euler loop, [1, S_img, 64] f32."""
+           device, prec: Precision = None, z: torch.Tensor = None) -> torch.Tensor:
+    """The request's packed latent after the Euler loop, [1, S_img, 64] f32,
+    from the initial noise ``z`` [1, 16, h, w] (None: the seed's)."""
     prec = prec or Precision("float32")
     g = cfg["generation"]
     with strict_float32():
         t5_ids, clip_ids = token_ids(cfg, prompt, device)
         txt = t5_encode(cfg, planes["t5"], t5_ids, prec)
         y = clip_pooled(cfg, planes["clip"], clip_ids, prec)
-        z = noise(seed, height, width, device)
+        z = noise(seed, height, width, device) if z is None else z
         _, c, lh, lw = z.shape
         x = z.view(1, c, lh // 2, 2, lw // 2, 2).permute(0, 2, 4, 1, 3, 5).reshape(
             1, lh // 2 * (lw // 2), c * 4)

@@ -48,15 +48,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from benchmark.harness import main as harness, manifest, port
-    from benchmark.harness.planes import model_planes
+    from benchmark.harness import main as harness, manifest
 
     man = manifest.Manifest(ROOT)
     cell = man.cell(args.workload)
     run = harness.Run(man, cell, args.seed, args.seconds, torch.device(args.device))
     with torch.no_grad():
-        run.pipe = port.build_pipeline(run.cfg, model_planes(run.cfg, run.seed, run.device),
-                                       run.device)
+        run.pipe, run.tap = run.route.build(
+            run.cfg, run.route.planes(run.cfg, run.seed, run.device), run.device)
         run.gen.warm(run, run.mix, [])
         knee = None
         for rate in (float(r) for r in args.rates.split(",")):

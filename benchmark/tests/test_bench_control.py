@@ -8,6 +8,7 @@ import json
 import time
 
 import pytest
+import torch
 
 from benchmark.tests.conftest import HERE
 
@@ -36,6 +37,29 @@ def test_control_fails_the_limit(config, seed):
     ctl = check.judge(cfg, pl, req, low_lat.numpy(), low, ref_lat, "cpu")
     assert all(got[k] <= lim[k] for k in got)
     assert any(ctl[k] > lim[k] for k in ctl)
+
+
+@pytest.mark.parametrize("seed", [4, 791221087])
+def test_control_fails_against_the_stated_t5(seed):
+    """The reference, its T5 in the bfloat16 the configuration states, takes
+    the port's T5 output to within a few bfloat16 roundings on the CPU; dev's
+    reference with it still fails its float8-products control."""
+    from diffusion_rs_tpu_torch.models.t5 import t5_encode
+    from benchmark.reference.encoders import t5_encode as ref_t5
+    from benchmark.reference.pipeline import token_ids
+
+    cfg = json.loads((HERE / "tiny-flux-q8t.json").read_text())
+    pl = P.model_planes(cfg, seed, "cpu")
+    pipe = port.build_pipeline(cfg, pl, "cpu")
+    prompt = "the stated precision of the text encoder"
+    t5_ids, _ = token_ids(cfg, prompt, "cpu")
+    with torch.no_grad():
+        prog = t5_encode(pipe.t5_params, pipe.t5_cfg, t5_ids).float()
+    ref = ref_t5(cfg, pl["t5"], t5_ids, Precision("float32"))
+    assert float((prog - ref).norm() / ref.norm()) < 2e-3
+    lat = image(cfg, pl, prompt, seed, 64, 64, "cpu")[0].numpy()
+    low = image(cfg, pl, prompt, seed, 64, 64, "cpu", Precision("fp8_products"))[0].numpy()
+    assert check.latent_rel_err(low, lat) > cfg["check"]["latent_rel_err"]
 
 
 def _run(tiny, cell, monkeypatch, trace=False, seed=11, all_of_them=True):

@@ -1,12 +1,13 @@
 """Closed loop: one caller, sending its next image only when the last one
-is back, through ``FluxPipeline.forward_arrays``
-at batch 1. The mix gives the resolutions and their weights and the prompt
-length range; the run's seed draws each request's prompt, image seed and
-resolution. The window's images are timed whole: prompt in, u8 image on the
-host."""
+is back, through the family's timed entry (for FLUX,
+``FluxPipeline.forward_arrays``) at batch 1. The mix gives the resolutions
+and their weights and the prompt length range; the run's seed draws each
+request's prompt, image seed and resolution. The window's images are timed
+whole: prompt in, u8 image on the host."""
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -28,8 +29,7 @@ def schedule(mix: dict, seed: int, seconds: float, count: int = 1024):
 def warm(run, mix, requests):
     """One short image at each resolution of the mix."""
     for h, w in {tuple(r) for r in mix["resolutions"]}:
-        run.pipe.forward_arrays([requests[0].prompt],
-                                run.gen_params(h, w, requests[0].seed, mix["warm_steps"]))
+        run.image(dataclasses.replace(requests[0], height=h, width=w), mix["warm_steps"])
 
 
 def drive(run, mix, requests, seconds: float) -> dict:
@@ -42,9 +42,9 @@ def drive(run, mix, requests, seconds: float) -> dict:
             break
         a = time.perf_counter()
         with run.span("bench.image"):
-            img = run.pipe.forward_arrays([r.prompt], run.gen_params(r.height, r.width, r.seed))
+            img = run.image(r)
         b = time.perf_counter()
-        done.append({"request": r, "start": a, "end": b, "image": img[0],
+        done.append({"request": r, "start": a, "end": b, "image": img,
                      "latent": run.tap.take(), "timings": dict(run.pipe.timings)})
     return {"completed": done, "failed": 0, "window_s": time.perf_counter() - t0,
             "attempted": len(done)}
@@ -55,6 +55,6 @@ def traced(run, mix, requests):
     r = requests[-1]
     with run.profiled() as prof:
         with run.span("bench.image"):
-            run.pipe.forward_arrays([r.prompt], run.gen_params(r.height, r.width, r.seed))
+            run.image(r)
     return prof.trace, {"images": 1, "steps": run.cfg["generation"]["num_steps"],
                         "height": r.height, "width": r.width, "batch": 1}

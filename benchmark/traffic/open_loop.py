@@ -11,8 +11,9 @@ same order: at some thirty requests a window, the order alone moved the
 draws the prompts (unique, so the encode cache gets no hits), the image
 seeds and the weights.
 
-``submit`` encodes on the calling thread, so a pool of ``submit_threads``
-threads submits; the generator records how late each submit started.
+The server's ``submit`` encodes on the calling thread, so a pool of
+``submit_threads`` threads submits; the generator records how late each
+submit started.
 ``timed``: ``"all"`` waits for every request due in the window (up to
 ``drain_s`` past its close: one not back by then, or failed, is missing);
 ``"in_window"`` counts the images completed before the close, and leaves
@@ -58,13 +59,12 @@ def schedule(mix: dict, seed: int, seconds: float):
 def warm(run, mix, requests):
     """The server, and every resolution of the mix at every batch bucket:
     a burst of ``max_batch`` requests, then one alone."""
-    run.server = run.make_server(**mix["server"])
+    run.make_server(**mix["server"])
     burst = mix["server"].get("max_batch", 4)
     for h, w in sorted({tuple(r) for r in mix["resolutions"]}):
-        futs = [run.server.submit(f"warm {h} {w} {i}", run.gen_params(h, w, i))
-                for i in range(burst)]
+        futs = [run.submit(Request(i, f"warm {h} {w} {i}", i, h, w)) for i in range(burst)]
         [f.result() for f in futs]
-        run.server.submit(f"warm {h} {w} alone", run.gen_params(h, w, burst)).result()
+        run.submit(Request(burst, f"warm {h} {w} alone", burst, h, w)).result()
 
 
 def drive(run, mix, requests, seconds: float, tracer=None) -> dict:
@@ -87,7 +87,7 @@ def drive(run, mix, requests, seconds: float, tracer=None) -> dict:
             late.append(start - due_abs)
         try:
             with run.span("bench.submit"):
-                fut = server.submit(r.prompt, run.gen_params(r.height, r.width, r.seed))
+                fut = run.submit(r)
         except Exception as e:  # refused (queue full) or the encode failed: missing
             rec["error"] = repr(e)
             return
